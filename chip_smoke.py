@@ -8,14 +8,24 @@ Phases (any failure raises and the script exits non-zero):
     all started together) and print each one's ptxas resource usage;
  2. hold K2 and K3 against their plain PyTorch versions on the card, on
     the 8 pyramid levels of the first frame, and time both with CUDA
-    events; drive the step's reference-keyframe fallback branch;
- 3. track the bench's 120-frame VGA box-room orbit (1000 features, 8
-    levels, 32768 map points) with `Tracker.track_rgbd` on cuda:0, with
-    every launch counter set to 0 just before and read just after; check
-    ATE against the 3 cm gate, that no frame was lost and that every kernel
-    launched. Then hold K1 against its plain version on the arguments the
-    matchers passed it in one more tracked frame and in the last fallback
-    frame, and time that tracked frame's K1 calls.
+    events; drive the step's reference-keyframe fallback branch (local BA
+    off);
+ 3. the main paths, each with every launch counter set to 0 just before
+    and read just after:
+    a. local BA off (the path of the first slice): the first 60 frames of
+       the bench's VGA box-room orbit (1000 features, 8 levels, 32768 map
+       points) through `Tracker.track_rgbd` on cuda:0;
+    b. local BA on (the bench's own setting): all 120 frames, with
+       triangulation, fusion, culling and the dense-Schur window BA after
+       every keyframe.
+    Each checks ATE against the 3 cm gate, that no frame was lost and that
+    every kernel of its path launched; (b) also that window BA ran at every
+    keyframe after the second, and prints the keyframe stages' times.
+ 4. every kernel against its plain version on the arguments the main path
+    gave it, timed with CUDA events: K1 and K4 on the calls of one more
+    tracked frame (and the last fallback frame), K1's pair gate on one
+    triangulation, K5 on one window BA at its real point bucket (and the
+    whole window BA with K5 against the plain assembly).
 The line before the last is a JSON object with one entry per kernel; the
 last line is `{"ok": true, "device": {...}}`.
 """
@@ -47,6 +57,7 @@ PEAK_OPS = {"f32": 128 * SM_CLOCKS, "int32": 64 * SM_CLOCKS,
             "popc": 16 * SM_CLOCKS}
 ISSUE_RATE = 128 * SM_CLOCKS
 N_FRAMES = 120  # the bench's scored sequence
+N_FRAMES_NO_BA = 60  # the local-BA-off path, cut to keep the run short
 ATE_GATE_M = 0.03
 WARMUP_FRAMES = 20
 
@@ -97,7 +108,9 @@ def bench_frames(n):
     return imgs, depths, gt
 
 
-def bench_config():
+def bench_config(local_ba: bool):
+    """`bench.py:98-107`'s RGB-D configuration; `local_ba` is its
+    `enable_local_ba` (the bench leaves it on)."""
     from orb_slam2_refactored_tpu_torch.slam.map_state import MapCapacity
     from orb_slam2_refactored_tpu_torch.slam.tracking import TrackerConfig
 
@@ -106,7 +119,8 @@ def bench_config():
         bf=0.08 * 520.0, n_features=1000, n_levels=8,
         map_capacity=MapCapacity(max_keyframes=128, max_points=32768,
                                  max_features=1000),
-        enable_local_ba=False, enable_loop_closing=False)
+        enable_local_ba=local_ba, local_ba_iters=3,
+        enable_loop_closing=False, pipelined=False)
 
 
 def add_ops(total, **ops):
@@ -221,30 +235,58 @@ def check_orb(kps):
     return worst_ang, ms, plain_ms, nbytes, ops, bits, bins
 
 
-@contextlib.contextmanager
-def recording_k1(calls):
-    """Append a copy of the arguments of every K1 call made inside the block
-    to `calls` (the matchers reach K1 as `hamming.masked_best2_gated`)."""
-    from orb_slam2_refactored_tpu_torch.ops import hamming
+def _clone(v):
+    if isinstance(v, torch.Tensor):
+        return v.clone()
+    if isinstance(v, tuple) and hasattr(v, "_fields"):
+        return type(v)(*(_clone(x) for x in v))
+    return v
 
-    real = hamming.masked_best2_gated
+
+@contextlib.contextmanager
+def recording(calls, *targets):
+    """Inside the block, every call of the function that the (module,
+    attribute) `targets` name appends a copy of its arguments to `calls`."""
+    real = getattr(*targets[0])
     sig = inspect.signature(real)
 
     def record(*args, **kwargs):
         bound = sig.bind(*args, **kwargs).arguments
-        calls.append({k: v.clone() for k, v in bound.items() if v is not None})
+        calls.append({k: _clone(v) for k, v in bound.items()
+                      if v is not None})
         return real(*args, **kwargs)
 
-    hamming.masked_best2_gated = record
+    for mod, attr in targets:
+        setattr(mod, attr, record)
     try:
         yield calls
     finally:
-        hamming.masked_best2_gated = real
+        for mod, attr in targets:
+            setattr(mod, attr, real)
+
+
+def recording_k1(calls):
+    """The matchers, triangulation and fusion reach K1 as
+    `hamming.masked_best2_gated`."""
+    from orb_slam2_refactored_tpu_torch.ops import hamming
+
+    return recording(calls, (hamming, "masked_best2_gated"))
+
+
+def recording_k4(calls):
+    """The step reaches K4 as `tracking.pose_optimize`."""
+    from orb_slam2_refactored_tpu_torch.optim import pose_opt
+    from orb_slam2_refactored_tpu_torch.slam import tracking
+
+    return recording(calls, (pose_opt, "pose_optimize"),
+                     (tracking, "pose_optimize"))
 
 
 def name_k1_calls(tag, calls):
     return {f"{tag}{i}_{a['q'].shape[0]}x{a['t'].shape[0]}"
-            + ("_window" if "uv" in a else ""): a for i, a in enumerate(calls)}
+            + ("_window" if "uv" in a else "")
+            + ("_pair" if "pair_ok" in a else ""): a
+            for i, a in enumerate(calls)}
 
 
 def check_hamming(cases, per_frame):
@@ -261,7 +303,7 @@ def check_hamming(cases, per_frame):
         M, N = a["q"].shape[0], a["t"].shape[0]
         mask = hamming.candidate_mask(
             a["row_ok"], a["col_ok"], a.get("uv"), a.get("rad"),
-            a.get("lvl_r"), a.get("xy"), a.get("lvl_c"))
+            a.get("lvl_r"), a.get("xy"), a.get("lvl_c"), a.get("pair_ok"))
         n_pass = int(mask.sum())
         matched = int((k[1] < hamming.BIG).sum())
         print(f"  K1 hamming {name}: max_abs_err {e} rows passing "
@@ -291,26 +333,176 @@ def check_hamming(cases, per_frame):
     return err, ms, plain_ms, nbytes, ops
 
 
+def check_pose_lm(cases, per_frame):
+    """K4 against its plain version on the arguments the step really passed
+    it: pose within 1e-5 m / 1e-5 rad, inliers >= 99.9 % equal with a flip
+    only where chi2 lies within 1e-4 relative of its threshold. Time and
+    bound the calls of one tracked frame (`per_frame`)."""
+    from orb_slam2_refactored_tpu_torch.geometry import se3
+    from orb_slam2_refactored_tpu_torch.optim import pose_opt
+
+    err, ms, plain_ms, nbytes, ops = 0.0, 0.0, 0.0, 0, {}
+    n_flip = n_obs = 0
+    for name, a in cases.items():
+        k = pose_opt.pose_optimize(**a)
+        p = pose_opt.pose_optimize_plain(**a)
+        torch.cuda.synchronize()
+        d = se3.log(se3.compose(k.pose, se3.inverse(p.pose)))
+        rot, trans = float(d[:3].abs().max()), float(d[3:].abs().max())
+        flips = k.inliers != p.inliers
+        has_ur = a["obs_ur"] > 0
+        r, _ = pose_opt._residuals(
+            p.pose, a["pts_w"], torch.cat([a["obs_uv"], torch.where(
+                has_ur, a["obs_ur"], torch.zeros_like(a["obs_ur"]))[:, None]],
+                -1), has_ur, a["cam"])
+        chi2 = (r * r).sum(-1) * a["inv_sigma2"]
+        th = torch.where(has_ur, torch.full_like(chi2, pose_opt.CHI2_STEREO),
+                         torch.full_like(chi2, pose_opt.CHI2_MONO))
+        near = (chi2 - th).abs() <= 1e-4 * th
+        bad_flips = int((flips & ~near).sum())
+        live = [(int(i), int(n)) for i, n in pose_opt.pose_lm_work(**a)]
+        print(f"  K4 pose_lm {name}: rot {rot:.3g} rad trans {trans:.3g} m, "
+              f"inliers {int(k.num_inliers)} vs {int(p.num_inliers)}, "
+              f"flips {int(flips.sum())}, (iterations, observations) a "
+              f"round {live}")
+        assert rot <= 1e-5 and trans <= 1e-5, (name, rot, trans)
+        assert bad_flips == 0, f"K4 {name}: {bad_flips} flips off threshold"
+        n_flip += int(flips.sum())
+        n_obs += flips.numel()
+        err = max(err, float((k.pose - p.pose).abs().max()))
+        if name in per_frame:
+            ms += cuda_time_ms(lambda: pose_opt.pose_optimize(**a), 50)
+            plain_ms += cuda_time_ms(
+                lambda: pose_opt.pose_optimize_plain(**a), 5)
+            N = a["pts_w"].shape[0]
+            # pose, points, (u, v), u_r, 1/sigma^2 and validity read once;
+            # pose, inliers, count and cost written once
+            nbytes += 28 + 29 * N + 28 + N + 8
+            # ~300 f32 an active observation an iteration (residual and
+            # Jacobian, 21 + 6 weighted products, the candidate's residual),
+            # ~60 an observation for each reclassification and the final cost
+            add_ops(ops, f32=sum(300 * i * n for i, n in live)
+                    + 60 * N * (len(live) + 1))
+    assert n_flip <= 1e-3 * n_obs, f"K4 inliers: {n_flip} of {n_obs} differ"
+    return err, ms, plain_ms, nbytes, ops
+
+
+def _rel_err(a, b):
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def _f64(v):
+    if isinstance(v, torch.Tensor):
+        return v.double() if v.is_floating_point() else v
+    if isinstance(v, tuple) and hasattr(v, "_fields"):
+        return type(v)(*(_f64(x) for x in v))
+    return v
+
+
+def k5_agrees(name, k, r, exact, cancels=False):
+    """An array of K5 agrees with its plain version when every entry lies
+    within 1e-4 x the array's largest magnitude of the plain one's. For the
+    one sum whose terms cancel (`cancels`: g_p near convergence, ~1000
+    signed f32 terms a row, residuals that are mostly rounding) it may
+    instead lie no further from the same assembly computed in f64 than
+    twice the plain version's own distance from it."""
+    rel = _rel_err(k, r)
+    e_k = float((k.double() - exact).abs().max())
+    e_p = float((r.double() - exact).abs().max())
+    scale = float(exact.abs().max())
+    print(f"    {name}: kernel vs plain {rel:.3g} of max |{name}|; vs f64 "
+          f"sums kernel {e_k / scale:.3g}, plain {e_p / scale:.3g}")
+    assert rel <= 1e-4 or (cancels and e_k <= max(1e-4 * scale, 2 * e_p)), \
+        name
+
+
+def check_ba(asm_call, solve_call):
+    """K5 against its plain version on the first LM iteration of one window
+    BA of the main path, at its real point bucket (`k5_agrees`); then the
+    whole window BA with K5 against the same solve with the plain assembly:
+    poses within 1e-4 m / 1e-4 rad. Returns the results of `ba_assemble`
+    and `ba_cost`."""
+    from orb_slam2_refactored_tpu_torch.geometry import se3
+    from orb_slam2_refactored_tpu_torch.optim import ba
+
+    a = asm_call
+    p = a["p"]
+    W, N = p.obs_uv.shape[:2]
+    Q = p.pt_pos.shape[0]
+    live = int(a["obs_ok"].sum())
+    k = ba.ba_assemble(**a)
+    r = ba.ba_assemble_plain(**a)
+    exact = ba.ba_assemble_plain(**{n: _f64(v) for n, v in a.items()})
+    ck, chi2k = ba.ba_cost(**a)
+    cr, chi2r = ba.ba_cost_plain(**a)
+    ce, chi2e = ba.ba_cost_plain(**{n: _f64(v) for n, v in a.items()})
+    torch.cuda.synchronize()
+    asm_err = max(float((x - y).abs().max()) for x, y in zip(k, r))
+    print(f"  K5 ba_assemble W={W} N={N} Q={Q} live observations {live}:")
+    for name, x, y, z in zip(("Hpp", "g_p", "Hll|g_l", "T"), k, r, exact):
+        k5_agrees(name, x, y, z, cancels=name == "g_p")
+    print(f"  K5 ba_cost: cost {float(ck):.8g} vs {float(cr):.8g} "
+          f"(f64 {float(ce):.8g})")
+    k5_agrees("cost", ck[None], cr[None], ce[None])
+    k5_agrees("chi2", chi2k, chi2r, chi2e)
+
+    sa = dict(solve_call)
+    res_k = ba.ba_solve(**sa)
+    real = (ba.ba_assemble, ba.ba_cost)
+    ba.ba_assemble, ba.ba_cost = ba.ba_assemble_plain, ba.ba_cost_plain
+    try:
+        res_p = ba.ba_solve(**sa)
+    finally:
+        ba.ba_assemble, ba.ba_cost = real
+    d = se3.log(se3.compose(res_k.kf_pose, se3.inverse(res_p.kf_pose)))
+    rot, trans = float(d[:, :3].abs().max()), float(d[:, 3:].abs().max())
+    inl = float((res_k.obs_inlier == res_p.obs_inlier).float().mean())
+    print(f"  K5 whole window BA vs plain assembly: rot {rot:.3g} rad trans "
+          f"{trans:.3g} m, cost {float(res_k.initial_cost):.6g} -> "
+          f"{float(res_k.final_cost):.6g} (plain -> "
+          f"{float(res_p.final_cost):.6g}), obs gate equal {inl:.5f}")
+    assert rot <= 1e-4 and trans <= 1e-4, (rot, trans)
+
+    in_bytes = W * 28 + Q * 12 + W * N * (8 + 4 + 4 + 4 + 1)
+    asm = (asm_err,
+           cuda_time_ms(lambda: ba.ba_assemble(**a), 20),
+           cuda_time_ms(lambda: ba.ba_assemble_plain(**a), 5),
+           # Hpp, g_p, the [Q,12] point rows and the [Q*W,18] T written once
+           in_bytes + W * 42 * 4 + Q * 12 * 4 + Q * W * 18 * 4,
+           # ~480 f32 a live observation: residual, both Jacobian blocks,
+           # 21 + 6 camera products, 9 + 3 point and 18 camera-point
+           # products, each weighted
+           {"f32": 480 * live})
+    cost = (float((chi2k - chi2r).abs().max()),
+            cuda_time_ms(lambda: ba.ba_cost(**a), 20),
+            cuda_time_ms(lambda: ba.ba_cost_plain(**a), 5),
+            in_bytes + W * 4 + W * N * 4,
+            # ~60 f32 a slot for the residual and chi2, ~10 more for the
+            # Huber rho of a live observation
+            {"f32": 60 * W * N + 10 * live})
+    return asm, cost
+
+
 # ---------------------------------------------------------------------------
-# phase 3: the main path
+# phase 3: the main paths
 # ---------------------------------------------------------------------------
 
 def check_fallback(imgs, depths, gt, device, n=12):
     """The step's other branch on the card: with `min_matches_mm` out of
     reach every tracked frame takes the reference-keyframe fallback
     (descriptor matching with K1 both ways, Horn RANSAC, LM). Returns the
-    K1 calls of its last frame."""
+    K1 and K4 calls of its last frame."""
     import dataclasses
 
     from orb_slam2_refactored_tpu_torch.io.evaluation import ate_rmse
     from orb_slam2_refactored_tpu_torch.slam.tracking import Tracker
 
-    cfg = dataclasses.replace(bench_config(), min_matches_mm=10 ** 6)
+    cfg = dataclasses.replace(bench_config(False), min_matches_mm=10 ** 6)
     tracker = Tracker(cfg, device=device)
     for i in range(n - 1):
         tracker.track_rgbd(imgs[i], depths[i].astype(np.float32))
-    calls = []
-    with recording_k1(calls):
+    k1, k4 = [], []
+    with recording_k1(k1), recording_k4(k4):
         tracker.track_rgbd(imgs[n - 1], depths[n - 1].astype(np.float32))
     info = tracker.track_info
     ate, _ = ate_rmse(np.stack(tracker.trajectory), gt[:n])
@@ -320,27 +512,49 @@ def check_fallback(imgs, depths, gt, device, n=12):
     assert not any(t.get("lost") for t in info), "fallback branch lost a frame"
     assert n_ref == n - 1, f"{n_ref} of {n - 1} steps took the fallback"
     assert ate <= ATE_GATE_M
-    return calls
+    return k1, k4
 
 
 def record_tracked_frame(tracker, imgs, depths):
-    """The K1 calls of one more frame tracked after the main path (frame 0
-    again: the orbit closes), with the arguments the matchers passed."""
-    calls = []
-    with recording_k1(calls):
+    """The K1 and K4 calls of one more frame tracked after the main path
+    (frame 0 again: the orbit closes), with the arguments they were given."""
+    k1, k4 = [], []
+    with recording_k1(k1), recording_k4(k4):
         tracker.track_rgbd(imgs[0], depths[0].astype(np.float32))
     info = tracker.track_info[-1]
     assert not info.get("lost") and not info.get("ref_fallback"), info
-    return calls
+    return k1, k4
 
 
-def run_main_path(imgs, depths, gt, device):
+def record_mapping(tracker):
+    """The arguments of one triangulation (its K1 calls with the epipolar
+    pair gate) and of one window BA (its first `ba_assemble` call and its
+    `ba_solve` call) around the newest keyframe, as the mapper makes them.
+    The mapper's products are discarded: the map is left as it was."""
+    from orb_slam2_refactored_tpu_torch.optim import ba
+    from orb_slam2_refactored_tpu_torch.slam import local_mapping
+
+    lm, kf = tracker.local_mapper, tracker.ref_kf
+    saved = (lm._pending_tri, lm._pending_ba_erase, lm.n_ba)
+    tri_k1, asm, solve = [], [], []
+    with recording_k1(tri_k1):
+        lm.triangulate_new_points(tracker.map, tracker.graph, kf)
+    with recording(asm, (ba, "ba_assemble")), \
+            recording(solve, (local_mapping, "ba_solve")):
+        _, info = lm.local_ba(tracker.map, tracker.graph, kf)
+    lm._pending_tri, lm._pending_ba_erase, lm.n_ba = saved
+    assert info is not None and tri_k1 and asm and solve
+    return tri_k1, asm[0], solve[0]
+
+
+def run_main_path(imgs, depths, gt, device, local_ba):
     from orb_slam2_refactored_tpu_torch import kernels
     from orb_slam2_refactored_tpu_torch.io.evaluation import ate_rmse, rpe
     from orb_slam2_refactored_tpu_torch.slam.tracking import Tracker
     from orb_slam2_refactored_tpu_torch.utils.timing import StageTimer
 
-    tracker = Tracker(bench_config(), device=device)
+    tag = "local BA on" if local_ba else "local BA off"
+    tracker = Tracker(bench_config(local_ba), device=device)
     timer = StageTimer(device)  # synchronizes the card at both ends
     kernels.reset_counts()
     for i in range(len(imgs)):
@@ -356,32 +570,78 @@ def run_main_path(imgs, depths, gt, device):
     t_rpe, r_rpe = rpe(est, gt)
     lost = sum(1 for t in tracker.track_info if t.get("lost"))
     fallbacks = sum(1 for t in tracker.track_info if t.get("ref_fallback"))
-    kfs = len(tracker.graph.alive_kfs())
+    created = 1 + sum(1 for t in tracker.track_info if t.get("kf"))
+    n_ba = tracker.local_mapper.n_ba if local_ba else 0
     tracked = np.asarray(step_s[WARMUP_FRAMES:])
     stats = {
-        "frames": len(imgs), "ate_m": ate, "rpe_m": t_rpe, "rpe_rad": r_rpe,
-        "keyframes": kfs, "lost_frames": lost, "ref_fallbacks": fallbacks,
+        "path": tag, "frames": len(imgs), "ate_m": ate, "rpe_m": t_rpe,
+        "rpe_rad": r_rpe, "keyframes_created": created,
+        "keyframes_alive": len(tracker.graph.alive_kfs()),
+        "lost_frames": lost, "ref_fallbacks": fallbacks,
+        "window_ba_solves": n_ba,
+        "map_points_alive": int(tracker.graph.pt_alive.sum()),
         "step_ms_median": float(np.median(tracked) * 1e3),
         "step_ms_p90": float(np.percentile(tracked, 90) * 1e3),
         "fps_after_warmup": float(len(tracked) / tracked.sum()),
         "first_frame_ms": step_s[0] * 1e3,
         "launches": launches,
     }
-    print("main path " + json.dumps(stats))
+    print(f"main path ({tag}) " + json.dumps(stats))
+    if local_ba:
+        print("keyframe stages (host clock, synchronized):")
+        for line in tracker.timer.report().splitlines():
+            print("  " + line)
     assert ate <= ATE_GATE_M, f"ATE {ate} m above the {ATE_GATE_M} m gate"
     assert lost == 0, f"{lost} frames lost"
     for k, v in launches.items():
-        assert v > 0, f"kernel {k} never launched on the main path"
+        if local_ba or not k.startswith("ba_"):
+            assert v > 0, f"kernel {k} never launched on the path ({tag})"
+    if local_ba:
+        assert n_ba >= created - 2 >= 1, (n_ba, created)
     return stats, tracker
 
 
-def profile_steps(tracker, imgs, depths, n_split=10, n_prof=5):
-    """Where a tracked frame's time goes, after the main path: extraction
-    (`_prepare_impl`) against the whole step on a synchronizing host clock,
-    then a torch.profiler window for the device's busy share and the
-    kernels that take its time."""
+def _profile_window(tracker, imgs, depths, frames, tag):
+    """Track `frames` under torch.profiler: the device's busy share, time
+    and kernel launches a frame, and the kernels that take its time."""
     from torch.profiler import ProfilerActivity, profile
 
+    n = len(imgs)
+    kf_before = sum(1 for t in tracker.track_info if t.get("kf"))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for k in frames:
+            tracker.track_rgbd(imgs[k % n], depths[k % n].astype(np.float32))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kf_in = sum(1 for t in tracker.track_info if t.get("kf")) - kf_before
+    # device-side rows only: the aten rows repeat their kernels' time
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    dev_us = sum(e.self_device_time_total for e in rows)
+    m = len(frames)
+    out = {
+        "window": tag, "profiled_frames": m, "keyframes_in_window": kf_in,
+        "device_busy_share": dev_us / (wall * 1e6),
+        "device_ms_per_frame": dev_us / 1e3 / m,
+        "wall_ms_per_frame": wall * 1e3 / m,
+        "device_ops_per_frame": sum(e.count for e in rows) / m,
+    }
+    print("profile " + json.dumps(out))
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:15]:
+        print(f"  {e.self_device_time_total / 1e3 / m:8.3f} ms/frame "
+              f"{e.count / m:7.1f} calls/frame  {e.key[:90]}")
+
+
+def profile_steps(tracker, imgs, depths, n_split=10, n_prof=20, n_kf=3):
+    """Where a frame's time goes, after the main path: extraction
+    (`_prepare_impl`) against the whole step on a synchronizing host clock;
+    a torch.profiler window over tracked frames; then one over frames that
+    each make a keyframe (`kf_max_interval` set to 1 for the window), so
+    that the mapping job and its window BA are in it."""
     dev = tracker.device
     n = len(imgs)
     prep, step = [], []
@@ -398,33 +658,28 @@ def profile_steps(tracker, imgs, depths, n_split=10, n_prof=5):
         torch.cuda.synchronize()
         prep.append(t1 - t0)
         step.append(time.perf_counter() - t1)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for k in range(n_split + 1, n_split + 1 + n_prof):
-            tracker.track_rgbd(imgs[k % n], depths[k % n].astype(np.float32))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    # device-side rows only: the aten rows repeat their kernels' time
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    dev_us = sum(e.self_device_time_total for e in rows)
-    launches = sum(e.count for e in rows)
-    out = {
+    print("split " + json.dumps({
         "extract_ms_median": float(np.median(prep) * 1e3),
-        "step_ms_median": float(np.median(step) * 1e3),
-        "profiled_frames": n_prof,
-        "device_busy_share": dev_us / (wall * 1e6),
-        "device_ms_per_frame": dev_us / 1e3 / n_prof,
-        "wall_ms_per_frame": wall * 1e3 / n_prof,
-        "device_ops_per_frame": launches / n_prof,
-    }
-    print("profile " + json.dumps(out))
-    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
-        print(f"  {e.self_device_time_total / 1e3 / n_prof:8.3f} ms/frame "
-              f"{e.count / n_prof:7.1f} calls/frame  {e.key[:90]}")
+        "step_ms_median": float(np.median(step) * 1e3)}))
+    first = n_split + 1
+    _profile_window(tracker, imgs, depths, range(first, first + n_prof),
+                    "tracked frames")
+    first += n_prof
+    keep = tracker.cfg.kf_max_interval
+    tracker.cfg.kf_max_interval = 1
+    try:
+        _profile_window(tracker, imgs, depths, range(first, first + n_kf),
+                        "keyframe frames (mapping job and window BA)")
+    finally:
+        tracker.cfg.kf_max_interval = keep
+
+
+def kernel_row(name, src, rep, launches, r):
+    b_ms, b_by = bound_ms(r[3], r[4])
+    return {"name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": launches, "max_abs_err": float(r[0]), "ms": r[1],
+            "plain_ms": r[2], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
 
 
 def main():
@@ -458,49 +713,58 @@ def main():
             if "ptxas" in line:
                 print(f"  [{name}] {line.strip()}")
 
-    # ---- phase 2: kernels against their plain versions ----
+    # ---- phase 2: K2, K3 and the fallback branch ----
     t0 = time.perf_counter()
     imgs, depths, gt = bench_frames(N_FRAMES)
     print(f"{N_FRAMES} VGA frames rendered in {time.perf_counter() - t0:.1f} s")
-    cfg = bench_config()
+    cfg = bench_config(True)
     ext = OrbExtractor(480, 640, cfg.n_features, cfg.scale_factor, cfg.n_levels)
     img0 = torch.as_tensor(imgs[0], device=device)
     levels = image_ops.build_pyramid(image_ops.to_gray(img0), cfg.n_levels,
                                      cfg.scale_factor)
     fast_r = check_fast(levels)
     orb_r = check_orb(level_keypoints(levels, ext))
-    fallback_calls = check_fallback(imgs, depths, gt, device)
+    fb_k1, fb_k4 = check_fallback(imgs, depths, gt, device)
 
-    # ---- phase 3: the main path ----
-    stats, tracker = run_main_path(imgs, depths, gt, device)
+    # ---- phase 3: the main paths ----
+    n = N_FRAMES_NO_BA
+    run_main_path(imgs[:n], depths[:n], gt[:n], device, local_ba=False)
+    stats, tracker = run_main_path(imgs, depths, gt, device, local_ba=True)
 
-    # ---- K1 on the arguments the main path gave it ----
-    frame_cases = name_k1_calls("tracked", record_tracked_frame(
-        tracker, imgs, depths))
-    ham_r = check_hamming({**frame_cases,
-                           **name_k1_calls("fallback", fallback_calls)},
-                          per_frame=frame_cases)
+    # ---- phase 4: every kernel on the arguments the main path gave it ----
+    frame_k1, frame_k4 = record_tracked_frame(tracker, imgs, depths)
+    frame_k1 = name_k1_calls("tracked", frame_k1)
+    frame_k4 = {f"tracked{i}": a for i, a in enumerate(frame_k4)}
+    tri_k1, asm_call, solve_call = record_mapping(tracker)
+    ham_r = check_hamming({**frame_k1, **name_k1_calls("fallback", fb_k1),
+                           **name_k1_calls("triangulation", tri_k1)},
+                          per_frame=frame_k1)
+    pose_r = check_pose_lm({**frame_k4, **{f"fallback{i}": a for i, a in
+                                           enumerate(fb_k4)}},
+                           per_frame=frame_k4)
+    asm_r, cost_r = check_ba(asm_call, solve_call)
     if args.profile:
         profile_steps(tracker, imgs, depths)
 
-    rows = []
-    for name, src, rep, r in (
-        ("hamming_best2", "orb_slam2_refactored_tpu_torch/csrc/hamming.cu",
-         "orb_slam2_refactored_tpu/ops/hamming.py:81", ham_r),
-        ("fast", "orb_slam2_refactored_tpu_torch/csrc/fast.cu",
-         "orb_slam2_refactored_tpu/ops/fast.py:130", fast_r),
-        ("orb_desc", "orb_slam2_refactored_tpu_torch/csrc/orb_desc.cu",
-         "orb_slam2_refactored_tpu/ops/orb.py:364", orb_r),
-    ):
-        b_ms, b_by = bound_ms(r[3], r[4])
-        rows.append({
-            "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": stats["launches"][name], "max_abs_err": float(r[0]),
-            "ms": r[1], "plain_ms": r[2], "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None,
-        })
-    print(f"per frame: K1 = {', '.join(frame_cases)}, "
-          "K2 and K3 = all 8 pyramid levels")
+    pkg, ref = "orb_slam2_refactored_tpu_torch/csrc/", "orb_slam2_refactored_tpu/"
+    L = stats["launches"]
+    rows = [
+        kernel_row("hamming_best2", pkg + "hamming.cu",
+                   ref + "ops/hamming.py:81", L["hamming_best2"], ham_r),
+        kernel_row("fast", pkg + "fast.cu", ref + "ops/fast.py:130",
+                   L["fast"], fast_r),
+        kernel_row("orb_desc", pkg + "orb_desc.cu", ref + "ops/orb.py:364",
+                   L["orb_desc"], orb_r),
+        kernel_row("pose_lm", pkg + "pose_lm.cu",
+                   ref + "optim/pose_opt.py:71", L["pose_lm"], pose_r),
+        kernel_row("ba_assemble", pkg + "ba_assemble.cu",
+                   ref + "optim/ba.py:272", L["ba_assemble"], asm_r),
+        kernel_row("ba_cost", pkg + "ba_assemble.cu",
+                   ref + "optim/ba.py:151", L["ba_cost"], cost_r),
+    ]
+    print(f"per frame: K1 = {', '.join(frame_k1)}; K4 = "
+          f"{', '.join(frame_k4)}; K2 and K3 = all 8 pyramid levels; "
+          "K5 = one LM iteration of one window BA")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

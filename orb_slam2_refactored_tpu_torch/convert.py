@@ -14,6 +14,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from .optim.ba import BAProblem
 from .slam.frame import FrameData
 from .slam.map_state import MapArrays
 
@@ -80,3 +81,20 @@ def tracker_state_from_numpy(d, device) -> Dict[str, Any]:
         "mp_seen": _to_tensor("mp_seen", d["mp_seen"], device),
         "fidx": int(d["fidx"]),
     }
+
+
+def ba_problem_from_numpy(d, device) -> BAProblem:
+    """BAProblem from a dict (or NamedTuple) of numpy arrays; `pt_frozen`
+    may be absent or None."""
+    d = _as_dict(d)
+    return BAProblem(**{
+        k: (None if d.get(k) is None else _to_tensor(k, d[k], device))
+        for k in BAProblem._fields})
+
+
+def mapper_inputs_from_numpy(d, device) -> Dict[str, Any]:
+    """The index arguments of one `LocalMapper` device program, keyed as the
+    JAX program names them (window arrays of `_ba_impl`: win_idx, win_free,
+    win_valid, pt_lut, pts_local; observer lists of `_refresh_points_impl`:
+    pts, obs_kf, obs_feat, n_obs), as tensors (int64 as int32)."""
+    return {k: _to_tensor(k, v, device) for k, v in _as_dict(d).items()}

@@ -30,6 +30,11 @@
 // The window test is f32 `dx*dx + dy*dy <= r*r`; this file is compiled
 // with -fmad=false so no product is contracted into an FMA (a contracted
 // FMA rounds differently from XLA and flips pixels on the window's rim).
+//
+// Optional dense pair gate `pair_ok` (uint8 [M,N], row-major): ANDed into
+// the candidate gate. Triangulation (slam/local_mapping.py:271-279 of the
+// JAX package) passes its epipolar mask here. A warp reads 32 neighbouring
+// bytes of its row per step, so the [M,N] mask is read once, coalesced.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,8 +52,9 @@ best2_kernel(const int* __restrict__ q, const int* __restrict__ t,
              const unsigned char* __restrict__ col_ok,
              const float* __restrict__ uv, const float* __restrict__ rad,
              const int* __restrict__ lvl_r, const float* __restrict__ xy,
-             const int* __restrict__ lvl_c, int M, int N, int gated,
-             int* __restrict__ out_idx, int* __restrict__ out_best,
+             const int* __restrict__ lvl_c,
+             const unsigned char* __restrict__ pair_ok, int M, int N,
+             int gated, int* __restrict__ out_idx, int* __restrict__ out_best,
              int* __restrict__ out_second) {
   __shared__ uint32_t s_desc[kTile][9];  // padded: 8 words + 1
   __shared__ float s_x[kTile], s_y[kTile];
@@ -105,6 +111,9 @@ best2_kernel(const int* __restrict__ q, const int* __restrict__ t,
         const float d2 = dx * dx + dy * dy;
         ok = ok && (d2 <= r2) && (abs(s_lvl[j] - rl) <= 1);
       }
+      if (pair_ok != nullptr) {
+        ok = ok && pair_ok[(size_t)row * N + base + j] != 0;
+      }
       int v = kBig;
       if (ok) {
         int d = 0;
@@ -149,15 +158,16 @@ best2_kernel(const int* __restrict__ q, const int* __restrict__ t,
 extern "C" int hamming_best2(const void* q, const void* t, const void* row_ok,
                              const void* col_ok, const void* uv,
                              const void* rad, const void* lvl_r,
-                             const void* xy, const void* lvl_c, int M, int N,
-                             int gated, void* out_idx, void* out_best,
-                             void* out_second, void* stream) {
+                             const void* xy, const void* lvl_c,
+                             const void* pair_ok, int M, int N, int gated,
+                             void* out_idx, void* out_best, void* out_second,
+                             void* stream) {
   if (M <= 0) return (int)cudaGetLastError();
   const dim3 grid((M + kWarps - 1) / kWarps);
   best2_kernel<<<grid, kWarps * 32, 0, (cudaStream_t)stream>>>(
       (const int*)q, (const int*)t, (const unsigned char*)row_ok,
       (const unsigned char*)col_ok, (const float*)uv, (const float*)rad,
-      (const int*)lvl_r, (const float*)xy, (const int*)lvl_c, M, N, gated,
-      (int*)out_idx, (int*)out_best, (int*)out_second);
+      (const int*)lvl_r, (const float*)xy, (const int*)lvl_c,
+      (const unsigned char*)pair_ok, M, N, gated, (int*)out_idx, (int*)out_best, (int*)out_second);
   return (int)cudaGetLastError();
 }

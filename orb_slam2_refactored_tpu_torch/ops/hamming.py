@@ -56,38 +56,42 @@ def masked_best2(dist, mask):
 
 
 def candidate_mask(row_ok, col_ok, uv=None, rad=None, lvl_r=None, xy=None,
-                   lvl_c=None):
-    """bool[M,N] gate shared by the tracking matchers: `row_ok[i] &
-    col_ok[j]`, optionally `& |uv_i - xy_j|^2 <= r_i^2 & |lvl_j - lvl_i| <= 1`."""
+                   lvl_c=None, pair_ok=None):
+    """bool[M,N] gate shared by the matchers: `row_ok[i] & col_ok[j]`,
+    optionally `& |uv_i - xy_j|^2 <= r_i^2 & |lvl_j - lvl_i| <= 1`, and
+    optionally `& pair_ok[i, j]`."""
     mask = row_ok[:, None] & col_ok[None, :]
     if uv is not None:
         d2 = torch.sum((uv[:, None, :] - xy[None, :, :]) ** 2, dim=-1)
         win = d2 <= (rad[:, None] * rad[:, None])
         lvl_ok = torch.abs(lvl_c[None, :] - lvl_r[:, None]) <= 1
         mask = mask & win & lvl_ok
+    if pair_ok is not None:
+        mask = mask & pair_ok
     return mask
 
 
 def masked_best2_gated_plain(q, t, row_ok, col_ok, uv=None, rad=None,
-                             lvl_r=None, xy=None, lvl_c=None):
+                             lvl_r=None, xy=None, lvl_c=None, pair_ok=None):
     """Plain PyTorch version of kernel K1 (same signature)."""
     d = hamming_matrix(q, t)
     return masked_best2(d, candidate_mask(row_ok, col_ok, uv, rad, lvl_r,
-                                          xy, lvl_c))
+                                          xy, lvl_c, pair_ok))
 
 
 def masked_best2_gated(q, t, row_ok, col_ok, uv=None, rad=None, lvl_r=None,
-                       xy=None, lvl_c=None):
-    """Fused Hamming best-2 under the tracking candidate gate.
+                       xy=None, lvl_c=None, pair_ok=None):
+    """Fused Hamming best-2 under the matchers' candidate gate.
 
     q: i32[M,8] query descriptors, t: i32[N,8] targets, row_ok: bool[M],
     col_ok: bool[N]; optional window gate: uv f32[M,2], rad f32[M],
-    lvl_r i32[M] per row and xy f32[N,2], lvl_c i32[N] per column.
-    Returns (best_idx i32[M], best i32[M], second i32[M]).
+    lvl_r i32[M] per row and xy f32[N,2], lvl_c i32[N] per column;
+    optional dense pair gate pair_ok: bool[M,N] (triangulation's epipolar
+    mask). Returns (best_idx i32[M], best i32[M], second i32[M]).
     CUDA tensors -> kernel `csrc/hamming.cu`; CPU -> plain version."""
     if not q.is_cuda:
         return masked_best2_gated_plain(q, t, row_ok, col_ok, uv, rad, lvl_r,
-                                        xy, lvl_c)
+                                        xy, lvl_c, pair_ok)
     M, N = q.shape[0], t.shape[0]
     kernels.require(q, "hamming q", torch.int32, (M, 8))
     kernels.require(t, "hamming t", torch.int32, (N, 8))
@@ -103,11 +107,16 @@ def masked_best2_gated(q, t, row_ok, col_ok, uv=None, rad=None, lvl_r=None,
         gate = [kernels.ptr(a) for a in (uv, rad, lvl_r, xy, lvl_c)]
     else:
         gate = [None] * 5
+    if pair_ok is not None:
+        kernels.require(pair_ok, "hamming pair_ok", torch.bool, (M, N))
+        gate.append(kernels.ptr(pair_ok))
+    else:
+        gate.append(None)
     idx = torch.empty((M,), dtype=torch.int32, device=q.device)
     best = torch.empty((M,), dtype=torch.int32, device=q.device)
     second = torch.empty((M,), dtype=torch.int32, device=q.device)
     fn = kernels.bind("hamming", "hamming_best2",
-                      [kernels.VP] * 9 + [kernels.CI] * 3 + [kernels.VP] * 4)
+                      [kernels.VP] * 10 + [kernels.CI] * 3 + [kernels.VP] * 4)
     kernels.LAUNCHES["hamming_best2"] += 1
     kernels.check(fn(kernels.ptr(q), kernels.ptr(t), kernels.ptr(row_ok),
                      kernels.ptr(col_ok), *gate, M, N, int(gated),

@@ -1,0 +1,378 @@
+"""Bundle adjustment: Levenberg-Marquardt with Schur-complement landmark
+marginalization, dense reduced camera system.
+
+Port of `orb_slam2_refactored_tpu/optim/ba.py`, dense-Schur branch only
+(the window BA that `LocalMapper` runs). Observations live in the map's
+dense `[K, N]` layout (keyframe x feature slot) with -1 padding; fixed
+keyframes are a mask projected out of the reduced system; landmarks that
+are frozen get G = 0 (no Schur term, no update); Huber kernel with the
+chi2 deltas 5.991 (mono) / 7.815 (stereo).
+
+Differences of form, not of result:
+- the `while_loop` with its gain-stall exit becomes a fixed `iters` loop
+  with a frozen-state mask: once `done`, pose, points, lambda and cost stay
+  as they are, and no iteration count is read back to the host;
+- the per-iteration assembly (residuals, both Jacobian blocks, Hpp, g_p,
+  the [Q,12] Hll|g_l scatter and the [Q*K,18] camera-block scatter T) and
+  the cost are kernel K5 (`csrc/ba_assemble.cu`) on CUDA tensors, and their
+  plain versions (`ba_assemble_plain`, `ba_cost_plain`) on CPU tensors;
+- `_cost_only` uses the same analytic residual as the Jacobian pass.
+
+Matrix-free CG (`dense_schur=False`) and the sharded forms (`axis_name`,
+`axis_size > 1`) belong to global and multi-GPU BA and raise
+NotImplementedError. Everything is f32 at "highest" matmul precision: the
+S contraction and the solve never run in TF32.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import NamedTuple, Optional
+
+import torch
+
+from .. import kernels
+from ..geometry import projection as proj
+from ..geometry import se3
+
+CHI2_MONO = 5.991
+CHI2_STEREO = 7.815
+
+
+class BAProblem(NamedTuple):
+    kf_pose: torch.Tensor     # f32[K,7] world->camera
+    kf_fixed: torch.Tensor    # bool[K] gauge/frontier frames (not optimized)
+    obs_uv: torch.Tensor      # f32[K,N,2]
+    obs_ur: torch.Tensor      # f32[K,N] (<0 -> mono observation)
+    obs_pt: torch.Tensor      # i32[K,N] point index (-1 -> no observation)
+    obs_inv_s2: torch.Tensor  # f32[K,N]
+    pt_pos: torch.Tensor      # f32[P,3]
+    pt_valid: torch.Tensor    # bool[P]
+    # bool[P] landmarks held fixed (observed by keyframes outside the
+    # window); None -> all landmarks free
+    pt_frozen: Optional[torch.Tensor] = None
+
+
+class BAResult(NamedTuple):
+    kf_pose: torch.Tensor
+    pt_pos: torch.Tensor
+    initial_cost: torch.Tensor
+    final_cost: torch.Tensor
+    obs_inlier: torch.Tensor  # bool[K,N] final chi2 gate per observation
+
+
+@contextlib.contextmanager
+def highest_precision():
+    """f32 products in full f32 (no TF32) inside the block, whatever the
+    process-wide setting; restored on exit."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+def problem_from_map(m, free_mask, inv_sigma2, pt_frozen=None) -> BAProblem:
+    """The whole-map BA problem as views of live `MapArrays`: dead keyframe
+    slots arrive with free_mask False, dead landmarks with mp_valid False."""
+    return BAProblem(
+        kf_pose=m.kf_pose, kf_fixed=~free_mask, obs_uv=m.kf_xy,
+        obs_ur=m.kf_uright, obs_pt=m.kf_mp,
+        obs_inv_s2=inv_sigma2[m.kf_level.long()], pt_pos=m.mp_pos,
+        pt_valid=m.mp_valid, pt_frozen=pt_frozen)
+
+
+def _residuals(kf_pose, pt_pos, p: BAProblem, cam):
+    """r[K,N,3] = observation - prediction for every observation slot
+    (depth gate z > 1e-2, mono third row masked), with the camera-frame
+    points xc[K,N,3] and 1/z."""
+    has_ur = p.obs_ur > 0
+    pt_idx = torch.clamp(p.obs_pt, 0, pt_pos.shape[0] - 1).long()
+    xc = se3.transform(kf_pose[:, None, :], pt_pos[pt_idx])
+    x, y, z = xc[..., 0], xc[..., 1], xc[..., 2]
+    zs = torch.where(torch.abs(z) < 1e-9, torch.full_like(z, 1e-9), z)
+    inv_z = 1.0 / zs
+    pred_u = cam.fx * x * inv_z + cam.cx
+    pred_v = cam.fy * y * inv_z + cam.cy
+    pred_r = pred_u - cam.bf * inv_z
+    r = torch.stack([p.obs_uv[..., 0] - pred_u, p.obs_uv[..., 1] - pred_v,
+                     torch.where(has_ur, p.obs_ur - pred_r,
+                                 torch.zeros_like(x))], -1)
+    r = torch.where((z > 1e-2)[..., None], r, torch.zeros_like(r))
+    return r, xc, inv_z
+
+
+def _residuals_jacobians(kf_pose, pt_pos, p: BAProblem, cam):
+    """r[K,N,3], Jp[K,N,3,6], Jl[K,N,3,3] for every observation slot.
+
+    Analytic Jacobians with the left-multiplicative retraction
+    exp(delta) @ pose: dxc/domega = -[xc]x, dxc/dupsilon = I,
+    dxc/dx_world = R(pose). Depth gate z > 1e-2; mono third row masked."""
+    r, xc, inv_z = _residuals(kf_pose, pt_pos, p, cam)
+    has_ur = p.obs_ur > 0
+    x, y, z = xc[..., 0], xc[..., 1], xc[..., 2]
+    live = z > 1e-2
+    inv_z2 = inv_z * inv_z
+    zero = torch.zeros_like(x)
+    Jproj = torch.stack([
+        torch.stack([cam.fx * inv_z, zero, -cam.fx * x * inv_z2], -1),
+        torch.stack([zero, cam.fy * inv_z, -cam.fy * y * inv_z2], -1),
+        torch.stack([cam.fx * inv_z, zero,
+                     -cam.fx * x * inv_z2 + cam.bf * inv_z2], -1),
+    ], -2)
+    row_mask = torch.stack([live, live, live & has_ur], -1)
+    dr_dxc = torch.where(row_mask[..., None], -Jproj, torch.zeros_like(Jproj))
+    skew = torch.stack([
+        torch.stack([zero, -z, y], -1),
+        torch.stack([z, zero, -x], -1),
+        torch.stack([-y, x, zero], -1),
+    ], -2)
+    Jp_rot = -(dr_dxc @ skew)
+    Jp = torch.cat([Jp_rot, dr_dxc], -1)  # [K,N,3,6]
+    R = se3.quat_to_matrix(kf_pose[:, 0:4])  # [K,3,3]
+    Jl = dr_dxc @ R[:, None]
+    return r, Jp, Jl
+
+
+def _huber_rho(chi2, delta, use_huber):
+    """g2o Huber on the error norm: rho(s) = s if sqrt(s)<=d else 2d*sqrt(s)-d^2."""
+    s = torch.sqrt(torch.clamp(chi2, min=1e-12))
+    rho = torch.where(s <= delta, chi2, 2.0 * delta * s - delta * delta)
+    return rho if use_huber else chi2
+
+
+def _inv3x3(A):
+    """Closed-form batched 3x3 inverse (adjugate / det)."""
+    a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
+    d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
+    g, h, i = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
+    A11 = e * i - f * h
+    A12 = c * h - b * i
+    A13 = b * f - c * e
+    A21 = f * g - d * i
+    A22 = a * i - c * g
+    A23 = c * d - a * f
+    A31 = d * h - e * g
+    A32 = b * g - a * h
+    A33 = a * e - b * d
+    det = a * A11 + b * A21 + c * A31
+    inv_det = 1.0 / torch.where(torch.abs(det) < 1e-12,
+                                torch.full_like(det, 1e-12), det)
+    adj = torch.stack([
+        torch.stack([A11, A12, A13], -1),
+        torch.stack([A21, A22, A23], -1),
+        torch.stack([A31, A32, A33], -1),
+    ], -2)
+    return adj * inv_det[..., None, None]
+
+
+# ---------------------------------------------------------------------------
+# kernel K5 and its plain versions
+# ---------------------------------------------------------------------------
+
+def ba_assemble_plain(kf_pose, pt_pos, p: BAProblem, obs_ok, cam,
+                      use_huber: bool):
+    """Plain PyTorch version of K5's `ba_assemble` (same signature).
+
+    Returns Hpp f32[K,6,6], g_p f32[K,6], the packed point accumulator
+    f32[Q,12] (Hll row-major | g_l) and T f32[Q*K,18] (row q*K + k holds
+    sum over k's observations of q of (w Jp)^T Jl, [6,3] row-major)."""
+    K, N = p.obs_uv.shape[:2]
+    Q = pt_pos.shape[0]
+    has_ur = p.obs_ur > 0
+    r, Jp, Jl = _residuals_jacobians(kf_pose, pt_pos, p, cam)
+    chi2 = torch.sum(r * r, -1) * p.obs_inv_s2
+    s = torch.sqrt(torch.clamp(chi2, min=1e-12))
+    delta = torch.sqrt(torch.where(has_ur, torch.full_like(s, CHI2_STEREO),
+                                   torch.full_like(s, CHI2_MONO)))
+    w_huber = (torch.where(s > delta, delta / s, torch.ones_like(s))
+               if use_huber else torch.ones_like(s))
+    w = torch.where(obs_ok, p.obs_inv_s2 * w_huber, torch.zeros_like(s))
+    JpW = Jp * w[..., None, None]
+    JlW = Jl * w[..., None, None]
+    Hpp = torch.einsum("knci,kncj->kij", JpW, Jp)
+    g_p = torch.einsum("knci,knc->ki", JpW, r)
+    Hll_obs = torch.einsum("knci,kncj->knij", JlW, Jl)
+    g_l_obs = torch.einsum("knci,knc->kni", JlW, r)
+    flat_pt = torch.clamp(p.obs_pt, 0, Q - 1).long().reshape(-1)
+    ok = obs_ok.reshape(-1, 1)
+    packed = torch.cat([Hll_obs.reshape(-1, 9), g_l_obs.reshape(-1, 3)], -1)
+    acc = torch.zeros((Q, 12), dtype=pt_pos.dtype, device=pt_pos.device)
+    acc.index_add_(0, flat_pt, torch.where(ok, packed,
+                                           torch.zeros_like(packed)))
+    W_obs = torch.einsum("knci,kncj->knij", JpW, Jl).reshape(-1, 18)
+    kidx = torch.arange(K, device=pt_pos.device)[:, None].expand(K, N)
+    T = torch.zeros((Q * K, 18), dtype=pt_pos.dtype, device=pt_pos.device)
+    T.index_add_(0, flat_pt * K + kidx.reshape(-1),
+                 torch.where(ok, W_obs, torch.zeros_like(W_obs)))
+    return Hpp, g_p, acc, T
+
+
+def ba_cost_plain(kf_pose, pt_pos, p: BAProblem, obs_ok, cam,
+                  use_huber: bool):
+    """Plain PyTorch version of K5's `ba_cost` (same signature): the Huber
+    cost summed over `obs_ok` (f32 scalar) and chi2[K,N] of every slot."""
+    r, _, _ = _residuals(kf_pose, pt_pos, p, cam)
+    chi2 = torch.sum(r * r, -1) * p.obs_inv_s2
+    has_ur = p.obs_ur > 0
+    delta = torch.sqrt(torch.where(has_ur, torch.full_like(chi2, CHI2_STEREO),
+                                   torch.full_like(chi2, CHI2_MONO)))
+    rho = _huber_rho(chi2, delta, use_huber)
+    return torch.sum(torch.where(obs_ok, rho, torch.zeros_like(rho))), chi2
+
+
+def _k5_inputs(kf_pose, pt_pos, p: BAProblem, obs_ok):
+    K, N = p.obs_uv.shape[:2]
+    Q = pt_pos.shape[0]
+    args = [t.contiguous() for t in (kf_pose, pt_pos, p.obs_uv, p.obs_ur,
+                                     p.obs_pt, p.obs_inv_s2, obs_ok)]
+    for t, what, dtype, shape in zip(
+            args, ("kf_pose", "pt_pos", "obs_uv", "obs_ur", "obs_pt",
+                   "obs_inv_s2", "obs_ok"),
+            (torch.float32,) * 4 + (torch.int32, torch.float32, torch.bool),
+            ((K, 7), (Q, 3), (K, N, 2), (K, N), (K, N), (K, N), (K, N))):
+        kernels.require(t, "ba " + what, dtype, shape)
+    return args, K, N, Q
+
+
+_K5_ARGS = [kernels.VP] * 7 + [kernels.CI] * 3 + [kernels.CF] * 5 + [kernels.CI]
+
+
+def ba_assemble(kf_pose, pt_pos, p: BAProblem, obs_ok, cam, use_huber: bool):
+    """Per-iteration dense-Schur assembly (see `ba_assemble_plain`).
+    CUDA tensors -> kernel `csrc/ba_assemble.cu`; CPU -> plain version."""
+    if not kf_pose.is_cuda:
+        return ba_assemble_plain(kf_pose, pt_pos, p, obs_ok, cam, use_huber)
+    args, K, N, Q = _k5_inputs(kf_pose, pt_pos, p, obs_ok)
+    dev = kf_pose.device
+    Hpp = torch.empty((K, 6, 6), dtype=torch.float32, device=dev)
+    g_p = torch.empty((K, 6), dtype=torch.float32, device=dev)
+    acc = torch.zeros((Q, 12), dtype=torch.float32, device=dev)
+    T = torch.zeros((Q * K, 18), dtype=torch.float32, device=dev)
+    fn = kernels.bind("ba_assemble", "ba_assemble", _K5_ARGS + [kernels.VP] * 5)
+    kernels.LAUNCHES["ba_assemble"] += 1
+    kernels.check(fn(*(kernels.ptr(t) for t in args), K, N, Q, cam.fx, cam.fy,
+                     cam.cx, cam.cy, cam.bf, int(use_huber), kernels.ptr(Hpp),
+                     kernels.ptr(g_p), kernels.ptr(acc), kernels.ptr(T),
+                     kernels.stream_of(kf_pose)), "ba_assemble")
+    return Hpp, g_p, acc, T
+
+
+def ba_cost(kf_pose, pt_pos, p: BAProblem, obs_ok, cam, use_huber: bool):
+    """Huber cost over `obs_ok` and chi2[K,N] (see `ba_cost_plain`).
+    CUDA tensors -> kernel `csrc/ba_assemble.cu`; CPU -> plain version."""
+    if not kf_pose.is_cuda:
+        return ba_cost_plain(kf_pose, pt_pos, p, obs_ok, cam, use_huber)
+    args, K, N, Q = _k5_inputs(kf_pose, pt_pos, p, obs_ok)
+    dev = kf_pose.device
+    rho_row = torch.empty((K,), dtype=torch.float32, device=dev)
+    chi2 = torch.empty((K, N), dtype=torch.float32, device=dev)
+    fn = kernels.bind("ba_assemble", "ba_cost", _K5_ARGS + [kernels.VP] * 3)
+    kernels.LAUNCHES["ba_cost"] += 1
+    kernels.check(fn(*(kernels.ptr(t) for t in args), K, N, Q, cam.fx, cam.fy,
+                     cam.cx, cam.cy, cam.bf, int(use_huber),
+                     kernels.ptr(rho_row), kernels.ptr(chi2),
+                     kernels.stream_of(kf_pose)), "ba_cost")
+    return rho_row.sum(), chi2
+
+
+# ---------------------------------------------------------------------------
+# the solver
+# ---------------------------------------------------------------------------
+
+def ba_solve(p: BAProblem, cam: proj.CameraIntrinsics, iters: int = 10,
+             use_huber: bool = True, chi2_gate: bool = True,
+             axis_name: str = None, lambda0: float = 1e-4,
+             dense_schur: bool = True, axis_size: int = 1) -> BAResult:
+    """LM bundle adjustment on a dense reduced camera system.
+
+    Only `dense_schur=True` is ported: S = blockdiag(Hpp_d) - sum_j T_j G_j
+    T_j^T is formed from the per-point camera-block sums and solved directly
+    ([K*6, K*6], 192x192 for the W=32 window). The JAX solver's `cg_iters`
+    belongs to matrix-free CG and has no counterpart here."""
+    if not dense_schur:
+        raise NotImplementedError(
+            "matrix-free CG BA (dense_schur=False) belongs to the global-BA "
+            "slice")
+    if axis_name is not None or axis_size > 1:
+        raise NotImplementedError(
+            "sharded BA (axis_name / axis_size) belongs to the multi-GPU "
+            "slice")
+    with highest_precision():
+        return _ba_solve_f32(p, cam, iters, use_huber, chi2_gate, lambda0)
+
+
+def _ba_solve_f32(p: BAProblem, cam, iters, use_huber, chi2_gate,
+                  lambda0) -> BAResult:
+    K, N = p.obs_uv.shape[:2]
+    P = p.pt_pos.shape[0]
+    D = K * 6
+    dev = p.pt_pos.device
+    has_ur = p.obs_ur > 0
+    chi2_th = torch.where(has_ur, torch.full_like(p.obs_ur, CHI2_STEREO),
+                          torch.full_like(p.obs_ur, CHI2_MONO))
+    obs_ok0 = (p.obs_pt >= 0) & p.pt_valid[
+        torch.clamp(p.obs_pt, 0, P - 1).long()]
+    free = ~p.kf_fixed
+    fmask = free.repeat_interleave(6).to(torch.float32)
+    eye3 = torch.eye(3, dtype=torch.float32, device=dev)
+    eye6 = torch.eye(6, dtype=torch.float32, device=dev)
+    rows = (torch.arange(K, device=dev)[:, None, None] * 6
+            + torch.arange(6, device=dev)[None, :, None]).expand(K, 6, 6)
+    cols = (torch.arange(K, device=dev)[:, None, None] * 6
+            + torch.arange(6, device=dev)[None, None, :]).expand(K, 6, 6)
+
+    cost0, _ = ba_cost(p.kf_pose, p.pt_pos, p, obs_ok0, cam, use_huber)
+    kf_pose, pt_pos = p.kf_pose, p.pt_pos
+    lam = torch.full((), lambda0, dtype=torch.float32, device=dev)
+    cost = cost0
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    for _ in range(iters):
+        Hpp, g_p, acc, T = ba_assemble(kf_pose, pt_pos, p, obs_ok0, cam,
+                                       use_huber)
+        Hll = acc[:, :9].reshape(P, 3, 3)
+        g_l = acc[:, 9:]
+        dp_diag = torch.diagonal(Hpp, dim1=1, dim2=2)
+        Hpp_d = Hpp + (lam * dp_diag + 1e-6)[:, :, None] * eye6
+        dl_diag = torch.diagonal(Hll, dim1=1, dim2=2)
+        Hll_d = Hll + (lam * dl_diag + 1e-6)[:, :, None] * eye3
+        G = _inv3x3(Hll_d + 1e-9 * eye3)
+        if p.pt_frozen is not None:
+            # frozen landmarks leave the Schur elimination (G = 0): no
+            # -U G U^T term, and dl = 0 in back-substitution
+            G = torch.where(p.pt_frozen[:, None, None], torch.zeros_like(G), G)
+        T3 = T.reshape(P, D, 3)
+        TG = torch.einsum("pdi,pij->pdj", T3, G)
+        S_sub = torch.einsum("pdi,pei->de", TG, T3)
+        S = torch.zeros((D, D), dtype=torch.float32, device=dev)
+        S.index_put_((rows.reshape(-1), cols.reshape(-1)), Hpp_d.reshape(-1),
+                     accumulate=True)
+        S = S - S_sub
+        S = S * fmask[:, None] * fmask[None, :]
+        S = S + torch.diag(1.0 - fmask)
+        Gg = torch.einsum("pij,pj->pi", G, g_l)
+        rhs = -(g_p.reshape(D) - torch.einsum("pdi,pi->d", T3, Gg)) * fmask
+        dp = torch.linalg.solve(S, rhs).reshape(K, 6)
+        dp = dp * free[:, None]
+        ut_dp = torch.einsum("pdi,d->pi", T3, dp.reshape(D))
+        dl = torch.einsum("pij,pj->pi", G, -g_l - ut_dp)
+        dl = torch.where(p.pt_valid[:, None], dl, torch.zeros_like(dl))
+        new_pose = se3.retract(kf_pose, dp)
+        new_pose = torch.where(free[:, None], new_pose, kf_pose)
+        new_pts = pt_pos + dl
+        new_cost, _ = ba_cost(new_pose, new_pts, p, obs_ok0, cam, use_huber)
+        improved = new_cost < cost
+        # frozen-state mask: an iteration after `done` changes nothing
+        take = improved & ~done
+        kf_pose = torch.where(take, new_pose, kf_pose)
+        pt_pos = torch.where(take, new_pts, pt_pos)
+        lam_out = torch.clamp(torch.where(improved, lam * 0.4, lam * 5.0),
+                              1e-8, 1e5)
+        lam = torch.where(done, lam, lam_out)
+        rel_gain = (cost - new_cost) / torch.clamp(cost, min=1e-12)
+        cost = torch.where(take, new_cost, cost)
+        done = done | (improved & (rel_gain < 1e-5))
+    _, chi2 = ba_cost(kf_pose, pt_pos, p, obs_ok0, cam, use_huber)
+    inlier = obs_ok0 & (chi2 <= chi2_th) if chi2_gate else obs_ok0
+    return BAResult(kf_pose, pt_pos, cost0, cost, inlier)

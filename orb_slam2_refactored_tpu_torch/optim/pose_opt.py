@@ -13,6 +13,9 @@ dense 6x6 normal equations. Two changes of form, not of result:
 
 f32 throughout; the normal equations are f32 products (TF32 is never
 enabled for them), as the JAX code forces "highest" precision.
+
+`pose_optimize` runs kernel K4 (`csrc/pose_lm.cu`, one launch a call) on
+CUDA tensors and `pose_optimize_plain` on CPU tensors.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import kernels
 from ..geometry import projection as proj
 from ..geometry import se3
 
@@ -78,7 +82,62 @@ def pose_optimize(pose0, pts_w, obs_uv, obs_ur, inv_sigma2, valid,
 
     pts_w: f32[N,3]; obs_uv: f32[N,2]; obs_ur: f32[N] (<0 = mono
     observation); inv_sigma2: f32[N]; valid: bool[N]. The JAX package's
-    `_pose_optimize_f32` under "highest" matmul precision."""
+    `_pose_optimize_f32` under "highest" matmul precision.
+    CUDA tensors -> kernel `csrc/pose_lm.cu`; CPU -> plain version."""
+    if not pose0.is_cuda:
+        return pose_optimize_plain(pose0, pts_w, obs_uv, obs_ur, inv_sigma2,
+                                   valid, cam, rounds, iters_per_round)
+    return _pose_lm(pose0, pts_w, obs_uv, obs_ur, inv_sigma2, valid, cam,
+                    rounds, iters_per_round, None)
+
+
+def pose_lm_work(pose0, pts_w, obs_uv, obs_ur, inv_sigma2, valid,
+                 cam: proj.CameraIntrinsics, rounds: int = 4,
+                 iters_per_round: int = 10) -> torch.Tensor:
+    """Kernel K4's own account of one call on CUDA tensors: i32[rounds, 2],
+    each round's iterations run before `done` froze its state and its
+    active observations. This is the data-dependent work that a bound on
+    the call counts; the tracking path never asks for it."""
+    work = torch.empty((rounds, 2), dtype=torch.int32, device=pose0.device)
+    _pose_lm(pose0, pts_w, obs_uv, obs_ur, inv_sigma2, valid, cam, rounds,
+             iters_per_round, work)
+    return work
+
+
+def _pose_lm(pose0, pts_w, obs_uv, obs_ur, inv_sigma2, valid, cam, rounds,
+             iters_per_round, work) -> PoseOptResult:
+    N = pts_w.shape[0]
+    args = [t.contiguous() for t in (pose0, pts_w, obs_uv, obs_ur,
+                                     inv_sigma2, valid)]
+    for t, what, dtype, shape in zip(
+            args, ("pose0", "pts_w", "obs_uv", "obs_ur", "inv_sigma2",
+                   "valid"),
+            (torch.float32,) * 5 + (torch.bool,),
+            ((7,), (N, 3), (N, 2), (N,), (N,), (N,))):
+        kernels.require(t, "pose_lm " + what, dtype, shape)
+    dev = pose0.device
+    pose = torch.empty((7,), dtype=torch.float32, device=dev)
+    inliers = torch.empty((N,), dtype=torch.bool, device=dev)
+    num = torch.empty((), dtype=torch.int32, device=dev)
+    cost = torch.empty((), dtype=torch.float32, device=dev)
+    fn = kernels.bind("pose_lm", "pose_lm",
+                      [kernels.VP] * 6 + [kernels.CI] + [kernels.CF] * 5
+                      + [kernels.CI] * 2 + [kernels.VP] * 6)
+    kernels.LAUNCHES["pose_lm"] += 1
+    kernels.check(fn(*(kernels.ptr(t) for t in args), N, cam.fx, cam.fy,
+                     cam.cx, cam.cy, cam.bf, int(rounds), int(iters_per_round),
+                     kernels.ptr(pose), kernels.ptr(inliers), kernels.ptr(num),
+                     kernels.ptr(cost),
+                     None if work is None else kernels.ptr(work),
+                     kernels.stream_of(pose0)), "pose_lm")
+    return PoseOptResult(pose=pose, inliers=inliers, num_inliers=num,
+                         final_cost=cost)
+
+
+def pose_optimize_plain(pose0, pts_w, obs_uv, obs_ur, inv_sigma2, valid,
+                        cam: proj.CameraIntrinsics, rounds: int = 4,
+                        iters_per_round: int = 10) -> PoseOptResult:
+    """Plain PyTorch version of kernel K4 (same signature)."""
     dev = pose0.device
     has_ur = obs_ur > 0
     obs_uvr = torch.cat([obs_uv, torch.where(has_ur, obs_ur,

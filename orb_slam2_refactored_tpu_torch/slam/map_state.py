@@ -162,6 +162,9 @@ class MapGraph:
         self.recycled_log: List[int] = []
         self.origin_kf: int = -1
         self.big_change_counter = 0
+        # culled keyframe -> (parent slot, Tcp f32[7]) recorded at cull time
+        # (KeyFrame::SetBadFlag's mTcp, src/KeyFrame.cc:464)
+        self.kf_tcp: Dict[int, tuple] = {}
 
     # -- slot allocation --------------------------------------------------
 

@@ -6,8 +6,11 @@ Port of the RGB-D subset of `orb_slam2_refactored_tpu/slam/tracking.py`:
 (motion-model matching, rotation check, pose LM, reference-keyframe
 fallback with Horn RANSAC, whole-map projection matching, final pose LM,
 found/visible statistics), the fused `_step_impl`, keyframe insertion
-(`_insert_kf_impl` / `_insert_kf_auto_impl`) and the synchronous host loop
-`track_rgbd`.
+(`_insert_kf_impl` / `_insert_kf_auto_impl`), the synchronous host loop
+`track_rgbd` and, with `enable_local_ba=True`, the synchronous
+local-mapping job that follows each keyframe (`slam/local_mapping.py`:
+triangulation, fusion, point culling, window BA, keyframe culling; the
+tracker adopts the BA-refined pose of the new keyframe).
 
 Differences of form from the JAX package:
 - the tracker runs on `cuda:0` unless the caller passes another device
@@ -17,7 +20,11 @@ Differences of form from the JAX package:
 - `jax.lax.cond(use_ref, ...)` is a Python branch on `use_ref.item()`, one
   documented host sync per frame, beside the one read of the host pack;
 - the frame counter `fidx` is a Python int (it seeds the RANSAC generator);
-- map updates at keyframe insertion happen in place.
+- map updates at keyframe insertion happen in place;
+- every device read is synchronous, so the JAX tracker's staged mapping
+  pump (`_pump_mapping_once`, which waits for each stage's read to land)
+  is one call, `_run_mapping_job`, that runs its stages in order;
+- `flush()` drains every deferred mapping product (see its docstring).
 
 Settings whose machinery this slice does not port raise NotImplementedError
 at construction; none is silently ignored.
@@ -38,7 +45,9 @@ from ..ops import matching
 from ..ops.orb import OrbExtractor
 from ..optim.pose_opt import pose_optimize
 from ..solvers.ransac import horn_ransac
+from ..utils.timing import StageTimer
 from .frame import FrameData, scale_factors
+from .local_mapping import LocalMapper
 from .map_state import INVALID, MapArrays, MapCapacity, MapGraph, empty_map
 
 
@@ -103,12 +112,13 @@ def _unsupported(cfg: TrackerConfig) -> List[str]:
     out = []
     if cfg.pipelined:
         out.append("pipelined=True (the software pipeline)")
-    if cfg.enable_local_ba:
-        out.append("enable_local_ba=True (LocalMapper, window BA)")
     if cfg.enable_loop_closing:
         out.append("enable_loop_closing=True (loop closing)")
     if cfg.local_map_window > 0:
         out.append("local_map_window>0 (covisibility window)")
+    if cfg.local_ba_cg_iters != TrackerConfig.local_ba_cg_iters:
+        out.append("local_ba_cg_iters (matrix-free CG BA; the window BA "
+                   "is dense Schur)")
     if cfg.depth_encoding != "f16":
         out.append(f"depth_encoding={cfg.depth_encoding!r} (wire formats)")
     if cfg.image_encoding != "raw":
@@ -165,6 +175,16 @@ class Tracker:
             pattern=cfg.descriptor_pattern)
         self.sf, self.sigma2, self.inv_sigma2 = scale_factors(
             cfg.n_levels, cfg.scale_factor, device=self.device)
+        # per-stage times of the keyframe path (synchronizes the card at
+        # both ends of a stage)
+        self.timer = StageTimer(self.device)
+        if cfg.enable_local_ba:
+            self.local_mapper = LocalMapper(
+                self.cam, cfg.n_levels, cfg.scale_factor,
+                ba_iters=cfg.local_ba_iters, device=self.device)
+        else:
+            self.local_mapper = None
+        self.last_ba_info = None
         self.trajectory: List[np.ndarray] = []
         self.traj_entries: List[dict] = []
         self.track_info: List[dict] = []
@@ -450,9 +470,16 @@ class Tracker:
         })
 
     def flush(self):
-        """Synchronous tracking leaves nothing in flight (no pipeline, no
-        mapping job); kept so callers read trajectories the same way as
-        with the JAX tracker."""
+        """Drain every deferred mapping product (call before reading the
+        trajectory or the map).
+
+        The mapping job itself always completes in the frame that made the
+        keyframe. The JAX tracker's `flush` completes the job and promises
+        this drain in its docstring, but leaves the last window BA's outlier
+        erasure for the next keyframe. Here it drains that too, so the map
+        read after `flush` is final. The frame loop never calls `flush`, so
+        the one-keyframe lag of the erasure is kept while tracking."""
+        self._finalize_map()
 
     def _run_frame(self, prep_fn, step_fn, timestamp: float):
         if self.state == TrackState.NOT_INITIALIZED:
@@ -514,6 +541,8 @@ class Tracker:
         P = cap.max_points
         self.map = empty_map(cap, self.device)
         self.graph = MapGraph(cap)
+        if self.local_mapper is not None:
+            self.local_mapper.clear_pending()
         self.mp_vis_dev = torch.zeros((P,), dtype=torch.int32,
                                       device=self.device)
         self.mp_found_dev = torch.zeros((P,), dtype=torch.int32,
@@ -590,6 +619,12 @@ class Tracker:
                          create_mask: Optional[np.ndarray] = None,
                          feat_mp_dev=None):
         cfg = self.cfg
+        # drain the previous keyframe's deferred mapping products FIRST: they
+        # free and allocate point slots, so they must precede this
+        # keyframe's own allocations
+        if self.local_mapper is not None:
+            with self.timer.time("kf.drain"):
+                self._finalize_map()
         if not self.graph.can_alloc_kf():
             # keep tracking against the frozen map instead of crashing
             self.frames_since_kf = 0
@@ -618,7 +653,10 @@ class Tracker:
             self._ref_mp_row = None  # refined at drain
             self.frames_since_kf = 0
             self.last_mp_dev = all_mp_dev
-            self._drain_insert(slot, frame, pack_dev.cpu().numpy(), got)
+            with self.timer.time("kf.insert_drain"):
+                mapping = self._drain_insert(slot, frame, pack_dev, got)
+            if mapping:
+                self._run_mapping_job(slot)
             return slot
         # ---- explicit-mask path (bootstrap initialization) ----
         n_new = int(create_mask.sum())
@@ -656,14 +694,16 @@ class Tracker:
         self._ref_mp_row = all_mp.copy()
         self.frames_since_kf = 0
         self.last_mp_dev = packed_dev[0].contiguous()
-        self._post_insert(slot, frame)
+        if self._post_insert(slot, frame):
+            self._run_mapping_job(slot)
         return slot
 
-    def _drain_insert(self, slot: int, frame: FrameData, pack: np.ndarray,
-                      got: np.ndarray):
+    def _drain_insert(self, slot: int, frame: FrameData, pack_dev, got) -> bool:
         """Graph bookkeeping of a device-selected keyframe insert: replay
         the device's slot mapping (created features consumed slot_buf[:n] in
-        feature order) and return the unused slots."""
+        feature order) and return the unused slots; then the post-insert
+        work. True when a mapping job was dispatched."""
+        pack = pack_dev.cpu().numpy()
         all_mp, levels, created = pack[0], pack[1], pack[2].astype(bool)
         n_created = int(created.sum())
         if n_created < len(got):
@@ -679,13 +719,15 @@ class Tracker:
         if self.ref_kf == slot:
             self.ref_kf_tracked = int((all_mp >= 0).sum())
             self._ref_mp_row = all_mp.copy()
-        self._post_insert(slot, frame)
+        return self._post_insert(slot, frame)
 
-    def _post_insert(self, slot: int, frame: FrameData):
-        """Post-insert work of this slice: zero the found/visible counters
-        and last-seen stamps of recycled point slots. The BoW index hook of
-        the JAX tracker (`_ensure_bow_index`) belongs to the loop-closing
-        slice, and local mapping to the local-mapping slice."""
+    def _post_insert(self, slot: int, frame: FrameData) -> bool:
+        """Post-insert work: zero the found/visible counters and last-seen
+        stamps of recycled point slots, then dispatch the local-mapping job
+        (reference order, src/LocalMapping.cc:93-130: triangulate -> fuse
+        neighbours -> cull points -> local BA -> cull KFs). True when the
+        job was dispatched. The BoW index hook of the JAX tracker
+        (`_ensure_bow_index`) belongs to the loop-closing slice."""
         rec = self.graph.recycled_log
         if rec:
             self.graph.recycled_log = []
@@ -693,3 +735,52 @@ class Tracker:
             self.mp_vis_dev[idx] = 0
             self.mp_found_dev[idx] = 0
             self.mp_seen_dev[idx] = -1
+        if self.local_mapper is not None and len(self.graph.alive_kfs()) >= 2:
+            with self.timer.time("kf.triangulate"):
+                self.map, _ = self.local_mapper.triangulate_new_points(
+                    self.map, self.graph, slot)
+            if slot % 2 == 0:
+                # snapshot the found/visible counters now; the ratio-cull
+                # rule drains them right before local BA (stage 2)
+                self.local_mapper.queue_ratio_cull(slot, self.mp_vis_dev,
+                                                   self.mp_found_dev)
+            return True
+        return False
+
+    def _run_mapping_job(self, slot: int):
+        """The keyframe's mapping job, in the stage order of the JAX
+        tracker's `_pump_mapping_once`. The BA outlier erasure stays pending
+        until the NEXT keyframe's drain (the reference's mapping-thread
+        lag); `_finalize_map` drains it."""
+        lm = self.local_mapper
+        # triangulation results: insert points, then neighbour fusion over
+        # the refreshed covisibility ring
+        with self.timer.time("kf.tri_drain"):
+            self.map = lm._drain_tri(self.map, self.graph)
+        with self.timer.time("kf.fuse"):
+            self.map, _ = lm.fuse_neighbors(self.map, self.graph, slot)
+        with self.timer.time("kf.fuse_drain"):
+            self.map = lm._drain_fuse(self.map, self.graph)
+        # refresh point stats, run the host culling rules (the ratio rule
+        # BEFORE BA, so doomed points don't pollute the solve), window BA
+        with self.timer.time("kf.refresh_points"):
+            self.map = lm.refresh_points(self.map, self.graph, slot)
+        with self.timer.time("kf.cull_points"):
+            self.map, _ = lm.cull_points(self.map, self.graph, slot)
+            self.map = lm._drain_ratio_cull(self.map, self.graph)
+        with self.timer.time("kf.local_ba"):
+            self.map, self.last_ba_info = lm.local_ba(self.map, self.graph,
+                                                      slot)
+        with self.timer.time("kf.cull_kfs"):
+            self.map, _ = lm.cull_keyframes(self.map, self.graph, slot)
+        if self.last_ba_info is not None:
+            # adopt the BA-refined pose of the new keyframe as the tracker's
+            # current pose (the reference's map-update hand-off,
+            # src/Tracking.cc:1196)
+            self.pose_dev = self.map.kf_pose[slot].clone()
+            self.pose = self.pose_dev.cpu().numpy()
+
+    def _finalize_map(self):
+        """Drain every deferred mapping product."""
+        if self.local_mapper is not None:
+            self.map = self.local_mapper.drain_pending(self.map, self.graph)

@@ -90,6 +90,25 @@ def test_window_gate_matches_jax_on_the_rim(seed):
     assert (ref[1] == jham.BIG).any() and (ref[1] < jham.BIG).any()
 
 
+@pytest.mark.parametrize("seed", [5, 6])
+def test_pair_gate_matches_jax(seed):
+    """The dense pair gate of triangulation (its epipolar mask) ANDed into
+    the row and column gates, as `_triangulate_impl` builds its mask."""
+    rng, q, t, row_ok, col_ok = _case(seed)
+    pair_ok = rng.uniform(size=(len(q), len(t))) > 0.6
+    pair_ok[7] = False  # a row the pair gate masks whole
+    d = jham.hamming_matrix(jnp.asarray(q), jnp.asarray(t))
+    mask = (jnp.asarray(row_ok)[:, None] & jnp.asarray(col_ok)[None, :]
+            & jnp.asarray(pair_ok))
+    ref = [np.asarray(x) for x in jham.masked_best2(d, mask)]
+    out = tham.masked_best2_gated(_t(q), _t(t), torch.from_numpy(row_ok),
+                                  torch.from_numpy(col_ok),
+                                  pair_ok=torch.from_numpy(pair_ok))
+    for a, b in zip(ref, out):
+        np.testing.assert_array_equal(b.numpy(), a)
+    assert out[0][7] == 0 and out[1][7] == out[2][7] == tham.BIG
+
+
 def test_pairwise_and_matrix_popcount():
     rng = np.random.default_rng(7)
     a, b = _desc(rng, 33), _desc(rng, 33)

@@ -1,4 +1,5 @@
-"""The three CUDA kernels against their plain versions, on the card.
+"""The CUDA kernels against their plain versions, on the card: K1 (in its
+three gate modes), K2, K3, K4 (pose LM) and K5 (BA assembly and cost).
 
 These tests need a CUDA card and skip elsewhere. The file imports no JAX,
 so it also runs where JAX is not installed:
@@ -13,9 +14,13 @@ import numpy as np
 import pytest
 import torch
 
+from orb_slam2_refactored_tpu_torch import kernels
+from orb_slam2_refactored_tpu_torch.geometry import projection as proj
+from orb_slam2_refactored_tpu_torch.geometry import se3
 from orb_slam2_refactored_tpu_torch.io.synthetic import (
     SyntheticScene, orbit_trajectory)
 from orb_slam2_refactored_tpu_torch.ops import fast, hamming, orb
+from orb_slam2_refactored_tpu_torch.optim import ba, pose_opt
 
 pytestmark = pytest.mark.gpu
 torch.set_num_threads(1)
@@ -33,7 +38,7 @@ def _image():
     return torch.from_numpy(np.clip(img, 0, 255).astype(np.float32))
 
 
-@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("gated", [False, True, "pair"])
 def test_hamming_kernel_equals_plain(gated):
     dev = _card()
     rng = np.random.default_rng(9)
@@ -55,8 +60,13 @@ def test_hamming_kernel_equals_plain(gated):
                                   .astype(np.float32)),
                  torch.from_numpy(rng.integers(0, 4, M).astype(np.int32)),
                  xy, torch.from_numpy(rng.integers(0, 4, N).astype(np.int32))]
-    ref = hamming.masked_best2_gated_plain(*args)
-    out = hamming.masked_best2_gated(*(a.to(dev) for a in args))
+    kw = {}
+    if gated == "pair":  # triangulation's dense epipolar gate
+        kw["pair_ok"] = torch.from_numpy(rng.uniform(size=(M, N)) > 0.7)
+        kw["pair_ok"][3] = False
+    ref = hamming.masked_best2_gated_plain(*args, **kw)
+    out = hamming.masked_best2_gated(*(a.to(dev) for a in args),
+                                     **{k: v.to(dev) for k, v in kw.items()})
     for a, b in zip(ref, out):
         np.testing.assert_array_equal(b.cpu().numpy(), a.numpy())
 
@@ -83,3 +93,157 @@ def test_orb_kernel_matches_plain():
     assert (bins(ak.cpu().numpy()) == bins(ap.numpy())).mean() >= 0.99
     xor = np.bitwise_xor(dk.cpu().numpy(), dp.numpy()).view(np.uint8)
     assert 1.0 - np.unpackbits(xor).mean() >= 0.999
+
+
+CAM = proj.CameraIntrinsics.create(520.0, 520.0, 320.0, 240.0, 41.6)
+
+
+def _project(pose, pts):
+    xc = se3.transform(pose, pts)
+    u = CAM.fx * xc[..., 0] / xc[..., 2] + CAM.cx
+    v = CAM.fy * xc[..., 1] / xc[..., 2] + CAM.cy
+    return torch.stack([u, v, u - CAM.bf / xc[..., 2]], -1)
+
+
+def _pose_problem(seed, n=1000):
+    """A tracked frame's pose LM: 1000 matches, 70 % with a right
+    coordinate, 15 % outliers, a start 2 cm / 1 degree off."""
+    g = np.random.default_rng(seed)
+    pts = torch.from_numpy(np.stack([g.uniform(-2, 2, n), g.uniform(-1.5, 1.5, n),
+                                     g.uniform(1, 6, n)], -1).astype(np.float32))
+    gt = se3.exp(torch.from_numpy(g.normal(0, 0.05, 6).astype(np.float32)))
+    uvr = _project(gt, pts) + torch.from_numpy(
+        g.normal(0, 0.7, (n, 3)).astype(np.float32))
+    bad = torch.from_numpy(g.uniform(size=n) < 0.15)
+    uvr[bad, :2] += torch.from_numpy(
+        g.uniform(-40, 40, (int(bad.sum()), 2)).astype(np.float32))
+    ur = torch.where(torch.from_numpy(g.uniform(size=n) < 0.7), uvr[:, 2],
+                     torch.full((n,), -1.0))
+    inv_s2 = torch.from_numpy((1.0 / 1.44 ** g.integers(0, 8, n))
+                              .astype(np.float32))
+    valid = torch.from_numpy(g.uniform(size=n) > 0.05)
+    pose0 = se3.compose(se3.exp(torch.from_numpy(
+        np.array([0.01, -0.01, 0.005, 0.02, -0.01, 0.01], np.float32))), gt)
+    return [pose0, pts, uvr[:, :2].contiguous(), ur, inv_s2, valid]
+
+
+@pytest.mark.parametrize("seed,rounds", [(0, 4), (1, 2)])
+def test_pose_lm_kernel_matches_plain(seed, rounds):
+    """K4: pose within 1e-5 m / 1e-5 rad; inliers >= 99.9 % equal, a flip
+    only where chi2 is within 1e-4 relative of its threshold."""
+    dev = _card()
+    args = [a.to(dev) for a in _pose_problem(seed)]
+    before = kernels.counts()["pose_lm"]
+    out = pose_opt.pose_optimize(*args, CAM, rounds=rounds, iters_per_round=5)
+    ref = pose_opt.pose_optimize_plain(*args, CAM, rounds=rounds,
+                                       iters_per_round=5)
+    torch.cuda.synchronize()
+    assert kernels.counts()["pose_lm"] == before + 1
+    work = pose_opt.pose_lm_work(*args, CAM, rounds=rounds,
+                                 iters_per_round=5).cpu()
+    assert work.shape == (rounds, 2)
+    assert bool(((work[:, 0] >= 1) & (work[:, 0] <= 5)).all()), work
+    assert int(work[0, 1]) == int(args[-1].sum()), work
+    d = se3.log(se3.compose(out.pose, se3.inverse(ref.pose))).cpu()
+    assert d[:3].abs().max() <= 1e-5 and d[3:].abs().max() <= 1e-5, d
+    flips = (out.inliers != ref.inliers).cpu().numpy()
+    assert flips.mean() <= 1e-3
+    if flips.any():
+        pose, pts, uv, ur, inv_s2, valid = args
+        pred = _project(ref.pose, pts)
+        r = torch.cat([uv, ur[:, None]], -1) - pred
+        r[:, 2] = torch.where(ur > 0, r[:, 2], torch.zeros_like(ur))
+        chi2 = ((r * r).sum(-1) * inv_s2).cpu().numpy()
+        th = np.where(ur.cpu().numpy() > 0, 7.815, 5.991)
+        assert np.all(np.abs(chi2[flips] - th[flips]) <= 1e-4 * th[flips])
+    assert int(out.num_inliers) == int(out.inliers.sum())
+    assert abs(float(out.final_cost) - float(ref.final_cost)) <= 1e-4 * float(
+        ref.final_cost)
+
+
+def _ba_problem(seed=0, K=32, P=1500, N=1000):
+    """A window BA at the main path's shapes: 32 keyframes (4 fixed, 2
+    padding rows), 1000 feature slots each, points in a 2048 bucket."""
+    g = np.random.default_rng(seed)
+    Q = 2048
+    pts = torch.from_numpy(np.stack([g.uniform(-2, 2, Q), g.uniform(-1.5, 1.5, Q),
+                                     g.uniform(3, 8, Q)], -1).astype(np.float32))
+    poses = se3.exp(torch.from_numpy(np.stack(
+        [[0, 0.01 * k, 0, 0.05 * k, 0, 0] for k in range(K)]).astype(np.float32)))
+    obs_pt = np.full((K, N), -1, np.int32)
+    for k in range(K - 2):
+        sel = g.permutation(P)[:N]
+        seen = g.uniform(size=N) < 0.8
+        obs_pt[k, seen] = sel[seen]
+    obs_pt[3, :10] = obs_pt[3, 10:20]  # two features on one landmark
+    pt = torch.from_numpy(np.clip(obs_pt, 0, Q - 1)).long()
+    uvr = _project(poses[:, None], pts[pt]) + torch.from_numpy(
+        g.normal(0, 0.5, (K, N, 3)).astype(np.float32))
+    bad = torch.from_numpy(g.uniform(size=(K, N)) < 0.05)
+    uvr[..., :2][bad] += 30.0
+    ur = torch.where(torch.from_numpy(g.uniform(size=(K, N)) < 0.6),
+                     uvr[..., 2], torch.full((K, N), -1.0))
+    fixed = torch.zeros(K, dtype=torch.bool)
+    fixed[-6:] = True
+    valid = torch.zeros(Q, dtype=torch.bool)
+    valid[:P] = True
+    frozen = torch.from_numpy(g.uniform(size=Q) < 0.05) | ~valid
+    pose0 = se3.retract(poses, torch.from_numpy(
+        g.normal(0, 0.005, (K, 6)).astype(np.float32)))
+    return ba.BAProblem(
+        kf_pose=pose0, kf_fixed=fixed, obs_uv=uvr[..., :2].contiguous(),
+        obs_ur=ur.contiguous(), obs_pt=torch.from_numpy(obs_pt),
+        obs_inv_s2=torch.from_numpy((1.0 / 1.44 ** g.integers(0, 8, (K, N)))
+                                    .astype(np.float32)),
+        pt_pos=pts + torch.from_numpy(g.normal(0, 0.02, (Q, 3))
+                                      .astype(np.float32)),
+        pt_valid=valid, pt_frozen=frozen)
+
+
+def test_ba_assembly_kernel_matches_plain():
+    """K5: every entry of Hpp, g_p, Hll|g_l, T, the cost and chi2 within
+    1e-4 x the largest magnitude of its array (f32 atomics sum in no fixed
+    order, and the kernel contracts products into FMAs). g_p, the one sum
+    that cancels, may instead lie no further from the same assembly
+    computed in f64 than twice the plain version."""
+    dev = _card()
+    p = ba.BAProblem(*(t.to(dev) for t in _ba_problem()))
+    p64 = ba.BAProblem(*(t.double() if t.is_floating_point() else t
+                         for t in p))
+    obs_ok = (p.obs_pt >= 0) & p.pt_valid[p.obs_pt.clamp(min=0).long()]
+
+    def close(k, r):
+        return bool((k - r).abs().max() <= 1e-4 * r.abs().max())
+
+    for use_huber in (True, False):
+        args = (p.kf_pose, p.pt_pos, p, obs_ok, CAM, use_huber)
+        out = ba.ba_assemble(*args)
+        ref = ba.ba_assemble_plain(*args)
+        for name, a, b in zip(("Hpp", "g_p", "Hll|g_l", "T"), out, ref):
+            assert a.shape == b.shape, name
+            assert name == "g_p" or close(a, b), name
+        if not close(out[1], ref[1]):
+            exact = ba.ba_assemble_plain(p64.kf_pose, p64.pt_pos, p64,
+                                         obs_ok, CAM, use_huber)[1]
+            e_k = (out[1].double() - exact).abs().max()
+            e_p = (ref[1].double() - exact).abs().max()
+            assert e_k <= max(1e-4 * exact.abs().max(), 2 * e_p), "g_p"
+        for a, b in zip(ba.ba_cost(*args), ba.ba_cost_plain(*args)):
+            assert close(a.reshape(-1), b.reshape(-1))
+
+
+def test_window_ba_with_kernel_matches_plain_assembly(monkeypatch):
+    """The whole dense-Schur solve with K5 against the same solve with the
+    plain assembly, both on the card: poses within 1e-4 m / 1e-4 rad."""
+    dev = _card()
+    p = ba.BAProblem(*(t.to(dev) for t in _ba_problem(1)))
+    before = kernels.counts()["ba_assemble"]
+    out = ba.ba_solve(p, CAM, iters=3, dense_schur=True)
+    assert kernels.counts()["ba_assemble"] == before + 3
+    monkeypatch.setattr(ba, "ba_assemble", ba.ba_assemble_plain)
+    monkeypatch.setattr(ba, "ba_cost", ba.ba_cost_plain)
+    ref = ba.ba_solve(p, CAM, iters=3, dense_schur=True)
+    d = se3.log(se3.compose(out.kf_pose, se3.inverse(ref.kf_pose))).cpu()
+    assert d[:, :3].abs().max() <= 1e-4 and d[:, 3:].abs().max() <= 1e-4
+    assert float(out.final_cost) < float(out.initial_cost)
+    assert (out.obs_inlier == ref.obs_inlier).float().mean() >= 0.999

@@ -51,7 +51,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 def test_every_kernel_source_exists():
     for name, (src, _) in kernels.SOURCES.items():
         assert os.path.exists(os.path.join(kernels.CSRC_DIR, src)), name
-    assert set(kernels.LAUNCHES) == {"hamming_best2", "fast", "orb_desc"}
+    assert set(kernels.LAUNCHES) == {"hamming_best2", "fast", "orb_desc",
+                                     "pose_lm", "ba_assemble", "ba_cost"}
 
 
 def test_empty_frame_and_scale_tables_match_jax():
@@ -74,14 +75,27 @@ def _cfg(**kw):
 
 
 @pytest.mark.parametrize("setting", [
-    dict(pipelined=True), dict(enable_local_ba=True),
+    dict(pipelined=True), dict(enable_local_ba=True, pipelined=True),
     dict(enable_loop_closing=True), dict(local_map_window=4),
+    dict(local_ba_cg_iters=30),
     dict(depth_encoding="log8"), dict(image_encoding="dct"),
     dict(descriptor_pattern="learned"),
 ])
 def test_unported_settings_raise(setting):
     with pytest.raises(NotImplementedError):
         Tracker(_cfg(**setting), device="cpu")
+
+
+def test_local_mapping_is_ported():
+    """Synchronous local mapping (the bench's `enable_local_ba=True`) builds
+    its mapper, which starts with no deferred product."""
+    t = Tracker(_cfg(enable_local_ba=True), device="cpu")
+    lm = t.local_mapper
+    assert lm is not None and lm.n_ba == 0
+    assert all(p is None for p in (lm._pending_tri, lm._pending_fuse,
+                                   lm._pending_ratio, lm._pending_ba_erase,
+                                   lm._pending_tcp))
+    assert Tracker(_cfg(), device="cpu").local_mapper is None
 
 
 def test_device_defaults_to_the_card():

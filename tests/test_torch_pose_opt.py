@@ -1,6 +1,11 @@
 """Port parity: pose-only LM against the JAX package, and the analytic
 Jacobian against automatic differentiation.
 
+The JAX parity goes through `pose_optimize_plain`, the plain version of
+kernel K4; `pose_optimize` on CPU tensors is that same plain version (on
+CUDA tensors it launches K4, held against the plain version on the card by
+tests/test_torch_kernels_gpu.py and chip_smoke.py).
+
 Tolerance: the optimized pose within 1e-4 m / 1e-4 rad of JAX's on the same
 inputs (f32 arithmetic in another order; the analytic Jacobian replaces
 jacfwd), inlier sets equal.
@@ -51,9 +56,9 @@ def test_pose_optimize_matches_jax(seed, rounds, iters):
     tc = tproj.CameraIntrinsics.create(FX, FX, CX, CY, BF)
     ref = jpo.pose_optimize(*(jnp.asarray(a) for a in args), jc,
                             rounds=rounds, iters_per_round=iters)
-    out = tpo.pose_optimize(*(torch.from_numpy(np.ascontiguousarray(a))
-                              for a in args), tc, rounds=rounds,
-                            iters_per_round=iters)
+    out = tpo.pose_optimize_plain(
+        *(torch.from_numpy(np.ascontiguousarray(a)) for a in args), tc,
+        rounds=rounds, iters_per_round=iters)
     d = np.asarray(jse3.log(jse3.compose(
         jnp.asarray(out.pose.numpy()), jse3.inverse(ref.pose))))
     assert np.abs(d[:3]).max() <= 1e-4 and np.abs(d[3:]).max() <= 1e-4, d
@@ -61,6 +66,20 @@ def test_pose_optimize_matches_jax(seed, rounds, iters):
     assert int(out.num_inliers) == int(ref.num_inliers) > 250
     # and the optimum is the truth to within the noise
     assert np.abs(out.pose.numpy()[4:] - gt[4:]).max() < 0.02
+
+
+def test_pose_optimize_on_cpu_is_the_plain_version():
+    from orb_slam2_refactored_tpu_torch import kernels
+
+    args, _ = _problem(4)
+    t_args = [torch.from_numpy(np.ascontiguousarray(a)) for a in args]
+    tc = tproj.CameraIntrinsics.create(FX, FX, CX, CY, BF)
+    before = kernels.counts()["pose_lm"]
+    out = tpo.pose_optimize(*t_args, tc, rounds=4, iters_per_round=5)
+    ref = tpo.pose_optimize_plain(*t_args, tc, rounds=4, iters_per_round=5)
+    for a, b in zip(out, ref):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert kernels.counts()["pose_lm"] == before  # no kernel launched
 
 
 def test_analytic_jacobian_matches_jacfwd():
