@@ -7,9 +7,11 @@ Phases (any failure raises and the script exits non-zero):
     kernel from `orb_slam2_refactored_tpu_torch/csrc` (one nvcc per source,
     all started together) and print each one's ptxas resource usage;
  2. hold K2 and K3 against their plain PyTorch versions on the card, on
-    the 8 pyramid levels of the first frame, and time both with CUDA
-    events; drive the step's reference-keyframe fallback branch (local BA
-    off);
+    the 8 pyramid levels of the first frame and its 1000 keypoints, as
+    extraction calls them (one call each for every level; K2 with the
+    per-cell rank rounds), and each level alone; time both with CUDA
+    events; drive the step's
+    reference-keyframe fallback branch (local BA off);
  3. the main paths, each with every launch counter set to 0 just before
     and read just after:
     a. local BA off (the path of the first slice): the first 60 frames of
@@ -18,14 +20,19 @@ Phases (any failure raises and the script exits non-zero):
     b. local BA on (the bench's own setting): all 120 frames, with
        triangulation, fusion, culling and the dense-Schur window BA after
        every keyframe.
-    Each checks ATE against the 3 cm gate, that no frame was lost and that
-    every kernel of its path launched; (b) also that window BA ran at every
-    keyframe after the second, and prints the keyframe stages' times.
+    Each checks ATE against the 3 cm gate, that no frame was lost, that
+    every kernel of its path launched and that K2 and K3 launched once a
+    frame; (b) also that window BA ran at every keyframe after the second,
+    and prints the keyframe stages' times.
  4. every kernel against its plain version on the arguments the main path
-    gave it, timed with CUDA events: K1 and K4 on the calls of one more
-    tracked frame (and the last fallback frame), K1's pair gate on one
-    triangulation, K5 on one window BA at its real point bucket (and the
-    whole window BA with K5 against the plain assembly).
+    gave it, timed with CUDA events: K1, K2, K3 and K4 on the calls of one
+    more tracked frame (K1 and K4 also on the last fallback frame), K1's
+    pair gate on one triangulation, K5 on one window BA at its real point
+    bucket (and the whole window BA with K5 against the plain assembly).
+ 5. torch.profiler windows, after every agreement check: K2's and K3's
+    device time on frame 0; extraction with the rank rounds in K2 against
+    extraction with the plain rank rounds on the card, on the same 20
+    frames; with --profile, a frame's time broken down.
 The line before the last is a JSON object with one entry per kernel; the
 last line is `{"ok": true, "device": {...}}`.
 """
@@ -141,103 +148,171 @@ def bound_ms(nbytes, ops):
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_fast(levels):
-    from orb_slam2_refactored_tpu_torch.ops import fast
-    from orb_slam2_refactored_tpu_torch.ops.orb import EDGE_MARGIN
+def profiled_ms(fn, reps):
+    """Mean device time of one call from torch.profiler's device rows (the
+    card's own kernel and memset times, without the host's issue gaps),
+    and the names of those rows."""
+    from torch.profiler import ProfilerActivity, profile
 
-    err, ms, plain_ms, nbytes, ops = 0.0, 0.0, 0.0, 0, {}
-    for lvl in levels:
-        h, w = lvl.shape
-        k = fast.detect_two_threshold(lvl, 20.0, 7.0, margin=EDGE_MARGIN)
-        p = fast.detect_two_threshold_plain(lvl, 20.0, 7.0, margin=EDGE_MARGIN)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
-        e = float((k - p).abs().max())
-        print(f"  K2 fast {h}x{w}: max_abs_err {e} corners {int((k > 0).sum())}")
-        err = max(err, e)
-        ms += cuda_time_ms(lambda: fast.detect_two_threshold(
-            lvl, 20.0, 7.0, margin=EDGE_MARGIN), 50)
-        plain_ms += cuda_time_ms(lambda: fast.detect_two_threshold_plain(
-            lvl, 20.0, 7.0, margin=EDGE_MARGIN), 10)
-        # f32 image in, f32 response out. Each pixel off the 3-px border:
-        # 16 differences, the 16 nine-long arc minima of the bright test and
-        # maxima of the dark one at 4 ops a window (the doubling cascade of
-        # the JAX code), 2 x 15 to reduce the arcs, a negation, the max of
-        # the two and the initial-threshold test (2): 178. Every pixel: the
-        # cell's threshold, subtract and clamp (3), and the NMS's 8 maxima,
-        # the 1e-9 floor and the compare (10).
-        nbytes += h * w * 8
-        add_ops(ops, f32=178 * (h - 6) * (w - 6) + 13 * h * w)
-    assert err == 0.0, f"K2 disagrees with its plain version: {err}"
-    return err, ms, plain_ms, nbytes, ops
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    us = sum(e.self_device_time_total for e in rows)
+    return us / 1e3 / reps, [
+        f"{e.key[:48]} x{e.count // reps} "
+        f"{e.self_device_time_total / reps:.2f} us" for e in rows]
 
 
-def level_keypoints(levels, extractor):
+def check_fast(levels, ks, tag, timed=False):
+    """K2 against its plain version on one frame's pyramid: the one call
+    over every level, as extraction makes it, equal to the plain version
+    exactly in every score plane, raw and pos, and so in every level's
+    selected (ys, xs, response, valid); then each level alone through the
+    one-level `detect_two_threshold`. With `timed`, CUDA events time the
+    call and the plain version, and the bound is counted."""
     from orb_slam2_refactored_tpu_torch.ops import fast
     from orb_slam2_refactored_tpu_torch.ops.orb import (
-        EDGE_MARGIN, select_spread_topk)
+        EDGE_MARGIN, topk_from_ranks)
 
-    out = []
-    for l, lvl in enumerate(levels):
+    def call():
+        return fast.detect_and_rank(levels, 20.0, 7.0, ks, margin=EDGE_MARGIN)
+
+    def plain():
+        return fast.detect_and_rank_plain(levels, 20.0, 7.0, ks,
+                                          margin=EDGE_MARGIN)
+
+    out, ref = call(), plain()
+    torch.cuda.synchronize()
+    err, nbytes, ops, n_rounds = 0.0, 0, {}, 0
+    for lvl, k, a, b in zip(levels, ks, out, ref):
         h, w = lvl.shape
-        score = fast.detect_two_threshold_plain(
-            lvl, 20.0, 7.0, margin=EDGE_MARGIN)
-        ys, xs, _, _ = select_spread_topk(score, extractor.budgets[l])
-        ys = torch.clamp(ys, EDGE_MARGIN, h - 1 - EDGE_MARGIN).to(torch.int32)
-        xs = torch.clamp(xs, EDGE_MARGIN, w - 1 - EDGE_MARGIN).to(torch.int32)
-        out.append((lvl, ys, xs))
-    return out
+        for x, y in zip(a, b):
+            assert x.dtype == y.dtype and x.shape == y.shape, (h, w)
+            err = max(err, float((x.double() - y.double()).abs().max())
+                      if x.numel() else 0.0)
+        sel = [bool(torch.equal(x, y)) for x, y in zip(
+            topk_from_ranks(a[1], a[2], k, h, w),
+            topk_from_ranks(b[1], b[2], k, h, w))]
+        one = fast.detect_two_threshold(lvl, 20.0, 7.0, margin=EDGE_MARGIN)
+        e1 = float((one - b[0]).abs().max())
+        R, C = a[1].shape
+        n_rounds += R
+        print(f"  K2 {tag} {h}x{w}: corners {int((a[0] > 0).sum())}, "
+              f"{R} rank rounds x {C} cells, (ys, xs, resp, valid) equal "
+              f"{sel}, one-level call max_abs_err {e1}")
+        assert all(sel), f"K2 selection differs on {h}x{w}"
+        err = max(err, e1)
+        # f32 image in, f32 score plane and the rounds' (raw, pos) out.
+        # Each pixel off the 3-px border: 16 differences, the 16 nine-long
+        # arc minima of the bright test and maxima of the dark one at 4 ops
+        # a window (the doubling cascade), 2 x 15 to reduce the arcs, a
+        # negation, the max of the two and the initial-threshold test (2):
+        # 178. Every pixel: the cell's threshold, subtract and clamp (3),
+        # the NMS's 8 maxima, the 1e-9 floor and the compare (10). Each rank
+        # round of a cell: an argmax over its 1024 pixels, a value compare
+        # (f32) and an index select (int32) each.
+        nbytes += h * w * 8 + R * C * 8
+        add_ops(ops, f32=178 * (h - 6) * (w - 6) + 13 * h * w + R * C * 1024,
+                int32=R * C * 1024)
+    print(f"  K2 {tag}: {len(levels)} levels, {n_rounds} rank rounds, "
+          f"max_abs_err {err}")
+    assert err == 0.0, f"K2 disagrees with its plain version: {err}"
+    if not timed:
+        return err
+    return err, cuda_time_ms(call, 50), cuda_time_ms(plain, 5), nbytes, ops
 
 
-def check_orb(kps):
+def level_keypoints(levels, ks):
+    """Every level's clamped (ys, xs) as extraction selects them (plain
+    versions), concatenated in budget order."""
+    from orb_slam2_refactored_tpu_torch.ops import fast
+    from orb_slam2_refactored_tpu_torch.ops.orb import (
+        EDGE_MARGIN, topk_from_ranks)
+
+    ys_all, xs_all = [], []
+    for lvl, k, (_, raw, pos) in zip(levels, ks, fast.detect_and_rank_plain(
+            levels, 20.0, 7.0, ks, margin=EDGE_MARGIN)):
+        h, w = lvl.shape
+        ys, xs, _, _ = topk_from_ranks(raw, pos, k, h, w)
+        ys_all.append(torch.clamp(ys, EDGE_MARGIN, h - 1 - EDGE_MARGIN))
+        xs_all.append(torch.clamp(xs, EDGE_MARGIN, w - 1 - EDGE_MARGIN))
+    return (torch.cat(ys_all).to(torch.int32),
+            torch.cat(xs_all).to(torch.int32))
+
+
+def check_orb(levels, ys, xs, ks, tag, timed=False):
+    """K3 against its plain version on one frame's keypoints: the one
+    launch over every level's keypoints, as extraction makes it, with
+    descriptor bits >= 99.9 % and angle bins >= 99 % equal (the moments sum
+    in another order); each level's slice also through the one-level
+    `angles_and_descriptors_raw`, which must equal the one-launch result.
+    With `timed`, CUDA events time the launch and the plain version, and
+    the bound is counted."""
     from orb_slam2_refactored_tpu_torch.ops import orb
 
-    worst_ang, bit_eq, bin_eq, n_kp = 0.0, [], [], 0
-    ms, plain_ms, nbytes, ops = 0.0, 0.0, 0, {}
+    def call():
+        return orb.angles_and_descriptors_levels(levels, ys, xs, ks)
+
+    def plain():
+        return orb.angles_and_descriptors_levels_plain(levels, ys, xs, ks)
+
+    ak, dk = call()
+    ap, dp = plain()
+    torch.cuda.synchronize()
+    d = torch.remainder(ak - ap + math.pi, 2 * math.pi) - math.pi
+    worst_ang = float(d.abs().max())
+    xor = torch.bitwise_xor(dk, dp).cpu().numpy().view(np.uint8)
+    bits = float(1.0 - np.unpackbits(xor).mean())
+    scale = orb.N_ANGLE_BINS / (2 * math.pi)
+    bk = torch.floor((ak + math.pi) * scale).long() % orb.N_ANGLE_BINS
+    bp = torch.floor((ap + math.pi) * scale).long() % orb.N_ANGLE_BINS
+    bins = float((bk == bp).float().mean())
     moment_px = int(orb.circular_patch_masks()[0].sum())
     r = orb.HALF_PATCH + 3
-    win = torch.arange(-r, r + 1, device=kps[0][0].device)
-    for lvl, ys, xs in kps:
+    win = torch.arange(-r, r + 1, device=ys.device)
+    nbytes, ops, start = 0, {}, 0
+    for lvl, K in zip(levels, ks):
         h, w = lvl.shape
-        K = ys.shape[0]
-        ak, dk = orb.angles_and_descriptors_raw(lvl, ys, xs)
-        ap, dp = orb.angles_and_descriptors_plain(lvl, ys, xs)
-        torch.cuda.synchronize()
-        d = torch.remainder(ak - ap + math.pi, 2 * math.pi) - math.pi
-        worst_ang = max(worst_ang, float(d.abs().max()))
-        xor = torch.bitwise_xor(dk, dp).cpu().numpy().view(np.uint8)
-        bit_eq.append(1.0 - np.unpackbits(xor).mean())
-        scale = orb.N_ANGLE_BINS / (2 * math.pi)
-        bk = torch.floor((ak + math.pi) * scale).long() % orb.N_ANGLE_BINS
-        bp = torch.floor((ap + math.pi) * scale).long() % orb.N_ANGLE_BINS
-        bin_eq.append(float((bk == bp).float().mean()))
-        n_kp += K
-        print(f"  K3 orb {h}x{w} K={K}: angle max_abs_err {float(d.abs().max()):.3g} "
-              f"bits equal {bit_eq[-1]:.5f} bins equal {bin_eq[-1]:.4f}")
-        ms += cuda_time_ms(lambda: orb.angles_and_descriptors_raw(lvl, ys, xs),
-                           50)
-        plain_ms += cuda_time_ms(
-            lambda: orb.angles_and_descriptors_plain(lvl, ys, xs), 10)
+        sl = slice(start, start + K)
+        start += K
+        a1, d1 = orb.angles_and_descriptors_raw(lvl, ys[sl], xs[sl])
+        same = bool(torch.equal(a1, ak[sl]) and torch.equal(d1, dk[sl]))
+        print(f"  K3 {tag} {h}x{w} K={K}: one-level launch equal {same}")
+        assert same, f"K3 one-level launch differs on {h}x{w}"
         # bytes: the level's pixels under the union of the 37x37 windows
         # (f32), the coordinates in, the angle and 8 descriptor words out
         covered = torch.zeros((h, w), dtype=torch.bool, device=lvl.device)
-        covered[(ys[:, None, None] + win[None, :, None]).long(),
-                (xs[:, None, None] + win[None, None, :]).long()] = True
+        covered[(ys[sl, None, None] + win[None, :, None]).long(),
+                (xs[sl, None, None] + win[None, None, :]).long()] = True
         nbytes += int(covered.sum()) * 4 + K * 8 + K * 36
         # f32 per keypoint: the separable 7-tap blur (37x31 then 31x31
         # outputs, one FMA a tap), two moment FMAs per pixel of the
         # circular patch, a subtract and a compare per test
         add_ops(ops, f32=K * ((37 * 31 + 31 * 31) * 7 + 2 * moment_px
                               + 256 * 2))
-    bits = float(np.mean(bit_eq))
-    bins = float(np.mean(bin_eq))
+    print(f"  K3 {tag}: {ys.shape[0]} keypoints on {len(levels)} levels, "
+          f"angle max_abs_err {worst_ang:.3g} rad, bits equal {bits:.5f}, "
+          f"bins equal {bins:.4f}")
     assert bits >= 0.999, f"K3 descriptor bits equal {bits} < 0.999"
     assert bins >= 0.99, f"K3 angle bins equal {bins} < 0.99"
-    return worst_ang, ms, plain_ms, nbytes, ops, bits, bins
+    if not timed:
+        return worst_ang
+    return (worst_ang, cuda_time_ms(call, 50), cuda_time_ms(plain, 5),
+            nbytes, ops)
 
 
 def _clone(v):
     if isinstance(v, torch.Tensor):
         return v.clone()
+    if isinstance(v, list):
+        return [_clone(x) for x in v]
     if isinstance(v, tuple) and hasattr(v, "_fields"):
         return type(v)(*(_clone(x) for x in v))
     return v
@@ -333,11 +408,38 @@ def check_hamming(cases, per_frame):
     return err, ms, plain_ms, nbytes, ops
 
 
+def pose_cost_f64(pose, inliers, a):
+    """The final cost of the pose LM (chi2 summed over `inliers`, no
+    Huber) at `pose`, computed in f64 by the plain residuals."""
+    from orb_slam2_refactored_tpu_torch.optim import pose_opt
+
+    has_ur = a["obs_ur"] > 0
+    obs_uvr = torch.cat([a["obs_uv"], torch.where(
+        has_ur, a["obs_ur"], torch.zeros_like(a["obs_ur"]))[:, None]], -1)
+    r, _ = pose_opt._residuals(pose.double(), a["pts_w"].double(),
+                               obs_uvr.double(), has_ur, a["cam"])
+    chi2 = (r * r).sum(-1) * a["inv_sigma2"].double()
+    return float(chi2[inliers].sum())
+
+
 def check_pose_lm(cases, per_frame):
     """K4 against its plain version on the arguments the step really passed
-    it: pose within 1e-5 m / 1e-5 rad, inliers >= 99.9 % equal with a flip
-    only where chi2 lies within 1e-4 relative of its threshold. Time and
-    bound the calls of one tracked frame (`per_frame`)."""
+    it: pose within 1e-5 m / 1e-5 rad, or else the same minimum one LM step
+    apart (pose within 1e-4 m / 3e-5 rad, no inlier flip, and the cost of
+    the two poses, both evaluated in f64 by the plain residuals over the
+    plain version's inliers, within 1e-5 relative of each other); inliers
+    >= 99.9 % equal with a flip only where chi2 lies within 1e-4 relative
+    of its threshold. Time and bound the calls of one tracked frame
+    (`per_frame`).
+
+    Why "one LM step apart": the LM takes a step only where its f32 cost
+    sum drops, and stops once the relative gain is below 1e-5. Near
+    convergence K4 and the plain version sum that cost in different
+    orders, so one of them can take a last step the other refuses, and they
+    stop one step apart along a direction the cost barely constrains. On
+    the local-BA path, whose map varies in the last bits from run to run
+    (f32 atomics), that put the two 1.5e-5 to 6.7e-5 m and up to 2.0e-5 rad
+    apart on the recorded frame in about half of the runs (on an H100)."""
     from orb_slam2_refactored_tpu_torch.geometry import se3
     from orb_slam2_refactored_tpu_torch.optim import pose_opt
 
@@ -361,11 +463,19 @@ def check_pose_lm(cases, per_frame):
         near = (chi2 - th).abs() <= 1e-4 * th
         bad_flips = int((flips & ~near).sum())
         live = [(int(i), int(n)) for i, n in pose_opt.pose_lm_work(**a)]
+        c_k, c_p = (pose_cost_f64(pose, p.inliers, a)
+                    for pose in (k.pose, p.pose))
+        cost_rel = abs(c_k - c_p) / max(abs(c_p), 1e-300)
         print(f"  K4 pose_lm {name}: rot {rot:.3g} rad trans {trans:.3g} m, "
+              f"f64 cost at the two poses {c_k:.9g} vs {c_p:.9g} "
+              f"(relative {cost_rel:.3g}), "
               f"inliers {int(k.num_inliers)} vs {int(p.num_inliers)}, "
               f"flips {int(flips.sum())}, (iterations, observations) a "
               f"round {live}")
-        assert rot <= 1e-5 and trans <= 1e-5, (name, rot, trans)
+        one_step = (rot <= 3e-5 and trans <= 1e-4 and cost_rel <= 1e-5
+                    and not bool(flips.any()))
+        assert (rot <= 1e-5 and trans <= 1e-5) or one_step, \
+            (name, rot, trans, cost_rel)
         assert bad_flips == 0, f"K4 {name}: {bad_flips} flips off threshold"
         n_flip += int(flips.sum())
         n_obs += flips.numel()
@@ -516,14 +626,20 @@ def check_fallback(imgs, depths, gt, device, n=12):
 
 
 def record_tracked_frame(tracker, imgs, depths):
-    """The K1 and K4 calls of one more frame tracked after the main path
-    (frame 0 again: the orbit closes), with the arguments they were given."""
-    k1, k4 = [], []
-    with recording_k1(k1), recording_k4(k4):
+    """The K1, K2, K3 and K4 calls of one more frame tracked after the main
+    path (frame 0 again: the orbit closes), with the arguments they were
+    given."""
+    from orb_slam2_refactored_tpu_torch.ops import fast, orb
+
+    k1, k2, k3, k4 = [], [], [], []
+    with recording_k1(k1), recording_k4(k4), \
+            recording(k2, (fast, "detect_and_rank")), \
+            recording(k3, (orb, "angles_and_descriptors_levels")):
         tracker.track_rgbd(imgs[0], depths[0].astype(np.float32))
     info = tracker.track_info[-1]
     assert not info.get("lost") and not info.get("ref_fallback"), info
-    return k1, k4
+    assert len(k2) == len(k3) == 1, (len(k2), len(k3))
+    return k1, k2[0], k3[0], k4
 
 
 def record_mapping(tracker):
@@ -596,6 +712,8 @@ def run_main_path(imgs, depths, gt, device, local_ba):
     for k, v in launches.items():
         if local_ba or not k.startswith("ba_"):
             assert v > 0, f"kernel {k} never launched on the path ({tag})"
+    for k in ("fast", "orb_desc"):  # one extraction call of each a frame
+        assert launches[k] == len(imgs), (k, launches[k], len(imgs))
     if local_ba:
         assert n_ba >= created - 2 >= 1, (n_ba, created)
     return stats, tracker
@@ -674,12 +792,77 @@ def profile_steps(tracker, imgs, depths, n_split=10, n_prof=20, n_kf=3):
         tracker.cfg.kf_max_interval = keep
 
 
+def compare_extraction(imgs, device, n=20):
+    """Extraction with the rank rounds inside K2 against extraction with
+    the rank rounds through the plain `cell_rank_rounds` on the card (K2
+    then gives the score planes only), on the same `n` frames, in turns
+    (plain, fused, fused, plain): host clock around synchronized frames,
+    then one torch.profiler window of each for the device time and the
+    device operations a frame. The two must select the same features."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from orb_slam2_refactored_tpu_torch.ops import fast, orb
+
+    ext = orb.OrbExtractor(480, 640, 1000, 1.2, 8)
+    frames = [torch.as_tensor(imgs[i], device=device) for i in range(n)]
+    fused = fast.detect_and_rank
+
+    def plain_ranking(levels, ini_th, min_th, ks, cell=30, margin=0,
+                      rank_cell=32, rank_rounds=4):
+        outs = fused(levels, ini_th, min_th, [0] * len(levels), cell, margin,
+                     rank_cell, rank_rounds)
+        return [(s,) + fast.cell_rank_rounds(s, k, rank_cell, rank_rounds)
+                for (s, _, _), k in zip(outs, ks)]
+
+    def run(variant):
+        fast.detect_and_rank = plain_ranking if variant == "plain" else fused
+        try:
+            out = [ext(f) for f in frames]
+            torch.cuda.synchronize()
+        finally:
+            fast.detect_and_rank = fused
+        return out
+
+    feats = {v: run(v) for v in ("plain", "fused")}  # warm-up
+    for a, b in zip(feats["plain"], feats["fused"]):
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), \
+            "the fused ranking selects other features"
+    wall = {"plain": [], "fused": []}
+    for v in ("plain", "fused", "fused", "plain"):
+        t0 = time.perf_counter()
+        run(v)
+        wall[v].append((time.perf_counter() - t0) * 1e3 / n)
+    res = {"frames": n}
+    for v in ("plain", "fused"):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run(v)
+            prof_wall = time.perf_counter() - t0
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        res[v] = {
+            "extract_ms": wall[v],
+            "device_ms_per_frame": sum(e.self_device_time_total
+                                       for e in rows) / 1e3 / n,
+            "device_ops_per_frame": sum(e.count for e in rows) / n,
+            "profiled_wall_ms_per_frame": prof_wall * 1e3 / n,
+        }
+        print(f"  extraction, {v} ranking, top device rows a frame:")
+        for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:6]:
+            print(f"    {e.self_device_time_total / 1e3 / n:8.4f} ms "
+                  f"{e.count / n:6.1f} calls  {e.key[:70]}")
+    print("extraction " + json.dumps(res))
+    return res
+
+
 def kernel_row(name, src, rep, launches, r):
     b_ms, b_by = bound_ms(r[3], r[4])
     return {"name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": launches, "max_abs_err": float(r[0]), "ms": r[1],
             "plain_ms": r[2], "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None}
+            "library_ms": None, "device_ms": r[5] if len(r) > 5 else None}
 
 
 def main():
@@ -722,8 +905,9 @@ def main():
     img0 = torch.as_tensor(imgs[0], device=device)
     levels = image_ops.build_pyramid(image_ops.to_gray(img0), cfg.n_levels,
                                      cfg.scale_factor)
-    fast_r = check_fast(levels)
-    orb_r = check_orb(level_keypoints(levels, ext))
+    fast_r = check_fast(levels, ext.budgets, "frame 0", timed=True)
+    kp0 = level_keypoints(levels, ext.budgets)
+    orb_r = check_orb(levels, *kp0, ext.budgets, "frame 0", timed=True)
     fb_k1, fb_k4 = check_fallback(imgs, depths, gt, device)
 
     # ---- phase 3: the main paths ----
@@ -732,7 +916,11 @@ def main():
     stats, tracker = run_main_path(imgs, depths, gt, device, local_ba=True)
 
     # ---- phase 4: every kernel on the arguments the main path gave it ----
-    frame_k1, frame_k4 = record_tracked_frame(tracker, imgs, depths)
+    frame_k1, frame_k2, frame_k3, frame_k4 = record_tracked_frame(
+        tracker, imgs, depths)
+    check_fast(frame_k2["levels"], frame_k2["ks"], "tracked frame")
+    check_orb(frame_k3["levels"], frame_k3["ys"], frame_k3["xs"],
+              frame_k3["counts"], "tracked frame")
     frame_k1 = name_k1_calls("tracked", frame_k1)
     frame_k4 = {f"tracked{i}": a for i, a in enumerate(frame_k4)}
     tri_k1, asm_call, solve_call = record_mapping(tracker)
@@ -743,6 +931,20 @@ def main():
                                            enumerate(fb_k4)}},
                            per_frame=frame_k4)
     asm_r, cost_r = check_ba(asm_call, solve_call)
+
+    # ---- phase 5: profiler windows, after every agreement check ----
+    from orb_slam2_refactored_tpu_torch.ops import fast, orb
+    from orb_slam2_refactored_tpu_torch.ops.orb import EDGE_MARGIN
+
+    k2_ms, k2_rows = profiled_ms(lambda: fast.detect_and_rank(
+        levels, 20.0, 7.0, ext.budgets, margin=EDGE_MARGIN), 20)
+    k3_ms, k3_rows = profiled_ms(lambda: orb.angles_and_descriptors_levels(
+        levels, *kp0, ext.budgets), 20)
+    print(f"K2 device time {k2_ms:.5f} ms a call: {k2_rows}")
+    print(f"K3 device time {k3_ms:.5f} ms a call: {k3_rows}")
+    fast_r += (k2_ms,)
+    orb_r += (k3_ms,)
+    compare_extraction(imgs, device)
     if args.profile:
         profile_steps(tracker, imgs, depths)
 
@@ -763,7 +965,8 @@ def main():
                    ref + "optim/ba.py:151", L["ba_cost"], cost_r),
     ]
     print(f"per frame: K1 = {', '.join(frame_k1)}; K4 = "
-          f"{', '.join(frame_k4)}; K2 and K3 = all 8 pyramid levels; "
+          f"{', '.join(frame_k4)}; K2 and K3 = one call each over all 8 "
+          "pyramid levels of frame 0; "
           "K5 = one LM iteration of one window BA")
     print(card)
     print(json.dumps({"kernels": rows}))

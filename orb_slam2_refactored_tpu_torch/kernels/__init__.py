@@ -150,6 +150,19 @@ def ptr(t: torch.Tensor):
     return ctypes.c_void_p(t.data_ptr())
 
 
+# levels a multi-level kernel (K2, K3) takes in its by-value table
+MAX_LEVELS = 16
+
+
+def ptr_array(ts):
+    """A C array of the tensors' data pointers."""
+    return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
+
+
+def int_array(values):
+    return (ctypes.c_int * len(values))(*values)
+
+
 def stream_of(t: torch.Tensor):
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 

@@ -1,10 +1,12 @@
 """FAST-9/16 corner strength, two-threshold cell fallback and 3x3 NMS.
 
-Port of `orb_slam2_refactored_tpu/ops/fast.py`. `detect_two_threshold`
-launches the hand-written CUDA kernel `csrc/fast.cu` on a CUDA tensor and
-runs the plain PyTorch version below on a CPU tensor. The arithmetic is f32
-subtract, min and max only, so the kernel, the plain version and JAX agree
-exactly.
+Port of `orb_slam2_refactored_tpu/ops/fast.py`. `detect_and_rank` runs
+them, the edge margin and the per-cell rank rounds of `select_spread_topk`
+on every pyramid level in one call of the hand-written CUDA kernel
+`csrc/fast.cu` on CUDA tensors, and the plain PyTorch version below on CPU
+tensors; `detect_two_threshold` is the same for one image without ranking.
+The arithmetic is f32 subtract, min and max only and ties go to the lowest
+index, so the kernel, the plain version and JAX agree exactly.
 """
 
 from __future__ import annotations
@@ -94,24 +96,125 @@ def detect_two_threshold_plain(img, ini_th: float, min_th: float,
     return _margin_mask(nms3x3(score), margin)
 
 
+RANK_CELL = 32  # the kernel's ranking tile: one block of 1024 pixels
+
+
+def n_cells(h: int, w: int, cell: int) -> int:
+    """(cell x cell) tiles covering a [h,w] level, ragged edges included."""
+    return -(-h // cell) * -(-w // cell)
+
+
+def n_rank_rounds(h: int, w: int, k: int, cell: int = RANK_CELL,
+                  rank_rounds: int = 4) -> int:
+    """Rank rounds of a [h,w] level with budget k: enough that rounds x
+    cells >= 6k candidates survive sparse occupancy (the JAX expression,
+    which floors)."""
+    return max(rank_rounds, -(-6 * k) // max(n_cells(h, w, cell), 1))
+
+
+def cell_rank_rounds(score, k: int, cell: int = RANK_CELL,
+                     rank_rounds: int = 4):
+    """The rank rounds of `ops/orb.py::select_spread_topk`: round r takes
+    each (cell x cell) tile's r-th best pixel (argmax, lowest in-tile index
+    on ties, the pick then set to -1). The level is zero-padded to whole
+    tiles. Returns raw f32[rounds, C] and pos int64[rounds, C] (in-tile
+    index, row-major); kernel K2 computes the same in shared memory."""
+    h, w = score.shape
+    ph, pw = (-h) % cell, (-w) % cell
+    sp = torch.nn.functional.pad(score, (0, pw, 0, ph))
+    hc, wc = (h + ph) // cell, (w + pw) // cell
+    C = hc * wc
+    tiles = sp.reshape(hc, cell, wc, cell).permute(0, 2, 1, 3).reshape(
+        C, cell * cell).clone()
+    cidx = torch.arange(C, device=score.device)
+    raws, poss = [], []
+    for _ in range(n_rank_rounds(h, w, k, cell, rank_rounds)):
+        am = torch.argmax(tiles, dim=1)
+        raws.append(tiles[cidx, am])
+        poss.append(am)
+        tiles[cidx, am] = -1.0
+    return torch.stack(raws), torch.stack(poss)
+
+
+def detect_and_rank_plain(levels, ini_th: float, min_th: float, ks,
+                          cell: int = 30, margin: int = 0,
+                          rank_cell: int = RANK_CELL, rank_rounds: int = 4):
+    """Plain PyTorch version of kernel K2 over several levels:
+    `detect_two_threshold_plain` and then `cell_rank_rounds` on each level
+    (no rank rounds where k is 0)."""
+    outs = []
+    for lvl, k in zip(levels, ks):
+        score = detect_two_threshold_plain(lvl, ini_th, min_th, cell, margin)
+        if k > 0:
+            raw, pos = cell_rank_rounds(score, k, rank_cell, rank_rounds)
+        else:
+            C = n_cells(*lvl.shape, rank_cell)
+            raw = torch.empty((0, C), dtype=torch.float32, device=lvl.device)
+            pos = torch.empty((0, C), dtype=torch.int64, device=lvl.device)
+        outs.append((score, raw, pos.to(torch.int32)))
+    return outs
+
+
+def detect_and_rank(levels, ini_th: float, min_th: float, ks,
+                    cell: int = 30, margin: int = 0,
+                    rank_cell: int = RANK_CELL, rank_rounds: int = 4):
+    """Two-threshold FAST with per-cell fallback, 3x3 NMS and the edge
+    margin (`DetectFAST` semantics) on every level of `levels`, then the
+    per-cell rank rounds of `select_spread_topk` for a level whose budget
+    in `ks` is above 0. Returns, per level, (score f32[h,w], raw
+    f32[rounds, C], pos int32[rounds, C]). One call of kernel `csrc/fast.cu`
+    for all the levels on CUDA tensors (which the caller holds until it has
+    run); the plain version on CPU tensors."""
+    if not levels[0].is_cuda:
+        return detect_and_rank_plain(levels, ini_th, min_th, ks, cell, margin,
+                                     rank_cell, rank_rounds)
+    n = len(levels)
+    if len(ks) != n:
+        raise ValueError(f"fast: {len(ks)} budgets for {n} levels")
+    if n > kernels.MAX_LEVELS:
+        raise ValueError(f"fast: {n} levels, the kernel takes at most "
+                         f"{kernels.MAX_LEVELS}")
+    if rank_cell != RANK_CELL:
+        raise ValueError(f"fast: the kernel ranks {RANK_CELL}-px cells, "
+                         f"not {rank_cell}")
+    for lvl in levels:
+        kernels.require(lvl, "fast level", torch.float32)
+        if lvl.dim() != 2:
+            raise ValueError("fast: each level must be [h, w]")
+    dev = levels[0].device
+    shapes = [tuple(lvl.shape) for lvl in levels]
+    cells = [n_cells(h, w, rank_cell) for h, w in shapes]
+    rounds = [n_rank_rounds(h, w, k, rank_cell, rank_rounds) if k > 0 else 0
+              for (h, w), k in zip(shapes, ks)]
+    npx = [h * w for h, w in shapes]
+    nrank = [r * c for r, c in zip(rounds, cells)]
+    nflags = sum(n_cells(h, w, cell) for h, w in shapes)
+    planes = torch.empty((2 * sum(npx),), dtype=torch.float32, device=dev)
+    raw = torch.empty((sum(nrank),), dtype=torch.float32, device=dev)
+    ints = torch.empty((nflags + sum(nrank),), dtype=torch.int32, device=dev)
+    fn = kernels.bind("fast", "fast_rank_levels",
+                      [kernels.CI] + [kernels.VP] * 5 + [kernels.CI] * 2
+                      + [kernels.CF] * 2 + [kernels.VP])
+    kernels.LAUNCHES["fast"] += 1
+    kernels.check(fn(n, kernels.ptr_array(levels),
+                     kernels.int_array([d for s in shapes for d in s]
+                                       + rounds),
+                     kernels.ptr(planes), kernels.ptr(ints), kernels.ptr(raw),
+                     cell, margin, float(ini_th), float(min_th),
+                     kernels.stream_of(levels[0])), "fast_rank_levels")
+    scores = planes[sum(npx):].split(npx)
+    raws = raw.split(nrank)
+    poss = ints[nflags:].split(nrank)
+    return [(s.view(h, w), r.view(nr, c), p.view(nr, c))
+            for s, r, p, (h, w), nr, c in zip(scores, raws, poss, shapes,
+                                              rounds, cells)]
+
+
 def detect_two_threshold(img, ini_th: float, min_th: float, cell: int = 30,
                          margin: int = 0):
     """Two-threshold FAST with per-cell fallback + 3x3 NMS (`DetectFAST`
-    semantics). CUDA tensor -> kernel `csrc/fast.cu`; CPU -> plain."""
+    semantics) on one image: `detect_and_rank` with a list of one and no
+    rank rounds (kernel `csrc/fast.cu` on CUDA, plain on CPU)."""
     if not img.is_cuda:
         return detect_two_threshold_plain(img, ini_th, min_th, cell, margin)
-    kernels.require(img, "fast img", torch.float32)
-    h, w = img.shape
-    hc, wc = -(-h // cell), -(-w // cell)
-    strength = torch.empty((h, w), dtype=torch.float32, device=img.device)
-    flags = torch.empty((hc * wc,), dtype=torch.int32, device=img.device)
-    out = torch.empty((h, w), dtype=torch.float32, device=img.device)
-    fn = kernels.bind("fast", "fast_two_threshold",
-                      [kernels.VP] * 4 + [kernels.CI] * 4 + [kernels.CF] * 2
-                      + [kernels.VP])
-    kernels.LAUNCHES["fast"] += 1
-    kernels.check(fn(kernels.ptr(img), kernels.ptr(strength),
-                     kernels.ptr(flags), kernels.ptr(out), h, w, cell, margin,
-                     float(ini_th), float(min_th), kernels.stream_of(img)),
-                  "fast_two_threshold")
-    return out
+    return detect_and_rank([img], ini_th, min_th, [0], cell, margin)[0][0]

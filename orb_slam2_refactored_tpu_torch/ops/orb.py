@@ -1,10 +1,12 @@
 """Multi-scale ORB feature extraction.
 
-Port of `orb_slam2_refactored_tpu/ops/orb.py`: 8-level pyramid, two-
-threshold FAST with NMS (kernel K2, `ops/fast.py`), rank-in-cell boosted
-top-k selection, and the fused in-window blur + IC angle + steered BRIEF
-(kernel K3, `csrc/orb_desc.cu`, wrapper `angles_and_descriptors_raw`).
-Descriptors are int32[K,8], bit-identical to the JAX package's uint32.
+Port of `orb_slam2_refactored_tpu/ops/orb.py`: 8-level pyramid, then one
+call of kernel K2 (`ops/fast.py`: two-threshold FAST, NMS and the per-cell
+rank rounds of every level), the rank-boosted global top-k of each level
+in plain torch (`topk_from_ranks`), and one call of kernel K3 (the fused
+in-window blur + IC angle + steered BRIEF of every level's keypoints,
+`csrc/orb_desc.cu`, wrapper `angles_and_descriptors_levels`). Descriptors
+are int32[K,8], bit-identical to the JAX package's uint32.
 
 Only the "fresh" BRIEF pattern and the in-window (raw) descriptor path that
 the JAX tracker runs are ported.
@@ -21,6 +23,7 @@ import torch
 from .. import kernels
 from . import fast as fast_ops
 from . import image as image_ops
+from .fast import cell_rank_rounds
 
 PATCH_SIZE = 31
 HALF_PATCH = 15
@@ -161,38 +164,41 @@ def _topk_lowest_index(key, k: int):
     return key[order], order
 
 
+@functools.lru_cache(maxsize=64)
+def _round_boost(rounds: int, rank_rounds: int, device_str: str):
+    """f32[rounds,1]: BIG x max(rank_rounds - r, 0), exact in f32; cached
+    so that a frame uploads nothing for it."""
+    b = [1e6 * float(max(rank_rounds - r, 0)) for r in range(rounds)]
+    return torch.tensor(b, dtype=torch.float32,
+                        device=torch.device(device_str))[:, None]
+
+
+def topk_from_ranks(raw, pos, k: int, h: int, w: int, cell: int = 32,
+                    rank_rounds: int = 4):
+    """The global top-k of `select_spread_topk` over the rank rounds'
+    candidates: key = BIG x (rank_rounds - r) + score for a corner of round
+    r (no boost past `rank_rounds`), -1 for a non-corner; the k largest
+    keys, equal keys lowest index first. Returns (ys, xs, scores, valid) of
+    length k; coordinates clamped into the level."""
+    C = raw.shape[1]
+    wc = -(-w // cell)
+    boost = _round_boost(raw.shape[0], rank_rounds, str(raw.device))
+    key = torch.where(raw > 0, boost + raw, torch.full_like(raw, -1.0))
+    topv, topi = _topk_lowest_index(key.reshape(-1), k)
+    c = topi % C
+    p = pos.reshape(-1)[topi].long()
+    ys = (c // wc) * cell + p // cell
+    xs = (c % wc) * cell + p % cell
+    return (torch.clamp(ys, max=h - 1), torch.clamp(xs, max=w - 1),
+            raw.reshape(-1)[topi], topv > 0)
+
+
 def select_spread_topk(score, k: int, cell: int = 32, rank_rounds: int = 4):
     """Pick k maxima of `score` [H,W] with spatial spread. Returns (ys, xs,
     scores, valid) of length k."""
     h, w = score.shape
-    ph, pw = (-h) % cell, (-w) % cell
-    sp = torch.nn.functional.pad(score, (0, pw, 0, ph))
-    hc, wc = (h + ph) // cell, (w + pw) // cell
-    C = hc * wc
-    tiles = sp.reshape(hc, cell, wc, cell).permute(0, 2, 1, 3).reshape(
-        C, cell * cell).clone()
-    rounds = max(rank_rounds, -(-6 * k) // max(C, 1))
-    cidx = torch.arange(C, device=score.device)
-    keys, raws, poss = [], [], []
-    big = 1e6
-    for r in range(rounds):
-        am = torch.argmax(tiles, dim=1)
-        mx = tiles[cidx, am]
-        b = float(max(rank_rounds - r, 0))
-        keys.append(torch.where(mx > 0, big * b + mx, torch.full_like(mx, -1.0)))
-        raws.append(mx)
-        poss.append(am)
-        tiles[cidx, am] = -1.0
-    key = torch.cat(keys)
-    raw = torch.cat(raws)
-    pos = torch.cat(poss)
-    topv, topi = _topk_lowest_index(key, k)
-    c = topi % C
-    p = pos[topi]
-    ys = (c // wc) * cell + p // cell
-    xs = (c % wc) * cell + p % cell
-    return (torch.clamp(ys, max=h - 1), torch.clamp(xs, max=w - 1),
-            raw[topi], topv > 0)
+    raw, pos = cell_rank_rounds(score, k, cell, rank_rounds)
+    return topk_from_ranks(raw, pos, k, h, w, cell, rank_rounds)
 
 
 # ---------------------------------------------------------------------------
@@ -228,30 +234,62 @@ def angles_and_descriptors_plain(lvl, ys, xs):
     return ang, pack_bits((va - vb) < 0)
 
 
-def angles_and_descriptors_raw(lvl, ys, xs):
-    """IC angle f32[K] and steered-BRIEF int32[K,8] for keypoints at integer
-    (ys, xs) of one pyramid level, from a 37x37 raw window blurred in-window.
-    CUDA tensor -> kernel `csrc/orb_desc.cu`; CPU -> plain version."""
-    if not lvl.is_cuda:
-        return angles_and_descriptors_plain(lvl, ys, xs)
+def angles_and_descriptors_levels_plain(levels, ys, xs, counts):
+    """Plain PyTorch version of kernel K3 over several levels: the
+    one-level plain version on each level's slice of (ys, xs)."""
+    outs = [angles_and_descriptors_plain(lvl, y, x) for lvl, y, x in
+            zip(levels, ys.split(list(counts)), xs.split(list(counts)))]
+    return torch.cat([a for a, _ in outs]), torch.cat([d for _, d in outs])
+
+
+def angles_and_descriptors_levels(levels, ys, xs, counts):
+    """IC angle f32[K] and steered-BRIEF int32[K,8] for keypoints at
+    integer (ys, xs) of several pyramid levels, from a 37x37 raw window
+    blurred in-window. (ys, xs) are int32[K], grouped by level: the first
+    counts[0] lie on levels[0], and so on. One launch of kernel
+    `csrc/orb_desc.cu` for every level on CUDA tensors; the plain version
+    on CPU tensors. The level tensors are held by the caller until the
+    kernel has run (it runs on their stream)."""
+    if not levels[0].is_cuda:
+        return angles_and_descriptors_levels_plain(levels, ys, xs, counts)
     K = ys.shape[0]
-    kernels.require(lvl, "orb level", torch.float32)
+    n = len(levels)
+    if len(counts) != n or sum(counts) != K:
+        raise ValueError(f"orb: counts {list(counts)} do not split {K} "
+                         f"keypoints over {n} levels")
+    if n > kernels.MAX_LEVELS:
+        raise ValueError(f"orb: {n} levels, the kernel takes at most "
+                         f"{kernels.MAX_LEVELS}")
+    for lvl in levels:
+        kernels.require(lvl, "orb level", torch.float32)
     kernels.require(ys, "orb ys", torch.int32, (K,))
     kernels.require(xs, "orb xs", torch.int32, (K,))
-    h, w = lvl.shape
-    tb = _tables(lvl.device)
-    ang = torch.empty((K,), dtype=torch.float32, device=lvl.device)
-    desc = torch.empty((K, 8), dtype=torch.int32, device=lvl.device)
-    fn = kernels.bind("orb_desc", "orb_angles_desc",
-                      [kernels.VP, kernels.CI, kernels.CI, kernels.VP,
+    dev = levels[0].device
+    tb = _tables(dev)
+    ang = torch.empty((K,), dtype=torch.float32, device=dev)
+    desc = torch.empty((K, 8), dtype=torch.int32, device=dev)
+    fn = kernels.bind("orb_desc", "orb_angles_desc_levels",
+                      [kernels.CI, kernels.VP, kernels.VP, kernels.VP,
                        kernels.VP, kernels.CI] + [kernels.VP] * 7)
     kernels.LAUNCHES["orb_desc"] += 1
-    kernels.check(fn(kernels.ptr(lvl), h, w, kernels.ptr(ys), kernels.ptr(xs),
-                     K, kernels.ptr(tb["gk"]), kernels.ptr(tb["xm"]),
+    kernels.check(fn(n, kernels.ptr_array(levels),
+                     kernels.int_array([d for lvl in levels for d in lvl.shape]
+                                       + list(counts)),
+                     kernels.ptr(ys), kernels.ptr(xs), K,
+                     kernels.ptr(tb["gk"]), kernels.ptr(tb["xm"]),
                      kernels.ptr(tb["ym"]), kernels.ptr(tb["pairs"]),
                      kernels.ptr(ang), kernels.ptr(desc),
-                     kernels.stream_of(lvl)), "orb_angles_desc")
+                     kernels.stream_of(levels[0])), "orb_angles_desc_levels")
     return ang, desc
+
+
+def angles_and_descriptors_raw(lvl, ys, xs):
+    """IC angle f32[K] and steered-BRIEF int32[K,8] for keypoints at integer
+    (ys, xs) of one pyramid level: `angles_and_descriptors_levels` with a
+    list of one (kernel `csrc/orb_desc.cu` on CUDA, plain on CPU)."""
+    if not lvl.is_cuda:
+        return angles_and_descriptors_plain(lvl, ys, xs)
+    return angles_and_descriptors_levels([lvl], ys, xs, [ys.shape[0]])
 
 
 # ---------------------------------------------------------------------------
@@ -291,29 +329,35 @@ class OrbExtractor:
         return self._extract_impl_pyr(img)[0]
 
     def _extract_impl_pyr(self, img) -> Tuple[OrbFeatures, List]:
+        """Pyramid, one K2 call (FAST, NMS, edge margin and the per-cell
+        rank rounds of every level), the global top-k of each level in
+        plain torch, then one K3 call for every level's keypoints."""
         img = image_ops.to_gray(img)
         levels = image_ops.build_pyramid(img, self.n_levels, self.scale_factor)
-        outs = []
-        for l, lvl in enumerate(levels):
-            k = self.budgets[l]
-            if k <= 0:
-                continue
-            h, w = lvl.shape
-            score = fast_ops.detect_two_threshold(
-                lvl, self.ini_th, self.min_th, margin=EDGE_MARGIN)
-            ys, xs, resp, valid = select_spread_topk(score, k, self.cell)
+        used = [l for l in range(self.n_levels) if self.budgets[l] > 0]
+        lv = [levels[l] for l in used]
+        ks = [self.budgets[l] for l in used]
+        ranked = fast_ops.detect_and_rank(lv, self.ini_th, self.min_th, ks,
+                                          margin=EDGE_MARGIN,
+                                          rank_cell=self.cell)
+        parts, ys_all, xs_all = [], [], []
+        for l, k, (_, raw, pos) in zip(used, ks, ranked):
+            h, w = levels[l].shape
+            ys, xs, resp, valid = topk_from_ranks(raw, pos, k, h, w,
+                                                  self.cell)
             ys_c = torch.clamp(ys, EDGE_MARGIN, h - 1 - EDGE_MARGIN).to(
                 torch.int32)
             xs_c = torch.clamp(xs, EDGE_MARGIN, w - 1 - EDGE_MARGIN).to(
                 torch.int32)
-            ang, desc = angles_and_descriptors_raw(lvl, ys_c, xs_c)
             s = self.level_scales[l]
             xy0 = torch.stack([xs_c.to(torch.float32),
                                ys_c.to(torch.float32)], -1) * s
-            outs.append(OrbFeatures(
-                xy=xy0,
-                level=torch.full((k,), l, dtype=torch.int32,
-                                 device=img.device),
-                angle=ang, response=resp, desc=desc, valid=valid,
-            ))
-        return OrbFeatures(*(torch.cat(f) for f in zip(*outs))), levels
+            parts.append((xy0, torch.full((k,), l, dtype=torch.int32,
+                                          device=img.device), resp, valid))
+            ys_all.append(ys_c)
+            xs_all.append(xs_c)
+        ang, desc = angles_and_descriptors_levels(
+            lv, torch.cat(ys_all), torch.cat(xs_all), ks)
+        xy, level, resp, valid = (torch.cat(f) for f in zip(*parts))
+        return OrbFeatures(xy=xy, level=level, angle=ang, response=resp,
+                           desc=desc, valid=valid), levels

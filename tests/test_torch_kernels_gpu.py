@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain versions, on the card: K1 (in its
-three gate modes), K2, K3, K4 (pose LM) and K5 (BA assembly and cost).
+three gate modes), K2 and K3 (on one level and on a whole pyramid in one
+call), K4 (pose LM) and K5 (BA assembly and cost).
 
 These tests need a CUDA card and skip elsewhere. The file imports no JAX,
 so it also runs where JAX is not installed:
@@ -20,6 +21,7 @@ from orb_slam2_refactored_tpu_torch.geometry import se3
 from orb_slam2_refactored_tpu_torch.io.synthetic import (
     SyntheticScene, orbit_trajectory)
 from orb_slam2_refactored_tpu_torch.ops import fast, hamming, orb
+from orb_slam2_refactored_tpu_torch.ops import image as image_ops
 from orb_slam2_refactored_tpu_torch.optim import ba, pose_opt
 
 pytestmark = pytest.mark.gpu
@@ -93,6 +95,80 @@ def test_orb_kernel_matches_plain():
     assert (bins(ak.cpu().numpy()) == bins(ap.numpy())).mean() >= 0.99
     xor = np.bitwise_xor(dk.cpu().numpy(), dp.numpy()).view(np.uint8)
     assert 1.0 - np.unpackbits(xor).mean() >= 0.999
+
+
+def _vga_pyramid():
+    scene = SyntheticScene(width=640, height=480, fx=520.0, fy=520.0)
+    img, _ = scene.render(orbit_trajectory(4)[2])
+    img = torch.from_numpy(np.clip(img, 0, 255).astype(np.uint8))
+    return image_ops.build_pyramid(image_ops.to_gray(img), 8, 1.2)
+
+
+def test_fast_levels_kernel_equals_plain():
+    """The one-call K2 over a whole VGA pyramid: every score plane, raw and
+    pos exactly equal to the plain version, and so every level's selected
+    (ys, xs, response, valid); one launch a call."""
+    dev = _card()
+    levels = _vga_pyramid()
+    ks = orb.features_per_level(1000, 8, 1.2)
+    ref = fast.detect_and_rank_plain(levels, 20.0, 7.0, ks, margin=19)
+    before = kernels.counts()["fast"]
+    out = fast.detect_and_rank([lvl.to(dev) for lvl in levels], 20.0, 7.0,
+                               ks, margin=19)
+    torch.cuda.synchronize()
+    assert kernels.counts()["fast"] == before + 1
+    for lvl, k, a, b in zip(levels, ks, out, ref):
+        for x, y in zip(a, b):
+            assert x.dtype == y.dtype and x.shape == y.shape
+            np.testing.assert_array_equal(x.cpu().numpy(), y.numpy())
+        h, w = lvl.shape
+        for x, y in zip(orb.topk_from_ranks(a[1], a[2], k, h, w),
+                        orb.topk_from_ranks(b[1], b[2], k, h, w)):
+            np.testing.assert_array_equal(x.cpu().numpy(), y.numpy())
+
+
+def test_orb_levels_kernel_matches_plain():
+    """The one-launch K3 over the concatenated keypoints of a VGA pyramid:
+    >= 99.9 % of descriptor bits and >= 99 % of angle bins equal to the
+    plain version (the moments sum in another order); one launch a call."""
+    dev = _card()
+    levels = _vga_pyramid()
+    ks = orb.features_per_level(1000, 8, 1.2)
+    ys_all, xs_all = [], []
+    for lvl, k, (_, raw, pos) in zip(
+            levels, ks, fast.detect_and_rank_plain(levels, 20.0, 7.0, ks,
+                                                   margin=19)):
+        h, w = lvl.shape
+        ys, xs, _, _ = orb.topk_from_ranks(raw, pos, k, h, w)
+        ys_all.append(torch.clamp(ys, 19, h - 20).to(torch.int32))
+        xs_all.append(torch.clamp(xs, 19, w - 20).to(torch.int32))
+    ys, xs = torch.cat(ys_all), torch.cat(xs_all)
+    ap, dp = orb.angles_and_descriptors_levels_plain(levels, ys, xs, ks)
+    before = kernels.counts()["orb_desc"]
+    ak, dk = orb.angles_and_descriptors_levels(
+        [lvl.to(dev) for lvl in levels], ys.to(dev), xs.to(dev), ks)
+    torch.cuda.synchronize()
+    assert kernels.counts()["orb_desc"] == before + 1
+    bins = lambda a: (np.floor((a + np.pi) * (64 / (2 * np.pi)))
+                      .astype(np.int64) % 64)
+    assert (bins(ak.cpu().numpy()) == bins(ap.numpy())).mean() >= 0.99
+    xor = np.bitwise_xor(dk.cpu().numpy(), dp.numpy()).view(np.uint8)
+    assert 1.0 - np.unpackbits(xor).mean() >= 0.999
+
+
+def test_extractor_launches_k2_and_k3_once():
+    """A VGA extraction on the card is one K2 and one K3 call."""
+    dev = _card()
+    scene = SyntheticScene(width=640, height=480, fx=520.0, fy=520.0)
+    img, _ = scene.render(orbit_trajectory(4)[2])
+    img = torch.from_numpy(np.clip(img, 0, 255).astype(np.uint8)).to(dev)
+    before = kernels.counts()
+    feats = orb.OrbExtractor(480, 640)(img)
+    torch.cuda.synchronize()
+    after = kernels.counts()
+    assert after["fast"] == before["fast"] + 1
+    assert after["orb_desc"] == before["orb_desc"] + 1
+    assert feats.desc.shape == (1000, 8) and bool(feats.valid.any())
 
 
 CAM = proj.CameraIntrinsics.create(520.0, 520.0, 320.0, 240.0, 41.6)
