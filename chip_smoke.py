@@ -1,6 +1,6 @@
 """Drive the PyTorch port of the RGB-D tracker on one CUDA card.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile] [--parent DIR]
 
 Phases (any failure raises and the script exits non-zero):
  1. print the card, its power limit and the toolchain; build every CUDA
@@ -30,9 +30,15 @@ Phases (any failure raises and the script exits non-zero):
     pair gate on one triangulation, K5 on one window BA at its real point
     bucket (and the whole window BA with K5 against the plain assembly).
  5. torch.profiler windows, after every agreement check: K2's and K3's
-    device time on frame 0; extraction with the rank rounds in K2 against
-    extraction with the plain rank rounds on the card, on the same 20
-    frames; with --profile, a frame's time broken down.
+    device time on frame 0, K1's and K4's on the recorded tracked frame's
+    calls, K5's on the recorded window BA; K4's time split into passes
+    and LM iterations (the same calls without iterations) and one
+    iteration on no observation;
+    extraction with the rank rounds in K2 against extraction with the
+    plain rank rounds on the card, on the same 20 frames; with --profile, a
+    frame's time broken down; with --parent DIR, K1 and K4 against the
+    kernels of the checkout in DIR on the same recorded arguments (outputs,
+    then device times in turns: parent, change, change, parent).
 The line before the last is a JSON object with one entry per kernel; the
 last line is `{"ok": true, "device": {...}}`.
 """
@@ -113,6 +119,13 @@ def bench_frames(n):
         depths[i] = (depth * (1 + rng.normal(0, 0.01, depth.shape))).astype(
             np.float16)
     return imgs, depths, gt
+
+
+def bench_cam():
+    from orb_slam2_refactored_tpu_torch.geometry.projection import (
+        CameraIntrinsics)
+
+    return CameraIntrinsics.create(520.0, 520.0, 320.0, 240.0, 0.08 * 520.0)
 
 
 def bench_config(local_ba: bool):
@@ -381,9 +394,11 @@ def check_hamming(cases, per_frame):
             a.get("lvl_r"), a.get("xy"), a.get("lvl_c"), a.get("pair_ok"))
         n_pass = int(mask.sum())
         matched = int((k[1] < hamming.BIG).sum())
+        rows, cells, tested = (int(w) for w in hamming.hamming_work(**a))
         print(f"  K1 hamming {name}: max_abs_err {e} rows passing "
               f"{int(a['row_ok'].sum())} candidate pairs {n_pass} "
-              f"rows matched {matched}")
+              f"rows matched {matched}; the kernel searched {rows} rows, "
+              f"read {cells} grid cells, tested {tested} target records")
         err = max(err, e)
         if name in per_frame:
             ms += cuda_time_ms(lambda: hamming.masked_best2_gated(**a), 50)
@@ -567,11 +582,28 @@ def check_ba(asm_call, solve_call):
     d = se3.log(se3.compose(res_k.kf_pose, se3.inverse(res_p.kf_pose)))
     rot, trans = float(d[:, :3].abs().max()), float(d[:, 3:].abs().max())
     inl = float((res_k.obs_inlier == res_p.obs_inlier).float().mean())
+    # the Huber cost of both results over the same observations, in f64
+    sp = sa["p"]
+    p64 = _f64(sp)
+    ok0 = (sp.obs_pt >= 0) & sp.pt_valid[sp.obs_pt.clamp(min=0).long()]
+    huber = sa.get("use_huber", True)
+    c_k, c_p = (float(ba.ba_cost_plain(r.kf_pose.double(), r.pt_pos.double(),
+                                       p64, ok0, sa["cam"], huber)[0])
+                for r in (res_k, res_p))
+    cost_rel = abs(c_k - c_p) / max(abs(c_p), 1e-300)
     print(f"  K5 whole window BA vs plain assembly: rot {rot:.3g} rad trans "
           f"{trans:.3g} m, cost {float(res_k.initial_cost):.6g} -> "
           f"{float(res_k.final_cost):.6g} (plain -> "
-          f"{float(res_p.final_cost):.6g}), obs gate equal {inl:.5f}")
-    assert rot <= 1e-4 and trans <= 1e-4, (rot, trans)
+          f"{float(res_p.final_cost):.6g}), f64 cost of the two results "
+          f"{c_k:.9g} vs {c_p:.9g} (relative {cost_rel:.3g}), obs gate "
+          f"equal {inl:.5f}")
+    # Three LM steps on a window whose gauge directions the cost barely
+    # constrains: f32 atomics in K5 and in the solve's scatters move the
+    # poses along them from run to run (up to 1.3e-4 m seen on an H100) at
+    # the same cost. So the poses may also lie up to 5e-4 m / 2e-4 rad
+    # apart when the two results' f64 costs agree within 1e-5 relative.
+    same_min = rot <= 2e-4 and trans <= 5e-4 and cost_rel <= 1e-5
+    assert (rot <= 1e-4 and trans <= 1e-4) or same_min, (rot, trans, cost_rel)
 
     in_bytes = W * 28 + Q * 12 + W * N * (8 + 4 + 4 + 4 + 1)
     asm = (asm_err,
@@ -857,6 +889,217 @@ def compare_extraction(imgs, device, n=20):
     return res
 
 
+def device_times_k1(calls, reps=20):
+    """K1's device time on the recorded tracked frame: each call alone, then
+    the frame's calls together (the row's `device_ms`)."""
+    from orb_slam2_refactored_tpu_torch.ops import hamming
+
+    for name, a in calls.items():
+        ms, rows = profiled_ms(lambda: hamming.masked_best2_gated(**a), reps)
+        print(f"K1 device time {name}: {ms:.5f} ms a call: {rows}")
+    ms, rows = profiled_ms(lambda: [hamming.masked_best2_gated(**a)
+                                    for a in calls.values()], reps)
+    print(f"K1 device time, the frame's {len(calls)} calls: {ms:.5f} ms: "
+          f"{rows}")
+    return ms
+
+
+def device_times_k4(calls, reps=20):
+    """K4's device time on the recorded tracked frame's calls."""
+    from orb_slam2_refactored_tpu_torch.optim import pose_opt
+
+    for name, a in calls.items():
+        ms, rows = profiled_ms(lambda: pose_opt.pose_optimize(**a), reps)
+        print(f"K4 device time {name}: {ms:.5f} ms a call: {rows}")
+    ms, rows = profiled_ms(lambda: [pose_opt.pose_optimize(**a)
+                                    for a in calls.values()], reps)
+    print(f"K4 device time, the frame's {len(calls)} calls: {ms:.5f} ms: "
+          f"{rows}")
+    return ms
+
+
+def k4_iteration_ms(fn, device, reps=20):
+    """Device time of one LM iteration of the pose-LM function `fn` on no
+    observation at all: a reduction of zeros, the 6x6 solve of a zero
+    system, the retraction and the accept rules. With H = 0 every step is
+    refused, and lambda climbs from 1e-3 past 1e6 in 16 iterations, so 4
+    rounds of 16 run 64 iterations."""
+    from orb_slam2_refactored_tpu_torch.optim import pose_opt
+
+    z = torch.zeros((0,), dtype=torch.float32, device=device)
+    a = dict(pose0=torch.tensor([1.0, 0, 0, 0, 0, 0, 0], device=device),
+             pts_w=z.reshape(0, 3), obs_uv=z.reshape(0, 2), obs_ur=z,
+             inv_sigma2=z, valid=torch.zeros((0,), dtype=torch.bool,
+                                             device=device),
+             cam=bench_cam(), rounds=4, iters_per_round=16)
+    iters = int(pose_opt.pose_lm_work(**a)[:, 0].sum())
+    ms, _ = profiled_ms(lambda: fn(**a), reps)
+    return ms / iters
+
+
+def k4_chain(calls, device, reps=20):
+    """Where K4's time goes on the recorded calls: the same calls with no
+    LM iteration (each round's fused reclassification pass and reduction,
+    and the final pass) against the full calls give the time of a pass
+    and of an iteration (a pass at the candidate, its reduction, and warp
+    0's accept rules, solve and broadcast). Also one iteration on no
+    observation (`k4_iteration_ms`)."""
+    from orb_slam2_refactored_tpu_torch.optim import pose_opt
+
+    iters = sum(int(pose_opt.pose_lm_work(**a)[:, 0].sum())
+                for a in calls.values())
+    passes = sum(a["rounds"] + 1 for a in calls.values())
+    full, _ = profiled_ms(lambda: [pose_opt.pose_optimize(**a)
+                                   for a in calls.values()], reps)
+    bare, _ = profiled_ms(lambda: [pose_opt.pose_optimize(
+        **{**a, "iters_per_round": 0}) for a in calls.values()], reps)
+    per_pass, per_iter = bare / passes, (full - bare) / iters
+    empty = k4_iteration_ms(pose_opt.pose_optimize, device, reps)
+    print(f"K4 on the recorded frame: {full:.5f} ms for {iters} iterations "
+          f"and {passes} passes; without iterations {bare:.5f} ms, so "
+          f"{per_pass * 1e3:.3f} us a pass and {per_iter * 1e3:.3f} us an "
+          f"iteration; on no observation {empty * 1e3:.3f} us an "
+          f"iteration")
+    return {"iterations": iters, "passes": passes, "pass_us": per_pass * 1e3,
+            "iteration_us": per_iter * 1e3, "empty_iteration_us": empty * 1e3}
+
+
+def device_times_k5(asm_call, asm_r, cost_r, reps=20):
+    """K5's device time on the recorded window BA's first LM iteration."""
+    from orb_slam2_refactored_tpu_torch.optim import ba
+
+    out = []
+    for name, fn, r in (("ba_assemble", ba.ba_assemble, asm_r),
+                        ("ba_cost", ba.ba_cost, cost_r)):
+        ms, rows = profiled_ms(lambda: fn(**asm_call), reps)
+        print(f"K5 device time {name}: {ms:.5f} ms a call: {rows}")
+        out.append(r + (ms,))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# --parent: K1 and K4 against the parent commit's kernels
+# ---------------------------------------------------------------------------
+
+def build_parent(parent):
+    """The K1 and K4 sources of another checkout (`parent`), built with this
+    checkout's flags into `build/torch_kernels/parent/` and bound with their
+    own C signatures. Returns callables with the port's wrapper
+    signatures."""
+    import ctypes
+    import os
+
+    from orb_slam2_refactored_tpu_torch import kernels
+    from orb_slam2_refactored_tpu_torch.optim import pose_opt
+
+    out_dir = os.path.join(kernels.BUILD_DIR, "parent")
+    os.makedirs(out_dir, exist_ok=True)
+    libs = {}
+    procs = []
+    for name in ("hamming", "pose_lm"):
+        src, extra = kernels.SOURCES[name]
+        lib = os.path.join(out_dir, f"lib{name}.so")
+        cmd = ([kernels.nvcc_path()] + kernels._BASE_FLAGS + extra + [
+            "-o", lib, os.path.join(parent, "orb_slam2_refactored_tpu_torch",
+                                    "csrc", src)])
+        procs.append((name, lib, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    for name, lib, p in procs:
+        log, _ = p.communicate()
+        assert p.returncode == 0, f"parent {name}: {log}"
+        libs[name] = ctypes.CDLL(lib)
+    VP, CI, CF = kernels.VP, kernels.CI, kernels.CF
+    k1 = libs["hamming"].hamming_best2
+    k1.argtypes, k1.restype = [VP] * 10 + [CI] * 3 + [VP] * 4, ctypes.c_int
+    k4 = libs["pose_lm"].pose_lm
+    k4.argtypes = [VP] * 6 + [CI] + [CF] * 5 + [CI] * 2 + [VP] * 6
+    k4.restype = ctypes.c_int
+    ptr = kernels.ptr
+
+    def parent_k1(q, t, row_ok, col_ok, uv=None, rad=None, lvl_r=None,
+                  xy=None, lvl_c=None, pair_ok=None):
+        M, N = q.shape[0], t.shape[0]
+        out = [torch.empty((M,), dtype=torch.int32, device=q.device)
+               for _ in range(3)]
+        gate = [None if x is None else ptr(x)
+                for x in (uv, rad, lvl_r, xy, lvl_c, pair_ok)]
+        kernels.check(k1(ptr(q), ptr(t), ptr(row_ok), ptr(col_ok), *gate, M,
+                         N, int(uv is not None), *(ptr(o) for o in out),
+                         kernels.stream_of(q)), "parent hamming_best2")
+        return tuple(out)
+
+    def parent_k4(pose0, pts_w, obs_uv, obs_ur, inv_sigma2, valid, cam,
+                  rounds=4, iters_per_round=10):
+        N, dev = pts_w.shape[0], pose0.device
+        pose = torch.empty((7,), dtype=torch.float32, device=dev)
+        inl = torch.empty((N,), dtype=torch.bool, device=dev)
+        num = torch.empty((), dtype=torch.int32, device=dev)
+        cost = torch.empty((), dtype=torch.float32, device=dev)
+        args = [x.contiguous() for x in (pose0, pts_w, obs_uv, obs_ur,
+                                         inv_sigma2, valid)]
+        kernels.check(k4(*(ptr(x) for x in args), N, cam.fx, cam.fy, cam.cx,
+                         cam.cy, cam.bf, int(rounds), int(iters_per_round),
+                         ptr(pose), ptr(inl), ptr(num), ptr(cost), None,
+                         kernels.stream_of(pose0)), "parent pose_lm")
+        return pose_opt.PoseOptResult(pose, inl, num, cost)
+
+    return parent_k1, parent_k4
+
+
+def in_turns(label, calls, fns, reps=20):
+    """Device time of the recorded `calls` through each of `fns` (name ->
+    callable), in the order parent, change, change, parent."""
+    order = list(fns) + list(fns)[::-1]
+    ms = {name: [] for name in fns}
+    for name in order:
+        fn = fns[name]
+        t, _ = profiled_ms(lambda: [fn(**a) for a in calls.values()], reps)
+        ms[name].append(t)
+    print(f"in turns, {label}: " + json.dumps(ms))
+    return ms
+
+
+def compare_with_parent(parent, frame_k1, dense_k1, frame_k4, fb_k4, device):
+    """K1 and K4 against the parent checkout's kernels on the same recorded
+    arguments: outputs (K1 exactly; K4 bit for bit, reported), then device
+    times in turns, and K4's iteration on no observation."""
+    from orb_slam2_refactored_tpu_torch.ops import hamming
+    from orb_slam2_refactored_tpu_torch.optim import pose_opt
+
+    old_k1, old_k4 = build_parent(parent)
+    for name, a in {**frame_k1, **dense_k1}.items():
+        same = all(torch.equal(x, y) for x, y in zip(
+            hamming.masked_best2_gated(**a), old_k1(**a)))
+        print(f"  K1 {name}: equal to the parent's K1 {same}")
+        assert same, name
+    n_bits = 0
+    k4_calls = {**frame_k4, **fb_k4}
+    for name, a in k4_calls.items():
+        k, o = pose_opt.pose_optimize(**a), old_k4(**a)
+        same = [bool(torch.equal(x, y)) for x, y in zip(k, o)]
+        n_bits += all(same)
+        print(f"  K4 {name}: (pose, inliers, count, cost) bit-equal to the "
+              f"parent's K4 {same}; cost {float(k.final_cost)!r} vs "
+              f"{float(o.final_cost)!r}")
+    res = {"k4_bit_equal_calls": f"{n_bits} of {len(k4_calls)}"}
+    res["k1_frame_ms"] = in_turns(
+        "K1 on the tracked frame's calls", frame_k1,
+        {"parent": old_k1, "change": hamming.masked_best2_gated})
+    res["k1_dense_ms"] = in_turns(
+        "K1 on the dense calls (fallback, triangulation)", dense_k1,
+        {"parent": old_k1, "change": hamming.masked_best2_gated})
+    res["k4_frame_ms"] = in_turns(
+        "K4 on the tracked frame's calls", frame_k4,
+        {"parent": old_k4, "change": pose_opt.pose_optimize})
+    it_us = {"parent": [], "change": []}
+    for who, fn in (("parent", old_k4), ("change", pose_opt.pose_optimize),
+                    ("change", pose_opt.pose_optimize), ("parent", old_k4)):
+        it_us[who].append(k4_iteration_ms(fn, device) * 1e3)
+    res["k4_iteration_us"] = it_us
+    print("against the parent " + json.dumps(res))
+    return res
+
+
 def kernel_row(name, src, rep, launches, r):
     b_ms, b_by = bound_ms(r[3], r[4])
     return {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -869,6 +1112,9 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
                     help="after the main path, break a frame's time down")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="also hold K1 and K4 against the kernels of the "
+                    "checkout in DIR (outputs and device time, in turns)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -893,7 +1139,7 @@ def main():
     print(f"kernels built in {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
         for line in log.splitlines():
-            if "ptxas" in line:
+            if "ptxas" in line or "spill" in line:
                 print(f"  [{name}] {line.strip()}")
 
     # ---- phase 2: K2, K3 and the fallback branch ----
@@ -944,6 +1190,18 @@ def main():
     print(f"K3 device time {k3_ms:.5f} ms a call: {k3_rows}")
     fast_r += (k2_ms,)
     orb_r += (k3_ms,)
+    ham_r += (device_times_k1(frame_k1),)
+    pose_r += (device_times_k4(frame_k4),)
+    k4_chain(frame_k4, device)
+    asm_r, cost_r = device_times_k5(asm_call, asm_r, cost_r)
+    if args.parent:
+        dense_k1 = {n: a for n, a in {**name_k1_calls("fallback", fb_k1),
+                                      **name_k1_calls("triangulation",
+                                                      tri_k1)}.items()
+                    if "uv" not in a}
+        compare_with_parent(args.parent, frame_k1, dense_k1, frame_k4,
+                            {f"fallback{i}": a for i, a in enumerate(fb_k4)},
+                            device)
     compare_extraction(imgs, device)
     if args.profile:
         profile_steps(tracker, imgs, depths)

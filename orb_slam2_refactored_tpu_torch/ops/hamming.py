@@ -88,15 +88,38 @@ def masked_best2_gated(q, t, row_ok, col_ok, uv=None, rad=None, lvl_r=None,
     lvl_r i32[M] per row and xy f32[N,2], lvl_c i32[N] per column;
     optional dense pair gate pair_ok: bool[M,N] (triangulation's epipolar
     mask). Returns (best_idx i32[M], best i32[M], second i32[M]).
-    CUDA tensors -> kernel `csrc/hamming.cu`; CPU -> plain version."""
+    CUDA tensors -> kernel `csrc/hamming.cu` (one launch); CPU -> plain
+    version."""
     if not q.is_cuda:
         return masked_best2_gated_plain(q, t, row_ok, col_ok, uv, rad, lvl_r,
                                         xy, lvl_c, pair_ok)
+    return _best2(q, t, row_ok, col_ok, uv, rad, lvl_r, xy, lvl_c, pair_ok,
+                  None)
+
+
+def hamming_work(q, t, row_ok, col_ok, uv=None, rad=None, lvl_r=None,
+                 xy=None, lvl_c=None, pair_ok=None) -> torch.Tensor:
+    """Kernel K1's own account of one call on CUDA tensors: i32[3], the
+    valid rows it searched, the grid cells they read (window-gated calls)
+    and the target records they tested. The tracking path never asks for
+    it."""
+    work = torch.zeros((3,), dtype=torch.int32, device=q.device)
+    _best2(q, t, row_ok, col_ok, uv, rad, lvl_r, xy, lvl_c, pair_ok, work)
+    return work
+
+
+def _aligned(x):
+    """The kernel reads descriptors 16 bytes at a time."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def _best2(q, t, row_ok, col_ok, uv, rad, lvl_r, xy, lvl_c, pair_ok, work):
     M, N = q.shape[0], t.shape[0]
     kernels.require(q, "hamming q", torch.int32, (M, 8))
     kernels.require(t, "hamming t", torch.int32, (N, 8))
     kernels.require(row_ok, "hamming row_ok", torch.bool, (M,))
     kernels.require(col_ok, "hamming col_ok", torch.bool, (N,))
+    q, t = _aligned(q), _aligned(t)
     gated = uv is not None
     if gated:
         kernels.require(uv, "hamming uv", torch.float32, (M, 2))
@@ -116,11 +139,12 @@ def masked_best2_gated(q, t, row_ok, col_ok, uv=None, rad=None, lvl_r=None,
     best = torch.empty((M,), dtype=torch.int32, device=q.device)
     second = torch.empty((M,), dtype=torch.int32, device=q.device)
     fn = kernels.bind("hamming", "hamming_best2",
-                      [kernels.VP] * 10 + [kernels.CI] * 3 + [kernels.VP] * 4)
+                      [kernels.VP] * 10 + [kernels.CI] * 3 + [kernels.VP] * 5)
     kernels.LAUNCHES["hamming_best2"] += 1
     kernels.check(fn(kernels.ptr(q), kernels.ptr(t), kernels.ptr(row_ok),
                      kernels.ptr(col_ok), *gate, M, N, int(gated),
                      kernels.ptr(idx), kernels.ptr(best), kernels.ptr(second),
+                     None if work is None else kernels.ptr(work),
                      kernels.stream_of(q)), "hamming_best2")
     return idx, best, second
 

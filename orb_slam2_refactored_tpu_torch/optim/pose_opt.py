@@ -7,7 +7,8 @@ dense 6x6 normal equations. Two changes of form, not of result:
 
 - the data-dependent `while_loop` becomes a fixed `iters_per_round` loop
   with a frozen-state mask: once an iteration reports `done`, pose and
-  lambda stay as they are, so no iteration count is read back to the host;
+  lambda stay as they are (kernel K4 and the plain version then leave the
+  round: the remaining iterations would change nothing);
 - `jacfwd` of the retraction becomes the analytic 3x6 Jacobian of
   `project_stereo(transform(retract(pose, d), x))` at d = 0.
 
@@ -137,7 +138,14 @@ def _pose_lm(pose0, pts_w, obs_uv, obs_ur, inv_sigma2, valid, cam, rounds,
 def pose_optimize_plain(pose0, pts_w, obs_uv, obs_ur, inv_sigma2, valid,
                         cam: proj.CameraIntrinsics, rounds: int = 4,
                         iters_per_round: int = 10) -> PoseOptResult:
-    """Plain PyTorch version of kernel K4 (same signature)."""
+    """Plain PyTorch version of kernel K4 (same signature), in the kernel's
+    schedule: one evaluation an iteration, at the candidate pose (its H, g
+    and cost become the current ones when the step is taken, and the
+    current ones stay when it is refused); the reclassification after a
+    round fused with the next round's first evaluation, the last one with
+    the final cost. Each evaluation is the one the two-pass loop (H and g
+    at the current pose, then the cost at the candidate) made at the same
+    pose, so the result is the same bits."""
     dev = pose0.device
     has_ur = obs_ur > 0
     obs_uvr = torch.cat([obs_uv, torch.where(has_ur, obs_ur,
@@ -149,56 +157,53 @@ def pose_optimize_plain(pose0, pts_w, obs_uv, obs_ur, inv_sigma2, valid,
     eye6 = torch.eye(6, dtype=torch.float32, device=dev)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
 
-    def chi2_of(r):
-        return torch.sum(r * r, dim=-1) * inv_sigma2
+    def chi2_at(pose):
+        r, xc = _residuals(pose, pts_w, obs_uvr, has_ur, cam)
+        return r, xc, torch.sum(r * r, dim=-1) * inv_sigma2
 
-    def huber(chi2, use_huber):
+    def normal_equations(r, xc, chi2, active, use_huber):
+        """H, g and the Huber cost over `active` at one pose."""
+        J = residual_jacobian(xc, has_ur, cam)
         s = torch.sqrt(torch.clamp(chi2, min=1e-12))
-        if not use_huber:
-            return torch.ones_like(s)
-        return torch.where(s > huber_delta, huber_delta / s,
-                           torch.ones_like(s))
+        w_huber = (torch.where(s > huber_delta, huber_delta / s,
+                               torch.ones_like(s))
+                   if use_huber else torch.ones_like(s))
+        w = torch.where(active, inv_sigma2 * w_huber, zero)
+        JW = J * w[:, None, None]
+        return (torch.einsum("nij,nik->jk", JW, J),
+                torch.einsum("nij,ni->j", JW, r),
+                torch.sum(torch.where(active, chi2 * w_huber, zero)))
 
     pose = pose0
     inliers = valid
     for round_idx in range(rounds):
         use_huber = round_idx < 2
-        lam = torch.full((), 1e-3, dtype=torch.float32, device=dev)
-        done = torch.zeros((), dtype=torch.bool, device=dev)
+        r, xc, chi2 = chi2_at(pose)
+        if round_idx > 0:  # reclassify at the round's pose
+            inliers = valid & (chi2 <= chi2_th)
         active = valid & inliers
+        H, g, cost = normal_equations(r, xc, chi2, active, use_huber)
+        lam = torch.full((), 1e-3, dtype=torch.float32, device=dev)
         for _ in range(iters_per_round):
-            r, xc = _residuals(pose, pts_w, obs_uvr, has_ur, cam)
-            J = residual_jacobian(xc, has_ur, cam)
-            chi2 = chi2_of(r)
-            w_huber = huber(chi2, use_huber)
-            w = torch.where(active, inv_sigma2 * w_huber, zero)
-            JW = J * w[:, None, None]
-            H = torch.einsum("nij,nik->jk", JW, J)
-            g = torch.einsum("nij,ni->j", JW, r)
             Hd = H + lam * torch.diag(torch.diagonal(H)) + 1e-8 * eye6
             delta = -torch.linalg.solve_ex(Hd, g)[0]
-            new_pose = se3.retract(pose, delta)
-            r_new, _ = _residuals(new_pose, pts_w, obs_uvr, has_ur, cam)
-            cost_old = torch.sum(torch.where(active, chi2 * w_huber, zero))
-            chi2n = chi2_of(r_new)
-            cost_new = torch.sum(torch.where(active, chi2n * huber(chi2n, use_huber),
-                                             zero))
-            improved = cost_new < cost_old
-            step_inf = torch.amax(torch.abs(delta))
-            rel_gain = (cost_old - cost_new) / torch.clamp(cost_old, min=1e-12)
-            done_now = ((improved & ((rel_gain < 1e-5) | (step_inf < 1e-5)))
-                        | (~improved & (lam >= 1e6)))
-            # frozen-state mask: an iteration after `done` changes nothing
-            take = improved & ~done
-            pose = torch.where(take, new_pose, pose)
-            lam_out = torch.clamp(torch.where(improved, lam * 0.5, lam * 4.0),
-                                  1e-8, 1e6)
-            lam = torch.where(done, lam, lam_out)
-            done = done | done_now
-        r, _ = _residuals(pose, pts_w, obs_uvr, has_ur, cam)
-        inliers = valid & (chi2_of(r) <= chi2_th)
-    r, _ = _residuals(pose, pts_w, obs_uvr, has_ur, cam)
-    final_cost = torch.sum(torch.where(inliers, chi2_of(r), zero))
+            cand = se3.retract(pose, delta)
+            H_c, g_c, cost_c = normal_equations(*chi2_at(cand), active,
+                                                use_huber)
+            improved = bool(cost_c < cost)
+            rel_gain = (cost - cost_c) / torch.clamp(cost, min=1e-12)
+            done = (bool((rel_gain < 1e-5) | (torch.amax(torch.abs(delta))
+                                              < 1e-5))
+                    if improved else bool(lam >= 1e6))
+            if improved:
+                pose, H, g, cost = cand, H_c, g_c, cost_c
+            lam = torch.clamp(lam * 0.5 if improved else lam * 4.0, 1e-8, 1e6)
+            if done:  # the frozen-state mask: later iterations change nothing
+                break
+    _, _, chi2 = chi2_at(pose)
+    if rounds > 0:
+        inliers = valid & (chi2 <= chi2_th)
+    final_cost = torch.sum(torch.where(inliers, chi2, zero))
     return PoseOptResult(pose=pose, inliers=inliers,
                          num_inliers=inliers.sum(dtype=torch.int32),
                          final_cost=final_cost)

@@ -12,6 +12,7 @@ import torch
 
 from orb_slam2_refactored_tpu.ops import hamming as jham
 from orb_slam2_refactored_tpu_torch.ops import hamming as tham
+from torch_k1_cases import k1_grid_cases
 
 torch.set_num_threads(1)
 
@@ -107,6 +108,28 @@ def test_pair_gate_matches_jax(seed):
     for a, b in zip(ref, out):
         np.testing.assert_array_equal(b.numpy(), a)
     assert out[0][7] == 0 and out[1][7] == out[2][7] == tham.BIG
+
+
+@pytest.mark.parametrize("name", ["lattice", "chunked", "all_rows_invalid"])
+def test_grid_cases_match_jax(name):
+    """The inputs that exercise K1's cell scan on the card (cell edges,
+    d2 == r2, equal minima in different cells, empty windows, invalid
+    blocks, two binning chunks, whole-grid and infinite radii, NaN and
+    infinite coordinates): the plain version equals JAX exactly."""
+    a = k1_grid_cases()[name]
+    gate = tuple(a[k] for k in ("uv", "rad", "lvl_r", "xy", "lvl_c"))
+    # JAX takes the descriptors as uint32
+    ref = _jax_best2(a["q"].view(np.uint32), a["t"].view(np.uint32),
+                     a["row_ok"], a["col_ok"], gate)
+    out = tham.masked_best2_gated(**{k: torch.from_numpy(v)
+                                     for k, v in a.items()})
+    for x, y in zip(ref, out):
+        np.testing.assert_array_equal(y.numpy(), x)
+    if name == "all_rows_invalid":
+        assert (ref[1] == jham.BIG).all() and (ref[0] == 0).all()
+    else:
+        assert (ref[1] == ref[2]).any()  # equal minima somewhere
+        assert (ref[1] == jham.BIG).any() and (ref[1] < jham.BIG).any()
 
 
 def test_pairwise_and_matrix_popcount():

@@ -23,6 +23,7 @@ from orb_slam2_refactored_tpu_torch.io.synthetic import (
 from orb_slam2_refactored_tpu_torch.ops import fast, hamming, orb
 from orb_slam2_refactored_tpu_torch.ops import image as image_ops
 from orb_slam2_refactored_tpu_torch.optim import ba, pose_opt
+from torch_k1_cases import k1_grid_cases
 
 pytestmark = pytest.mark.gpu
 torch.set_num_threads(1)
@@ -71,6 +72,51 @@ def test_hamming_kernel_equals_plain(gated):
                                      **{k: v.to(dev) for k, v in kw.items()})
     for a, b in zip(ref, out):
         np.testing.assert_array_equal(b.cpu().numpy(), a.numpy())
+
+
+@pytest.mark.parametrize("name", ["lattice", "chunked", "all_rows_invalid"])
+def test_hamming_window_search_equals_plain(name):
+    """K1's cell scan: exact on targets on cell edges and on the grid's far
+    edge, d2 == r2, equal minima in different cells, empty windows, blocks
+    of invalid rows, two binning chunks, whole-grid and infinite radii, NaN
+    and infinite coordinates; one launch a call; every valid row searched."""
+    dev = _card()
+    a = {k: torch.from_numpy(v) for k, v in k1_grid_cases()[name].items()}
+    ref = hamming.masked_best2_gated_plain(**a)
+    before = kernels.counts()["hamming_best2"]
+    out = hamming.masked_best2_gated(**{k: v.to(dev) for k, v in a.items()})
+    torch.cuda.synchronize()
+    assert kernels.counts()["hamming_best2"] == before + 1
+    for x, y in zip(ref, out):
+        np.testing.assert_array_equal(y.cpu().numpy(), x.numpy())
+    work = hamming.hamming_work(**{k: v.to(dev) for k, v in a.items()}).cpu()
+    assert int(work[0]) == int(a["row_ok"].sum()), work
+
+
+def test_hamming_dense_search_equals_plain():
+    """The dense search (no window, with and without the pair gate) equals
+    the plain version; N = 1100 is not a multiple of the 256-target tile,
+    and rows 64-95 (four blocks of 8) are all invalid."""
+    dev = _card()
+    rng = np.random.default_rng(16)
+    M, N = 300, 1100
+    q = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (M, 8),
+                                      dtype=np.int64).astype(np.int32))
+    t = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (N, 8),
+                                      dtype=np.int64).astype(np.int32))
+    t[600:650] = t[100:150]
+    q[:50] = t[100:150]
+    row_ok = torch.from_numpy(rng.uniform(size=M) > 0.1)
+    row_ok[64:96] = False
+    col_ok = torch.from_numpy(rng.uniform(size=N) > 0.1)
+    for kw in ({}, {"pair_ok": torch.from_numpy(rng.uniform(size=(M, N))
+                                                > 0.7)}):
+        ref = hamming.masked_best2_gated_plain(q, t, row_ok, col_ok, **kw)
+        out = hamming.masked_best2_gated(
+            q.to(dev), t.to(dev), row_ok.to(dev), col_ok.to(dev),
+            **{k: v.to(dev) for k, v in kw.items()})
+        for x, y in zip(ref, out):
+            np.testing.assert_array_equal(y.cpu().numpy(), x.numpy())
 
 
 def test_fast_kernel_equals_plain():
@@ -232,6 +278,25 @@ def test_pose_lm_kernel_matches_plain(seed, rounds):
         chi2 = ((r * r).sum(-1) * inv_s2).cpu().numpy()
         th = np.where(ur.cpu().numpy() > 0, 7.815, 5.991)
         assert np.all(np.abs(chi2[flips] - th[flips]) <= 1e-4 * th[flips])
+    assert int(out.num_inliers) == int(out.inliers.sum())
+    assert abs(float(out.final_cost) - float(ref.final_cost)) <= 1e-4 * float(
+        ref.final_cost)
+
+
+@pytest.mark.parametrize("n", [300, 1500, 3000])
+def test_pose_lm_kernel_at_any_observation_count(n):
+    """K4 keeps up to 4 observations a thread in registers (n <= 2048) and
+    reads them from memory in every pass beyond: pose within 1e-5 m / 1e-5
+    rad of the plain version, inlier count and cost agreeing."""
+    dev = _card()
+    args = [a.to(dev) for a in _pose_problem(7, n)]
+    out = pose_opt.pose_optimize(*args, CAM, rounds=4, iters_per_round=5)
+    ref = pose_opt.pose_optimize_plain(*args, CAM, rounds=4,
+                                       iters_per_round=5)
+    torch.cuda.synchronize()
+    d = se3.log(se3.compose(out.pose, se3.inverse(ref.pose))).cpu()
+    assert d[:3].abs().max() <= 1e-5 and d[3:].abs().max() <= 1e-5, d
+    assert abs(int(out.num_inliers) - int(ref.num_inliers)) <= max(1, n // 1000)
     assert int(out.num_inliers) == int(out.inliers.sum())
     assert abs(float(out.final_cost) - float(ref.final_cost)) <= 1e-4 * float(
         ref.final_cost)

@@ -4,7 +4,10 @@ Jacobian against automatic differentiation.
 The JAX parity goes through `pose_optimize_plain`, the plain version of
 kernel K4; `pose_optimize` on CPU tensors is that same plain version (on
 CUDA tensors it launches K4, held against the plain version on the card by
-tests/test_torch_kernels_gpu.py and chip_smoke.py).
+tests/test_torch_kernels_gpu.py and chip_smoke.py). The plain version runs
+in K4's schedule (one evaluation an iteration, at the candidate); the
+two-pass loop it restructures is kept below as a reference, and the two
+must give the same bits.
 
 Tolerance: the optimized pose within 1e-4 m / 1e-4 rad of JAX's on the same
 inputs (f32 arithmetic in another order; the analytic Jacobian replaces
@@ -66,6 +69,96 @@ def test_pose_optimize_matches_jax(seed, rounds, iters):
     assert int(out.num_inliers) == int(ref.num_inliers) > 250
     # and the optimum is the truth to within the noise
     assert np.abs(out.pose.numpy()[4:] - gt[4:]).max() < 0.02
+
+
+def _two_pass_reference(pose0, pts_w, obs_uv, obs_ur, inv_sigma2, valid,
+                        cam, rounds, iters_per_round):
+    """The LM loop in its earlier schedule: H and g at the current pose,
+    then the cost at the candidate, in every iteration of a fixed loop with
+    a frozen-state mask; reclassification and the final cost in passes of
+    their own. Also returns the steps refused before a round's `done`."""
+    has_ur = obs_ur > 0
+    obs_uvr = torch.cat([obs_uv, torch.where(has_ur, obs_ur,
+                                             torch.zeros_like(obs_ur))[..., None]],
+                        dim=-1)
+    chi2_th = torch.where(has_ur, torch.full_like(obs_ur, tpo.CHI2_STEREO),
+                          torch.full_like(obs_ur, tpo.CHI2_MONO))
+    huber_delta = torch.sqrt(chi2_th)
+    eye6 = torch.eye(6, dtype=torch.float32)
+    zero = torch.zeros((), dtype=torch.float32)
+
+    def chi2_of(r):
+        return torch.sum(r * r, dim=-1) * inv_sigma2
+
+    def huber(chi2, use_huber):
+        s = torch.sqrt(torch.clamp(chi2, min=1e-12))
+        if not use_huber:
+            return torch.ones_like(s)
+        return torch.where(s > huber_delta, huber_delta / s,
+                           torch.ones_like(s))
+
+    pose, inliers, refused = pose0, valid, 0
+    for round_idx in range(rounds):
+        use_huber = round_idx < 2
+        lam = torch.full((), 1e-3, dtype=torch.float32)
+        done = torch.zeros((), dtype=torch.bool)
+        active = valid & inliers
+        for _ in range(iters_per_round):
+            r, xc = tpo._residuals(pose, pts_w, obs_uvr, has_ur, cam)
+            J = tpo.residual_jacobian(xc, has_ur, cam)
+            chi2 = chi2_of(r)
+            w_huber = huber(chi2, use_huber)
+            w = torch.where(active, inv_sigma2 * w_huber, zero)
+            JW = J * w[:, None, None]
+            H = torch.einsum("nij,nik->jk", JW, J)
+            g = torch.einsum("nij,ni->j", JW, r)
+            Hd = H + lam * torch.diag(torch.diagonal(H)) + 1e-8 * eye6
+            delta = -torch.linalg.solve_ex(Hd, g)[0]
+            new_pose = tse3.retract(pose, delta)
+            r_new, _ = tpo._residuals(new_pose, pts_w, obs_uvr, has_ur, cam)
+            cost_old = torch.sum(torch.where(active, chi2 * w_huber, zero))
+            chi2n = chi2_of(r_new)
+            cost_new = torch.sum(torch.where(
+                active, chi2n * huber(chi2n, use_huber), zero))
+            improved = cost_new < cost_old
+            refused += int(~improved & ~done)
+            step_inf = torch.amax(torch.abs(delta))
+            rel_gain = (cost_old - cost_new) / torch.clamp(cost_old, min=1e-12)
+            done_now = ((improved & ((rel_gain < 1e-5) | (step_inf < 1e-5)))
+                        | (~improved & (lam >= 1e6)))
+            take = improved & ~done
+            pose = torch.where(take, new_pose, pose)
+            lam_out = torch.clamp(torch.where(improved, lam * 0.5, lam * 4.0),
+                                  1e-8, 1e6)
+            lam = torch.where(done, lam, lam_out)
+            done = done | done_now
+        r, _ = tpo._residuals(pose, pts_w, obs_uvr, has_ur, cam)
+        inliers = valid & (chi2_of(r) <= chi2_th)
+    r, _ = tpo._residuals(pose, pts_w, obs_uvr, has_ur, cam)
+    final_cost = torch.sum(torch.where(inliers, chi2_of(r), zero))
+    return (tpo.PoseOptResult(pose, inliers, inliers.sum(dtype=torch.int32),
+                              final_cost), refused)
+
+
+@pytest.mark.parametrize("seed,rounds,iters,kick", [
+    (0, 4, 5, 0.0), (1, 2, 5, 0.0), (2, 4, 10, 0.0),
+    # a start far from the optimum: the first steps overshoot and are refused
+    (5, 4, 10, 0.3)])
+def test_plain_schedule_is_the_two_pass_loop_bit_for_bit(seed, rounds, iters,
+                                                         kick):
+    args, _ = _problem(seed)
+    t_args = [torch.from_numpy(np.ascontiguousarray(a)) for a in args]
+    if kick:
+        t_args[0] = tse3.retract(t_args[0], torch.tensor(
+            [kick, -kick, kick, 3 * kick, -3 * kick, 3 * kick]))
+    tc = tproj.CameraIntrinsics.create(FX, FX, CX, CY, BF)
+    out = tpo.pose_optimize_plain(*t_args, tc, rounds=rounds,
+                                  iters_per_round=iters)
+    ref, refused = _two_pass_reference(*t_args, tc, rounds, iters)
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b), (a, b)
+    if kick:
+        assert refused > 0
 
 
 def test_pose_optimize_on_cpu_is_the_plain_version():
