@@ -13,28 +13,52 @@
 // What bounds it on the H100: per LM iteration the window has W*N = 32 *
 // 1000 observation slots. Inputs are ~1 MB (observations, poses, the Q
 // points); the outputs are dominated by T, Q*W*18 f32 = 4.7 MB at Q = 2048
-// and 18.9 MB at Q = 8192, zeroed by the wrapper and then written by
-// atomics: bytes bound ~1.5-6 us. Operations: ~400 f32 a live observation
-// (residual, two Jacobian blocks, 21 + 6 + 9 + 3 + 18 weighted products),
-// ~10 MFLOP, ~0.3 us. So it is bound by bytes (the T output) and, at this
-// size, by its launch latency far more than either.
+// and 18.9 MB at Q = 8192: bytes bound ~1.5-6 us. Operations: ~480 f32 a
+// live observation, ~10 MFLOP, ~0.3 us. So it is bound by bytes (the T
+// output) and, at this size, by its launch latency far more than either.
 //
-// Design: one block of 256 threads per window row (W blocks). A thread
-// walks the row's observations with a stride of 256 and skips the slots
-// that carry no observation (obs_ok false: padding rows, unmatched
-// features, points outside the compacted set), which in the plain version
-// contribute exact zeros. Hpp (21 distinct entries) and g_p (6) are summed
-// in registers and reduced per row by the block (shuffle tree, then the
-// warps' partials in a fixed order): no atomics, deterministic. Hll|g_l
-// and T rows are shared between window rows and between observations, so
-// they are added with f32 atomicAdd: their sums come out in no fixed order
-// and agree with the plain version to a tolerance, not bit for bit. Two
-// features of one keyframe on one landmark add into the same T row, as
-// JAX's `.at[].add` does.
+// Three entries, none with an atomic on a float and none with a fill or a
+// torch op beside it, so two calls on the same arguments give the same
+// bits:
 //
-// `ba_cost`: the same residual per slot; chi2 for every slot (the point
-// index clipped to [0, Q), as JAX does) and the Huber rho summed over the
-// observations, reduced per row (rho_row[W]; the caller sums the W rows).
+// `ba_point_index` (two launches a solve: obs_pt and obs_ok do not change
+// during a `ba_solve`): a CSR of the live slots by point, offsets [Q+1]
+// and slot ids [W*N] (ascending within each point; -1 past offsets[Q]),
+// points clamped to [0, Q) as the plain version does, dead slots left
+// out. (1) A CTA a keyframe row counts the row's live slots by point in
+// shared memory, gives each slot its rank among the row's slots of its
+// point in slot order (one warp walks the repeated ones), and writes that
+// row of a [W, Q] table; the last CTA scans the point totals into
+// offsets. (2) A thread a slot writes it to its place: its point's start,
+// plus the table's column above its row, plus its rank. Every place is
+// computed, not claimed: no sort, and the same bits every build.
+//
+// `ba_assemble` (one launch a call, no fill before it): a heterogeneous
+// grid.
+//   * Camera CTAs (design (a)): each of the W rows is split over C CTAs,
+//     with W*C >= 132, so they alone cover the card. A CTA evaluates its
+//     chunk of the row, sums Hpp (21 distinct entries) and g_p (6) per
+//     thread, then over the block in a fixed tree, and stores [27]
+//     partials; the row's last CTA (a __threadfence and an atomic ticket,
+//     which it resets for the next call) adds the C partials in chunk
+//     order and writes Hpp and g_p.
+//   * Point CTAs: a warp owns one point. It walks the point's slots from
+//     the index in ascending order, 32 at a time: Hll|g_l (12) summed in
+//     registers, then over the warp in a fixed xor tree, and the [12] row
+//     written once; each observation's (w Jp)^T Jl [6,3] added into the
+//     point's [W,18] tile in shared memory in slot order (two features of
+//     one keyframe on one landmark add into one row, as JAX's `.at[].add`
+//     does); then the whole tile, zero rows too, written as contiguous
+//     16-byte stores. A point with no live observation writes zeros. T
+//     needs no zero fill and every output element is written once.
+//   The observation's arithmetic (`eval_slot`, the Huber weight, the
+//   depth gate, the mono third row) is the parent kernel's; f32 throughout.
+
+// `ba_cost` (one launch a call, no torch sum after it): one slot a thread
+// over ceil(W*N / 256) CTAs; chi2 stored only when asked for (the final
+// gate); the Huber rho of the live slots summed per block in a fixed tree;
+// the last CTA (ticket, as above) adds the per-block partials in block
+// order and writes the scalar cost.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -44,9 +68,14 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kIndexThreads = 1024;
+constexpr int kSMs = 132;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kChi2Mono = 5.991f;
 constexpr float kChi2Stereo = 7.815f;
+// dynamic shared memory a block may take, below the 227 KB limit by room
+// for the kernels' static arrays
+constexpr int kSharedMax = 226 * 1024;
 
 struct Cam {
   float fx, fy, cx, cy, bf;
@@ -131,6 +160,29 @@ __device__ void eval_slot(const float* pose, const float R[3][3],
   }
 }
 
+// One live observation, evaluated with its Jacobians; returns its weight
+// 1/sigma^2 times the Huber factor.
+__device__ float observe(const float* pose, const float R[3][3],
+                         const float* __restrict__ pt_pos,
+                         const float* __restrict__ obs_uv,
+                         const float* __restrict__ obs_ur,
+                         const float* __restrict__ obs_inv_s2, int o, int pt,
+                         const Cam& cam, int use_huber, Slot& s) {
+  const float inv_s2 = obs_inv_s2[o];
+  eval_slot<true>(pose, R, pt_pos + 3 * pt, obs_uv[2 * o], obs_uv[2 * o + 1],
+                  obs_ur[o], inv_s2, cam, s);
+  const float delta = sqrtf(s.has_ur ? kChi2Stereo : kChi2Mono);
+  const float sq = sqrtf(fmaxf(s.chi2, 1e-12f));
+  const float wh = (use_huber && sq > delta) ? delta / sq : 1.0f;
+  return inv_s2 * wh;
+}
+
+__device__ void load_pose(const float* __restrict__ kf_pose, int k,
+                          float pose[7], float R[3][3]) {
+  for (int i = 0; i < 7; ++i) pose[i] = kf_pose[k * 7 + i];
+  quat_to_matrix(pose, R);
+}
+
 template <int NV>
 __device__ void block_sum(float* v, float* s_part, float* out) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -149,104 +201,367 @@ __device__ void block_sum(float* v, float* s_part, float* out) {
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-assemble_kernel(const float* __restrict__ kf_pose,
-                const float* __restrict__ pt_pos,
-                const float* __restrict__ obs_uv,
-                const float* __restrict__ obs_ur,
-                const int* __restrict__ obs_pt,
-                const float* __restrict__ obs_inv_s2,
-                const unsigned char* __restrict__ obs_ok, int W, int N, int Q,
-                Cam cam, int use_huber, float* __restrict__ Hpp,
-                float* __restrict__ g_p, float* __restrict__ acc_l,
-                float* __restrict__ T) {
+// After every thread of the CTA wrote its part of `partial`: true in the
+// CTA that arrives last at `ticket` (which it resets to 0 for the next
+// call). Its reads of the other CTAs' partials must bypass L1 (__ldcg).
+__device__ bool last_to_arrive(int* ticket, int n, int* s_flag) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const int t = atomicAdd(ticket, 1);
+    *s_flag = t == n - 1;
+    if (t == n - 1) atomicExch(ticket, 0);
+  }
+  __syncthreads();
+  if (*s_flag) __threadfence();
+  return *s_flag;
+}
+
+// ---------------------------------------------------------------------------
+// ba_point_index
+// ---------------------------------------------------------------------------
+
+struct IndexArgs {
+  const int* obs_pt;
+  const unsigned char* obs_ok;
+  int S, N, Q;
+  int* offsets;  // [Q+1]
+  int* slots;    // [S]
+  int* table;    // [S/N, Q]: row k's live slots of each point
+  int* rank;     // [S]: a live slot's place among its row's of its point
+  int* count;    // [Q], zero between solves
+  int* ticket;   // [1], zero between solves
+};
+
+// Launch 1, a CTA a keyframe row: the row's live slots counted by point
+// in shared memory (integer atomics); a slot whose point the row holds
+// once has rank 0; the others are gathered in slot order (a block-wide
+// ordered compaction) and one warp walks them 32 at a time: lanes of one
+// point find each other (`__match_any_sync`), the lowest reads and
+// advances the point's running count, and each lane's rank is that count
+// plus the lanes of its point below it. So ranks follow slot order. The
+// row of `table` is written whole and its nonzero counts added to the
+// point totals in `count`; the last CTA scans the totals into offsets and
+// zeroes `count`.
+__global__ void __launch_bounds__(kIndexThreads) index_rows_kernel(IndexArgs a) {
+  // cnt[Q] | run[Q] | the repeated slots [1024] | their points [1024]
+  extern __shared__ int s_idx[];
+  __shared__ int s_warp[kIndexThreads / 32];
+  __shared__ int s_last;
+  int* cnt = s_idx;
+  int* run = s_idx + a.Q;
+  int* rep = s_idx + 2 * a.Q;
+  int* rep_q = rep + kIndexThreads;
+  const int k = blockIdx.x, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const bool row = k * a.N < a.S;  // no row at all when S = 0
+  for (int q = tid; q < a.Q; q += kIndexThreads) cnt[q] = run[q] = 0;
+  __syncthreads();
+  for (int n = tid; row && n < a.N; n += kIndexThreads) {
+    const int s = k * a.N + n;
+    if (a.obs_ok[s]) atomicAdd(&cnt[min(max(a.obs_pt[s], 0), a.Q - 1)], 1);
+  }
+  __syncthreads();
+  for (int c0 = 0; row && c0 < a.N; c0 += kIndexThreads) {
+    const int n = c0 + tid, s = k * a.N + n;
+    const int q = n < a.N && a.obs_ok[s] ? min(max(a.obs_pt[s], 0), a.Q - 1)
+                                         : -1;
+    const bool repeated = q >= 0 && cnt[q] > 1;
+    if (q >= 0 && !repeated) a.rank[s] = 0;
+    // ordered compaction of the repeated slots
+    const unsigned ballot = __ballot_sync(kFull, repeated);
+    if (lane == 0) s_warp[warp] = __popc(ballot);
+    __syncthreads();
+    int before = 0, total = 0;
+    for (int w = 0; w < kIndexThreads / 32; ++w) {
+      before += w < warp ? s_warp[w] : 0;
+      total += s_warp[w];
+    }
+    if (repeated) {
+      const int j = before + __popc(ballot & ((1u << lane) - 1u));
+      rep[j] = s;
+      rep_q[j] = q;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      for (int j0 = 0; j0 < total; j0 += 32) {
+        const int r = j0 + lane < total ? rep[j0 + lane] : -1;
+        const int rq = r >= 0 ? rep_q[j0 + lane] : -1;
+        const unsigned same = __match_any_sync(kFull, rq);
+        const int lead = __ffs(same) - 1;
+        int base = 0;
+        if (lane == lead && rq >= 0) {
+          base = run[rq];
+          run[rq] = base + __popc(same);
+        }
+        base = __shfl_sync(kFull, base, lead);
+        if (r >= 0) a.rank[r] = base + __popc(same & ((1u << lane) - 1u));
+        __syncwarp();
+      }
+    }
+    __syncthreads();
+  }
+  int* trow = a.table + (size_t)k * a.Q;
+  for (int q = tid; row && q < a.Q; q += kIndexThreads) {
+    const int c = cnt[q];
+    trow[q] = c;
+    if (c) atomicAdd(&a.count[q], c);
+  }
+  if (!last_to_arrive(a.ticket, gridDim.x, &s_last)) return;
+  // exclusive scan of the totals: a contiguous run of points a thread
+  const int per = (a.Q + kIndexThreads - 1) / kIndexThreads;
+  const int q0 = min(a.Q, tid * per), q1 = min(a.Q, q0 + per);
+  int mine = 0;
+  for (int q = q0; q < q1; ++q) mine += __ldcg(a.count + q);
+  int incl = mine;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int o = __shfl_up_sync(kFull, incl, off);
+    if (lane >= off) incl += o;
+  }
+  if (lane == 31) s_warp[warp] = incl;
+  __syncthreads();
+  int acc = incl - mine;
+  for (int w = 0; w < warp; ++w) acc += s_warp[w];
+  for (int q = q0; q < q1; ++q) {
+    const int c = __ldcg(a.count + q);
+    a.offsets[q] = acc;
+    a.count[q] = 0;
+    acc += c;
+  }
+  if (tid == kIndexThreads - 1) a.offsets[a.Q] = acc;
+}
+
+// Launch 2, a thread a slot: a live slot's place is its point's start,
+// plus the point's live slots in the rows before its own (the table's
+// column above it), plus its rank in its row. So each point's slot ids
+// come out ascending with no sort and no claim; a slot index past the
+// total gets -1.
+__global__ void __launch_bounds__(kThreads) index_scatter_kernel(IndexArgs a) {
+  const int s = blockIdx.x * kThreads + threadIdx.x;
+  if (s >= a.S) return;
+  if (a.obs_ok[s]) {
+    const int q = min(max(a.obs_pt[s], 0), a.Q - 1);
+    const int k = s / a.N;
+    int pos = a.offsets[q] + a.rank[s];
+#pragma unroll 4
+    for (int j = 0; j < k; ++j) pos += a.table[(size_t)j * a.Q + q];
+    a.slots[pos] = s;
+  }
+  if (s >= a.offsets[a.Q]) a.slots[s] = -1;
+}
+
+// ---------------------------------------------------------------------------
+// ba_assemble
+// ---------------------------------------------------------------------------
+
+struct AsmArgs {
+  const float* kf_pose;
+  const float* pt_pos;
+  const float* obs_uv;
+  const float* obs_ur;
+  const int* obs_pt;
+  const float* obs_inv_s2;
+  const unsigned char* obs_ok;
+  const int* offsets;
+  const int* slots;
+  int W, N, Q, C;
+  Cam cam;
+  int use_huber;
+  float* Hpp;
+  float* g_p;
+  float* acc_l;
+  float* T;
+  float* partial;  // [W, C, 27]
+  int* ticket;     // [W], zero between calls
+};
+
+__device__ void camera_block(const AsmArgs& a, int cb) {
   __shared__ float s_part[kWarps * 27];
   __shared__ float s_sum[27];
-  const int k = blockIdx.x;
+  __shared__ int s_last;
+  const int k = cb / a.C, c = cb % a.C;
+  const int chunk = (a.N + a.C - 1) / a.C;
+  const int n0 = min(a.N, c * chunk), n1 = min(a.N, n0 + chunk);
   float pose[7], R[3][3];
-  for (int i = 0; i < 7; ++i) pose[i] = kf_pose[k * 7 + i];
-  quat_to_matrix(pose, R);
-
+  load_pose(a.kf_pose, k, pose, R);
   float acc[27];
 #pragma unroll
   for (int i = 0; i < 27; ++i) acc[i] = 0.f;
-  for (int n = threadIdx.x; n < N; n += kThreads) {
-    const int o = k * N + n;
-    if (!obs_ok[o]) continue;
-    const int pt = min(max(obs_pt[o], 0), Q - 1);
+  for (int n = n0 + threadIdx.x; n < n1; n += kThreads) {
+    const int o = k * a.N + n;
+    if (!a.obs_ok[o]) continue;
+    const int pt = min(max(a.obs_pt[o], 0), a.Q - 1);
     Slot s;
-    eval_slot<true>(pose, R, pt_pos + 3 * pt, obs_uv[2 * o], obs_uv[2 * o + 1],
-                    obs_ur[o], obs_inv_s2[o], cam, s);
-    const float delta = sqrtf(s.has_ur ? kChi2Stereo : kChi2Mono);
-    const float sq = sqrtf(fmaxf(s.chi2, 1e-12f));
-    const float wh = (use_huber && sq > delta) ? delta / sq : 1.0f;
-    const float w = obs_inv_s2[o] * wh;
+    const float w = observe(pose, R, a.pt_pos, a.obs_uv, a.obs_ur,
+                            a.obs_inv_s2, o, pt, a.cam, a.use_huber, s);
     int e = 0;
-    for (int a = 0; a < 6; ++a) {
-      for (int b = a; b < 6; ++b) {
-        acc[e++] += w * (s.Jp[0][a] * s.Jp[0][b] + s.Jp[1][a] * s.Jp[1][b] +
-                         s.Jp[2][a] * s.Jp[2][b]);
-      }
-    }
-    for (int a = 0; a < 6; ++a) {
-      acc[21 + a] += w * (s.Jp[0][a] * s.r[0] + s.Jp[1][a] * s.r[1] +
-                          s.Jp[2][a] * s.r[2]);
-    }
-    // point blocks: Hll (9, row-major) | g_l (3)
-    float* dst = acc_l + (size_t)pt * 12;
-    for (int i = 0; i < 3; ++i) {
-      for (int j = 0; j < 3; ++j) {
-        atomicAdd(dst + i * 3 + j,
-                  w * (s.Jl[0][i] * s.Jl[0][j] + s.Jl[1][i] * s.Jl[1][j] +
-                       s.Jl[2][i] * s.Jl[2][j]));
-      }
-      atomicAdd(dst + 9 + i, w * (s.Jl[0][i] * s.r[0] + s.Jl[1][i] * s.r[1] +
-                                  s.Jl[2][i] * s.r[2]));
-    }
-    // camera-point block W_obs = (w Jp)^T Jl, [6,3] row-major, at row pt*W+k
-    float* tr = T + ((size_t)pt * W + k) * 18;
     for (int i = 0; i < 6; ++i) {
-      for (int j = 0; j < 3; ++j) {
-        atomicAdd(tr + i * 3 + j,
-                  w * (s.Jp[0][i] * s.Jl[0][j] + s.Jp[1][i] * s.Jl[1][j] +
-                       s.Jp[2][i] * s.Jl[2][j]));
+      for (int j = i; j < 6; ++j) {
+        acc[e++] += w * (s.Jp[0][i] * s.Jp[0][j] + s.Jp[1][i] * s.Jp[1][j] +
+                         s.Jp[2][i] * s.Jp[2][j]);
       }
+    }
+    for (int i = 0; i < 6; ++i) {
+      acc[21 + i] += w * (s.Jp[0][i] * s.r[0] + s.Jp[1][i] * s.r[1] +
+                          s.Jp[2][i] * s.r[2]);
     }
   }
   block_sum<27>(acc, s_part, s_sum);
   __syncthreads();
+  float* part = a.partial + ((size_t)k * a.C + c) * 27;
+  if (threadIdx.x < 27) part[threadIdx.x] = s_sum[threadIdx.x];
+  if (!last_to_arrive(a.ticket + k, a.C, &s_last)) return;
+  if (threadIdx.x < 27) {
+    float t = 0.f;
+    for (int cc = 0; cc < a.C; ++cc)
+      t += __ldcg(a.partial + ((size_t)k * a.C + cc) * 27 + threadIdx.x);
+    s_sum[threadIdx.x] = t;
+  }
+  __syncthreads();
   if (threadIdx.x < 36) {
-    const int a = threadIdx.x / 6, b = threadIdx.x % 6;
-    const int lo = min(a, b), hi = max(a, b);
+    const int i = threadIdx.x / 6, j = threadIdx.x % 6;
+    const int lo = min(i, j), hi = max(i, j);
     // index of (lo, hi) in the row-major upper triangle
     const int e = lo * 6 - lo * (lo - 1) / 2 + (hi - lo);
-    Hpp[k * 36 + threadIdx.x] = s_sum[e];
+    a.Hpp[k * 36 + threadIdx.x] = s_sum[e];
   }
-  if (threadIdx.x < 6) g_p[k * 6 + threadIdx.x] = s_sum[21 + threadIdx.x];
+  if (threadIdx.x < 6) a.g_p[k * 6 + threadIdx.x] = s_sum[21 + threadIdx.x];
 }
+
+__device__ void point_block(const AsmArgs& a, int pb, float* tiles) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int q = pb * kWarps + warp;
+  if (q >= a.Q) return;  // the whole warp leaves together
+  const int W = a.W, TW = W * 18;
+  float* tile = tiles + (size_t)warp * TW;
+  for (int e = lane; e < TW; e += 32) tile[e] = 0.f;
+  __syncwarp();
+
+  const int beg = a.offsets[q], end = a.offsets[q + 1];
+  float hl[12];
+#pragma unroll
+  for (int e = 0; e < 12; ++e) hl[e] = 0.f;
+  for (int base = beg; base < end; base += 32) {
+    const int i = base + lane;
+    const bool act = i < end;
+    int k = W + lane;  // never a keyframe: inactive lanes match no one
+    float t[18];
+    if (act) {
+      const int o = a.slots[i];
+      k = o / a.N;
+      float pose[7], R[3][3];
+      load_pose(a.kf_pose, k, pose, R);
+      Slot s;
+      const float w = observe(pose, R, a.pt_pos, a.obs_uv, a.obs_ur,
+                              a.obs_inv_s2, o, q, a.cam, a.use_huber, s);
+      // point blocks: Hll (9, row-major) | g_l (3)
+      for (int r = 0; r < 3; ++r) {
+        for (int c = 0; c < 3; ++c) {
+          hl[r * 3 + c] += w * (s.Jl[0][r] * s.Jl[0][c] +
+                                s.Jl[1][r] * s.Jl[1][c] +
+                                s.Jl[2][r] * s.Jl[2][c]);
+        }
+        hl[9 + r] += w * (s.Jl[0][r] * s.r[0] + s.Jl[1][r] * s.r[1] +
+                          s.Jl[2][r] * s.r[2]);
+      }
+      // camera-point block W_obs = (w Jp)^T Jl, [6,3] row-major
+      for (int r = 0; r < 6; ++r) {
+        for (int c = 0; c < 3; ++c) {
+          t[r * 3 + c] = w * (s.Jp[0][r] * s.Jl[0][c] + s.Jp[1][r] * s.Jl[1][c] +
+                              s.Jp[2][r] * s.Jl[2][c]);
+        }
+      }
+    }
+    // slots ascend, so one keyframe's observations sit on adjacent lanes:
+    // add them into its row in slot order, one round per run position
+    const unsigned same = __match_any_sync(kFull, k);
+    const int rp = __popc(same & ((1u << lane) - 1u));
+    int rounds = rp;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      rounds = max(rounds, __shfl_xor_sync(kFull, rounds, off));
+    for (int r = 0; r <= rounds; ++r) {
+      if (act && rp == r) {
+#pragma unroll
+        for (int e = 0; e < 18; ++e) tile[k * 18 + e] += t[e];
+      }
+      __syncwarp();
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < 12; ++e) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      hl[e] += __shfl_xor_sync(kFull, hl[e], off);
+  }
+  if (lane < 3) {
+    const float4 v = lane == 0   ? make_float4(hl[0], hl[1], hl[2], hl[3])
+                     : lane == 1 ? make_float4(hl[4], hl[5], hl[6], hl[7])
+                                 : make_float4(hl[8], hl[9], hl[10], hl[11]);
+    reinterpret_cast<float4*>(a.acc_l + (size_t)q * 12)[lane] = v;
+  }
+  float* dst = a.T + (size_t)q * TW;
+  if ((W & 1) == 0) {  // the point's W rows: TW / 4 aligned float4s
+    const float4* src = reinterpret_cast<const float4*>(tile);
+    float4* d4 = reinterpret_cast<float4*>(dst);
+    for (int e = lane; e < TW / 4; e += 32) d4[e] = src[e];
+  } else {
+    for (int e = lane; e < TW; e += 32) dst[e] = tile[e];
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) assemble_kernel(AsmArgs a) {
+  extern __shared__ float4 s_tiles[];
+  if ((int)blockIdx.x < a.W * a.C) {
+    camera_block(a, blockIdx.x);
+  } else {
+    point_block(a, blockIdx.x - a.W * a.C, reinterpret_cast<float*>(s_tiles));
+  }
+}
+
+int launch_assemble(const AsmArgs& a, cudaStream_t stream) {
+  const int n_point = (a.Q + kWarps - 1) / kWarps;
+  const size_t smem = (size_t)kWarps * a.W * 18 * sizeof(float);
+  if (smem > (size_t)kSharedMax) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        assemble_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  assemble_kernel<<<a.W * a.C + n_point, kThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// ba_cost
+// ---------------------------------------------------------------------------
 
 __global__ void __launch_bounds__(kThreads)
 cost_kernel(const float* __restrict__ kf_pose, const float* __restrict__ pt_pos,
             const float* __restrict__ obs_uv, const float* __restrict__ obs_ur,
             const int* __restrict__ obs_pt,
             const float* __restrict__ obs_inv_s2,
-            const unsigned char* __restrict__ obs_ok, int N, int Q, Cam cam,
-            int use_huber, float* __restrict__ rho_row,
+            const unsigned char* __restrict__ obs_ok, int W, int N, int Q,
+            Cam cam, int use_huber, float* __restrict__ partial,
+            int* __restrict__ ticket, float* __restrict__ cost,
             float* __restrict__ chi2_out) {
   __shared__ float s_part[kWarps];
   __shared__ float s_sum[1];
-  const int k = blockIdx.x;
-  float pose[7], R[3][3];
-  for (int i = 0; i < 7; ++i) pose[i] = kf_pose[k * 7 + i];
-  quat_to_matrix(pose, R);
+  __shared__ int s_last;
+  const int S = W * N;
   float rho[1] = {0.f};
-  for (int n = threadIdx.x; n < N; n += kThreads) {
-    const int o = k * N + n;
+  for (int o = blockIdx.x * kThreads + threadIdx.x; o < S;
+       o += gridDim.x * kThreads) {
+    const int k = o / N;
+    float pose[7], R[3][3];
+    for (int i = 0; i < 7; ++i) pose[i] = kf_pose[k * 7 + i];
     const int pt = min(max(obs_pt[o], 0), Q - 1);
     Slot s;
     eval_slot<false>(pose, R, pt_pos + 3 * pt, obs_uv[2 * o],
                      obs_uv[2 * o + 1], obs_ur[o], obs_inv_s2[o], cam, s);
-    chi2_out[o] = s.chi2;
+    if (chi2_out) chi2_out[o] = s.chi2;
     if (!obs_ok[o]) continue;
     const float delta = sqrtf(s.has_ur ? kChi2Stereo : kChi2Mono);
     const float sq = sqrtf(fmaxf(s.chi2, 1e-12f));
@@ -254,26 +569,82 @@ cost_kernel(const float* __restrict__ kf_pose, const float* __restrict__ pt_pos,
     rho[0] += use_huber ? r : s.chi2;
   }
   block_sum<1>(rho, s_part, s_sum);
-  if (threadIdx.x == 0) rho_row[k] = s_sum[0];
+  __syncthreads();
+  if (threadIdx.x == 0) partial[blockIdx.x] = s_sum[0];
+  if (!last_to_arrive(ticket, gridDim.x, &s_last)) return;
+  float t[1] = {0.f};
+  for (int b = threadIdx.x; b < (int)gridDim.x; b += kThreads)
+    t[0] += __ldcg(partial + b);
+  block_sum<1>(t, s_part, s_sum);
+  if (threadIdx.x == 0) *cost = s_sum[0];
 }
 
 }  // namespace
 
+// Launches a solve: two. `table` (S/N x Q ints) and `rank` (S) are
+// scratch; `count` Q
+// ints and `ticket` one, zero between solves (the first launch's last CTA
+// leaves them so). A row's counts and running counts live in shared
+// memory: Q must stay within `ba_point_index_max()`.
+extern "C" int ba_point_index_max() {
+  return (kSharedMax / (int)sizeof(int) - 2 * kIndexThreads) / 2;
+}
+
+extern "C" int ba_point_index(const void* obs_pt, const void* obs_ok, int S,
+                              int N, int Q, void* offsets, void* slots,
+                              void* table, void* rank, void* count,
+                              void* ticket, void* stream) {
+  if (Q <= 0 || N <= 0 || S % N != 0 || Q > ba_point_index_max())
+    return (int)cudaErrorInvalidValue;
+  const IndexArgs a{(const int*)obs_pt, (const unsigned char*)obs_ok, S, N,
+                    Q, (int*)offsets, (int*)slots, (int*)table, (int*)rank,
+                    (int*)count, (int*)ticket};
+  const size_t smem = (size_t)(2 * Q + 2 * kIndexThreads) * sizeof(int);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        index_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const cudaStream_t st = (cudaStream_t)stream;
+  index_rows_kernel<<<max(1, S / N), kIndexThreads, smem, st>>>(a);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  index_scatter_kernel<<<max(1, (S + kThreads - 1) / kThreads), kThreads, 0,
+                         st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// Camera CTAs a window row: enough for one slot a thread and, over the W
+// rows, at least one CTA an SM. The partials take [W, C, 27] floats.
+extern "C" int ba_assemble_row_ctas(int W, int N) {
+  if (W <= 0) return 1;
+  return max(1, max((N + kThreads - 1) / kThreads, (kSMs + W - 1) / W));
+}
+
 extern "C" int ba_assemble(const void* kf_pose, const void* pt_pos,
                            const void* obs_uv, const void* obs_ur,
                            const void* obs_pt, const void* obs_inv_s2,
-                           const void* obs_ok, int W, int N, int Q, float fx,
+                           const void* obs_ok, const void* offsets,
+                           const void* slots, int W, int N, int Q, float fx,
                            float fy, float cx, float cy, float bf,
-                           int use_huber, void* Hpp, void* g_p, void* acc_l,
-                           void* T, void* stream) {
+                           int use_huber, void* Hpp, void* g_p,
+                           void* acc_l, void* T, void* partial, void* ticket,
+                           void* stream) {
   if (W <= 0) return (int)cudaGetLastError();
-  const Cam cam{fx, fy, cx, cy, bf};
-  assemble_kernel<<<W, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)kf_pose, (const float*)pt_pos, (const float*)obs_uv,
-      (const float*)obs_ur, (const int*)obs_pt, (const float*)obs_inv_s2,
-      (const unsigned char*)obs_ok, W, N, Q, cam, use_huber, (float*)Hpp,
-      (float*)g_p, (float*)acc_l, (float*)T);
-  return (int)cudaGetLastError();
+  AsmArgs a{(const float*)kf_pose, (const float*)pt_pos, (const float*)obs_uv,
+            (const float*)obs_ur, (const int*)obs_pt,
+            (const float*)obs_inv_s2, (const unsigned char*)obs_ok,
+            (const int*)offsets, (const int*)slots, W, N, Q,
+            ba_assemble_row_ctas(W, N), Cam{fx, fy, cx, cy, bf}, use_huber,
+            (float*)Hpp, (float*)g_p, (float*)acc_l, (float*)T,
+            (float*)partial, (int*)ticket};
+  return launch_assemble(a, (cudaStream_t)stream);
+}
+
+// CTAs of a `ba_cost` launch (one partial each).
+extern "C" int ba_cost_ctas(int W, int N) {
+  return max(1, (W * N + kThreads - 1) / kThreads);
 }
 
 extern "C" int ba_cost(const void* kf_pose, const void* pt_pos,
@@ -281,13 +652,13 @@ extern "C" int ba_cost(const void* kf_pose, const void* pt_pos,
                        const void* obs_pt, const void* obs_inv_s2,
                        const void* obs_ok, int W, int N, int Q, float fx,
                        float fy, float cx, float cy, float bf, int use_huber,
-                       void* rho_row, void* chi2, void* stream) {
-  if (W <= 0) return (int)cudaGetLastError();
+                       void* partial, void* ticket, void* cost, void* chi2,
+                       void* stream) {
   const Cam cam{fx, fy, cx, cy, bf};
-  cost_kernel<<<W, kThreads, 0, (cudaStream_t)stream>>>(
+  cost_kernel<<<ba_cost_ctas(W, N), kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)kf_pose, (const float*)pt_pos, (const float*)obs_uv,
       (const float*)obs_ur, (const int*)obs_pt, (const float*)obs_inv_s2,
-      (const unsigned char*)obs_ok, N, Q, cam, use_huber, (float*)rho_row,
-      (float*)chi2);
+      (const unsigned char*)obs_ok, W, N, Q, cam, use_huber, (float*)partial,
+      (int*)ticket, (float*)cost, (float*)chi2);
   return (int)cudaGetLastError();
 }

@@ -16,6 +16,9 @@ Differences of form, not of result:
   the [Q,12] Hll|g_l scatter and the [Q*K,18] camera-block scatter T) and
   the cost are kernel K5 (`csrc/ba_assemble.cu`) on CUDA tensors, and their
   plain versions (`ba_assemble_plain`, `ba_cost_plain`) on CPU tensors;
+  the assembly reads the live slots by point from a `PointIndex` built
+  once a solve (`ba_point_index`), and the cost stores chi2 only for the
+  final gate;
 - `_cost_only` uses the same analytic residual as the Jacobian pass.
 
 Matrix-free CG (`dense_schur=False`) and the sharded forms (`axis_name`,
@@ -171,9 +174,35 @@ def _inv3x3(A):
 # kernel K5 and its plain versions
 # ---------------------------------------------------------------------------
 
+class PointIndex(NamedTuple):
+    """The live observation slots grouped by point (CSR): point q's slots
+    (flat k * N + n, ascending) are slots[offsets[q]:offsets[q + 1]];
+    slots past offsets[Q] hold -1."""
+    offsets: torch.Tensor  # i32[Q+1]
+    slots: torch.Tensor    # i32[K*N]
+
+
+def ba_point_index_plain(obs_pt, obs_ok, Q: int) -> PointIndex:
+    """Plain PyTorch version of K5's `ba_point_index` (same signature): the
+    slots with `obs_ok`, by point clamped to [0, Q) as `ba_assemble_plain`
+    clamps it, ascending within a point."""
+    flat_pt = torch.clamp(obs_pt, 0, Q - 1).reshape(-1).long()
+    live = torch.nonzero(obs_ok.reshape(-1)).reshape(-1)
+    # slot ids ascend in `live`, so a stable sort keeps them ascending
+    order = torch.sort(flat_pt[live], stable=True).indices
+    counts = torch.bincount(flat_pt[live], minlength=Q)
+    offsets = torch.zeros(Q + 1, dtype=torch.int32, device=obs_pt.device)
+    offsets[1:] = torch.cumsum(counts, 0)
+    slots = torch.full((obs_pt.numel(),), -1, dtype=torch.int32,
+                       device=obs_pt.device)
+    slots[:live.numel()] = live[order].to(torch.int32)
+    return PointIndex(offsets, slots)
+
+
 def ba_assemble_plain(kf_pose, pt_pos, p: BAProblem, obs_ok, cam,
-                      use_huber: bool):
-    """Plain PyTorch version of K5's `ba_assemble` (same signature).
+                      use_huber: bool, index: Optional[PointIndex] = None):
+    """Plain PyTorch version of K5's `ba_assemble` (same signature; it has
+    no use for `index`).
 
     Returns Hpp f32[K,6,6], g_p f32[K,6], the packed point accumulator
     f32[Q,12] (Hll row-major | g_l) and T f32[Q*K,18] (row q*K + k holds
@@ -210,21 +239,25 @@ def ba_assemble_plain(kf_pose, pt_pos, p: BAProblem, obs_ok, cam,
 
 
 def ba_cost_plain(kf_pose, pt_pos, p: BAProblem, obs_ok, cam,
-                  use_huber: bool):
+                  use_huber: bool, want_chi2: bool = True):
     """Plain PyTorch version of K5's `ba_cost` (same signature): the Huber
-    cost summed over `obs_ok` (f32 scalar) and chi2[K,N] of every slot."""
+    cost summed over `obs_ok` (f32 scalar) and chi2[K,N] of every slot
+    (None unless `want_chi2`)."""
     r, _, _ = _residuals(kf_pose, pt_pos, p, cam)
     chi2 = torch.sum(r * r, -1) * p.obs_inv_s2
     has_ur = p.obs_ur > 0
     delta = torch.sqrt(torch.where(has_ur, torch.full_like(chi2, CHI2_STEREO),
                                    torch.full_like(chi2, CHI2_MONO)))
     rho = _huber_rho(chi2, delta, use_huber)
-    return torch.sum(torch.where(obs_ok, rho, torch.zeros_like(rho))), chi2
+    cost = torch.sum(torch.where(obs_ok, rho, torch.zeros_like(rho)))
+    return cost, (chi2 if want_chi2 else None)
 
 
 def _k5_inputs(kf_pose, pt_pos, p: BAProblem, obs_ok):
     K, N = p.obs_uv.shape[:2]
     Q = pt_pos.shape[0]
+    if Q < 1:
+        raise ValueError("ba: the problem needs at least one point")
     args = [t.contiguous() for t in (kf_pose, pt_pos, p.obs_uv, p.obs_ur,
                                      p.obs_pt, p.obs_inv_s2, obs_ok)]
     for t, what, dtype, shape in zip(
@@ -236,45 +269,120 @@ def _k5_inputs(kf_pose, pt_pos, p: BAProblem, obs_ok):
     return args, K, N, Q
 
 
-_K5_ARGS = [kernels.VP] * 7 + [kernels.CI] * 3 + [kernels.CF] * 5 + [kernels.CI]
+_K5_CAM = [kernels.CF] * 5 + [kernels.CI]
+# per device and entry: tickets (and the point index's counts), zero
+# between calls (the last CTA of a launch resets its own)
+_tickets = {}
 
 
-def ba_assemble(kf_pose, pt_pos, p: BAProblem, obs_ok, cam, use_huber: bool):
-    """Per-iteration dense-Schur assembly (see `ba_assemble_plain`).
-    CUDA tensors -> kernel `csrc/ba_assemble.cu`; CPU -> plain version."""
+def _ticket(dev, name: str, n: int):
+    """A cached int32 buffer of at least `n` zeros on `dev` for the kernel
+    entry `name`, which leaves it zero after each call (so calls on one
+    stream only)."""
+    key = (str(dev), name)
+    t = _tickets.get(key)
+    if t is None or t.numel() < n:
+        t = torch.zeros((max(n, 64),), dtype=torch.int32, device=dev)
+        _tickets[key] = t
+    return t
+
+
+def ba_point_index(obs_pt, obs_ok, Q: int) -> PointIndex:
+    """The live slots by point (see `PointIndex`), built once a solve in
+    two launches. CUDA tensors -> kernel `csrc/ba_assemble.cu`; CPU ->
+    plain version."""
+    if not obs_pt.is_cuda:
+        return ba_point_index_plain(obs_pt, obs_ok, Q)
+    obs_pt, obs_ok = obs_pt.contiguous(), obs_ok.contiguous()
+    kernels.require(obs_pt, "ba_point_index obs_pt", torch.int32)
+    kernels.require(obs_ok, "ba_point_index obs_ok", torch.bool,
+                    obs_pt.shape)
+    limit = kernels.bind("ba_assemble", "ba_point_index_max", [])()
+    if obs_pt.dim() != 2 or obs_pt.shape[1] < 1 or not 1 <= Q <= limit:
+        raise ValueError(f"ba_point_index: needs obs_pt [K, N >= 1] and "
+                         f"1 <= Q <= {limit}, got {tuple(obs_pt.shape)}, "
+                         f"Q={Q}")
+    (K, N), S, dev = obs_pt.shape, obs_pt.numel(), obs_pt.device
+    offsets = torch.empty((Q + 1,), dtype=torch.int32, device=dev)
+    slots = torch.empty((S,), dtype=torch.int32, device=dev)
+    table = torch.empty((K, Q), dtype=torch.int32, device=dev)
+    rank = torch.empty((S,), dtype=torch.int32, device=dev)
+    fn = kernels.bind("ba_assemble", "ba_point_index",
+                      [kernels.VP] * 2 + [kernels.CI] * 3 + [kernels.VP] * 7)
+    kernels.LAUNCHES["ba_point_index"] += 2  # a row and a scatter launch
+    kernels.check(fn(kernels.ptr(obs_pt), kernels.ptr(obs_ok), S, N, Q,
+                     kernels.ptr(offsets), kernels.ptr(slots),
+                     kernels.ptr(table), kernels.ptr(rank),
+                     kernels.ptr(_ticket(dev, "ba_point_index count", Q)),
+                     kernels.ptr(_ticket(dev, "ba_point_index", 1)),
+                     kernels.stream_of(obs_pt)), "ba_point_index")
+    return PointIndex(offsets, slots)
+
+
+def ba_assemble(kf_pose, pt_pos, p: BAProblem, obs_ok, cam, use_huber: bool,
+                index: Optional[PointIndex] = None):
+    """Per-iteration dense-Schur assembly (see `ba_assemble_plain`), one
+    launch. `index` is `ba_point_index(p.obs_pt, obs_ok, Q)`, built here
+    when not given. CUDA tensors -> kernel `csrc/ba_assemble.cu`; CPU ->
+    plain version."""
     if not kf_pose.is_cuda:
         return ba_assemble_plain(kf_pose, pt_pos, p, obs_ok, cam, use_huber)
     args, K, N, Q = _k5_inputs(kf_pose, pt_pos, p, obs_ok)
+    if index is None:
+        index = ba_point_index(args[4], args[6], Q)
+    kernels.require(index.offsets, "ba index offsets", torch.int32, (Q + 1,))
+    kernels.require(index.slots, "ba index slots", torch.int32, (K * N,))
     dev = kf_pose.device
     Hpp = torch.empty((K, 6, 6), dtype=torch.float32, device=dev)
     g_p = torch.empty((K, 6), dtype=torch.float32, device=dev)
-    acc = torch.zeros((Q, 12), dtype=torch.float32, device=dev)
-    T = torch.zeros((Q * K, 18), dtype=torch.float32, device=dev)
-    fn = kernels.bind("ba_assemble", "ba_assemble", _K5_ARGS + [kernels.VP] * 5)
+    acc = torch.empty((Q, 12), dtype=torch.float32, device=dev)
+    T = torch.empty((Q * K, 18), dtype=torch.float32, device=dev)
+    C = kernels.bind("ba_assemble", "ba_assemble_row_ctas",
+                     [kernels.CI] * 2)(K, N)
+    partial = torch.empty((max(K, 1) * C * 27,), dtype=torch.float32,
+                          device=dev)
+    fn = kernels.bind("ba_assemble", "ba_assemble",
+                      [kernels.VP] * 9 + [kernels.CI] * 3 + _K5_CAM
+                      + [kernels.VP] * 7)
     kernels.LAUNCHES["ba_assemble"] += 1
-    kernels.check(fn(*(kernels.ptr(t) for t in args), K, N, Q, cam.fx, cam.fy,
-                     cam.cx, cam.cy, cam.bf, int(use_huber), kernels.ptr(Hpp),
-                     kernels.ptr(g_p), kernels.ptr(acc), kernels.ptr(T),
+    kernels.check(fn(*(kernels.ptr(t) for t in args),
+                     kernels.ptr(index.offsets), kernels.ptr(index.slots),
+                     K, N, Q, cam.fx, cam.fy, cam.cx, cam.cy, cam.bf,
+                     int(use_huber),
+                     *(kernels.ptr(t) for t in (Hpp, g_p, acc, T, partial)),
+                     kernels.ptr(_ticket(dev, "ba_assemble", K)),
                      kernels.stream_of(kf_pose)), "ba_assemble")
     return Hpp, g_p, acc, T
 
 
-def ba_cost(kf_pose, pt_pos, p: BAProblem, obs_ok, cam, use_huber: bool):
-    """Huber cost over `obs_ok` and chi2[K,N] (see `ba_cost_plain`).
-    CUDA tensors -> kernel `csrc/ba_assemble.cu`; CPU -> plain version."""
+def ba_cost(kf_pose, pt_pos, p: BAProblem, obs_ok, cam, use_huber: bool,
+            want_chi2: bool = True):
+    """Huber cost over `obs_ok` and chi2[K,N] (None unless `want_chi2`; see
+    `ba_cost_plain`), one launch. CUDA tensors -> kernel
+    `csrc/ba_assemble.cu`; CPU -> plain version."""
     if not kf_pose.is_cuda:
-        return ba_cost_plain(kf_pose, pt_pos, p, obs_ok, cam, use_huber)
+        return ba_cost_plain(kf_pose, pt_pos, p, obs_ok, cam, use_huber,
+                             want_chi2)
     args, K, N, Q = _k5_inputs(kf_pose, pt_pos, p, obs_ok)
     dev = kf_pose.device
-    rho_row = torch.empty((K,), dtype=torch.float32, device=dev)
-    chi2 = torch.empty((K, N), dtype=torch.float32, device=dev)
-    fn = kernels.bind("ba_assemble", "ba_cost", _K5_ARGS + [kernels.VP] * 3)
+    n_cta = kernels.bind("ba_assemble", "ba_cost_ctas",
+                         [kernels.CI] * 2)(K, N)
+    partial = torch.empty((n_cta,), dtype=torch.float32, device=dev)
+    cost = torch.empty((), dtype=torch.float32, device=dev)
+    chi2 = (torch.empty((K, N), dtype=torch.float32, device=dev)
+            if want_chi2 else None)
+    fn = kernels.bind("ba_assemble", "ba_cost",
+                      [kernels.VP] * 7 + [kernels.CI] * 3 + _K5_CAM
+                      + [kernels.VP] * 5)
     kernels.LAUNCHES["ba_cost"] += 1
     kernels.check(fn(*(kernels.ptr(t) for t in args), K, N, Q, cam.fx, cam.fy,
                      cam.cx, cam.cy, cam.bf, int(use_huber),
-                     kernels.ptr(rho_row), kernels.ptr(chi2),
+                     kernels.ptr(partial),
+                     kernels.ptr(_ticket(dev, "ba_cost", 1)),
+                     kernels.ptr(cost),
+                     None if chi2 is None else kernels.ptr(chi2),
                      kernels.stream_of(kf_pose)), "ba_cost")
-    return rho_row.sum(), chi2
+    return cost, chi2
 
 
 # ---------------------------------------------------------------------------
@@ -323,14 +431,17 @@ def _ba_solve_f32(p: BAProblem, cam, iters, use_huber, chi2_gate,
     cols = (torch.arange(K, device=dev)[:, None, None] * 6
             + torch.arange(6, device=dev)[None, None, :]).expand(K, 6, 6)
 
-    cost0, _ = ba_cost(p.kf_pose, p.pt_pos, p, obs_ok0, cam, use_huber)
+    # obs_pt and obs_ok0 hold for the whole solve: one point index
+    index = ba_point_index(p.obs_pt, obs_ok0, P)
+    cost0, _ = ba_cost(p.kf_pose, p.pt_pos, p, obs_ok0, cam, use_huber,
+                       want_chi2=False)
     kf_pose, pt_pos = p.kf_pose, p.pt_pos
     lam = torch.full((), lambda0, dtype=torch.float32, device=dev)
     cost = cost0
     done = torch.zeros((), dtype=torch.bool, device=dev)
     for _ in range(iters):
         Hpp, g_p, acc, T = ba_assemble(kf_pose, pt_pos, p, obs_ok0, cam,
-                                       use_huber)
+                                       use_huber, index=index)
         Hll = acc[:, :9].reshape(P, 3, 3)
         g_l = acc[:, 9:]
         dp_diag = torch.diagonal(Hpp, dim1=1, dim2=2)
@@ -361,7 +472,8 @@ def _ba_solve_f32(p: BAProblem, cam, iters, use_huber, chi2_gate,
         new_pose = se3.retract(kf_pose, dp)
         new_pose = torch.where(free[:, None], new_pose, kf_pose)
         new_pts = pt_pos + dl
-        new_cost, _ = ba_cost(new_pose, new_pts, p, obs_ok0, cam, use_huber)
+        new_cost, _ = ba_cost(new_pose, new_pts, p, obs_ok0, cam, use_huber,
+                              want_chi2=False)
         improved = new_cost < cost
         # frozen-state mask: an iteration after `done` changes nothing
         take = improved & ~done

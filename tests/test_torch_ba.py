@@ -197,3 +197,80 @@ def test_ba_impl_on_captured_window_matches_jax(captured_ba):
     others = np.setdiff1d(np.arange(m_np["kf_pose"].shape[0]), rows)
     np.testing.assert_array_equal(out.kf_pose.numpy()[others],
                                   m_np["kf_pose"][others])
+
+
+def _counting_sort(obs_pt, obs_ok, Q):
+    """The point index by a numpy counting sort, slot by slot in order."""
+    pt = np.clip(obs_pt.reshape(-1), 0, Q - 1)
+    live = obs_ok.reshape(-1)
+    counts = np.zeros(Q, np.int64)
+    for s in np.flatnonzero(live):
+        counts[pt[s]] += 1
+    offsets = np.concatenate([[0], np.cumsum(counts)])
+    cursor = offsets[:-1].copy()
+    slots = np.full(pt.size, -1, np.int64)
+    for s in np.flatnonzero(live):
+        slots[cursor[pt[s]]] = s
+        cursor[pt[s]] += 1
+    return offsets, slots
+
+
+def _index_case(name):
+    """(obs_pt, obs_ok, Q) of one point-index case."""
+    if name == "problem":
+        d = _problem()
+        P = d["pt_pos"].shape[0]
+        ok = (d["obs_pt"] >= 0) & d["pt_valid"][np.clip(d["obs_pt"], 0, P - 1)]
+        return d["obs_pt"], ok, P
+    rng = np.random.default_rng(3)
+    K, N, Q = 6, 40, 16
+    obs_pt = rng.integers(0, Q, (K, N)).astype(np.int32)
+    ok = rng.uniform(size=(K, N)) < 0.7
+    if name == "duplicate":  # two features of one keyframe on one point
+        obs_pt[2, 5] = obs_pt[2, 30] = 7
+        ok[2, [5, 30]] = True
+    elif name == "seen_by_all":  # one point in every keyframe, 3x in one
+        obs_pt[:, 11] = 4
+        obs_pt[1, [0, 20]] = 4
+        ok[:, 11] = ok[1, [0, 20]] = True
+    elif name == "empty_points":  # points 0-7 have no live slot
+        obs_pt = np.where(obs_pt < 8, obs_pt + 8, obs_pt).astype(np.int32)
+        obs_pt[0, :4] = [1, 2, 3, 4]
+        ok[0, :4] = False
+    elif name == "beyond_q":  # clamped to [0, Q) as the plain assembly does
+        obs_pt[3, :10] = Q + np.arange(10)
+        obs_pt[4, :10] = -1 - np.arange(10)
+        ok[3:5, :10] = True
+    elif name == "all_dead":
+        ok[:] = False
+    return obs_pt, ok, Q
+
+
+@pytest.mark.parametrize("name", ["problem", "duplicate", "seen_by_all",
+                                  "empty_points", "beyond_q", "all_dead"])
+def test_point_index_plain_matches_counting_sort(name):
+    obs_pt, ok, Q = _index_case(name)
+    idx = tba.ba_point_index_plain(torch.from_numpy(obs_pt),
+                                   torch.from_numpy(ok), Q)
+    assert idx.offsets.dtype == idx.slots.dtype == torch.int32
+    offsets, slots = _counting_sort(obs_pt, ok, Q)
+    np.testing.assert_array_equal(idx.offsets.numpy(), offsets)
+    np.testing.assert_array_equal(idx.slots.numpy(), slots)
+    # on the CPU the wrapper is the plain version
+    again = tba.ba_point_index(torch.from_numpy(obs_pt), torch.from_numpy(ok),
+                               Q)
+    assert all(torch.equal(a, b) for a, b in zip(idx, again))
+
+
+def test_cost_plain_without_chi2_gives_the_same_cost():
+    p = convert.ba_problem_from_numpy(_problem(), "cpu")
+    tc = tproj.CameraIntrinsics.create(FX, FX, CX, CY, BF)
+    P = p.pt_pos.shape[0]
+    ok = (p.obs_pt >= 0) & p.pt_valid[p.obs_pt.clamp(0, P - 1).long()]
+    for use_huber in (True, False):
+        args = (p.kf_pose, p.pt_pos, p, ok, tc, use_huber)
+        cost, chi2 = tba.ba_cost_plain(*args)
+        cost_only, none = tba.ba_cost_plain(*args, want_chi2=False)
+        assert none is None and chi2.shape == ok.shape
+        assert torch.equal(cost, cost_only)
+        assert torch.equal(tba.ba_cost(*args, want_chi2=False)[0], cost)

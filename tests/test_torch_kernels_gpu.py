@@ -302,11 +302,10 @@ def test_pose_lm_kernel_at_any_observation_count(n):
         ref.final_cost)
 
 
-def _ba_problem(seed=0, K=32, P=1500, N=1000):
-    """A window BA at the main path's shapes: 32 keyframes (4 fixed, 2
+def _ba_problem(seed=0, K=32, P=1500, N=1000, Q=2048):
+    """A window BA at the main path's shapes: 32 keyframes (6 fixed, 2
     padding rows), 1000 feature slots each, points in a 2048 bucket."""
     g = np.random.default_rng(seed)
-    Q = 2048
     pts = torch.from_numpy(np.stack([g.uniform(-2, 2, Q), g.uniform(-1.5, 1.5, Q),
                                      g.uniform(3, 8, Q)], -1).astype(np.float32))
     poses = se3.exp(torch.from_numpy(np.stack(
@@ -388,3 +387,80 @@ def test_window_ba_with_kernel_matches_plain_assembly(monkeypatch):
     assert d[:, :3].abs().max() <= 1e-4 and d[:, 3:].abs().max() <= 1e-4
     assert float(out.final_cost) < float(out.initial_cost)
     assert (out.obs_inlier == ref.obs_inlier).float().mean() >= 0.999
+
+
+def _k5_case(name):
+    """The K5 card cases: both point buckets, a point with 72 live
+    observations (three in each of 24 keyframes), every slot dead,
+    windows of 20 and 13 keyframes (an odd W writes T without float4) and
+    of 40 (more keyframes than a warp has lanes)."""
+    if name == "q8192":
+        return _ba_problem(2, P=6000, Q=8192)
+    if name == "w20":
+        return _ba_problem(3, K=20)
+    if name == "w13":
+        return _ba_problem(4, K=13, N=700)
+    if name == "w40":
+        return _ba_problem(6, K=40)
+    p = _ba_problem(5)
+    if name == "many_obs":
+        obs_pt = p.obs_pt.clone()
+        obs_pt[:24, 100:103] = 0
+        return p._replace(obs_pt=obs_pt)
+    if name == "all_dead":
+        return p._replace(pt_valid=torch.zeros_like(p.pt_valid))
+    return p
+
+
+@pytest.mark.parametrize("name", ["q2048", "q8192", "many_obs", "all_dead",
+                                  "w20", "w13", "w40"])
+def test_k5_point_major_assembly(name):
+    """K5's point index equals its plain version; `ba_assemble` and
+    `ba_cost` agree with their plain versions as
+    `test_ba_assembly_kernel_matches_plain` holds them; two calls on the
+    same arguments, and an index built by the wrapper or passed in, give
+    the same bits; each call is one launch."""
+    dev = _card()
+    p = ba.BAProblem(*(t.to(dev) for t in _k5_case(name)))
+    Q = p.pt_pos.shape[0]
+    obs_ok = (p.obs_pt >= 0) & p.pt_valid[p.obs_pt.clamp(0, Q - 1).long()]
+    idx = ba.ba_point_index(p.obs_pt, obs_ok, Q)
+    ref_idx = ba.ba_point_index_plain(p.obs_pt.cpu(), obs_ok.cpu(), Q)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(idx, ref_idx))
+    if name == "many_obs":
+        assert int(idx.offsets[1] - idx.offsets[0]) >= 72
+
+    def close(k, r):
+        return bool((k - r).abs().max() <= 1e-4 * r.abs().max())
+
+    args = (p.kf_pose, p.pt_pos, p, obs_ok, CAM, True)
+    ref = ba.ba_assemble_plain(*args)
+    p64 = ba.BAProblem(*(t.double() if t.is_floating_point() else t
+                         for t in p))
+    exact = ba.ba_assemble_plain(p64.kf_pose, p64.pt_pos, p64, obs_ok, CAM,
+                                 True)
+    before = kernels.counts()
+    out = ba.ba_assemble(*args, index=idx)
+    again = ba.ba_assemble(*args, index=idx)
+    built = ba.ba_assemble(*args)
+    after = kernels.counts()
+    assert after["ba_assemble"] == before["ba_assemble"] + 3
+    assert after["ba_point_index"] == before["ba_point_index"] + 2
+    for n, a, b, c, r, e in zip(("Hpp", "g_p", "Hll|g_l", "T"), out,
+                                again, built, ref, exact):
+        assert torch.equal(a, b) and torch.equal(a, c), n
+        assert a.shape == r.shape, n
+        if n == "g_p" and not close(a, r):
+            e_k = (a.double() - e).abs().max()
+            e_p = (r.double() - e).abs().max()
+            assert e_k <= max(1e-4 * e.abs().max(), 2 * e_p), n
+        else:
+            assert close(a, r), n
+    cost, chi2 = ba.ba_cost(*args)
+    cost2, chi2_2 = ba.ba_cost(*args)
+    cost3, none = ba.ba_cost(*args, want_chi2=False)
+    assert none is None
+    assert torch.equal(cost, cost2) and torch.equal(cost, cost3)
+    assert torch.equal(chi2, chi2_2)
+    rc, rchi2 = ba.ba_cost_plain(*args)
+    assert close(cost.reshape(1), rc.reshape(1)) and close(chi2, rchi2)

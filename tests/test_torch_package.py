@@ -52,7 +52,8 @@ def test_every_kernel_source_exists():
     for name, (src, _) in kernels.SOURCES.items():
         assert os.path.exists(os.path.join(kernels.CSRC_DIR, src)), name
     assert set(kernels.LAUNCHES) == {"hamming_best2", "fast", "orb_desc",
-                                     "pose_lm", "ba_assemble", "ba_cost"}
+                                     "pose_lm", "ba_point_index",
+                                     "ba_assemble", "ba_cost"}
 
 
 def test_empty_frame_and_scale_tables_match_jax():
