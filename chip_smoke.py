@@ -1,4 +1,4 @@
-"""Drive the PyTorch port of the RGB-D tracker on one CUDA card.
+"""Drive the PyTorch port of the RGB-D and stereo tracker on one CUDA card.
 
     python3 chip_smoke.py [--profile] [--parent DIR]
 
@@ -19,19 +19,27 @@ Phases (any failure raises and the script exits non-zero):
        points) through `Tracker.track_rgbd` on cuda:0;
     b. local BA on (the bench's own setting): all 120 frames, with
        triangulation, fusion, culling and the dense-Schur window BA after
-       every keyframe.
+       every keyframe;
+    c. stereo (the bench's stereo segment, synchronous, local BA on): the
+       bench's 120 rectified VGA pairs (baseline 8 cm) through
+       `Tracker.track_stereo`, with the stereo association on K1 and the
+       per-level SAD refinement (B9) a frame.
     Each checks ATE against the 3 cm gate, that no frame was lost, that
     every kernel of its path launched and that K2 and K3 launched once a
-    frame; (b) also that window BA ran at every keyframe after the second,
-    and prints the keyframe stages' times.
+    frame (twice a stereo frame, with one B9 launch); (b) and (c) also that
+    window BA ran at every keyframe after the second, and print the
+    keyframe stages' times.
  4. every kernel against its plain version on the arguments the main path
     gave it, timed with CUDA events: K1, K2, K3 and K4 on the calls of one
     more tracked frame (K1 and K4 also on the last fallback frame), K1's
     pair gate on one triangulation, K5 on one window BA at its real point
-    bucket (and the whole window BA with K5 against the plain assembly).
+    bucket (and the whole window BA with K5 against the plain assembly);
+    then, on cell (c), K1, K4 and B9 on the calls of one more tracked
+    stereo frame and K5 on one of its window BAs.
  5. torch.profiler windows, after every agreement check: K2's and K3's
     device time on frame 0, K1's and K4's on the recorded tracked frame's
-    calls, K5's on the recorded window BA; K4's time split into passes
+    calls, K5's on the recorded window BA, B9's and the stereo K1 call's
+    on the recorded stereo frame; K4's time split into passes
     and LM iterations (the same calls without iterations) and one
     iteration on no observation;
     extraction with the rank rounds in K2 against extraction with the
@@ -121,6 +129,25 @@ def bench_frames(n):
     return imgs, depths, gt
 
 
+def bench_stereo_frames(gt):
+    """The bench's stereo pairs (`bench.py:705-725`): the same box room and
+    orbit, rendered with a right camera 8 cm along x, uint8."""
+    from orb_slam2_refactored_tpu_torch.io.synthetic import (
+        SyntheticScene, box_room)
+
+    planes = box_room(half_x=1.8, half_y=1.4, z_far=3.0, z_near=-3.0)
+    scene = SyntheticScene(width=640, height=480, fx=520.0, fy=520.0,
+                           planes=planes, baseline=0.08)
+    n = len(gt)
+    left = np.zeros((n, 480, 640), np.uint8)
+    right = np.zeros((n, 480, 640), np.uint8)
+    for i in range(n):
+        lft, rgt, _ = scene.render_stereo(gt[i])
+        left[i] = np.clip(lft, 0, 255).astype(np.uint8)
+        right[i] = np.clip(rgt, 0, 255).astype(np.uint8)
+    return left, right
+
+
 def bench_cam():
     from orb_slam2_refactored_tpu_torch.geometry.projection import (
         CameraIntrinsics)
@@ -130,7 +157,9 @@ def bench_cam():
 
 def bench_config(local_ba: bool):
     """`bench.py:98-107`'s RGB-D configuration; `local_ba` is its
-    `enable_local_ba` (the bench leaves it on)."""
+    `enable_local_ba` (the bench leaves it on). Its stereo segment's
+    (`bench.py:742-753`) is the same but for the software pipeline, which
+    the port runs synchronously."""
     from orb_slam2_refactored_tpu_torch.slam.map_state import MapCapacity
     from orb_slam2_refactored_tpu_torch.slam.tracking import TrackerConfig
 
@@ -559,8 +588,8 @@ def check_ba(asm_call, solve_call):
     each entry on the same arguments (and `ba_assemble` with the index
     built by the wrapper) bit-equal; then the whole window BA with K5
     against the same solve with the plain assembly: poses within 1e-4 m /
-    1e-4 rad. Returns the results of `ba_point_index`, `ba_assemble` and
-    `ba_cost`."""
+    1e-4 rad, the plain solve run in torch's deterministic mode. Returns the
+    results of `ba_point_index`, `ba_assemble` and `ba_cost`."""
     from orb_slam2_refactored_tpu_torch.geometry import se3
     from orb_slam2_refactored_tpu_torch.optim import ba
 
@@ -619,10 +648,19 @@ def check_ba(asm_call, solve_call):
     res_k = ba.ba_solve(**sa)
     real = (ba.ba_assemble, ba.ba_cost)
     ba.ba_assemble, ba.ba_cost = ba.ba_assemble_plain, ba.ba_cost_plain
+    # The plain assembly's `index_add_` sums with float atomics on the card,
+    # in an order that changes from run to run; on cell C's recorded window
+    # that let the plain solve take a third LM step in some runs and not in
+    # others (1.6e-6 or 1.19e-4 m from the kernel's, f64 costs within 3e-7
+    # relative). Torch's deterministic mode gives it one order, so the
+    # reference is the same in every run.
+    det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         res_p = ba.ba_solve(**sa)
     finally:
         ba.ba_assemble, ba.ba_cost = real
+        torch.use_deterministic_algorithms(det)
     d = se3.log(se3.compose(res_k.kf_pose, se3.inverse(res_p.kf_pose)))
     rot, trans = float(d[:, :3].abs().max()), float(d[:, 3:].abs().max())
     inl = float((res_k.obs_inlier == res_p.obs_inlier).float().mean())
@@ -674,6 +712,53 @@ def check_ba(asm_call, solve_call):
     return index, asm, cost
 
 
+def check_stereo_sad(a):
+    """B9 against its plain version on the arguments the stereo step gave
+    it: (ur_lvl, sad_best, delta_ok) bit-equal (the plain version adds in
+    the kernel's order), and two calls bit-equal. CUDA events time the
+    launch and the plain version; the bound counts the pixels under the
+    keypoints' patches and strips once each."""
+    from orb_slam2_refactored_tpu_torch.ops import stereo
+
+    def call():
+        return stereo.refine_subpixel_sad(**a)
+
+    def plain():
+        return stereo.refine_subpixel_sad_plain(**a)
+
+    k, k2, p = call(), call(), plain()
+    torch.cuda.synchronize()
+    same = [bool(torch.equal(x, y)) for x, y in zip(k, p)]
+    twice = all(torch.equal(x, y) for x, y in zip(k, k2))
+    err = max(float((x.double() - y.double()).abs().max()) for x, y in
+              zip(k, p))
+    lvl, yl, xl, ur0 = (a[n].long() for n in ("lvl", "yl", "xl", "ur0"))
+    N = lvl.shape[0]
+    dev = lvl.device
+    d11 = torch.arange(-5, 6, device=dev)
+    d21 = torch.arange(-10, 11, device=dev)
+    pixels = 0
+    for l, (img_l, img_r) in enumerate(zip(a["levels_l"], a["levels_r"])):
+        sel = lvl == l
+        for img, xs, dx in ((img_l, xl, d11), (img_r, ur0, d21)):
+            cov = torch.zeros(img.shape, dtype=torch.bool, device=dev)
+            cov[(yl[sel, None, None] + d11[None, :, None]),
+                (xs[sel, None, None] + dx[None, None, :])] = True
+            pixels += int(cov.sum())
+    levels = [int((lvl == l).sum()) for l in range(len(a["levels_l"]))]
+    print(f"  B9 stereo_sad: {N} keypoints (by level {levels}), "
+          f"{int(k[2].sum())} pass the parabola gates; (ur_lvl, sad_best, "
+          f"delta_ok) bit-equal to the plain version {same}, two calls "
+          f"bit-equal {twice}")
+    assert all(same) and twice, (same, twice)
+    # f32 pixels read once, the 4 coordinates in, 2 f32 and a bool out
+    nbytes = 4 * pixels + 16 * N + 9 * N
+    # each of the 11 windows' 121 terms: two centrings, a difference, an
+    # add of its absolute value; ~20 for the argmin and the parabola
+    ops = {"f32": N * (11 * 121 * 4 + 20)}
+    return err, cuda_time_ms(call, 50), cuda_time_ms(plain, 5), nbytes, ops
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main paths
 # ---------------------------------------------------------------------------
@@ -723,6 +808,24 @@ def record_tracked_frame(tracker, imgs, depths):
     return k1, k2[0], k3[0], k4
 
 
+def record_tracked_stereo_frame(tracker, left, right):
+    """The K1, K2, K3, K4 and B9 calls of one more stereo frame tracked after
+    cell C (frame 0 again: the orbit closes), with their arguments."""
+    from orb_slam2_refactored_tpu_torch.ops import fast, orb, stereo
+
+    k1, k2, k3, k4, sad = [], [], [], [], []
+    with recording_k1(k1), recording_k4(k4), \
+            recording(k2, (fast, "detect_and_rank")), \
+            recording(k3, (orb, "angles_and_descriptors_levels")), \
+            recording(sad, (stereo, "refine_subpixel_sad")):
+        tracker.track_stereo(left[0], right[0])
+    info = tracker.track_info[-1]
+    assert not info.get("lost") and not info.get("ref_fallback"), info
+    assert (len(k2), len(k3), len(sad)) == (2, 2, 1), (len(k2), len(k3),
+                                                       len(sad))
+    return k1, k4, sad[0]
+
+
 def record_mapping(tracker):
     """The arguments of one triangulation (its K1 calls with the epipolar
     pair gate) and of one window BA (its first `ba_assemble` call and its
@@ -744,20 +847,28 @@ def record_mapping(tracker):
     return tri_k1, asm[0], solve[0]
 
 
-def run_main_path(imgs, depths, gt, device, local_ba):
+def run_main_path(imgs, second, gt, device, local_ba, stereo=False):
+    """One cell: `imgs` with their depth maps (`second`) through
+    `track_rgbd`, or, with `stereo`, left images with the right ones
+    through `track_stereo`."""
     from orb_slam2_refactored_tpu_torch import kernels
     from orb_slam2_refactored_tpu_torch.io.evaluation import ate_rmse, rpe
     from orb_slam2_refactored_tpu_torch.slam.tracking import Tracker
     from orb_slam2_refactored_tpu_torch.utils.timing import StageTimer
 
     tag = "local BA on" if local_ba else "local BA off"
+    if stereo:
+        tag = "stereo, " + tag
     tracker = Tracker(bench_config(local_ba), device=device)
     timer = StageTimer(device)  # synchronizes the card at both ends
     kernels.reset_counts()
     for i in range(len(imgs)):
         with timer.time("step"):
-            tracker.track_rgbd(imgs[i], depths[i].astype(np.float32),
-                               timestamp=i / 30.0)
+            if stereo:
+                tracker.track_stereo(imgs[i], second[i], timestamp=i / 30.0)
+            else:
+                tracker.track_rgbd(imgs[i], second[i].astype(np.float32),
+                                   timestamp=i / 30.0)
     launches = kernels.counts()
     step_s = timer.samples["step"]
     tracker.flush()
@@ -791,10 +902,17 @@ def run_main_path(imgs, depths, gt, device, local_ba):
     assert ate <= ATE_GATE_M, f"ATE {ate} m above the {ATE_GATE_M} m gate"
     assert lost == 0, f"{lost} frames lost"
     for k, v in launches.items():
-        if local_ba or not k.startswith("ba_"):
+        if k == "stereo_sad" and not stereo:
+            assert v == 0, f"B9 launched on the RGB-D path ({tag})"
+        elif local_ba or not k.startswith("ba_"):
             assert v > 0, f"kernel {k} never launched on the path ({tag})"
-    for k in ("fast", "orb_desc"):  # one extraction call of each a frame
-        assert launches[k] == len(imgs), (k, launches[k], len(imgs))
+    # one extraction call of each a frame, two a stereo frame and one B9
+    per_frame = 2 if stereo else 1
+    for k in ("fast", "orb_desc"):
+        assert launches[k] == per_frame * len(imgs), (k, launches[k],
+                                                      len(imgs))
+    if stereo:
+        assert launches["stereo_sad"] == len(imgs), launches
     if local_ba:
         assert n_ba >= created - 2 >= 1, (n_ba, created)
         # K5: one point index (two launches) a solve, one launch a call of
@@ -806,19 +924,19 @@ def run_main_path(imgs, depths, gt, device, local_ba):
     return stats, tracker
 
 
-def _profile_window(tracker, imgs, depths, frames, tag):
-    """Track `frames` under torch.profiler: the device's busy share, time
-    and kernel launches a frame, and the kernels that take its time."""
+def _profile_window(tracker, track, frames, tag):
+    """Track `frames` (`track(k)` tracks frame k) under torch.profiler: the
+    device's busy share, time and kernel launches a frame, and the kernels
+    that take its time."""
     from torch.profiler import ProfilerActivity, profile
 
-    n = len(imgs)
     kf_before = sum(1 for t in tracker.track_info if t.get("kf"))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for k in frames:
-            tracker.track_rgbd(imgs[k % n], depths[k % n].astype(np.float32))
+            track(k)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kf_in = sum(1 for t in tracker.track_info if t.get("kf")) - kf_before
@@ -847,6 +965,9 @@ def profile_steps(tracker, imgs, depths, n_split=10, n_prof=20, n_kf=3):
     a torch.profiler window over tracked frames; then one over frames that
     each make a keyframe (`kf_max_interval` set to 1 for the window), so
     that the mapping job and its window BA are in it."""
+    def track(k):
+        tracker.track_rgbd(imgs[k % n], depths[k % n].astype(np.float32))
+
     dev = tracker.device
     n = len(imgs)
     prep, step = [], []
@@ -867,13 +988,13 @@ def profile_steps(tracker, imgs, depths, n_split=10, n_prof=20, n_kf=3):
         "extract_ms_median": float(np.median(prep) * 1e3),
         "step_ms_median": float(np.median(step) * 1e3)}))
     first = n_split + 1
-    _profile_window(tracker, imgs, depths, range(first, first + n_prof),
+    _profile_window(tracker, track, range(first, first + n_prof),
                     "tracked frames")
     first += n_prof
     keep = tracker.cfg.kf_max_interval
     tracker.cfg.kf_max_interval = 1
     try:
-        _profile_window(tracker, imgs, depths, range(first, first + n_kf),
+        _profile_window(tracker, track, range(first, first + n_kf),
                         "keyframe frames (mapping job and window BA)")
     finally:
         tracker.cfg.kf_max_interval = keep
@@ -1228,7 +1349,8 @@ def kernel_row(name, src, rep, launches, r):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
-                    help="after the main path, break a frame's time down")
+                    help="after the main paths, break a frame's time down "
+                    "(cell A's, and a stereo frame's of cell C)")
     ap.add_argument("--parent", metavar="DIR",
                     help="also hold K1, K4 and K5 against the kernels of "
                     "the checkout in DIR (outputs and device time, in turns)")
@@ -1277,6 +1399,12 @@ def main():
     n = N_FRAMES_NO_BA
     run_main_path(imgs[:n], depths[:n], gt[:n], device, local_ba=False)
     stats, tracker = run_main_path(imgs, depths, gt, device, local_ba=True)
+    t0 = time.perf_counter()
+    left, right = bench_stereo_frames(gt)
+    print(f"{N_FRAMES} VGA stereo pairs rendered in "
+          f"{time.perf_counter() - t0:.1f} s")
+    stats_c, tracker_c = run_main_path(left, right, gt, device,
+                                       local_ba=True, stereo=True)
 
     # ---- phase 4: every kernel on the arguments the main path gave it ----
     frame_k1, frame_k2, frame_k3, frame_k4 = record_tracked_frame(
@@ -1294,6 +1422,21 @@ def main():
                                            enumerate(fb_k4)}},
                            per_frame=frame_k4)
     index_r, asm_r, cost_r = check_ba(asm_call, solve_call)
+    # cell C: a tracked stereo frame's K1, K4 and B9 calls, one window BA
+    st_k1, st_k4, st_sad = record_tracked_stereo_frame(tracker_c, left,
+                                                       right)
+    st_k1 = name_k1_calls("stereo", st_k1)
+    st_pair = {n: a for n, a in st_k1.items() if n.endswith("_pair")}
+    assert len(st_pair) == 1, list(st_k1)
+    st_ham = check_hamming(st_k1, per_frame=st_pair)
+    b_ms, b_by = bound_ms(st_ham[3], st_ham[4])
+    print(f"  stereo K1 call {', '.join(st_pair)}: {st_ham[1]:.5f} ms, plain "
+          f"{st_ham[2]:.5f} ms, bound {b_ms:.6f} ms ({b_by})")
+    check_pose_lm({f"stereo{i}": a for i, a in enumerate(st_k4)},
+                  per_frame={})
+    sad_r = check_stereo_sad(st_sad)
+    _, st_asm, st_solve = record_mapping(tracker_c)
+    check_ba(st_asm, st_solve)
 
     # ---- phase 5: profiler windows, after every agreement check ----
     from orb_slam2_refactored_tpu_torch.ops import fast, orb
@@ -1312,6 +1455,16 @@ def main():
     k4_chain(frame_k4, device)
     index_r, asm_r, cost_r = device_times_k5(asm_call, index_r, asm_r,
                                              cost_r)
+    from orb_slam2_refactored_tpu_torch.ops import stereo
+
+    sad_ops = []
+    sad_ms, sad_rows = profiled_ms(
+        lambda: stereo.refine_subpixel_sad(**st_sad), 20, sad_ops)
+    print(f"B9 device time {sad_ms:.5f} ms a call, {sad_ops[0]:g} device "
+          f"operations: {sad_rows}")
+    assert sad_ops[0] == 1, sad_rows
+    sad_r += (sad_ms,)
+    print(f"stereo K1 call: {device_times_k1(st_pair):.5f} ms of device time")
     if args.parent:
         dense_k1 = {n: a for n, a in {**name_k1_calls("fallback", fb_k1),
                                       **name_k1_calls("triangulation",
@@ -1323,6 +1476,9 @@ def main():
     compare_extraction(imgs, device)
     if args.profile:
         profile_steps(tracker, imgs, depths)
+        _profile_window(tracker_c, lambda k: tracker_c.track_stereo(
+            left[k % N_FRAMES], right[k % N_FRAMES]), range(1, 21),
+            "stereo tracked frames (cell C)")
 
     pkg, ref = "orb_slam2_refactored_tpu_torch/csrc/", "orb_slam2_refactored_tpu/"
     L = stats["launches"]
@@ -1341,12 +1497,16 @@ def main():
                    ref + "optim/ba.py:272", L["ba_assemble"], asm_r),
         kernel_row("ba_cost", pkg + "ba_assemble.cu",
                    ref + "optim/ba.py:151", L["ba_cost"], cost_r),
+        kernel_row("stereo_sad", pkg + "stereo_sad.cu",
+                   ref + "ops/stereo.py:120",
+                   stats_c["launches"]["stereo_sad"], sad_r),
     ]
     print(f"per frame: K1 = {', '.join(frame_k1)}; K4 = "
           f"{', '.join(frame_k4)}; K2 and K3 = one call each over all 8 "
           "pyramid levels of frame 0; "
           "K5 = one LM iteration of one window BA (its index: once a "
-          "solve)")
+          "solve); stereo_sad = one call on a tracked stereo frame, its "
+          "launches from cell C")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

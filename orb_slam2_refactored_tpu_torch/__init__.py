@@ -3,9 +3,9 @@
 The JAX package beside this one is the reference; every module here mirrors
 its counterpart's path (`geometry/`, `ops/`, `optim/`, `solvers/`, `slam/`,
 `io/`, `utils/`) so the two are easy to hold against each other. The hot
-device stages of the RGB-D tracking step run as hand-written CUDA kernels
-(`csrc/`, built and bound by `kernels/`); each keeps a plain PyTorch version
-next to it that serves CPU tensors.
+device stages of the RGB-D and stereo tracking steps run as hand-written
+CUDA kernels (`csrc/`, built and bound by `kernels/`); each keeps a plain
+PyTorch version next to it that serves CPU tensors.
 
 Conventions shared with the JAX package:
 - poses are f32[..., 7] = [qw, qx, qy, qz, tx, ty, tz] (world -> camera);

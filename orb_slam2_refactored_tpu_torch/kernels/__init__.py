@@ -36,12 +36,14 @@ SOURCES: Dict[str, tuple] = {
     "orb_desc": ("orb_desc.cu", []),
     "pose_lm": ("pose_lm.cu", []),
     "ba_assemble": ("ba_assemble.cu", []),
+    "stereo_sad": ("stereo_sad.cu", []),
 }
 
 # kernel name -> launches of that kernel since the last reset
 LAUNCHES: Dict[str, int] = {"hamming_best2": 0, "fast": 0, "orb_desc": 0,
                             "pose_lm": 0, "ba_point_index": 0,
-                            "ba_assemble": 0, "ba_cost": 0}
+                            "ba_assemble": 0, "ba_cost": 0,
+                            "stereo_sad": 0}
 
 _BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -151,7 +153,7 @@ def ptr(t: torch.Tensor):
     return ctypes.c_void_p(t.data_ptr())
 
 
-# levels a multi-level kernel (K2, K3) takes in its by-value table
+# levels a multi-level kernel (K2, K3, B9) takes in its by-value table
 MAX_LEVELS = 16
 
 

@@ -1,22 +1,26 @@
-"""Tracking stage: per-frame RGB-D pose estimation over device-resident map
-state.
+"""Tracking stage: per-frame RGB-D and stereo pose estimation over
+device-resident map state.
 
-Port of the RGB-D subset of `orb_slam2_refactored_tpu/slam/tracking.py`:
-`_prepare_impl` (ORB extraction + depth association), `_track_impl`
-(motion-model matching, rotation check, pose LM, reference-keyframe
-fallback with Horn RANSAC, whole-map projection matching, final pose LM,
-found/visible statistics), the fused `_step_impl`, keyframe insertion
-(`_insert_kf_impl` / `_insert_kf_auto_impl`), the synchronous host loop
-`track_rgbd` and, with `enable_local_ba=True`, the synchronous
-local-mapping job that follows each keyframe (`slam/local_mapping.py`:
-triangulation, fusion, point culling, window BA, keyframe culling; the
-tracker adopts the BA-refined pose of the new keyframe).
+Port of the RGB-D and stereo subset of
+`orb_slam2_refactored_tpu/slam/tracking.py`: `_prepare_impl` (ORB
+extraction + depth association) and `_prepare_stereo_impl` (left and right
+extraction, the row-banded stereo association and the per-level SAD
+refinement, `ops/stereo.py`), `_track_impl` (motion-model matching,
+rotation check, pose LM, reference-keyframe fallback with Horn RANSAC,
+whole-map projection matching, final pose LM, found/visible statistics),
+the fused `_step_impl` and `_step_stereo_impl`, keyframe insertion
+(`_insert_kf_impl` / `_insert_kf_auto_impl`), the synchronous host loops
+`track_rgbd` and `track_stereo` and, with `enable_local_ba=True`, the
+synchronous local-mapping job that follows each keyframe
+(`slam/local_mapping.py`: triangulation, fusion, point culling, window BA,
+keyframe culling; the tracker adopts the BA-refined pose of the new
+keyframe).
 
 Differences of form from the JAX package:
 - the tracker runs on `cuda:0` unless the caller passes another device
   (the tests pass "cpu"); with no card and no explicit device it raises;
-- the frame arrives as tensors (gray or RGB image, f32 depth): there is no
-  wire packing, no pipelined mode and no k-frame chaining;
+- the frame arrives as tensors (gray or RGB images, f32 depth): there is
+  no wire packing, no pipelined mode and no k-frame or pair chaining;
 - `jax.lax.cond(use_ref, ...)` is a Python branch on `use_ref.item()`, one
   documented host sync per frame, beside the one read of the host pack;
 - the frame counter `fidx` is a Python int (it seeds the RANSAC generator);
@@ -43,6 +47,7 @@ from ..geometry import projection as proj
 from ..geometry import se3
 from ..ops import matching
 from ..ops.orb import OrbExtractor
+from ..ops.stereo import refine_subpixel_pyramid, stereo_match
 from ..optim.pose_opt import pose_optimize
 from ..solvers.ransac import horn_ransac
 from ..utils.timing import StageTimer
@@ -149,7 +154,7 @@ class TrackState:
 
 
 class Tracker:
-    """Host-orchestrated RGB-D tracking over device tensors."""
+    """Host-orchestrated RGB-D and stereo tracking over device tensors."""
 
     def __init__(self, cfg: TrackerConfig, device=None):
         bad = _unsupported(cfg)
@@ -220,6 +225,29 @@ class Tracker:
             response=feats.response, desc=feats.desc, u_right=u_right,
             depth=torch.where(has_d, d, torch.full_like(d, -1.0)),
             valid=feats.valid,
+        )
+
+    def _prepare_stereo_impl(self, img_l, img_r) -> FrameData:
+        """Left and right extraction (two K2 and two K3 calls), the
+        row-banded stereo association (K1 under the dense stereo gate) and
+        the SAD refinement at each keypoint's own level (kernel B9) on the
+        extractor's own pyramids. The pair is assumed rectified: with
+        distortion coefficients the left keypoints are undistorted, and
+        u_right stays in the raw rectified frame."""
+        cfg = self.cfg
+        lf, pyr_l = self.extractor._extract_impl_pyr(img_l)
+        rf, pyr_r = self.extractor._extract_impl_pyr(img_r)
+        u_right, _, ok = stereo_match(
+            lf.xy, lf.level, lf.desc, lf.valid, rf.xy, rf.level, rf.desc,
+            rf.valid, self.sf, cfg.bf, min_z=cfg.bf / cfg.fx)
+        u_right, depth, _ = refine_subpixel_pyramid(
+            pyr_l, pyr_r, lf.xy, lf.level, u_right, ok, cfg.bf, self.sf)
+        xy_und = (proj.undistort_points(self.cam, self.dist, lf.xy)
+                  if self._has_dist else lf.xy)
+        return FrameData(
+            xy=xy_und, xy_raw=lf.xy, level=lf.level, angle=lf.angle,
+            response=lf.response, desc=lf.desc, u_right=u_right, depth=depth,
+            valid=lf.valid,
         )
 
     def _seam_stats(self, found_mask, mp_seen, fidx: int):
@@ -354,7 +382,24 @@ class Tracker:
         """Fused per-frame step: extract + depth-associate + track. The JAX
         step's `local_mask` argument is absent: the covisibility window is
         not ported, so every live map point is matched."""
-        frame = self._prepare_impl(img, depth_img)
+        return self._step_frame(self._prepare_impl(img, depth_img), last,
+                                last_mp, m, pose_last, velocity, ref_kf,
+                                mp_vis, mp_found, mp_seen, fidx)
+
+    def _step_stereo_impl(self, img_l, img_r, last: FrameData, last_mp,
+                          m: MapArrays, pose_last, velocity, ref_kf: int,
+                          mp_vis, mp_found, mp_seen, fidx: int):
+        """Fused stereo step: extract both images + stereo-associate +
+        track; returns what `_step_impl` returns."""
+        return self._step_frame(self._prepare_stereo_impl(img_l, img_r),
+                                last, last_mp, m, pose_last, velocity, ref_kf,
+                                mp_vis, mp_found, mp_seen, fidx)
+
+    def _step_frame(self, frame: FrameData, last: FrameData, last_mp,
+                    m: MapArrays, pose_last, velocity, ref_kf: int, mp_vis,
+                    mp_found, mp_seen, fidx: int):
+        """Track a prepared frame: `_track_impl`, the seam statistics and
+        the host pack."""
         (pose, feat_mp, n_inl, n_mm, t_close, u_close, used_ref,
          found_mask, vis_mask, tcr) = self._track_impl(
             frame, last, last_mp, m, pose_last, velocity, ref_kf, fidx)
@@ -453,6 +498,19 @@ class Tracker:
             lambda: self._prepare_impl(img_t, depth_t),
             lambda: self._step_impl(
                 img_t, depth_t, self.last_frame, self.last_mp_dev, self.map,
+                self.pose_dev, self.velocity_dev, max(self.ref_kf, 0),
+                self.mp_vis_dev, self.mp_found_dev, self.mp_seen_dev,
+                self.fidx),
+            timestamp)
+
+    def track_stereo(self, img_l, img_r, timestamp: float = 0.0):
+        """Process one rectified stereo pair (gray or RGB images); returns
+        the world->camera pose f32[7]."""
+        l_t, r_t = self._t(img_l), self._t(img_r)
+        return self._run_frame(
+            lambda: self._prepare_stereo_impl(l_t, r_t),
+            lambda: self._step_stereo_impl(
+                l_t, r_t, self.last_frame, self.last_mp_dev, self.map,
                 self.pose_dev, self.velocity_dev, max(self.ref_kf, 0),
                 self.mp_vis_dev, self.mp_found_dev, self.mp_seen_dev,
                 self.fidx),

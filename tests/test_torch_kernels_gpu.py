@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain versions, on the card: K1 (in its
 three gate modes), K2 and K3 (on one level and on a whole pyramid in one
-call), K4 (pose LM) and K5 (BA assembly and cost).
+call), K4 (pose LM), K5 (BA assembly and cost) and B9 (the stereo SAD
+refinement).
 
 These tests need a CUDA card and skip elsewhere. The file imports no JAX,
 so it also runs where JAX is not installed:
@@ -20,10 +21,12 @@ from orb_slam2_refactored_tpu_torch.geometry import projection as proj
 from orb_slam2_refactored_tpu_torch.geometry import se3
 from orb_slam2_refactored_tpu_torch.io.synthetic import (
     SyntheticScene, orbit_trajectory)
-from orb_slam2_refactored_tpu_torch.ops import fast, hamming, orb
+from orb_slam2_refactored_tpu_torch.ops import fast, hamming, orb, stereo
 from orb_slam2_refactored_tpu_torch.ops import image as image_ops
 from orb_slam2_refactored_tpu_torch.optim import ba, pose_opt
+from orb_slam2_refactored_tpu_torch.slam.frame import scale_factors
 from torch_k1_cases import k1_grid_cases
+from torch_sad_cases import SAD_CASES, as_tensors, sad_case, sad_ref
 
 pytestmark = pytest.mark.gpu
 torch.set_num_threads(1)
@@ -464,3 +467,81 @@ def test_k5_point_major_assembly(name):
     assert torch.equal(chi2, chi2_2)
     rc, rchi2 = ba.ba_cost_plain(*args)
     assert close(cost.reshape(1), rc.reshape(1)) and close(chi2, rchi2)
+
+
+VGA_SHAPES = image_ops.pyramid_shapes(480, 640, 8, 1.2)
+
+
+def _sad_bit_equal(args):
+    """B9 on the card against its plain version (on the card too): every
+    output bit-equal, two calls bit-equal, one launch a call."""
+    before = kernels.counts()["stereo_sad"]
+    out = stereo.refine_subpixel_sad(*args)
+    again = stereo.refine_subpixel_sad(*args)
+    ref = stereo.refine_subpixel_sad_plain(*args)
+    torch.cuda.synchronize()
+    assert kernels.counts()["stereo_sad"] == before + 2
+    for a, b, r in zip(out, again, ref):
+        assert a.dtype == r.dtype and a.shape == r.shape
+        assert torch.equal(a, b) and torch.equal(a, r)
+    return out
+
+
+@pytest.mark.parametrize("name", SAD_CASES)
+def test_stereo_sad_kernel_on_constructed_cases(name):
+    """The constructed cases of `torch_sad_cases.py` on a VGA pyramid's 8
+    level shapes: the kernel bit-equal to its plain version and to the numpy
+    loop (ties to the lowest index, border argmins and flat rows rejected,
+    rim and top-level reads in place)."""
+    dev = _card()
+    case = sad_case(name, VGA_SHAPES)
+    out = _sad_bit_equal(as_tensors(case, dev))
+    ur, sad, ok, best = sad_ref(*case[:6])
+    if case[6] is not None:
+        np.testing.assert_array_equal(best, case[6])
+    for a, b in zip(out, (ur, sad, ok)):
+        np.testing.assert_array_equal(a.cpu().numpy(), b)
+
+
+def test_stereo_sad_kernel_on_a_rendered_vga_pair():
+    """B9 as the stereo step calls it: a rendered VGA pair, 8 levels, 1000
+    features a side through the extractor and the stereo association on
+    the card; the kernel bit-equal to its plain version."""
+    dev = _card()
+    scene = SyntheticScene(width=640, height=480, fx=520.0, fy=520.0,
+                           baseline=0.08)
+    left, right, _ = scene.render_stereo(orbit_trajectory(4)[2])
+    ext = orb.OrbExtractor(480, 640)
+    sf = scale_factors(8, 1.2, device=dev)[0]
+    lf, pyr_l = ext._extract_impl_pyr(torch.from_numpy(
+        np.clip(left, 0, 255).astype(np.uint8)).to(dev))
+    rf, pyr_r = ext._extract_impl_pyr(torch.from_numpy(
+        np.clip(right, 0, 255).astype(np.uint8)).to(dev))
+    u_right, _, ok = stereo.stereo_match(
+        lf.xy, lf.level, lf.desc, lf.valid, rf.xy, rf.level, rf.desc,
+        rf.valid, sf, 41.6, min_z=41.6 / 520.0)
+    assert int(ok.sum()) > 200
+    coords = stereo.level_coordinates(pyr_l, lf.xy, lf.level, u_right, sf)
+    _, _, delta_ok = _sad_bit_equal([pyr_l, pyr_r, *coords])
+    assert int((delta_ok & ok).sum()) > 100
+    assert int(coords[0][ok].max()) > 0  # matches on upper levels too
+
+
+def test_stereo_sad_wrapper_refuses_what_the_kernel_does_not_take():
+    dev = _card()
+    levels_l, levels_r, lvl, yl, xl, ur0 = as_tensors(
+        sad_case("interior", VGA_SHAPES), dev)
+    with pytest.raises(ValueError):  # a CPU tensor beside CUDA levels
+        stereo.refine_subpixel_sad(levels_l, levels_r, lvl.cpu(), yl, xl,
+                                   ur0)
+    with pytest.raises(ValueError):  # int64 coordinates
+        stereo.refine_subpixel_sad(levels_l, levels_r, lvl.long(), yl, xl,
+                                   ur0)
+    with pytest.raises(ValueError):  # f64 levels
+        stereo.refine_subpixel_sad([a.double() for a in levels_l], levels_r,
+                                   lvl, yl, xl, ur0)
+    with pytest.raises(ValueError):  # right level of another shape
+        stereo.refine_subpixel_sad(levels_l, [levels_r[0][:, :-1]]
+                                   + levels_r[1:], lvl, yl, xl, ur0)
+    with pytest.raises(ValueError):  # coordinates of another length
+        stereo.refine_subpixel_sad(levels_l, levels_r, lvl, yl[:3], xl, ur0)

@@ -53,7 +53,7 @@ def test_every_kernel_source_exists():
         assert os.path.exists(os.path.join(kernels.CSRC_DIR, src)), name
     assert set(kernels.LAUNCHES) == {"hamming_best2", "fast", "orb_desc",
                                      "pose_lm", "ba_point_index",
-                                     "ba_assemble", "ba_cost"}
+                                     "ba_assemble", "ba_cost", "stereo_sad"}
 
 
 def test_empty_frame_and_scale_tables_match_jax():
