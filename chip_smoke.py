@@ -22,8 +22,9 @@ Phases (any failure raises and the script exits non-zero):
        every keyframe;
     c. stereo (the bench's stereo segment, synchronous, local BA on): the
        bench's 120 rectified VGA pairs (baseline 8 cm) through
-       `Tracker.track_stereo`, with the stereo association on K1 and the
-       per-level SAD refinement (B9) a frame.
+       `Tracker.track_stereo`, with the stereo association a frame: the
+       gate, K1, and one B9 launch for everything after K1 (the matched u,
+       both medians, the per-level SAD refinement and the depth).
     Each checks ATE against the 3 cm gate, that no frame was lost, that
     every kernel of its path launched and that K2 and K3 launched once a
     frame (twice a stereo frame, with one B9 launch); (b) and (c) also that
@@ -34,19 +35,24 @@ Phases (any failure raises and the script exits non-zero):
     more tracked frame (K1 and K4 also on the last fallback frame), K1's
     pair gate on one triangulation, K5 on one window BA at its real point
     bucket (and the whole window BA with K5 against the plain assembly);
-    then, on cell (c), K1, K4 and B9 on the calls of one more tracked
-    stereo frame and K5 on one of its window BAs.
+    then, on cell (c), K1 and K4 on the calls of one more tracked stereo
+    frame, its association bit for bit against the plain composition, its
+    B9 launch and B9's SAD-only entry against their plain versions, and K5
+    on one of its window BAs.
  5. torch.profiler windows, after every agreement check: K2's and K3's
     device time on frame 0, K1's and K4's on the recorded tracked frame's
-    calls, K5's on the recorded window BA, B9's and the stereo K1 call's
-    on the recorded stereo frame; K4's time split into passes
+    calls, K5's on the recorded window BA, B9's (and its wrapper's host
+    time), the whole association's (no copy to or from the host in it) and
+    the stereo K1 call's on the recorded stereo frame; K4's time split into passes
     and LM iterations (the same calls without iterations) and one
     iteration on no observation;
     extraction with the rank rounds in K2 against extraction with the
     plain rank rounds on the card, on the same 20 frames; with --profile, a
-    frame's time broken down; with --parent DIR, K1, K4 and K5 against the
-    kernels of the checkout in DIR on the same recorded arguments (outputs,
-    then device times in turns: parent, change, change, parent).
+    frame's time broken down; with --parent DIR, K1, K4, K5 and B9 against
+    the kernels of the checkout in DIR on the same recorded arguments
+    (outputs, then device times in turns: parent, change, change, parent;
+    for B9 the parent's torch chain after K1 around its launch against the
+    one launch, also in CUDA-event time).
 The line before the last is a JSON object with one entry per kernel; the
 last line is `{"ok": true, "device": {...}}`.
 """
@@ -712,51 +718,149 @@ def check_ba(asm_call, solve_call):
     return index, asm, cost
 
 
-def check_stereo_sad(a):
-    """B9 against its plain version on the arguments the stereo step gave
-    it: (ur_lvl, sad_best, delta_ok) bit-equal (the plain version adds in
-    the kernel's order), and two calls bit-equal. CUDA events time the
-    launch and the plain version; the bound counts the pixels under the
-    keypoints' patches and strips once each."""
+def association_args(a):
+    """From `stereo_associate`'s recorded arguments `a`: K1's (idx, best)
+    under the stereo gate, and the arguments of the B9 launch after it
+    (`associate_from_best2`)."""
     from orb_slam2_refactored_tpu_torch.ops import stereo
 
+    gate = {k: v for k, v in a.items()
+            if k not in ("levels_l", "levels_r", "max_dist")}
+    idx, best = stereo._band_best2(**gate)
+    tail = {k: a[k] for k in ("levels_l", "levels_r", "l_xy", "l_level",
+                              "r_xy", "scale_factors", "bf")}
+    tail.update(idx=idx, best=best)
+    if "max_dist" in a:
+        tail["max_dist"] = a["max_dist"]
+    return tail
+
+
+def check_stereo_sad(a):
+    """B9 on the arguments the stereo step gave `stereo_associate` (`a`):
+    the whole association (gate, K1, one B9 launch) bit-equal to
+    `stereo_associate_plain` (the same K1, then plain torch), the B9
+    launch alone (`associate_from_best2`) bit-equal to its plain version on
+    the same K1 outputs, in three back-to-back calls (the ticket resets),
+    and the SAD-only entry (`refine_subpixel_sad`) bit-equal to
+    `refine_subpixel_sad_plain` at the coordinates the launch searches.
+    CUDA events time the launch and the plain version; the bound counts
+    what the function needs: the pixels under the patches and strips of
+    the keypoints within the distance bound (the others are rejected
+    whatever their SAD) once each, K1's outputs, the coordinates and the
+    three outputs. Returns the kernel row's numbers and the launch's
+    arguments."""
+    from orb_slam2_refactored_tpu_torch.ops import hamming, stereo
+
+    whole = stereo.stereo_associate(**a)
+    whole_plain = stereo.stereo_associate_plain(**a)
+    tail = association_args(a)
+
     def call():
-        return stereo.refine_subpixel_sad(**a)
+        return stereo.associate_from_best2(**tail)
 
     def plain():
-        return stereo.refine_subpixel_sad_plain(**a)
+        return stereo.associate_from_best2_plain(**tail)
 
-    k, k2, p = call(), call(), plain()
+    k, k2, k3, p = call(), call(), call(), plain()
     torch.cuda.synchronize()
+    same_whole = [bool(torch.equal(x, y)) for x, y in zip(whole, whole_plain)]
     same = [bool(torch.equal(x, y)) for x, y in zip(k, p)]
-    twice = all(torch.equal(x, y) for x, y in zip(k, k2))
+    thrice = all(torch.equal(x, y) and torch.equal(x, z)
+                 for x, y, z in zip(k, k2, k3))
+    # the coordinates the kernel searches at: the matched u before the
+    # distance median, at each keypoint's level
+    max_dist = tail.get("max_dist", hamming.TH_HIGH)
+    ok1 = tail["best"] <= max_dist
+    r_x = tail["r_xy"][:, 0]
+    mu = torch.where(ok1, r_x[tail["idx"].clamp(0, r_x.shape[0] - 1).long()],
+                     torch.full_like(tail["l_xy"][:, 0], -1.0))
+    coords = stereo.level_coordinates(tail["levels_l"], tail["l_xy"],
+                                      tail["l_level"], mu,
+                                      tail["scale_factors"])
+    sad_args = (tail["levels_l"], tail["levels_r"], *coords)
+    sad_k = stereo.refine_subpixel_sad(*sad_args)
+    sad_p = stereo.refine_subpixel_sad_plain(*sad_args)
+    torch.cuda.synchronize()
+    same_sad = [bool(torch.equal(x, y)) for x, y in zip(sad_k, sad_p)]
     err = max(float((x.double() - y.double()).abs().max()) for x, y in
-              zip(k, p))
-    lvl, yl, xl, ur0 = (a[n].long() for n in ("lvl", "yl", "xl", "ur0"))
+              list(zip(k, p)) + list(zip(sad_k, sad_p)))
+    lvl, yl, xl, ur0 = (c.long() for c in coords)
     N = lvl.shape[0]
     dev = lvl.device
     d11 = torch.arange(-5, 6, device=dev)
     d21 = torch.arange(-10, 11, device=dev)
     pixels = 0
-    for l, (img_l, img_r) in enumerate(zip(a["levels_l"], a["levels_r"])):
-        sel = lvl == l
+    for l, (img_l, img_r) in enumerate(zip(tail["levels_l"],
+                                           tail["levels_r"])):
+        sel = (lvl == l) & ok1
         for img, xs, dx in ((img_l, xl, d11), (img_r, ur0, d21)):
             cov = torch.zeros(img.shape, dtype=torch.bool, device=dev)
             cov[(yl[sel, None, None] + d11[None, :, None]),
                 (xs[sel, None, None] + dx[None, None, :])] = True
             pixels += int(cov.sum())
-    levels = [int((lvl == l).sum()) for l in range(len(a["levels_l"]))]
-    print(f"  B9 stereo_sad: {N} keypoints (by level {levels}), "
-          f"{int(k[2].sum())} pass the parabola gates; (ur_lvl, sad_best, "
-          f"delta_ok) bit-equal to the plain version {same}, two calls "
-          f"bit-equal {twice}")
-    assert all(same) and twice, (same, twice)
-    # f32 pixels read once, the 4 coordinates in, 2 f32 and a bool out
-    nbytes = 4 * pixels + 16 * N + 9 * N
-    # each of the 11 windows' 121 terms: two centrings, a difference, an
-    # add of its absolute value; ~20 for the argmin and the parabola
-    ops = {"f32": N * (11 * 121 * 4 + 20)}
-    return err, cuda_time_ms(call, 50), cuda_time_ms(plain, 5), nbytes, ops
+    levels = [int((lvl == l).sum()) for l in range(len(tail["levels_l"]))]
+    n_ok1 = int(ok1.sum())
+    print(f"  B9 stereo_sad: {N} keypoints (by level {levels}), {n_ok1} "
+          f"within the distance bound, {int(k[2].sum())} accepted; the "
+          f"association bit-equal to stereo_associate_plain {same_whole}; "
+          f"the B9 launch (u_right, depth, ok) bit-equal to its plain "
+          f"version {same}, three calls bit-equal {thrice}; the SAD-only "
+          f"entry (ur_lvl, sad, delta_ok) bit-equal to its plain version "
+          f"{same_sad}")
+    assert all(same_whole) and all(same) and thrice and all(same_sad), (
+        same_whole, same, thrice, same_sad)
+    L = len(tail["levels_l"])
+    # f32 pixels read once; every keypoint's best, and l_xy, l_level, idx
+    # and the matched r_x of those within the distance bound, and the scale
+    # factors in; u_right, depth (f32) and ok (bool) out
+    nbytes = 4 * pixels + 4 * N + 20 * n_ok1 + 4 * L + 9 * N
+    # a keypoint within the distance bound: each of the 11 windows' 121
+    # terms, two centrings, a difference, an add of its absolute value, and
+    # ~40 for the coordinates, the argmin, the parabola and the gates; each
+    # median at least a look at every key for its range and one counting
+    # pass (a compare, a subtraction, a shift and a count a key)
+    ops = {"f32": n_ok1 * (11 * 121 * 4 + 40), "int32": 2 * 7 * N}
+    return (err, cuda_time_ms(call, 50), cuda_time_ms(plain, 5), nbytes,
+            ops), tail
+
+
+def b9_wrapper_host_us(tail, reps=2000):
+    """Host microseconds a call of B9's wrapper (`associate_from_best2`) on
+    the recorded arguments: the whole call (it checks, allocates and
+    issues the launch, then returns), its argument check alone, and the
+    key a cache of checked signatures would build in the check's place
+    (each tensor's shape, dtype, device and contiguity, and a dict
+    lookup). Median of 5 runs of `reps` calls, the queue drained between
+    runs."""
+    from orb_slam2_refactored_tpu_torch.ops import stereo
+
+    t = tail
+    args = (t["l_xy"], t["l_level"], t["r_xy"], t["idx"], t["best"],
+            t["scale_factors"], *t["levels_l"], *t["levels_r"])
+    seen = {}
+
+    def key():
+        return seen.get(tuple((x.shape, x.dtype, x.device, x.is_contiguous())
+                              for x in args))
+
+    fns = {"call": lambda: stereo.associate_from_best2(**t),
+           "check": lambda: stereo._check_associate(
+               t["levels_l"], t["levels_r"], t["l_xy"], t["l_level"],
+               t["r_xy"], t["idx"], t["best"], t["scale_factors"]),
+           "signature_key": key}
+    us = {}
+    for name, fn in fns.items():
+        runs = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            runs.append((time.perf_counter() - t0) / reps * 1e6)
+        us[name] = sorted(runs)[2]
+    torch.cuda.synchronize()
+    print("B9 wrapper host time a call, us: " + json.dumps(us))
+    return us
 
 
 # ---------------------------------------------------------------------------
@@ -809,15 +913,18 @@ def record_tracked_frame(tracker, imgs, depths):
 
 
 def record_tracked_stereo_frame(tracker, left, right):
-    """The K1, K2, K3, K4 and B9 calls of one more stereo frame tracked after
-    cell C (frame 0 again: the orbit closes), with their arguments."""
+    """The K1, K2, K3 and K4 calls of one more stereo frame tracked after
+    cell C (frame 0 again: the orbit closes), and its `stereo_associate`
+    call (the stereo K1 call and B9), with their arguments."""
     from orb_slam2_refactored_tpu_torch.ops import fast, orb, stereo
+    from orb_slam2_refactored_tpu_torch.slam import tracking
 
     k1, k2, k3, k4, sad = [], [], [], [], []
     with recording_k1(k1), recording_k4(k4), \
             recording(k2, (fast, "detect_and_rank")), \
             recording(k3, (orb, "angles_and_descriptors_levels")), \
-            recording(sad, (stereo, "refine_subpixel_sad")):
+            recording(sad, (stereo, "stereo_associate"),
+                      (tracking, "stereo_associate")):
         tracker.track_stereo(left[0], right[0])
     info = tracker.track_info[-1]
     assert not info.get("lost") and not info.get("ref_fallback"), info
@@ -952,6 +1059,10 @@ def _profile_window(tracker, track, frames, tag):
         "device_ms_per_frame": dev_us / 1e3 / m,
         "wall_ms_per_frame": wall * 1e3 / m,
         "device_ops_per_frame": sum(e.count for e in rows) / m,
+        "copies_to_host_per_frame": sum(e.count for e in rows
+                                        if "DtoH" in e.key) / m,
+        "uploads_per_frame": sum(e.count for e in rows
+                                 if "HtoD" in e.key) / m,
     }
     print("profile " + json.dumps(out))
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:15]:
@@ -1168,133 +1279,76 @@ def device_times_k5(asm_call, index_r, asm_r, cost_r, reps=20):
 
 
 # ---------------------------------------------------------------------------
-# --parent: K1, K4 and K5 against the parent commit's kernels
+# --parent: K1, K4, K5 and B9 against the parent commit's kernels
 # ---------------------------------------------------------------------------
 
 def build_parent(parent):
-    """The K1, K4 and K5 sources of another checkout (`parent`), built with
-    this checkout's flags into `build/torch_kernels/parent/` and bound with
-    their own C signatures. Returns callables with the port's wrapper
-    signatures (K5's as its wrappers ran it before the point index: zero
-    fills before `ba_assemble`, a torch sum after `ba_cost`)."""
-    import ctypes
+    """The port package of another checkout (`parent`), imported from it as
+    the package `parent_port` with its kernels built from its own sources
+    (all at once, into its own `build/torch_kernels/`); its wrappers bind
+    each kernel with its own C signature. Returns its K1, K4 and K5
+    entries, and its B9 chain after K1 with `associate_from_best2`'s
+    signature: `stereo_match`'s torch tail (unchanged since), then the
+    parent's `refine_subpixel_pyramid`."""
+    import importlib
+    import importlib.util
     import os
 
-    from orb_slam2_refactored_tpu_torch import kernels
-    from orb_slam2_refactored_tpu_torch.optim import pose_opt
+    from orb_slam2_refactored_tpu_torch.ops import hamming, stereo
 
-    out_dir = os.path.join(kernels.BUILD_DIR, "parent")
-    os.makedirs(out_dir, exist_ok=True)
-    libs = {}
-    procs = []
-    for name in ("hamming", "pose_lm", "ba_assemble"):
-        src, extra = kernels.SOURCES[name]
-        lib = os.path.join(out_dir, f"lib{name}.so")
-        cmd = ([kernels.nvcc_path()] + kernels._BASE_FLAGS + extra + [
-            "-o", lib, os.path.join(parent, "orb_slam2_refactored_tpu_torch",
-                                    "csrc", src)])
-        procs.append((name, lib, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    for name, lib, p in procs:
-        log, _ = p.communicate()
-        assert p.returncode == 0, f"parent {name}: {log}"
-        libs[name] = ctypes.CDLL(lib)
-    VP, CI, CF = kernels.VP, kernels.CI, kernels.CF
-    k1 = libs["hamming"].hamming_best2
-    k1.argtypes, k1.restype = [VP] * 10 + [CI] * 3 + [VP] * 5, ctypes.c_int
-    k4 = libs["pose_lm"].pose_lm
-    k4.argtypes = [VP] * 6 + [CI] + [CF] * 5 + [CI] * 2 + [VP] * 6
-    k4.restype = ctypes.c_int
-    ptr = kernels.ptr
+    pkg = os.path.join(parent, "orb_slam2_refactored_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        "parent_port", os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    sys.modules["parent_port"] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sys.modules["parent_port"])
+    t0 = time.perf_counter()
+    importlib.import_module("parent_port.kernels").build_all()
+    print(f"the parent's kernels built in {time.perf_counter() - t0:.1f} s")
+    old_hamming = importlib.import_module("parent_port.ops.hamming")
+    old_pose = importlib.import_module("parent_port.optim.pose_opt")
+    old_ba = importlib.import_module("parent_port.optim.ba")
+    old_stereo = importlib.import_module("parent_port.ops.stereo")
 
-    def parent_k1(q, t, row_ok, col_ok, uv=None, rad=None, lvl_r=None,
-                  xy=None, lvl_c=None, pair_ok=None):
-        M, N = q.shape[0], t.shape[0]
-        out = [torch.empty((M,), dtype=torch.int32, device=q.device)
-               for _ in range(3)]
-        gate = [None if x is None else ptr(x)
-                for x in (uv, rad, lvl_r, xy, lvl_c, pair_ok)]
-        kernels.check(k1(ptr(q), ptr(t), ptr(row_ok), ptr(col_ok), *gate, M,
-                         N, int(uv is not None), *(ptr(o) for o in out),
-                         None, kernels.stream_of(q)), "parent hamming_best2")
-        return tuple(out)
+    def parent_b9(levels_l, levels_r, l_xy, l_level, r_xy, idx, best,
+                  scale_factors, bf, max_dist=hamming.TH_HIGH):
+        u, _, ok = stereo._match_tail(l_xy, r_xy, idx, best, bf, max_dist)
+        return old_stereo.refine_subpixel_pyramid(
+            levels_l, levels_r, l_xy, l_level, u, ok, bf, scale_factors)
 
-    def parent_k4(pose0, pts_w, obs_uv, obs_ur, inv_sigma2, valid, cam,
-                  rounds=4, iters_per_round=10):
-        N, dev = pts_w.shape[0], pose0.device
-        pose = torch.empty((7,), dtype=torch.float32, device=dev)
-        inl = torch.empty((N,), dtype=torch.bool, device=dev)
-        num = torch.empty((), dtype=torch.int32, device=dev)
-        cost = torch.empty((), dtype=torch.float32, device=dev)
-        args = [x.contiguous() for x in (pose0, pts_w, obs_uv, obs_ur,
-                                         inv_sigma2, valid)]
-        kernels.check(k4(*(ptr(x) for x in args), N, cam.fx, cam.fy, cam.cx,
-                         cam.cy, cam.bf, int(rounds), int(iters_per_round),
-                         ptr(pose), ptr(inl), ptr(num), ptr(cost), None,
-                         kernels.stream_of(pose0)), "parent pose_lm")
-        return pose_opt.PoseOptResult(pose, inl, num, cost)
-
-    k5a = libs["ba_assemble"].ba_assemble
-    k5a.argtypes = [VP] * 7 + [CI] * 3 + [CF] * 5 + [CI] + [VP] * 5
-    k5c = libs["ba_assemble"].ba_cost
-    k5c.argtypes = [VP] * 7 + [CI] * 3 + [CF] * 5 + [CI] + [VP] * 3
-    k5a.restype = k5c.restype = ctypes.c_int
-
-    def k5_args(kf_pose, pt_pos, p, obs_ok, cam, use_huber):
-        W, N = p.obs_uv.shape[:2]
-        ts = [x.contiguous() for x in (kf_pose, pt_pos, p.obs_uv, p.obs_ur,
-                                       p.obs_pt, p.obs_inv_s2, obs_ok)]
-        return ([ptr(x) for x in ts] + [W, N, pt_pos.shape[0], cam.fx,
-                                         cam.fy, cam.cx, cam.cy, cam.bf,
-                                         int(use_huber)]), W, N
-
-    def parent_asm(kf_pose, pt_pos, p, obs_ok, cam, use_huber, index=None):
-        a, W, _ = k5_args(kf_pose, pt_pos, p, obs_ok, cam, use_huber)
-        Q, dev = pt_pos.shape[0], pt_pos.device
-        out = (torch.empty((W, 6, 6), dtype=torch.float32, device=dev),
-               torch.empty((W, 6), dtype=torch.float32, device=dev),
-               torch.zeros((Q, 12), dtype=torch.float32, device=dev),
-               torch.zeros((Q * W, 18), dtype=torch.float32, device=dev))
-        kernels.check(k5a(*a, *(ptr(x) for x in out),
-                          kernels.stream_of(kf_pose)), "parent ba_assemble")
-        return out
-
-    def parent_cost(kf_pose, pt_pos, p, obs_ok, cam, use_huber,
-                    want_chi2=True):
-        a, W, N = k5_args(kf_pose, pt_pos, p, obs_ok, cam, use_huber)
-        dev = pt_pos.device
-        rho = torch.empty((W,), dtype=torch.float32, device=dev)
-        chi2 = torch.empty((W, N), dtype=torch.float32, device=dev)
-        kernels.check(k5c(*a, ptr(rho), ptr(chi2), kernels.stream_of(kf_pose)),
-                      "parent ba_cost")
-        return rho.sum(), chi2
-
-    return parent_k1, parent_k4, parent_asm, parent_cost
+    return (old_hamming.masked_best2_gated, old_pose.pose_optimize,
+            old_ba.ba_assemble, old_ba.ba_cost, parent_b9)
 
 
-def in_turns(label, calls, fns, reps=20):
-    """Device time of the recorded `calls` through each of `fns` (name ->
-    callable), in the order parent, change, change, parent."""
+def in_turns(label, calls, fns, reps=20, card=False):
+    """Device time (with `card`, CUDA-event time) of the recorded `calls`
+    through each of `fns` (name -> callable), in the order parent, change,
+    change, parent."""
     order = list(fns) + list(fns)[::-1]
     ms = {name: [] for name in fns}
     for name in order:
         fn = fns[name]
-        t, _ = profiled_ms(lambda: [fn(**a) for a in calls.values()], reps)
-        ms[name].append(t)
+
+        def run():
+            return [fn(**a) for a in calls.values()]
+        ms[name].append(cuda_time_ms(run, reps) if card
+                        else profiled_ms(run, reps)[0])
     print(f"in turns, {label}: " + json.dumps(ms))
     return ms
 
 
 def compare_with_parent(parent, frame_k1, dense_k1, frame_k4, fb_k4,
-                        asm_call, device):
-    """K1, K4 and K5 against the parent checkout's kernels on the same
-    recorded arguments: outputs (K1 exactly; K4 bit for bit, reported; K5's
-    largest difference, reported), then device times in turns, and K4's
-    iteration on no observation."""
-    from orb_slam2_refactored_tpu_torch.ops import hamming
+                        asm_call, st_tail, device):
+    """K1, K4, K5 and B9 against the parent checkout's on the same recorded
+    arguments: outputs (K1 and B9 exactly; K4 bit for bit, reported; K5's
+    largest difference, reported), then device times in turns, K4's
+    iteration on no observation, and for B9 the parent's chain after K1
+    (its torch tail around its launch) against the one launch, in device
+    time and in CUDA-event time."""
+    from orb_slam2_refactored_tpu_torch.ops import hamming, stereo
     from orb_slam2_refactored_tpu_torch.optim import ba, pose_opt
 
-    old_k1, old_k4, old_asm, old_cost = build_parent(parent)
+    old_k1, old_k4, old_asm, old_cost, old_b9 = build_parent(parent)
     for name, a in {**frame_k1, **dense_k1}.items():
         same = all(torch.equal(x, y) for x, y in zip(
             hamming.masked_best2_gated(**a), old_k1(**a)))
@@ -1334,6 +1388,20 @@ def compare_with_parent(parent, frame_k1, dense_k1, frame_k4, fb_k4,
         res[f"k5_{name}_ms"] = in_turns(
             f"K5 {name} on the recorded window BA's first LM iteration",
             {name: a}, {"parent": old_fn, "change": new_fn})
+    same = [bool(torch.equal(x, y)) for x, y in zip(
+        stereo.associate_from_best2(**st_tail), old_b9(**st_tail))]
+    old_ops = []
+    _, old_rows = profiled_ms(lambda: old_b9(**st_tail), 20, old_ops)
+    print(f"  B9: (u_right, depth, ok) equal to the parent's chain after K1 "
+          f"{same}; the parent's chain makes {old_ops[0]:g} device "
+          f"operations a call: {old_rows}")
+    assert all(same), same
+    fns = {"parent": old_b9, "change": stereo.associate_from_best2}
+    res["b9_device_ms"] = in_turns(
+        "B9, the stereo association after K1 on the recorded stereo frame",
+        {"b9": st_tail}, fns)
+    res["b9_card_ms"] = in_turns(
+        "B9, the same, CUDA events", {"b9": st_tail}, fns, card=True)
     print("against the parent " + json.dumps(res))
     return res
 
@@ -1352,8 +1420,9 @@ def main():
                     help="after the main paths, break a frame's time down "
                     "(cell A's, and a stereo frame's of cell C)")
     ap.add_argument("--parent", metavar="DIR",
-                    help="also hold K1, K4 and K5 against the kernels of "
-                    "the checkout in DIR (outputs and device time, in turns)")
+                    help="also hold K1, K4, K5 and B9 against the kernels "
+                    "of the checkout in DIR (outputs and device time, in "
+                    "turns)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1434,7 +1503,7 @@ def main():
           f"{st_ham[2]:.5f} ms, bound {b_ms:.6f} ms ({b_by})")
     check_pose_lm({f"stereo{i}": a for i, a in enumerate(st_k4)},
                   per_frame={})
-    sad_r = check_stereo_sad(st_sad)
+    sad_r, st_tail = check_stereo_sad(st_sad)
     _, st_asm, st_solve = record_mapping(tracker_c)
     check_ba(st_asm, st_solve)
 
@@ -1459,11 +1528,20 @@ def main():
 
     sad_ops = []
     sad_ms, sad_rows = profiled_ms(
-        lambda: stereo.refine_subpixel_sad(**st_sad), 20, sad_ops)
+        lambda: stereo.associate_from_best2(**st_tail), 20, sad_ops)
     print(f"B9 device time {sad_ms:.5f} ms a call, {sad_ops[0]:g} device "
           f"operations: {sad_rows}")
     assert sad_ops[0] == 1, sad_rows
     sad_r += (sad_ms,)
+    b9_wrapper_host_us(st_tail)
+    # the whole association: the gate, K1 and B9; no copy to or from the
+    # host in it
+    assoc_ops = []
+    assoc_ms, assoc_rows = profiled_ms(
+        lambda: stereo.stereo_associate(**st_sad), 20, assoc_ops)
+    print(f"stereo_associate (gate, K1, B9) device time {assoc_ms:.5f} ms a "
+          f"call, {assoc_ops[0]:g} device operations: {assoc_rows}")
+    assert not [r for r in assoc_rows if "Memcpy" in r], assoc_rows
     print(f"stereo K1 call: {device_times_k1(st_pair):.5f} ms of device time")
     if args.parent:
         dense_k1 = {n: a for n, a in {**name_k1_calls("fallback", fb_k1),
@@ -1472,7 +1550,7 @@ def main():
                     if "uv" not in a}
         compare_with_parent(args.parent, frame_k1, dense_k1, frame_k4,
                             {f"fallback{i}": a for i, a in enumerate(fb_k4)},
-                            asm_call, device)
+                            asm_call, st_tail, device)
     compare_extraction(imgs, device)
     if args.profile:
         profile_steps(tracker, imgs, depths)
@@ -1505,7 +1583,8 @@ def main():
           f"{', '.join(frame_k4)}; K2 and K3 = one call each over all 8 "
           "pyramid levels of frame 0; "
           "K5 = one LM iteration of one window BA (its index: once a "
-          "solve); stereo_sad = one call on a tracked stereo frame, its "
+          "solve); stereo_sad = the one launch after K1 of a tracked "
+          "stereo frame's association, its "
           "launches from cell C")
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -36,7 +36,8 @@ SOURCES: Dict[str, tuple] = {
     "orb_desc": ("orb_desc.cu", []),
     "pose_lm": ("pose_lm.cu", []),
     "ba_assemble": ("ba_assemble.cu", []),
-    "stereo_sad": ("stereo_sad.cu", []),
+    # `l_x - ur_lvl * sf` must round the product first, as torch does
+    "stereo_sad": ("stereo_sad.cu", ["-fmad=false"]),
 }
 
 # kernel name -> launches of that kernel since the last reset
@@ -181,6 +182,21 @@ def require(t: torch.Tensor, what: str, dtype, shape=None):
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{what}: expected a contiguous tensor")
+
+
+_tickets: Dict[tuple, torch.Tensor] = {}
+
+
+def ticket(dev, name: str, n: int) -> torch.Tensor:
+    """A cached int32 buffer of at least `n` zeros on `dev` for the kernel
+    entry `name`, which leaves it zero after each call (so calls on one
+    stream only)."""
+    key = (str(dev), name)
+    t = _tickets.get(key)
+    if t is None or t.numel() < n:
+        t = torch.zeros((max(n, 64),), dtype=torch.int32, device=dev)
+        _tickets[key] = t
+    return t
 
 
 VP = ctypes.c_void_p

@@ -2,13 +2,20 @@
 
 Port of `orb_slam2_refactored_tpu/ops/stereo.py` (the analog of
 `ORBmatcher::ComputeStereoMatches`):
-- `stereo_match`: the row-band x disparity-window x level-window gate as a
-  dense [N, N] pair mask, handed to kernel K1 (`ops/hamming.py`) as its
-  `pair_ok` input, then the distance-median outlier filter;
+- `stereo_associate`: the whole association of a stereo frame, as the
+  tracker calls it: the row-band x disparity-window x level-window gate as
+  a dense [N, N] pair mask, handed to kernel K1 (`ops/hamming.py`) as its
+  `pair_ok` input, then everything after K1's best-2 in one launch of the
+  hand-written kernel `csrc/stereo_sad.cu` (`associate_from_best2`: the
+  matched u, the distance median, the level coordinates, the SAD search,
+  the parabola, the gates, the SAD median and the depth), with no host
+  read. On CPU tensors `stereo_associate_plain`: `stereo_match` then
+  `refine_subpixel_pyramid`, the JAX package's two functions;
+- `stereo_match`: the gate, K1, then the distance-median outlier filter;
 - `refine_subpixel_pyramid`: the 11x11 SAD search at +-5 disparities at each
-  keypoint's own pyramid level, the parabola fit and its gates, on CUDA
-  tensors one launch of the hand-written kernel `csrc/stereo_sad.cu`, on CPU
-  tensors the plain version `refine_subpixel_sad_plain`; then the rescale to
+  keypoint's own pyramid level, the parabola fit and its gates (on CUDA
+  tensors the kernel's SAD-only entry `refine_subpixel_sad`, on CPU tensors
+  its plain version `refine_subpixel_sad_plain`); then the rescale to
   level 0 and the SAD-median outlier filter;
 - `refine_subpixel`: the level-0 variant, plain torch (nothing calls it on
   the tracking path).
@@ -56,14 +63,16 @@ def _nanmedian_midpoint(x: torch.Tensor) -> torch.Tensor:
     lo = torch.clamp(torch.div(cnt - 1, 2, rounding_mode="floor"), min=0)
     hi = torch.clamp(torch.div(cnt, 2, rounding_mode="floor"),
                      max=max(s.shape[0] - 1, 0))
-    return (s[lo] + s[hi]) * 0.5
+    # index_select, not s[lo]: a 0-d index tensor is read to the host
+    mid = s.index_select(0, torch.stack([lo, hi]))
+    return (mid[0] + mid[1]) * 0.5
 
 
-def stereo_match(l_xy, l_level, l_desc, l_valid, r_xy, r_level, r_desc,
-                 r_valid, scale_factors, bf: float, min_z: float,
-                 max_dist: int = hamming.TH_HIGH):
-    """Returns (u_right f32[N], depth f32[N]) for each left feature (-1 where
-    unmatched), plus the match validity mask bool[N]."""
+def _band_best2(l_xy, l_level, l_desc, l_valid, r_xy, r_level, r_desc,
+                r_valid, scale_factors, bf: float, min_z: float):
+    """K1's best-2 of each left feature over the right ones under the
+    stereo gate (row band 2 * scale(level), disparity in [-1, bf / min_z],
+    level +-1). Returns (idx i32[N], best i32[N])."""
     max_d = bf / min_z
     vL, vR = l_xy[:, 1][:, None], r_xy[:, 1][None, :]
     uL, uR = l_xy[:, 0][:, None], r_xy[:, 0][None, :]
@@ -74,8 +83,13 @@ def stereo_match(l_xy, l_level, l_desc, l_valid, r_xy, r_level, r_desc,
     lvl_ok = torch.abs(l_level[:, None] - r_level[None, :]) <= 1
     idx, best, _ = hamming.masked_best2_gated(
         l_desc, r_desc, l_valid, r_valid, pair_ok=row_ok & disp_ok & lvl_ok)
-    ok = best <= max_dist
+    return idx, best
 
+
+def _match_tail(l_xy, r_xy, idx, best, bf: float, max_dist: int):
+    """`stereo_match` after the best-2: the matched u, the depth and the
+    distance-median filter."""
+    ok = best <= max_dist
     neg = torch.full_like(l_xy[:, 0], -1.0)
     matched_ur = torch.where(
         ok, r_xy[torch.clamp(idx, 0, r_xy.shape[0] - 1).long(), 0], neg)
@@ -89,6 +103,16 @@ def stereo_match(l_xy, l_level, l_desc, l_valid, r_xy, r_level, r_desc,
     thr = 1.5 * 1.4 * med
     ok = ok & (best < thr)
     return torch.where(ok, matched_ur, neg), torch.where(ok, depth, neg), ok
+
+
+def stereo_match(l_xy, l_level, l_desc, l_valid, r_xy, r_level, r_desc,
+                 r_valid, scale_factors, bf: float, min_z: float,
+                 max_dist: int = hamming.TH_HIGH):
+    """Returns (u_right f32[N], depth f32[N]) for each left feature (-1 where
+    unmatched), plus the match validity mask bool[N]."""
+    idx, best = _band_best2(l_xy, l_level, l_desc, l_valid, r_xy, r_level,
+                            r_desc, r_valid, scale_factors, bf, min_z)
+    return _match_tail(l_xy, r_xy, idx, best, bf, max_dist)
 
 
 # ---------------------------------------------------------------------------
@@ -246,15 +270,22 @@ def refine_subpixel_pyramid(levels_l, levels_r, l_xy, l_level, u_right,
                             valid, bf: float, scale_factors):
     """Per-level SAD refinement with the reference's octave semantics: the
     coordinates scale into the keypoint's pyramid level, the 11x11 window
-    slides there (kernel B9, `refine_subpixel_sad`), and the result scales
-    back. Then the gates (disparity in (0.01, bf), |delta| <= 1, no border
-    argmin) and the SAD-median outlier filter (1.5 * 1.4 x the median of
-    the accepted SADs; none accepted -> no filter). Returns (u_right f32[N],
-    depth f32[N], ok bool[N]), -1 where rejected."""
+    slides there (kernel B9's SAD-only entry, `refine_subpixel_sad`), and
+    the result scales back. Then the gates (disparity in (0.01, bf),
+    |delta| <= 1, no border argmin) and the SAD-median outlier filter
+    (1.5 * 1.4 x the median of the accepted SADs; none accepted -> no
+    filter). Returns (u_right f32[N], depth f32[N], ok bool[N]), -1 where
+    rejected."""
+    return _refine_pyramid(refine_subpixel_sad, levels_l, levels_r, l_xy,
+                           l_level, u_right, valid, bf, scale_factors)
+
+
+def _refine_pyramid(sad, levels_l, levels_r, l_xy, l_level, u_right, valid,
+                    bf: float, scale_factors):
+    """`refine_subpixel_pyramid` with the SAD search `sad`."""
     lvl, yl, xl, ur0 = level_coordinates(levels_l, l_xy, l_level, u_right,
                                          scale_factors)
-    ur_lvl, sad_best, delta_ok = refine_subpixel_sad(levels_l, levels_r, lvl,
-                                                     yl, xl, ur0)
+    ur_lvl, sad_best, delta_ok = sad(levels_l, levels_r, lvl, yl, xl, ur0)
     ur_ref = ur_lvl * scale_factors[lvl.long()]  # back to level 0
     disparity = l_xy[:, 0] - ur_ref
     good = valid & (disparity > 0.01) & (disparity < bf) & delta_ok
@@ -267,6 +298,150 @@ def refine_subpixel_pyramid(levels_l, levels_r, l_xy, l_level, u_right,
     depth = torch.where(
         good, _f32(bf, disparity) / torch.clamp(disparity, min=0.01), neg)
     return torch.where(good, ur_ref, neg), depth, good
+
+
+# ---------------------------------------------------------------------------
+# the whole association after K1 (kernel B9, one launch)
+# ---------------------------------------------------------------------------
+
+def stereo_associate(levels_l, levels_r, l_xy, l_level, l_desc, l_valid,
+                     r_xy, r_level, r_desc, r_valid, scale_factors, bf: float,
+                     min_z: float, max_dist: int = hamming.TH_HIGH):
+    """The stereo association of a frame: for each left feature (l_xy f32[N,
+    2], l_level i32[N], l_desc i32[N, 8], l_valid bool[N]) its match among
+    the right ones (r_*, M of them) and its sub-pixel refinement on the two
+    pyramids (levels_l, levels_r: f32 [h, w] each, the same shapes).
+    Returns (u_right f32[N], depth f32[N], ok bool[N]), -1 where rejected:
+    `stereo_match` then `refine_subpixel_pyramid`. The gate and K1, then
+    `associate_from_best2`: on CUDA tensors one launch of kernel
+    `csrc/stereo_sad.cu`, on CPU tensors its plain version (so the whole is
+    `stereo_associate_plain`)."""
+    idx, best = _band_best2(l_xy, l_level, l_desc, l_valid, r_xy, r_level,
+                            r_desc, r_valid, scale_factors, bf, min_z)
+    return associate_from_best2(levels_l, levels_r, l_xy, l_level, r_xy,
+                                idx, best, scale_factors, bf, max_dist)
+
+
+def stereo_associate_plain(levels_l, levels_r, l_xy, l_level, l_desc,
+                           l_valid, r_xy, r_level, r_desc, r_valid,
+                           scale_factors, bf: float, min_z: float,
+                           max_dist: int = hamming.TH_HIGH):
+    """`stereo_associate` as the JAX package computes it, after K1 in plain
+    torch: `stereo_match` then `refine_subpixel_pyramid` with the plain SAD
+    (`associate_from_best2_plain`). The reference of the kernel on the
+    card."""
+    idx, best = _band_best2(l_xy, l_level, l_desc, l_valid, r_xy, r_level,
+                            r_desc, r_valid, scale_factors, bf, min_z)
+    return associate_from_best2_plain(levels_l, levels_r, l_xy, l_level,
+                                      r_xy, idx, best, scale_factors, bf,
+                                      max_dist)
+
+
+def associate_from_best2_plain(levels_l, levels_r, l_xy, l_level, r_xy, idx,
+                               best, scale_factors, bf: float,
+                               max_dist: int = hamming.TH_HIGH):
+    """Plain PyTorch version of kernel `csrc/stereo_sad.cu`'s association:
+    `stereo_match`'s tail after K1's (idx, best), then
+    `refine_subpixel_pyramid` with the plain SAD. The outputs are bit-equal
+    to the kernel's. One intermediate is not: a keypoint that fails the
+    distance median has u_right = -1 here, so its SAD is taken at the
+    clipped -1, where the kernel takes it at the matched u; such rows are
+    rejected in both."""
+    if l_xy.shape[0] == 0:
+        neg = l_xy.new_empty((0,))
+        return neg, neg.clone(), torch.zeros_like(neg, dtype=torch.bool)
+    u_right, _, ok = _match_tail(l_xy, r_xy, idx, best, bf, max_dist)
+    return _refine_pyramid(refine_subpixel_sad_plain, levels_l, levels_r,
+                           l_xy, l_level, u_right, ok, bf, scale_factors)
+
+
+MAX_ASSOC = 32768  # keypoints a call: the last block's keys in shared memory
+_VP, _CI = kernels.VP, kernels.CI
+# the C entry `stereo_associate`'s argument types
+_ASSOC_ARGS = ([_CI] + [_VP] * 4 + [kernels.CF, _CI, _CI] + [_VP] * 3
+               + [_CI] + [_VP] * 2 + [_CI] + [_VP] * 3)
+_F32, _I32 = torch.float32, torch.int32
+
+
+def _check_associate(levels_l, levels_r, l_xy, l_level, r_xy, idx, best,
+                     scale_factors):
+    """Refuses what kernel `stereo_associate` does not take (every tensor
+    contiguous, of its dtype and shape, on l_xy's card); returns the C
+    table of the levels' (h, w). Runs on every call: one attribute pass
+    over the 22 tensors, no message built unless one is refused."""
+    n = len(levels_l)
+    if len(levels_r) != n:
+        raise ValueError(f"stereo_sad: {n} left levels, {len(levels_r)} "
+                         "right")
+    if not 1 <= n <= kernels.MAX_LEVELS:
+        raise ValueError(f"stereo_sad: {n} levels, the kernel takes 1 to "
+                         f"{kernels.MAX_LEVELS}")
+    N, M = l_xy.shape[0], r_xy.shape[0]
+    if N > MAX_ASSOC:
+        raise ValueError(f"stereo_sad: {N} keypoints, the kernel takes at "
+                         f"most {MAX_ASSOC}")
+    if N > 0 and M < 1:
+        raise ValueError("stereo_sad: keypoints to match and no right one")
+    want = [("l_xy", l_xy, _F32, (N, 2)), ("r_xy", r_xy, _F32, (M, 2)),
+            ("l_level", l_level, _I32, (N,)), ("idx", idx, _I32, (N,)),
+            ("best", best, _I32, (N,)),
+            ("scale_factors", scale_factors, _F32, (n,))]
+    dims = []
+    for a, b in zip(levels_l, levels_r):
+        s = a.shape
+        if len(s) != 2 or s[0] < P_SAD or s[1] < S_SAD:
+            raise ValueError(f"stereo_sad: level {tuple(s)} is not "
+                             f"[h >= {P_SAD}, w >= {S_SAD}]")
+        dims += s
+        want += (("left level", a, _F32, None), ("right level", b, _F32, s))
+    card = l_xy.get_device()
+    for what, t, dtype, shape in want:
+        if (t.get_device() != card or t.dtype is not dtype
+                or (shape is not None and t.shape != shape)
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"stereo_sad {what}: expected a contiguous {dtype} "
+                f"{tuple(shape or t.shape)} on cuda:{card}, got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}"
+                f"{'' if t.is_contiguous() else ', not contiguous'}")
+    return kernels.int_array(dims)
+
+
+def associate_from_best2(levels_l, levels_r, l_xy, l_level, r_xy, idx, best,
+                         scale_factors, bf: float,
+                         max_dist: int = hamming.TH_HIGH):
+    """Everything after K1's best-2 (idx, best: i32[N]) in one launch:
+    `stereo_match`'s tail and `refine_subpixel_pyramid` (see
+    `stereo_associate`). scale_factors: f32[L], one a level. Returns
+    (u_right f32[N], depth f32[N], ok bool[N]), views of one allocation.
+    CUDA tensors -> kernel `csrc/stereo_sad.cu`, no host read and no upload;
+    CPU -> `associate_from_best2_plain`."""
+    if not l_xy.is_cuda:
+        return associate_from_best2_plain(levels_l, levels_r, l_xy, l_level,
+                                          r_xy, idx, best, scale_factors, bf,
+                                          max_dist)
+    dims = _check_associate(levels_l, levels_r, l_xy, l_level, r_xy, idx,
+                            best, scale_factors)
+    N = l_xy.shape[0]
+    dev = l_xy.device
+    # rows: u_right, depth, the kernel's SAD scratch, ok (N bytes of it)
+    out = torch.empty((4, N), dtype=torch.float32, device=dev)
+    u_right, depth, _, ok = out.unbind(0)
+    views = (u_right, depth, ok.view(torch.bool)[:N])
+    if N == 0:  # nothing to launch
+        return views
+    fn = kernels.bind("stereo_sad", "stereo_associate", _ASSOC_ARGS)
+    kernels.LAUNCHES["stereo_sad"] += 1
+    kernels.check(fn(len(levels_l), kernels.ptr_array(levels_l),
+                     kernels.ptr_array(levels_r), dims,
+                     scale_factors.data_ptr(), bf, max_dist, hamming.BIG,
+                     l_xy.data_ptr(), l_level.data_ptr(), r_xy.data_ptr(),
+                     r_xy.shape[0], idx.data_ptr(), best.data_ptr(), N,
+                     out.data_ptr(),
+                     # the ticket, and an f32 of scratch after it
+                     kernels.ticket(dev, "stereo_sad", 2).data_ptr(),
+                     kernels.stream_of(l_xy)), "stereo_sad")
+    return views
 
 
 def refine_subpixel(img_l, img_r, l_xy, u_right, valid, bf: float):

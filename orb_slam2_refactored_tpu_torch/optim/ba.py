@@ -270,21 +270,6 @@ def _k5_inputs(kf_pose, pt_pos, p: BAProblem, obs_ok):
 
 
 _K5_CAM = [kernels.CF] * 5 + [kernels.CI]
-# per device and entry: tickets (and the point index's counts), zero
-# between calls (the last CTA of a launch resets its own)
-_tickets = {}
-
-
-def _ticket(dev, name: str, n: int):
-    """A cached int32 buffer of at least `n` zeros on `dev` for the kernel
-    entry `name`, which leaves it zero after each call (so calls on one
-    stream only)."""
-    key = (str(dev), name)
-    t = _tickets.get(key)
-    if t is None or t.numel() < n:
-        t = torch.zeros((max(n, 64),), dtype=torch.int32, device=dev)
-        _tickets[key] = t
-    return t
 
 
 def ba_point_index(obs_pt, obs_ok, Q: int) -> PointIndex:
@@ -313,8 +298,9 @@ def ba_point_index(obs_pt, obs_ok, Q: int) -> PointIndex:
     kernels.check(fn(kernels.ptr(obs_pt), kernels.ptr(obs_ok), S, N, Q,
                      kernels.ptr(offsets), kernels.ptr(slots),
                      kernels.ptr(table), kernels.ptr(rank),
-                     kernels.ptr(_ticket(dev, "ba_point_index count", Q)),
-                     kernels.ptr(_ticket(dev, "ba_point_index", 1)),
+                     kernels.ptr(kernels.ticket(dev, "ba_point_index count",
+                                                Q)),
+                     kernels.ptr(kernels.ticket(dev, "ba_point_index", 1)),
                      kernels.stream_of(obs_pt)), "ba_point_index")
     return PointIndex(offsets, slots)
 
@@ -350,7 +336,7 @@ def ba_assemble(kf_pose, pt_pos, p: BAProblem, obs_ok, cam, use_huber: bool,
                      K, N, Q, cam.fx, cam.fy, cam.cx, cam.cy, cam.bf,
                      int(use_huber),
                      *(kernels.ptr(t) for t in (Hpp, g_p, acc, T, partial)),
-                     kernels.ptr(_ticket(dev, "ba_assemble", K)),
+                     kernels.ptr(kernels.ticket(dev, "ba_assemble", K)),
                      kernels.stream_of(kf_pose)), "ba_assemble")
     return Hpp, g_p, acc, T
 
@@ -378,7 +364,7 @@ def ba_cost(kf_pose, pt_pos, p: BAProblem, obs_ok, cam, use_huber: bool,
     kernels.check(fn(*(kernels.ptr(t) for t in args), K, N, Q, cam.fx, cam.fy,
                      cam.cx, cam.cy, cam.bf, int(use_huber),
                      kernels.ptr(partial),
-                     kernels.ptr(_ticket(dev, "ba_cost", 1)),
+                     kernels.ptr(kernels.ticket(dev, "ba_cost", 1)),
                      kernels.ptr(cost),
                      None if chi2 is None else kernels.ptr(chi2),
                      kernels.stream_of(kf_pose)), "ba_cost")

@@ -47,7 +47,7 @@ from ..geometry import projection as proj
 from ..geometry import se3
 from ..ops import matching
 from ..ops.orb import OrbExtractor
-from ..ops.stereo import refine_subpixel_pyramid, stereo_match
+from ..ops.stereo import stereo_associate
 from ..optim.pose_opt import pose_optimize
 from ..solvers.ransac import horn_ransac
 from ..utils.timing import StageTimer
@@ -228,20 +228,19 @@ class Tracker:
         )
 
     def _prepare_stereo_impl(self, img_l, img_r) -> FrameData:
-        """Left and right extraction (two K2 and two K3 calls), the
-        row-banded stereo association (K1 under the dense stereo gate) and
-        the SAD refinement at each keypoint's own level (kernel B9) on the
-        extractor's own pyramids. The pair is assumed rectified: with
-        distortion coefficients the left keypoints are undistorted, and
-        u_right stays in the raw rectified frame."""
+        """Left and right extraction (two K2 and two K3 calls) and the
+        stereo association on the extractor's own pyramids (K1 under the
+        dense stereo gate, then one launch of kernel B9 for the rest). The
+        pair is assumed rectified: with distortion coefficients the left
+        keypoints are undistorted, and u_right stays in the raw rectified
+        frame."""
         cfg = self.cfg
         lf, pyr_l = self.extractor._extract_impl_pyr(img_l)
         rf, pyr_r = self.extractor._extract_impl_pyr(img_r)
-        u_right, _, ok = stereo_match(
-            lf.xy, lf.level, lf.desc, lf.valid, rf.xy, rf.level, rf.desc,
-            rf.valid, self.sf, cfg.bf, min_z=cfg.bf / cfg.fx)
-        u_right, depth, _ = refine_subpixel_pyramid(
-            pyr_l, pyr_r, lf.xy, lf.level, u_right, ok, cfg.bf, self.sf)
+        u_right, depth, _ = stereo_associate(
+            pyr_l, pyr_r, lf.xy, lf.level, lf.desc, lf.valid, rf.xy,
+            rf.level, rf.desc, rf.valid, self.sf, cfg.bf,
+            min_z=cfg.bf / cfg.fx)
         xy_und = (proj.undistort_points(self.cam, self.dist, lf.xy)
                   if self._has_dist else lf.xy)
         return FrameData(

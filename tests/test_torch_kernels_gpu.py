@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain versions, on the card: K1 (in its
 three gate modes), K2 and K3 (on one level and on a whole pyramid in one
 call), K4 (pose LM), K5 (BA assembly and cost) and B9 (the stereo SAD
-refinement).
+refinement alone, and the whole stereo association after K1 in one
+launch).
 
 These tests need a CUDA card and skip elsewhere. The file imports no JAX,
 so it also runs where JAX is not installed:
@@ -26,7 +27,8 @@ from orb_slam2_refactored_tpu_torch.ops import image as image_ops
 from orb_slam2_refactored_tpu_torch.optim import ba, pose_opt
 from orb_slam2_refactored_tpu_torch.slam.frame import scale_factors
 from torch_k1_cases import k1_grid_cases
-from torch_sad_cases import SAD_CASES, as_tensors, sad_case, sad_ref
+from torch_sad_cases import (ASSOC_CASES, SAD_CASES, as_tensors, assoc_case,
+                             assoc_tensors, sad_case, sad_ref)
 
 pytestmark = pytest.mark.gpu
 torch.set_num_threads(1)
@@ -545,3 +547,75 @@ def test_stereo_sad_wrapper_refuses_what_the_kernel_does_not_take():
                                    + levels_r[1:], lvl, yl, xl, ur0)
     with pytest.raises(ValueError):  # coordinates of another length
         stereo.refine_subpixel_sad(levels_l, levels_r, lvl, yl[:3], xl, ur0)
+
+
+def _assoc_bit_equal(fused, plain, args):
+    """B9's association launch (`fused`) against its plain version on the
+    card: every output bit-equal, three back-to-back calls bit-equal (the
+    last block resets its ticket), one launch a call (none for N = 0)."""
+    before = kernels.counts()["stereo_sad"]
+    outs = [fused(**args) for _ in range(3)]
+    ref = plain(**args)
+    torch.cuda.synchronize()
+    n = ref[0].shape[0]
+    assert kernels.counts()["stereo_sad"] == before + (3 if n else 0)
+    for o in outs:
+        for a, r in zip(o, ref):
+            assert a.dtype == r.dtype and a.shape == r.shape
+            assert torch.equal(a, r)
+    return outs[0]
+
+
+@pytest.mark.parametrize("name", ASSOC_CASES)
+def test_stereo_associate_kernel_on_constructed_cases(name):
+    """Everything after K1 in one launch on the constructed cases of
+    `torch_sad_cases.py` at a VGA pyramid's 8 level shapes (both medians:
+    all missed, no good SAD, even and odd counts, ties, N = 13, 1, 0),
+    bit-equal to `associate_from_best2_plain`."""
+    dev = _card()
+    case = assoc_case(name, VGA_SHAPES)
+    _, _, ok = _assoc_bit_equal(stereo.associate_from_best2,
+                                stereo.associate_from_best2_plain,
+                                assoc_tensors(case, dev))
+    if name in ("all_missed", "no_good_sad", "n0"):
+        assert not ok.any()
+    else:
+        assert ok.any()
+
+
+def test_stereo_associate_kernel_on_a_rendered_vga_pair():
+    """The stereo step's association on a rendered VGA pair (8 levels, 1000
+    features a side through the extractor on the card): the gate, K1 and
+    one B9 launch, bit-equal to `stereo_associate_plain` (the same K1, then
+    plain torch)."""
+    dev = _card()
+    scene = SyntheticScene(width=640, height=480, fx=520.0, fy=520.0,
+                           baseline=0.08)
+    left, right, _ = scene.render_stereo(orbit_trajectory(4)[2])
+    ext = orb.OrbExtractor(480, 640)
+    sf = scale_factors(8, 1.2, device=dev)[0]
+    lf, pyr_l = ext._extract_impl_pyr(torch.from_numpy(
+        np.clip(left, 0, 255).astype(np.uint8)).to(dev))
+    rf, pyr_r = ext._extract_impl_pyr(torch.from_numpy(
+        np.clip(right, 0, 255).astype(np.uint8)).to(dev))
+    args = dict(levels_l=pyr_l, levels_r=pyr_r, l_xy=lf.xy, l_level=lf.level,
+                l_desc=lf.desc, l_valid=lf.valid, r_xy=rf.xy,
+                r_level=rf.level, r_desc=rf.desc, r_valid=rf.valid,
+                scale_factors=sf, bf=41.6, min_z=41.6 / 520.0)
+    _, _, ok = _assoc_bit_equal(stereo.stereo_associate,
+                                stereo.stereo_associate_plain, args)
+    assert int(ok.sum()) > 100
+    assert int(lf.level[ok].max()) > 0  # matches on upper levels too
+
+
+def test_stereo_associate_wrapper_refuses_what_the_kernel_does_not_take():
+    dev = _card()
+    a = assoc_tensors(assoc_case("mixed_even", VGA_SHAPES), dev)
+    bad = {"l_level": a["l_level"].cpu(),  # a CPU tensor beside CUDA ones
+           "idx": a["idx"].long(),  # int64 indices
+           "scale_factors": a["scale_factors"].double(),
+           "levels_r": a["levels_r"][:-1],  # 7 right levels for 8 left
+           "best": a["best"][:3]}  # distances of another length
+    for k, v in bad.items():
+        with pytest.raises(ValueError):
+            stereo.associate_from_best2(**{**a, k: v})

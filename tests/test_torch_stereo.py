@@ -18,14 +18,24 @@ constructed cases.
   r = 0 and r = 10 (rejected), a flat SAD row (rejected), keypoints at a
   level's rim (where the clips bind), keypoints on the top level.
 - `refine_subpixel` (level 0) against JAX's.
+- `stereo_associate` (the tracker's entry) on CPU tensors: bit-equal to
+  JAX's `stereo_match` then `refine_subpixel_pyramid` on JAX's levels, and
+  no host read (no `aten._local_scalar_dense` under a dispatch mode).
+- `associate_from_best2` (everything after K1, on CPU its plain version)
+  on the constructed cases of `torch_sad_cases.py` against JAX's
+  `stereo_match` tail and `refine_subpixel_pyramid`, bit-equal.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
+from orb_slam2_refactored_tpu.ops import hamming as jhamming
 from orb_slam2_refactored_tpu.ops import stereo as jst
 from orb_slam2_refactored_tpu.ops.orb import OrbExtractor as JExtractor
 from orb_slam2_refactored_tpu.slam.frame import scale_factors as jscale
@@ -33,7 +43,8 @@ from orb_slam2_refactored_tpu_torch.io.synthetic import (
     SyntheticScene, box_room, orbit_trajectory)
 from orb_slam2_refactored_tpu_torch.ops import hamming
 from orb_slam2_refactored_tpu_torch.ops import stereo as tst
-from torch_sad_cases import SAD_CASES, as_tensors, sad_case, sad_ref
+from torch_sad_cases import (ASSOC_CASES, SAD_CASES, as_tensors, assoc_case,
+                             assoc_tensors, sad_case, sad_ref)
 
 torch.set_num_threads(1)
 BF = 0.08 * 260.0
@@ -195,3 +206,82 @@ def test_refine_subpixel_level0_matches_jax(pair):
     np.testing.assert_allclose(got[0].numpy(), ju, atol=1e-4, rtol=0)
     np.testing.assert_allclose(got[1].numpy(), jd, rtol=1e-6, atol=0)
     assert jok.sum() > 100
+
+
+def _associate_args(pair):
+    lf, rf = pair["lf"], pair["rf"]
+    return ([_t(a) for a in pair["pyr_l"]], [_t(a) for a in pair["pyr_r"]],
+            _t(lf.xy), _t(lf.level), _t(lf.desc), _t(lf.valid), _t(rf.xy),
+            _t(rf.level), _t(rf.desc), _t(rf.valid), _t(pair["sf"]), BF)
+
+
+def test_stereo_associate_equals_jax(pair):
+    """The tracker's entry on CPU tensors against JAX's `stereo_match` then
+    `refine_subpixel_pyramid` on JAX's levels: bit-equal."""
+    out = tst.stereo_associate(*_associate_args(pair), min_z=BF / 260.0)
+    for name, a, b in zip(("u_right", "depth", "ok"), out, pair["refined"]):
+        np.testing.assert_array_equal(a.numpy(), b, err_msg=name)
+    assert pair["refined"][2].sum() > 100
+
+
+class _Ops(TorchDispatchMode):
+    """The names of the aten operators run inside the block."""
+
+    def __init__(self):
+        super().__init__()
+        self.names = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.names.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+def test_stereo_associate_plain_reads_nothing_to_the_host(pair):
+    """On CPU tensors `stereo_associate` is its plain version; no operator
+    of it reads a value to the host (on the card each such read would be a
+    device-to-host copy that stalls the host)."""
+    with _Ops() as ops:
+        out = tst.stereo_associate(*_associate_args(pair), min_z=BF / 260.0)
+    assert "aten._local_scalar_dense.default" not in ops.names
+    assert len(ops.names) > 50 and bool(out[2].any())
+
+
+@functools.partial(jax.jit, static_argnames=("bf", "max_dist"))
+def _jax_after_best2(levels_l, levels_r, l_xy, l_level, r_xy, idx, best,
+                     scale_factors, bf, max_dist):
+    """JAX's `stereo_match` after its best-2 (`ops/stereo.py:46-59` of the
+    JAX package, inline there), then its `refine_subpixel_pyramid`."""
+    ok = best <= max_dist
+    matched_ur = jnp.where(
+        ok, r_xy[jnp.clip(idx, 0, r_xy.shape[0] - 1), 0], -1.0)
+    med = jnp.median(jnp.where(ok, best, jhamming.BIG))
+    ok = ok & (best < 1.5 * 1.4 * med)
+    return jst.refine_subpixel_pyramid(
+        levels_l, levels_r, l_xy, l_level, jnp.where(ok, matched_ur, -1.0),
+        ok, bf, scale_factors)
+
+
+@pytest.mark.parametrize("name", ASSOC_CASES)
+def test_associate_from_best2_plain_matches_jax(name):
+    """Everything after K1 on the constructed cases (both medians: all
+    missed, no good SAD, even and odd counts, ties, N = 13, 1, 0), the
+    plain version against JAX, bit-equal."""
+    case = assoc_case(name)
+    u, depth, ok = tst.associate_from_best2(**assoc_tensors(case))
+    assert (u.dtype, depth.dtype, ok.dtype) == (torch.float32,
+                                                torch.float32, torch.bool)
+    n = case["l_xy"].shape[0]
+    assert u.shape == depth.shape == ok.shape == (n,)
+    if n == 0:
+        return
+    want = _jax_after_best2(**{k: ([jnp.asarray(a) for a in v]
+                                   if isinstance(v, list) else v)
+                               for k, v in case.items()})
+    for what, a, b in zip(("u_right", "depth", "ok"), (u, depth, ok), want):
+        np.testing.assert_array_equal(a.numpy(), np.array(b), err_msg=what)
+    if name in ("all_missed", "no_good_sad"):
+        assert not ok.any()
+    else:
+        assert ok.any()
+    if name in ("mixed_even", "mixed_odd", "tied_medians", "n13"):
+        assert not ok.all()

@@ -10,6 +10,18 @@ rejected), keypoints at a level's rim (coordinates beyond the level,
 clipped by `level_coordinates`) and keypoints on the top level (whose
 pixels, as the pyramid makes them, are not integers).
 
+`assoc_case` builds the inputs of the whole association after K1's
+best-2 (`stereo.associate_from_best2`): keypoints at every level whose
+matched right keypoint lies 3 px to the left at their level, on a right
+pyramid that is the left one shifted, plus a checkerboard of +-1 (every
+exact match then has the SAD 120 at levels with integer pixels, so the
+SAD median is a tie) or plus random noise (distinct SADs), with some wrong
+matches and far distances for the two filters to reject. The cases cover
+the two medians: every match missed (the distance median over BIG), no
+good SAD (the SAD median inf, no filter), even and odd counts, tied
+distance and SAD medians, 600 keypoints with crowded distances, N not a
+multiple of 8, N = 1 and N = 0.
+
 Used by tests/test_torch_stereo.py (plain version, on the CPU) and
 tests/test_torch_kernels_gpu.py (kernel against plain version, on the
 card). Plain numpy and torch, no JAX import.
@@ -118,3 +130,75 @@ def as_tensors(case, device="cpu"):
     ints = [torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
             for a in (lvl, yl, xl, ur0)]
     return [lv(levels_l), lv(levels_r)] + ints
+
+
+ASSOC_CASES = ["mixed_even", "mixed_odd", "all_missed", "no_good_sad",
+               "tied_medians", "crowded", "n13", "n1", "n0"]
+BF = np.float32(41.6)
+BIG = 10_000  # K1's distance of a row with no candidate (`hamming.BIG`)
+
+
+def assoc_case(name, shapes=QVGA_SHAPES):
+    """The arguments of `stereo.associate_from_best2` (numpy; `bf` and
+    `max_dist` as Python numbers) for the case `name`."""
+    rng = np.random.default_rng(5)
+    L = len(shapes)
+    sf = np.array([1.2 ** k for k in range(L)], np.float32)
+    left = [rng.integers(0, 256, s).astype(np.float32) for s in shapes]
+    left[-1] = (left[-1] * np.float32(0.8333)).astype(np.float32)
+    if name in ("mixed_even", "mixed_odd", "n13"):
+        noise = [rng.integers(-4, 5, s).astype(np.float32) for s in shapes]
+    else:
+        noise = [np.indices(s).sum(0) % 2 * np.float32(2) - 1
+                 for s in shapes]
+    right = [(np.roll(a, -3, axis=1) + b).astype(np.float32)
+             for a, b in zip(left, noise)]
+    n = {"mixed_odd": 15, "n13": 13, "n1": 1, "n0": 0,
+         "crowded": 600}.get(name, 16)
+    lvl = (np.arange(n) % L).astype(np.int32)
+    h = np.array([shapes[k][0] for k in lvl])
+    w = np.array([shapes[k][1] for k in lvl])
+    yk = rng.integers(6, h - 6) if n else np.zeros(0, np.int64)
+    xk = rng.integers(20, w - 12) if n else np.zeros(0, np.int64)
+    l_xy = np.stack([(xk + rng.uniform(-0.3, 0.3, n)) * sf[lvl],
+                     (yk + rng.uniform(-0.3, 0.3, n)) * sf[lvl]],
+                    1).astype(np.float32).reshape(n, 2)
+    M = n + 5
+    r_xy = rng.uniform(0, 600, (M, 2)).astype(np.float32)
+    idx = rng.permutation(M)[:n].astype(np.int32)
+    r_xy[idx, 0] = (xk - 3 + rng.uniform(-0.3, 0.3, n)) * sf[lvl]
+    if name in ("mixed_even", "mixed_odd", "n13"):
+        # wrong matches 15 px further left: large SADs, over the SAD median
+        wrong = rng.uniform(size=n) < 0.25
+        r_xy[idx[wrong], 0] -= 15 * sf[lvl[wrong]]
+    best = rng.integers(5, 35, n).astype(np.int32)
+    far = rng.uniform(size=n) < 0.2  # over the distance median's bound
+    best[far] = rng.integers(60, 100, int(far.sum()))
+    best[rng.uniform(size=n) < 0.15] = BIG
+    best[rng.uniform(size=n) < 0.1] = 130  # a candidate above max_dist
+    if name == "all_missed":
+        best = np.where(rng.uniform(size=n) < 0.5, BIG, 150).astype(np.int32)
+    if name == "no_good_sad":
+        # every right keypoint right of its left one: no positive disparity
+        r_xy[idx, 0] = l_xy[:, 0] + 2 * sf[lvl]
+    if name == "tied_medians":
+        best = np.where(np.arange(n) % 5 == 0, BIG, 40).astype(np.int32)
+    if name == "crowded":
+        # 540 distances within 8 of each other beside misses at BIG: more
+        # keys in one of the kernel's median buckets than it has threads
+        best = np.where(rng.uniform(size=n) < 0.1, BIG,
+                        rng.integers(20, 28, n)).astype(np.int32)
+    if name == "n1":
+        best[:] = 20  # one accepted match: both medians are its own values
+    return {"levels_l": left, "levels_r": right, "l_xy": l_xy,
+            "l_level": lvl, "r_xy": r_xy, "idx": idx, "best": best,
+            "scale_factors": sf, "bf": float(BF), "max_dist": 100}
+
+
+def assoc_tensors(case, device="cpu"):
+    """The case's arguments as `stereo.associate_from_best2` takes them."""
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return {k: ([t(a) for a in v] if isinstance(v, list)
+                else t(v) if isinstance(v, np.ndarray) else v)
+            for k, v in case.items()}
