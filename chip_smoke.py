@@ -25,11 +25,22 @@ Phases (any failure raises and the script exits non-zero):
        `Tracker.track_stereo`, with the stereo association a frame: the
        gate, K1, and one B9 launch for everything after K1 (the matched u,
        both medians, the per-level SAD refinement and the depth).
-    Each checks ATE against the 3 cm gate, that no frame was lost, that
-    every kernel of its path launched and that K2 and K3 launched once a
-    frame (twice a stereo frame, with one B9 launch); (b) and (c) also that
-    window BA ran at every keyframe after the second, and print the
-    keyframe stages' times.
+    d. kidnap (RGB-D, local BA on, a keyframe at least every 8 frames): a
+       tracker of its own maps cell (b)'s frames 0-79, goes LOST through 12
+       all-zero frames, and must relocalize within 20 frames of a resume at
+       views 20-59 (post-recovery ATE <= 8 cm); the vocabulary is trained
+       at the 4th keyframe and every keyframe is indexed;
+    e. stereo save/load (run after phase 4's cell-(c) checks): cell (c)'s
+       map through `save_map` and `load_map` into a fresh stereo tracker,
+       which must relocalize within 3 pairs from view 40, within 2 cm of
+       cell (c)'s pose there in the saved map (the pose it recorded
+       relative to its reference keyframe, on that keyframe's saved pose).
+    Each of (a)-(c) checks ATE against the 3 cm gate, that no frame was
+    lost, that every kernel of its path launched and that K2 and K3
+    launched once a frame (twice a stereo frame, with one B9 launch); (b)
+    and (c) also that window BA ran at every keyframe after the second, and
+    print the keyframe stages' times (`kf.loop`: the BoW index, on the
+    training keyframe and on the others).
  4. every kernel against its plain version on the arguments the main path
     gave it, timed with CUDA events: K1, K2, K3 and K4 on the calls of one
     more tracked frame (K1 and K4 also on the last fallback frame), K1's
@@ -38,12 +49,17 @@ Phases (any failure raises and the script exits non-zero):
     then, on cell (c), K1 and K4 on the calls of one more tracked stereo
     frame, its association bit for bit against the plain composition, its
     B9 launch and B9's SAD-only entry against their plain versions, and K5
-    on one of its window BAs.
+    on one of its window BAs; on cell (d)'s recovering frame, its
+    relocalization's K1 calls (quantization, matching, the polish's search)
+    bit for bit and its K4 calls, the vocabulary trained again on the card
+    and by the plain path bit-equal to the tracker's, and `compute_bow`
+    equal to its plain version.
  5. torch.profiler windows, after every agreement check: K2's and K3's
     device time on frame 0, K1's and K4's on the recorded tracked frame's
     calls, K5's on the recorded window BA, B9's (and its wrapper's host
     time), the whole association's (no copy to or from the host in it) and
-    the stereo K1 call's on the recorded stereo frame; K4's time split into passes
+    the stereo K1 call's on the recorded stereo frame; each stage of cell
+    (d)'s relocalization; K4's time split into passes
     and LM iterations (the same calls without iterations) and one
     iteration on no observation;
     extraction with the rank rounds in K2 against extraction with the
@@ -87,6 +103,15 @@ N_FRAMES = 120  # the bench's scored sequence
 N_FRAMES_NO_BA = 60  # the local-BA-off path, cut to keep the run short
 ATE_GATE_M = 0.03
 WARMUP_FRAMES = 20
+# cell D (`tests/test_kidnap_reloc.py`'s scenario on the bench's frames):
+# mapped frames, blank frames, resume views, and the recovery bounds
+KIDNAP_MAP = 80
+KIDNAP_BLANK = 12
+KIDNAP_RESUME = range(20, 60)
+RELOC_MAX_FRAMES = 20
+RELOC_ATE_M = 0.08
+# the stereo save/load check resumes a loaded cell-C map at this view
+RELOAD_VIEW = 40
 
 
 def sh(cmd):
@@ -556,6 +581,187 @@ def check_pose_lm(cases, per_frame):
                     + 60 * N * (len(live) + 1))
     assert n_flip <= 1e-3 * n_obs, f"K4 inliers: {n_flip} of {n_obs} differ"
     return err, ms, plain_ms, nbytes, ops
+
+
+def check_reloc(rec, tracker):
+    """Phase 4 on cell D's recorded relocalization (`rec`) and vocabulary
+    training: every K1 call (quantization, the two-way descriptor matching
+    of each candidate, the polish's projection search) bit for bit against
+    the plain version and every K4 call (the candidates' LM and polish)
+    through `check_pose_lm`, each call timed alone and bounded; the
+    vocabulary trained again on the card from the recorded descriptors
+    equal to the tracker's bit for bit, and the plain path on the CPU equal
+    to it bit for bit, with the six training K1 calls bit for bit against
+    the plain version; `compute_bow` on the card equal to its plain version
+    exactly on the recovering frame and on every indexed keyframe, and its
+    scores within 1e-6 (common words exact)."""
+    from orb_slam2_refactored_tpu_torch.slam import vocabulary as vocab
+
+    shapes, rec["timed"] = {}, {}
+
+    def one_k1(name, a):
+        r = check_hamming({name: a}, per_frame={name: a})
+        b, by = bound_ms(r[3], r[4])
+        shapes[name] = {"ms": r[1], "plain_ms": r[2], "bound_ms": b,
+                        "bound_by": by}
+        rec["timed"][name] = ("k1", a)
+
+    for name, a in name_k1_calls("reloc", rec["k1"]).items():
+        one_k1(name, a)
+    k4 = {f"reloc{i}_{'polish' if 'rounds' in a else 'lm'}": a
+          for i, a in enumerate(rec["k4"])}
+    k4_err = 0.0
+    for name, a in k4.items():
+        r = check_pose_lm({name: a}, per_frame={name: a})
+        b, by = bound_ms(r[3], r[4])
+        shapes[name] = {"ms": r[1], "plain_ms": r[2], "bound_ms": b,
+                        "bound_by": by}
+        rec["timed"][name] = ("k4", a)
+        k4_err = max(k4_err, r[0])
+
+    tr = rec["train"]
+    kw = {"n_words": tr["n_words"], "iters": tr["iters"]}
+    train_k1 = []
+    t0 = time.perf_counter()
+    with recording_k1(train_k1):
+        card = vocab.train_vocabulary(tr["descriptors"], device=tracker.device,
+                                      **kw)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = vocab.train_vocabulary(tr["descriptors"], device="cpu", **kw)
+    plain_s = time.perf_counter() - t0
+    same = {"card vs the tracker's": bool(torch.equal(
+        card.words, tracker.vocabulary.words)),
+        "plain (CPU) vs card": bool(torch.equal(plain.words,
+                                                 card.words.cpu()))}
+    print(f"  vocabulary: {len(tr['descriptors'])} descriptors, "
+          f"{card.n_words} words, {len(train_k1)} K1 calls; trained again "
+          f"on the card in {card_s:.3f} s, on the CPU (plain) in "
+          f"{plain_s:.3f} s; words bit-equal {json.dumps(same)}")
+    assert all(same.values()), same
+    assert len(train_k1) == tr["iters"], len(train_k1)
+    train_calls = name_k1_calls("train", train_k1)
+    check_hamming(train_calls, per_frame={})
+    one_k1(*next(iter(train_calls.items())))
+
+    db, frame, m = rec["db"], rec["frame"], rec["map"]
+    cpu_db = snapshot_db(db)
+    cpu_db.voc = vocab.Vocabulary(db.voc.words.cpu(), db.voc.idf.cpu())
+    cpu_db.bow_ids, cpu_db.bow_cnt = db.bow_ids.cpu(), db.bow_cnt.cpu()
+    cpu_db.idf = db.idf.cpu()
+    (ids, cnt), word = db.compute_bow(frame.desc, frame.valid)
+    (ids_p, cnt_p), word_p = cpu_db.compute_bow(frame.desc.cpu(),
+                                                frame.valid.cpu())
+    bow_same = [bool(torch.equal(x.cpu(), y))
+                for x, y in ((ids, ids_p), (cnt, cnt_p), (word, word_p))]
+    rows_same = 0
+    active = np.nonzero(db.active)[0]
+    for kf in active:
+        (ri, rc), _ = cpu_db.compute_bow(m.kf_desc[int(kf)].cpu(),
+                                         m.kf_feat_valid[int(kf)].cpu())
+        rows_same += int(torch.equal(ri, db.bow_ids[kf].cpu())
+                         and torch.equal(rc, db.bow_cnt[kf].cpu()))
+    s, c = db.score_query((ids, cnt))
+    s_p, c_p = cpu_db.score_query((ids_p, cnt_p))
+    s_err = float((s.cpu() - s_p).abs().max())
+    print(f"  compute_bow on the card vs plain: recovering frame (ids, counts, "
+          f"words) equal {bow_same} ({int((ids < db.voc.n_words).sum())} "
+          f"words); {rows_same} of {len(active)} indexed keyframes' rows "
+          f"equal; scores max_abs_err {s_err:.3g}, common words equal "
+          f"{bool(torch.equal(c.cpu(), c_p))}")
+    assert all(bow_same) and rows_same == len(active)
+    assert s_err <= 1e-6 and torch.equal(c.cpu(), c_p)
+    print("relocalization and training kernel calls " + json.dumps(shapes))
+    return shapes, k4_err
+
+
+def reloc_breakdown(rec, tracker, reps=20):
+    """Phase 5: device time, device operations and kernel launches of each
+    stage of cell D's recorded relocalization (BoW build, scoring, then per
+    candidate the descriptor match, the RANSAC, the LM and the polish), on
+    the map and database as they were, and the device time of each K1 and
+    K4 call that `check_reloc` timed; its host time on the recovering frame
+    was taken in phase 3."""
+    from orb_slam2_refactored_tpu_torch import kernels
+    from orb_slam2_refactored_tpu_torch.ops import hamming
+    from orb_slam2_refactored_tpu_torch.optim import pose_opt
+    from orb_slam2_refactored_tpu_torch.solvers import ransac
+
+    calls_ms = {}
+    for name, (kind, a) in rec["timed"].items():
+        fn = (hamming.masked_best2_gated if kind == "k1"
+              else pose_opt.pose_optimize)
+        calls_ms[name] = profiled_ms(lambda: fn(**a), reps)[0]
+    print("relocalization and training kernel calls, device ms a call "
+          + json.dumps(calls_ms))
+
+    frame, m, db = rec["frame"], rec["map"], rec["db"]
+    v = db.compute_bow(frame.desc, frame.valid)[0]
+    stages = [("bow_build", lambda: db.compute_bow(frame.desc, frame.valid)),
+              ("scoring", lambda: db.score_query(v))]
+    for a in rec["match"]:
+        stages.append((f"match kf {a['kf']}",
+                       lambda a=a: tracker._reloc_match_impl(frame, m,
+                                                             a["kf"])))
+    for i, a in enumerate(rec["ransac"]):
+        stages.append((f"ransac {i}", lambda a=a: ransac.horn_ransac(**a)))
+    for i, a in enumerate(x for x in rec["k4"] if "rounds" not in x):
+        stages.append((f"lm {i}", lambda a=a: pose_opt.pose_optimize(**a)))
+    for i, a in enumerate(rec["polish"]):
+        stages.append((f"polish {i}", lambda a=a: tracker._reloc_polish_impl(
+            frame, m, a["pose"])))
+    out = {}
+    for name, fn in stages:
+        before = kernels.counts()
+        fn()
+        torch.cuda.synchronize()
+        launched = {k: n - before[k] for k, n in kernels.counts().items()
+                    if n != before[k]}
+        ops = []
+        ms, rows = profiled_ms(fn, reps, ops)
+        out[name] = {"device_ms": ms, "device_ops": ops[0],
+                     "kernel_launches": launched}
+        print(f"  relocalization {name}: {ms:.5f} ms of device time, "
+              f"{ops[0]:g} device operations, launches {launched}: "
+              f"{rows[:6]}")
+    # the database's two plain-torch stages: CUDA-event time, and the bound.
+    # Row build: K1's share (8 popc and 17 int32 a descriptor-word pair, as
+    # `check_hamming` counts) over the descriptors, their validity and the
+    # words read once, the row (ids, counts) and the words written once.
+    # Scoring: every row entry (id, count) read once with the query row and
+    # the idf, ~10 f32 operations an entry (idf product, normalization,
+    # the query gather, min, sum), scores and common counts written once.
+    N, W = frame.desc.shape[0], db.voc.n_words
+    KF, T = db.bow_ids.shape
+    for name, nbytes, ops in (
+            ("bow_build", N * 33 + W * 32 + T * 8 + N * 4,
+             {"popc": 8 * N * W, "int32": 17 * N * W}),
+            ("scoring", KF * T * 8 + T * 8 + W * 4 + KF * 8,
+             {"f32": 10 * KF * T})):
+        b, by = bound_ms(nbytes, ops)
+        out[name].update(card_ms=cuda_time_ms(dict(stages)[name], 20),
+                         bound_ms=b, bound_by=by)
+    total = {"device_ms": sum(x["device_ms"] for x in out.values()),
+             "device_ops": sum(x["device_ops"] for x in out.values()),
+             "candidates_matched": len(rec["match"]),
+             "host_ms_recovering_frame": rec["host_ms"]}
+    print("relocalization breakdown " + json.dumps({"stages": out,
+                                                    "total": total}))
+    return out, total
+
+
+def kf_loop_ms(tracker, tag):
+    """`kf.loop`'s host time (synchronized) on the training keyframe and the
+    median over the ordinary keyframes after it."""
+    xs = [s * 1e3 for s in tracker.timer.samples["kf.loop"]]
+    k = tracker.VOCAB_TRAIN_KFS - 1
+    res = {"training_keyframe_ms": xs[k] if len(xs) > k else None,
+           "ordinary_keyframe_ms_median": (float(np.median(xs[k + 1:]))
+                                           if len(xs) > k + 1 else None),
+           "before_training_ms": xs[:k], "keyframes": len(xs)}
+    print(f"kf.loop ({tag}) " + json.dumps(res))
+    return res
 
 
 def _rel_err(a, b):
@@ -1031,6 +1237,239 @@ def run_main_path(imgs, second, gt, device, local_ba, stereo=False):
     return stats, tracker
 
 
+def kidnap_config():
+    """Cell D's configuration: the bench's RGB-D one with a keyframe at least
+    every 8 frames (`tests/test_kidnap_reloc.py:70`)."""
+    import dataclasses
+
+    return dataclasses.replace(bench_config(True), kf_max_interval=8)
+
+
+def snapshot_db(db):
+    """A copy of a KeyFrameDatabase whose rows, idf and active mask later
+    keyframes cannot change."""
+    import copy
+
+    snap = copy.copy(db)
+    snap.bow_ids, snap.bow_cnt = db.bow_ids.clone(), db.bow_cnt.clone()
+    snap.idf, snap.active = db.idf.clone(), db.active.copy()
+    return snap
+
+
+def record_relocalization(tracker, relocalize, frame):
+    """Run a successful relocalization (`relocalize`, the tracker's own
+    `_relocalize`) once more on the same frame, map, database and frame id,
+    which repeats it call for call (its generators are seeded from the frame
+    id), with its K1, K4 and RANSAC calls and its stages' arguments
+    recorded; the launch counters are left as they were. Returns those with
+    copies of the frame, the map and the database."""
+    from orb_slam2_refactored_tpu_torch import kernels
+    from orb_slam2_refactored_tpu_torch.slam import tracking
+
+    saved = kernels.counts()
+    rec = {"frame": _clone(frame), "frame_id": tracker.frame_id,
+           "map": _clone(tracker.map),
+           "db": snapshot_db(tracker.loop_closer.db)}
+    k1, k4, ransac, match, solve, polish = [], [], [], [], [], []
+    with recording_k1(k1), recording_k4(k4), \
+            recording(ransac, (tracking, "horn_ransac")), \
+            recording(match, (tracker, "_reloc_match_impl")), \
+            recording(solve, (tracker, "_reloc_solve_impl")), \
+            recording(polish, (tracker, "_reloc_polish_impl")):
+        ok = relocalize(frame)
+    kernels.LAUNCHES.update(saved)
+    assert ok, "the replayed relocalization failed"
+    rec.update(k1=k1, k4=k4, ransac=ransac, match=match, solve=solve,
+               polish=polish)
+    return rec
+
+
+def run_kidnap(imgs, depths, gt, device, cfg=None):
+    """Cell D (kidnap, RGB-D, local BA on), a tracker of its own on cell
+    A's frames: frames 0 to KIDNAP_MAP - 1 mapped, KIDNAP_BLANK all-zero
+    image and depth frames, then a resume at KIDNAP_RESUME's views (mapped
+    in the first phase). Asserts LOST through the blackout with more than 5
+    alive keyframes (no auto-reset), the vocabulary trained at the 4th
+    keyframe and every keyframe indexed, and a relocalization within
+    RELOC_MAX_FRAMES resume frames, the last frame OK and the
+    post-recovery ATE <= RELOC_ATE_M. Every `_relocalize` call is timed on a
+    synchronizing host clock; the first success is replayed with its
+    arguments recorded (`record_relocalization`)."""
+    from orb_slam2_refactored_tpu_torch import kernels
+    from orb_slam2_refactored_tpu_torch.io.evaluation import ate_rmse
+    from orb_slam2_refactored_tpu_torch.slam import tracking
+    from orb_slam2_refactored_tpu_torch.slam.tracking import (
+        Tracker, TrackState)
+
+    tracker = Tracker(cfg or kidnap_config(), device=device)
+    train_log, reloc_ms, rec = [], [], {}
+    real_train, real_reloc = tracking.train_vocabulary, tracker._relocalize
+
+    def train(descriptors, **kw):
+        train_log.append({"keyframes_created": tracker.graph.num_kfs,
+                          "descriptors": descriptors, **kw})
+        return real_train(descriptors, **kw)
+
+    def relocalize(frame):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ok = real_reloc(frame)
+        torch.cuda.synchronize()
+        reloc_ms.append((time.perf_counter() - t0) * 1e3)
+        if ok and not rec:
+            rec.update(record_relocalization(tracker, real_reloc, frame),
+                       host_ms=reloc_ms[-1])
+        return ok
+
+    tracking.train_vocabulary = train
+    tracker._relocalize = relocalize
+    blank = np.zeros_like(imgs[0])
+    blank_depth = np.zeros(depths[0].shape, np.float32)
+    states = {"blank": [], "resume": []}
+    kernels.reset_counts()
+    try:
+        for i in range(KIDNAP_MAP):
+            tracker.track_rgbd(imgs[i], depths[i].astype(np.float32),
+                               timestamp=i / 30.0)
+        n_kf = len(tracker.graph.alive_kfs())
+        for j in range(KIDNAP_BLANK):
+            tracker.track_rgbd(blank, blank_depth,
+                               timestamp=(KIDNAP_MAP + j) / 30.0)
+            states["blank"].append(int(tracker.state))
+        n_kf_blank = len(tracker.graph.alive_kfs())
+        for k, i in enumerate(KIDNAP_RESUME):
+            tracker.track_rgbd(imgs[i], depths[i].astype(np.float32),
+                               timestamp=(KIDNAP_MAP + KIDNAP_BLANK + k) / 30.0)
+            states["resume"].append(int(tracker.state))
+        launches = kernels.counts()
+    finally:
+        tracking.train_vocabulary = real_train
+    lc, g = tracker.loop_closer, tracker.graph
+    alive = g.alive_kfs()
+    resume = states["resume"]
+    first_ok = (resume.index(TrackState.OK) if TrackState.OK in resume
+                else len(resume))
+    n = len(KIDNAP_RESUME)
+    ate = float("nan")
+    if first_ok < n:
+        est = np.stack(tracker.trajectory[-(n - first_ok):])
+        ate, _ = ate_rmse(est, gt[KIDNAP_RESUME.start + first_ok:
+                                  KIDNAP_RESUME.stop], align="se3")
+    loop_ms = [s * 1e3 for s in tracker.timer.samples["kf.loop"]]
+    stats = {
+        "path": "kidnap (cell D)", "keyframes_alive_before_blackout": n_kf,
+        "keyframes_alive_after_blackout": n_kf_blank,
+        "keyframes_created": g.num_kfs, "keyframes_alive": len(alive),
+        "blank_states": states["blank"],
+        "vocabulary_trained_at_keyframe": [t["keyframes_created"]
+                                           for t in train_log],
+        "training_descriptors": [len(t["descriptors"]) for t in train_log],
+        "keyframes_indexed": None if lc is None else lc._n_indexed,
+        "recovered_at_resume_frame": first_ok,
+        "recovered_at_view": KIDNAP_RESUME.start + first_ok,
+        "post_recovery_ate_m": ate,
+        "relocalize_host_ms": reloc_ms,
+        "kf_loop_ms": loop_ms,
+        "launches": launches,
+    }
+    print("main path (kidnap, cell D) " + json.dumps(stats))
+    print(f"cell D: relocalized at resume frame {first_ok} (view "
+          f"{KIDNAP_RESUME.start + first_ok}), post-recovery ATE {ate:.6f} m")
+    assert n_kf > 5, n_kf
+    assert all(s == TrackState.LOST for s in states["blank"]), states
+    assert n_kf_blank == n_kf, "the blackout reset the map"
+    assert [t["keyframes_created"] for t in train_log] == \
+        [tracker.VOCAB_TRAIN_KFS], train_log
+    assert lc is not None and lc.db.active[alive].all()
+    assert len(loop_ms) == g.num_kfs, (len(loop_ms), g.num_kfs)
+    assert first_ok <= RELOC_MAX_FRAMES, resume
+    assert resume[-1] == TrackState.OK, resume
+    assert ate <= RELOC_ATE_M, ate
+    assert rec, "no relocalization was recorded"
+    for k, v in launches.items():
+        if k == "stereo_sad":
+            assert v == 0, "B9 launched on the RGB-D path (cell D)"
+        else:
+            assert v > 0, f"kernel {k} never launched on cell D"
+    rec["train"] = train_log[0]
+    return stats, tracker, rec
+
+
+def check_stereo_save_load(tracker_c, left, right, gt, device):
+    """Cell C's map through `save_map`, `load_map` into a fresh stereo
+    tracker (LOST), then the pairs from RELOAD_VIEW on: it must relocalize
+    within 3 pairs, to within 2 cm (camera centre) of cell C's tracked pose
+    at that frame in the saved map: the pose relative to its reference
+    keyframe that the tracker recorded at the frame (Tcr), composed with
+    that keyframe's pose in the saved map, as ORB-SLAM's trajectory output
+    reads it. The track-time pose (before the later window BAs moved the
+    map) and the ground truth (after cell C's SE3 alignment) are printed
+    beside it. Launch counters set to 0 before the tracking, read after."""
+    import os
+
+    from orb_slam2_refactored_tpu_torch import kernels
+    from orb_slam2_refactored_tpu_torch.geometry import se3
+    from orb_slam2_refactored_tpu_torch.io.evaluation import (
+        _positions, umeyama_alignment)
+    from orb_slam2_refactored_tpu_torch.slam.serialize import (
+        load_map, save_map)
+    from orb_slam2_refactored_tpu_torch.slam.tracking import (
+        Tracker, TrackState)
+
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "chip_smoke")
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, "cell_c_map.npz")
+    t0 = time.perf_counter()
+    save_map(tracker_c, path)
+    t1 = time.perf_counter()
+    t2 = load_map(Tracker(bench_config(True), device=device), path)
+    t_load = time.perf_counter() - t1
+    assert t2.state == TrackState.LOST and t2.loop_closer is not None
+    kernels.reset_counts()
+    states = []
+    for i in range(RELOAD_VIEW, RELOAD_VIEW + 3):
+        t2.track_stereo(left[i], right[i])
+        states.append(int(t2.state))
+        if t2.state == TrackState.OK:
+            break
+    launches = kernels.counts()
+
+    def t32(p):
+        return torch.tensor(np.asarray(p, np.float32))
+
+    def gaps(ref):
+        """(camera-centre distance m, rotation rad) of the relocalized pose
+        from `ref`."""
+        d = se3.log(se3.compose(t32(t2.pose), se3.inverse(t32(ref))))
+        c = se3.inverse(t32(t2.pose))[4:] - se3.inverse(t32(ref))[4:]
+        return float(c.norm()), float(d[:3].norm())
+
+    entry = tracker_c.traj_entries[i]
+    assert tracker_c.graph.kf_alive[entry["ref"]], entry["ref"]
+    in_map = se3.compose(t32(entry["tcr"]),
+                         tracker_c.map.kf_pose[entry["ref"]].cpu())
+    gap, rot = gaps(in_map)
+    # the relocalized camera centre against the ground truth, in cell C's
+    # SE3 alignment of its whole trajectory
+    _, R, t = umeyama_alignment(_positions(np.stack(tracker_c.trajectory[
+        :len(gt)])), _positions(gt))
+    c_gt = float(np.linalg.norm(R @ _positions(np.asarray(t2.pose)[None])[0]
+                                + t - _positions(gt[i:i + 1])[0]))
+    res = {"file_mb": os.path.getsize(path) / 2 ** 20,
+           "save_s": t1 - t0, "load_s": t_load, "states": states,
+           "relocalized_at_pair": i, "reference_keyframe": int(entry["ref"]),
+           "centre_gap_m": gap, "rotation_gap_rad": rot,
+           "track_time_gap_m_rad": gaps(tracker_c.trajectory[i]),
+           "centre_vs_ground_truth_m": c_gt, "launches": launches}
+    print("stereo save/load " + json.dumps(res))
+    assert states[-1] == TrackState.OK, states
+    assert gap <= 0.02, gap
+    for k in ("hamming_best2", "pose_lm", "fast", "orb_desc", "stereo_sad"):
+        assert launches[k] > 0, (k, launches)
+    return res
+
+
 def _profile_window(tracker, track, frames, tag):
     """Track `frames` (`track(k)` tracks frame k) under torch.profiler: the
     device's busy share, time and kernel launches a frame, and the kernels
@@ -1468,6 +1907,9 @@ def main():
     n = N_FRAMES_NO_BA
     run_main_path(imgs[:n], depths[:n], gt[:n], device, local_ba=False)
     stats, tracker = run_main_path(imgs, depths, gt, device, local_ba=True)
+    kf_loop_ms(tracker, "cell A")
+    stats_d, tracker_d, rec_d = run_kidnap(imgs, depths, gt, device)
+    kf_loop_ms(tracker_d, "cell D")
     t0 = time.perf_counter()
     left, right = bench_stereo_frames(gt)
     print(f"{N_FRAMES} VGA stereo pairs rendered in "
@@ -1506,6 +1948,11 @@ def main():
     sad_r, st_tail = check_stereo_sad(st_sad)
     _, st_asm, st_solve = record_mapping(tracker_c)
     check_ba(st_asm, st_solve)
+    # cell D: the recovering frame's relocalization and the vocabulary
+    reloc_shapes, reloc_k4_err = check_reloc(rec_d, tracker_d)
+    # stereo save/load, a path of its own (after the cell-C checks above,
+    # which its drain of cell C's deferred mapping products would move)
+    check_stereo_save_load(tracker_c, left, right, gt, device)
 
     # ---- phase 5: profiler windows, after every agreement check ----
     from orb_slam2_refactored_tpu_torch.ops import fast, orb
@@ -1543,6 +1990,7 @@ def main():
           f"call, {assoc_ops[0]:g} device operations: {assoc_rows}")
     assert not [r for r in assoc_rows if "Memcpy" in r], assoc_rows
     print(f"stereo K1 call: {device_times_k1(st_pair):.5f} ms of device time")
+    reloc_breakdown(rec_d, tracker_d)
     if args.parent:
         dense_k1 = {n: a for n, a in {**name_k1_calls("fallback", fb_k1),
                                       **name_k1_calls("triangulation",
@@ -1579,6 +2027,11 @@ def main():
                    ref + "ops/stereo.py:120",
                    stats_c["launches"]["stereo_sad"], sad_r),
     ]
+    rows[3]["max_abs_err"] = max(rows[3]["max_abs_err"], reloc_k4_err)
+    for row in rows:
+        row["launches_cell_d"] = stats_d["launches"][row["name"]]
+    print(f"relocalization K1 and K4 calls, and one training K1 call "
+          f"(cell D): {json.dumps(reloc_shapes)}")
     print(f"per frame: K1 = {', '.join(frame_k1)}; K4 = "
           f"{', '.join(frame_k4)}; K2 and K3 = one call each over all 8 "
           "pyramid levels of frame 0; "

@@ -17,8 +17,9 @@ import torch
 from .optim.ba import BAProblem
 from .slam.frame import FrameData
 from .slam.map_state import MapArrays
+from .slam.vocabulary import KeyFrameDatabase, Vocabulary
 
-_DESC_FIELDS = ("kf_desc", "mp_desc", "desc")
+_DESC_FIELDS = ("kf_desc", "mp_desc", "desc", "words")
 
 
 def _as_dict(obj) -> Dict[str, Any]:
@@ -62,6 +63,33 @@ def frame_from_numpy(d, device) -> FrameData:
 
 def frame_to_numpy(f: FrameData) -> Dict[str, np.ndarray]:
     return {k: _to_numpy(k, getattr(f, k)) for k in FrameData._fields}
+
+
+def vocabulary_from_numpy(d, device) -> Vocabulary:
+    """Vocabulary from a dict (or NamedTuple) with `words` (u32[W,8]) and
+    `idf` (f32[W])."""
+    d = _as_dict(d)
+    return Vocabulary(words=_to_tensor("words", d["words"], device),
+                      idf=_to_tensor("idf", d["idf"], device))
+
+
+def vocabulary_to_numpy(voc: Vocabulary) -> Dict[str, np.ndarray]:
+    """{"words": u32[W,8], "idf": f32[W]}: the JAX package's dtypes."""
+    return {k: _to_numpy(k, getattr(voc, k)) for k in Vocabulary._fields}
+
+
+def database_from_numpy(voc: Vocabulary, kf_capacity: int, bow_ids,
+                        bow_cnt, active, idf) -> KeyFrameDatabase:
+    """A KeyFrameDatabase over `voc` holding the sparse rows (bow_ids
+    i32[KF,T], bow_cnt f32[KF,T]), the active mask (bool[KF], kept on the
+    host) and the live idf (f32[W]) of another one."""
+    dev = voc.words.device
+    db = KeyFrameDatabase(voc, kf_capacity)
+    db.bow_ids = _to_tensor("bow_ids", bow_ids, dev)
+    db.bow_cnt = _to_tensor("bow_cnt", bow_cnt, dev)
+    db.active = np.asarray(active, bool).copy()
+    db.idf = _to_tensor("idf", idf, dev)
+    return db
 
 
 def tracker_state_from_numpy(d, device) -> Dict[str, Any]:

@@ -73,10 +73,14 @@ def candidate_mask(row_ok, col_ok, uv=None, rad=None, lvl_r=None, xy=None,
 
 def masked_best2_gated_plain(q, t, row_ok, col_ok, uv=None, rad=None,
                              lvl_r=None, xy=None, lvl_c=None, pair_ok=None):
-    """Plain PyTorch version of kernel K1 (same signature)."""
-    d = hamming_matrix(q, t)
-    return masked_best2(d, candidate_mask(row_ok, col_ok, uv, rad, lvl_r,
-                                          xy, lvl_c, pair_ok))
+    """Plain PyTorch version of kernel K1 (same signature). Distances are
+    computed for the candidate pairs only (masked-out pairs read as BIG
+    either way), which keeps the window-gated calls cheap on the CPU."""
+    mask = candidate_mask(row_ok, col_ok, uv, rad, lvl_r, xy, lvl_c, pair_ok)
+    i, j = torch.nonzero(mask, as_tuple=True)
+    d = torch.full(mask.shape, BIG, dtype=torch.int32, device=q.device)
+    d[i, j] = hamming_pairwise(q[i], t[j])
+    return masked_best2(d, mask)
 
 
 def masked_best2_gated(q, t, row_ok, col_ok, uv=None, rad=None, lvl_r=None,

@@ -14,7 +14,10 @@ the fused `_step_impl` and `_step_stereo_impl`, keyframe insertion
 synchronous local-mapping job that follows each keyframe
 (`slam/local_mapping.py`: triangulation, fusion, point culling, window BA,
 keyframe culling; the tracker adopts the BA-refined pose of the new
-keyframe).
+keyframe). Every keyframe is indexed in the BoW database
+(`_ensure_bow_index`: the vocabulary is trained at the 4th keyframe), and a
+LOST frame relocalizes against it (`_relocalize`: BoW candidates, descriptor
+matching, Horn RANSAC on depth, pose LM, a projection-guided polish).
 
 Differences of form from the JAX package:
 - the tracker runs on `cuda:0` unless the caller passes another device
@@ -28,7 +31,12 @@ Differences of form from the JAX package:
 - every device read is synchronous, so the JAX tracker's staged mapping
   pump (`_pump_mapping_once`, which waits for each stage's read to land)
   is one call, `_run_mapping_job`, that runs its stages in order;
-- `flush()` drains every deferred mapping product (see its docstring).
+- `flush()` drains every deferred mapping product (see its docstring);
+- the relocalization RANSAC draws from `torch.Generator().manual_seed(
+  frame_id * 31 + kf)` where JAX folds that number into `PRNGKey(0)`: a run
+  repeats itself, and its outcome, not its samples, agrees with JAX;
+- a relocalization candidate's two scalars after the RANSAC and the LM
+  (success, inliers) come back in one read.
 
 Settings whose machinery this slice does not port raise NotImplementedError
 at construction; none is silently ignored.
@@ -53,7 +61,9 @@ from ..solvers.ransac import horn_ransac
 from ..utils.timing import StageTimer
 from .frame import FrameData, scale_factors
 from .local_mapping import LocalMapper
+from .loop_closing import LoopCloser
 from .map_state import INVALID, MapArrays, MapCapacity, MapGraph, empty_map
+from .vocabulary import train_vocabulary
 
 
 @dataclasses.dataclass
@@ -190,6 +200,11 @@ class Tracker:
         else:
             self.local_mapper = None
         self.last_ba_info = None
+        # the BoW index (vocabulary + keyframe database): built at the
+        # VOCAB_TRAIN_KFS-th keyframe, or injected with `set_vocabulary`
+        self.loop_closer: Optional[LoopCloser] = None
+        self.vocabulary = None
+        self._vocab_pending: List[int] = []
         self.trajectory: List[np.ndarray] = []
         self.traj_entries: List[dict] = []
         self.track_info: List[dict] = []
@@ -477,6 +492,75 @@ class Tracker:
         pack3 = torch.cat([packed, create.to(torch.int32)[None, :]], dim=0)
         return m, packed[0], pack3
 
+    def _reloc_match_impl(self, frame: FrameData, m: MapArrays, kf: int):
+        """Frame <-> keyframe descriptor matching yielding 2D-3D pairs
+        (SearchByBoW KF <-> Frame, `src/ORBmatcher.cc:452`): K1 both ways."""
+        P = m.point_capacity
+        mp = m.kf_mp[kf]
+        ok_b = (mp >= 0) & m.kf_feat_valid[kf] & m.mp_valid[
+            torch.clamp(mp, 0, P - 1).long()]
+        mm = matching.match_descriptors(
+            frame.desc, m.kf_desc[kf], frame.valid, ok_b,
+            max_dist=50, nn_ratio=0.75)
+        midx = torch.clamp(mm.idx, 0, mp.shape[0] - 1).long()
+        feat_pt = torch.where(mm.valid, mp[midx], torch.full_like(mm.idx,
+                                                                 INVALID))
+        pts3d = m.mp_pos[torch.clamp(feat_pt, 0, P - 1).long()]
+        return pts3d, feat_pt, mm.valid
+
+    def _reloc_solve_impl(self, frame: FrameData, pts3d, valid, seed: int):
+        """RANSAC seed and pose LM of one relocalization candidate: 3D-3D
+        Horn RANSAC on the unprojected depth (planar-safe), then K4 over
+        its inliers. `seed` varies the hypotheses per frame and candidate.
+        """
+        if self.cfg.bf <= 0:
+            raise NotImplementedError(
+                "monocular relocalization (pnp_ransac) belongs to the mono "
+                "slice (A5)")
+        dev = frame.xy.device
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(seed))
+        xc = proj.unproject(self.cam, frame.xy,
+                            torch.clamp(frame.depth, min=1e-3))
+        ok3 = valid & (frame.depth > 0)
+        res = horn_ransac(pts3d, xc, ok3, gen, with_scale=False,
+                          inlier_th=0.05, min_inliers=10)
+        seed_ok = torch.where(res.success, res.inliers & valid, valid)
+        r = pose_optimize(
+            torch.where(res.success, res.pose, se3.identity(device=dev)),
+            pts3d, frame.xy, frame.u_right,
+            self.inv_sigma2[frame.level.long()], seed_ok, self.cam)
+        return res.success, r.pose, r.inliers, r.num_inliers
+
+    def _reloc_polish_impl(self, frame: FrameData, m: MapArrays, pose):
+        """Projection-guided matching (radius 10, K1) around the coarse pose
+        and the full pose LM (K4): the reference's second-chance search,
+        `src/Tracking.cc:399-441`."""
+        cfg = self.cfg
+        P = m.point_capacity
+        N = frame.capacity
+        lm, _ = matching.search_by_projection_with_vis(
+            frame.xy, frame.level, frame.desc, frame.valid,
+            m.mp_pos, m.mp_desc, m.mp_normal, m.mp_min_dist, m.mp_max_dist,
+            m.mp_valid, pose, self.cam, self.sf,
+            radius=10.0, image_bounds=self.image_bounds)
+        pidx = torch.clamp(lm.idx, 0, N - 1).long()
+        neg = torch.full((N,), INVALID, dtype=torch.int32,
+                         device=frame.xy.device)
+        feat_mp = neg.scatter_reduce(
+            0, pidx, torch.where(lm.valid, torch.arange(
+                P, dtype=torch.int32, device=neg.device),
+                torch.full_like(lm.idx, INVALID)),
+            "amax", include_self=True)
+        has = feat_mp >= 0
+        r = pose_optimize(
+            pose, m.mp_pos[torch.clamp(feat_mp, 0, P - 1).long()],
+            frame.xy, frame.u_right, self.inv_sigma2[frame.level.long()],
+            has, self.cam, rounds=cfg.pose_opt_rounds,
+            iters_per_round=cfg.pose_opt_iters)
+        feat_final = torch.where(r.inliers & has, feat_mp, neg)
+        return r.pose, feat_final, r.num_inliers
+
     # ------------------------------------------------------------------
     # host orchestration
     # ------------------------------------------------------------------
@@ -549,9 +633,15 @@ class Tracker:
             self.frame_id += 1
             return self.pose
         if self.state == TrackState.LOST:
-            raise NotImplementedError(
-                "tracking is lost with more than 5 keyframes in the map; "
-                "relocalization belongs to the loop-closing slice")
+            frame = prep_fn()
+            if self._relocalize(frame):
+                self.track_info.append({"reloc": True, "lost": False})
+                self._record_frame(lost=False)  # absolute pose (no Tcr yet)
+            else:
+                self.track_info.append({"reloc": False, "lost": True})
+                self._record_frame(lost=True)
+            self.frame_id += 1
+            return self.pose
         (frame, pose_dev, vel_dev, feat_mp_dev, host_pack,
          self.mp_vis_dev, self.mp_found_dev,
          self.mp_seen_dev, self.fidx) = step_fn()
@@ -607,6 +697,9 @@ class Tracker:
         self.mp_seen_dev = torch.full((P,), -1, dtype=torch.int32,
                                       device=self.device)
         self.fidx = 0
+        if self.loop_closer is not None:
+            self.loop_closer.db.clear()
+            self.loop_closer.consistent_groups = []
         self.pose = se3.identity().numpy()
         self.velocity = se3.identity().numpy()
         self.pose_dev = self._t(self.pose)
@@ -626,6 +719,107 @@ class Tracker:
             self.reset_map()
             return True
         return False
+
+    def _relocalize(self, frame: FrameData) -> bool:
+        """BoW candidate retrieval, RANSAC and pose refinement
+        (`Relocalizer::Relocalize`, `src/Tracking.cc:284-463`). Without a
+        BoW index the tracker stays lost. On success the velocity becomes
+        the identity; the reference keyframe and the keyframe interval are
+        kept, as in the JAX tracker."""
+        if self.loop_closer is None:
+            return False
+        db = self.loop_closer.db
+        v, _ = db.compute_bow(frame.desc, frame.valid)
+        # covisibility-group accumulated scores, shared-word 0.8 gate
+        # (DetectRelocalizationCandidates, src/KeyFrameDatabase.cc:173-265),
+        # no absolute score floor: there is no pose prior when lost
+        cands = db.detect_candidates_grouped(
+            v, exclude=set(), min_score=0.0, graph=self.graph,
+            max_candidates=5)
+        if not cands:  # degenerate BoW overlap: plain scoring
+            cands = db.detect_candidates(v, exclude=set(), min_score=0.015,
+                                         max_candidates=3)
+        for kf in cands:
+            pts3d, _, valid = self._reloc_match_impl(frame, self.map, kf)
+            if int(valid.sum()) < 15:
+                continue
+            success, pose, _, n_inl = self._reloc_solve_impl(
+                frame, pts3d, valid, self.frame_id * 31 + kf)
+            ok, n_inl = torch.stack([success.to(torch.int32),
+                                     n_inl.to(torch.int32)]).tolist()
+            if not ok or n_inl < 20:
+                continue
+            pose, feat_final, n_inl2 = self._reloc_polish_impl(
+                frame, self.map, pose)
+            if int(n_inl2) < 20:
+                continue
+            self.pose = pose.cpu().numpy()
+            self.pose_dev = self._t(self.pose)
+            self.velocity = se3.identity().numpy()
+            self.velocity_dev = self._t(self.velocity)
+            self.last_frame = frame
+            self.last_mp_dev = feat_final
+            self.state = TrackState.OK
+            return True
+        return False
+
+    def set_vocabulary(self, voc):
+        """Inject a pre-trained vocabulary (the reference loads ORBvoc.txt,
+        `src/System.cc:343`; training on live descriptors is the
+        default)."""
+        self.vocabulary = voc
+
+    # keyframes whose descriptors accumulate before vocabulary training: a
+    # single view's words alias badly; 4 views give the k-majority
+    # clustering real appearance diversity
+    VOCAB_TRAIN_KFS = 4
+
+    def _ensure_bow_index(self, slot: int, train_kfs: int = 0):
+        """Create the vocabulary and the BoW database once `train_kfs`
+        (default VOCAB_TRAIN_KFS) keyframes have accumulated, and index
+        keyframe `slot`. Returns its BoW row, or None while the vocabulary
+        is warming up. Training reads the pending keyframes' descriptors
+        once a session; indexing reads nothing back."""
+        if self.loop_closer is None:
+            pending = self._vocab_pending
+            pending.append(slot)
+            if self.vocabulary is None:
+                if len(pending) < (train_kfs or self.VOCAB_TRAIN_KFS):
+                    return None
+                idx = self._t(np.asarray(pending, np.int64))
+                kf_desc = self.map.kf_desc[idx].cpu().numpy()
+                kf_val = self.map.kf_feat_valid[idx].cpu().numpy()
+                desc = np.concatenate([kf_desc[i][kf_val[i]]
+                                       for i in range(len(pending))])
+                if len(desc) < 32:
+                    return None
+                self.vocabulary = train_vocabulary(
+                    desc, n_words=min(self.cfg.vocab_words, len(desc)),
+                    iters=6, device=self.device)
+            # the Sim3 scale is observable only in monocular mode
+            self.loop_closer = LoopCloser(
+                self.vocabulary, self.cfg.map_capacity.max_keyframes,
+                fix_scale=self.cfg.bf > 0)
+            # index every pending keyframe still alive (the current one
+            # below)
+            for k in pending[:-1]:
+                if self.graph.kf_alive[k]:
+                    self.loop_closer.add_keyframe_bow(self.map, int(k))
+            self._vocab_pending = []
+        return self.loop_closer.add_keyframe_bow(self.map, slot)
+
+    def force_bow_index(self) -> bool:
+        """Train the vocabulary and build the BoW index now from every alive
+        keyframe, without the VOCAB_TRAIN_KFS warm-up (`save_map` calls it,
+        so that a short session's map can be relocalized into). True when
+        an index exists afterwards."""
+        if self.loop_closer is not None:
+            return True
+        alive = [int(k) for k in self.graph.alive_kfs()]
+        if not alive:
+            return False
+        self._vocab_pending = list(alive[:-1])
+        return self._ensure_bow_index(alive[-1], train_kfs=1) is not None
 
     def _ref_kf_tracked_points(self) -> int:
         """TrackedMapPoints(minObs) of the reference KF."""
@@ -783,8 +977,9 @@ class Tracker:
         stamps of recycled point slots, then dispatch the local-mapping job
         (reference order, src/LocalMapping.cc:93-130: triangulate -> fuse
         neighbours -> cull points -> local BA -> cull KFs). True when the
-        job was dispatched. The BoW index hook of the JAX tracker
-        (`_ensure_bow_index`) belongs to the loop-closing slice."""
+        job was dispatched. Between the two, under `kf.loop`, the keyframe
+        joins the BoW index (the JAX tracker's `enable_loop_closing=False`
+        branch: the index serves relocalization)."""
         rec = self.graph.recycled_log
         if rec:
             self.graph.recycled_log = []
@@ -792,6 +987,8 @@ class Tracker:
             self.mp_vis_dev[idx] = 0
             self.mp_found_dev[idx] = 0
             self.mp_seen_dev[idx] = -1
+        with self.timer.time("kf.loop"):
+            self._ensure_bow_index(slot)
         if self.local_mapper is not None and len(self.graph.alive_kfs()) >= 2:
             with self.timer.time("kf.triangulate"):
                 self.map, _ = self.local_mapper.triangulate_new_points(
@@ -829,7 +1026,10 @@ class Tracker:
             self.map, self.last_ba_info = lm.local_ba(self.map, self.graph,
                                                       slot)
         with self.timer.time("kf.cull_kfs"):
-            self.map, _ = lm.cull_keyframes(self.map, self.graph, slot)
+            self.map, killed = lm.cull_keyframes(self.map, self.graph, slot)
+        if killed and self.loop_closer is not None:
+            for k in killed:
+                self.loop_closer.db.erase(k)
         if self.last_ba_info is not None:
             # adopt the BA-refined pose of the new keyframe as the tracker's
             # current pose (the reference's map-update hand-off,

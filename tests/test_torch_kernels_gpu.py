@@ -2,7 +2,8 @@
 three gate modes), K2 and K3 (on one level and on a whole pyramid in one
 call), K4 (pose LM), K5 (BA assembly and cost) and B9 (the stereo SAD
 refinement alone, and the whole stereo association after K1 in one
-launch).
+launch), and the BoW vocabulary on K1 (quantization, training,
+compute_bow).
 
 These tests need a CUDA card and skip elsewhere. The file imports no JAX,
 so it also runs where JAX is not installed:
@@ -619,3 +620,62 @@ def test_stereo_associate_wrapper_refuses_what_the_kernel_does_not_take():
     for k, v in bad.items():
         with pytest.raises(ValueError):
             stereo.associate_from_best2(**{**a, k: v})
+
+
+@pytest.mark.parametrize("W,N", [(512, 1000), (70_000, 200)])
+def test_quantize_on_k1_equals_plain(W, N):
+    """Quantization is one dense K1 call over all W words on the card; the
+    plain version chunks at 65,536 words. Equal minima (a word repeated
+    across the chunk boundary) resolve to the lower id in both."""
+    from orb_slam2_refactored_tpu_torch.slam import vocabulary as vocab
+
+    dev = _card()
+    rng = np.random.default_rng(17)
+    words = rng.integers(-2 ** 31, 2 ** 31, (W, 8), dtype=np.int64).astype(
+        np.int32)
+    words[W - 5:] = words[:5]
+    desc = rng.integers(-2 ** 31, 2 ** 31, (N, 8), dtype=np.int64).astype(
+        np.int32)
+    desc[:5] = words[:5]
+    voc = vocab.Vocabulary(torch.from_numpy(words), torch.ones(W))
+    ref = vocab.quantize(voc, torch.from_numpy(desc))
+    before = kernels.LAUNCHES["hamming_best2"]
+    out = vocab.quantize(vocab.Vocabulary(voc.words.to(dev), voc.idf.to(dev)),
+                         torch.from_numpy(desc).to(dev))
+    assert kernels.LAUNCHES["hamming_best2"] == before + 1
+    assert torch.equal(out.cpu(), ref)
+    assert ref[:5].tolist() == list(range(5))
+
+
+def test_vocabulary_training_and_bow_on_the_card_equal_plain():
+    """`train_vocabulary` with K1's assignment equals the plain path bit for
+    bit, and `compute_bow` and the scores on the card equal the plain
+    version (rows exactly, scores to 1e-6)."""
+    from orb_slam2_refactored_tpu_torch.slam import vocabulary as vocab
+
+    dev = _card()
+    rng = np.random.default_rng(18)
+    centres = rng.integers(0, 2 ** 32, (60, 8), dtype=np.uint32)
+    desc = centres[rng.integers(0, 60, 3000)]
+    desc ^= (rng.random((3000, 8)) < 0.05).astype(np.uint32) << np.uint32(3)
+    card = vocab.train_vocabulary(desc, n_words=256, iters=4, device=dev)
+    plain = vocab.train_vocabulary(desc, n_words=256, iters=4, device="cpu")
+    assert torch.equal(card.words.cpu(), plain.words)
+    dbs = [vocab.KeyFrameDatabase(v, 8) for v in (card, plain)]
+    q = torch.from_numpy(desc[:1000].view(np.int32).copy())
+    valid = torch.from_numpy(rng.random(1000) < 0.9)
+    rows = []
+    for db, d in zip(dbs, (dev, "cpu")):
+        for k in range(5):
+            v, _ = db.compute_bow(q[k * 200:(k + 1) * 200 + 300].to(d),
+                                  valid[k * 200:(k + 1) * 200 + 300].to(d))
+            db.add(k, v)
+        db.refit_idf()
+        rows.append((db.compute_bow(q.to(d), valid.to(d)),
+                     db.score_query(db.compute_bow(q.to(d), valid.to(d))[0])))
+    (bow_k, s_k), (bow_p, s_p) = rows
+    for x, y in zip((*bow_k[0], bow_k[1]), (*bow_p[0], bow_p[1])):
+        assert torch.equal(x.cpu(), y)
+    assert torch.equal(dbs[0].bow_ids.cpu(), dbs[1].bow_ids)
+    assert float((s_k[0].cpu() - s_p[0]).abs().max()) <= 1e-6
+    assert torch.equal(s_k[1].cpu(), s_p[1])

@@ -12,7 +12,8 @@ from orb_slam2_refactored_tpu.slam import frame as jframe
 from orb_slam2_refactored_tpu_torch import convert, kernels, resolve_device
 from orb_slam2_refactored_tpu_torch.slam import frame as tframe
 from orb_slam2_refactored_tpu_torch.slam.map_state import MapCapacity
-from orb_slam2_refactored_tpu_torch.slam.tracking import Tracker, TrackerConfig
+from orb_slam2_refactored_tpu_torch.slam.tracking import (
+    Tracker, TrackerConfig, TrackState)
 
 torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -109,3 +110,16 @@ def test_device_defaults_to_the_card():
             Tracker(_cfg())
     assert Tracker(_cfg(dist_coeffs=(0.1, 0.0, 0.0, 0.0, 0.0)),
                    device="cpu").device == torch.device("cpu")
+
+
+def test_lost_frame_without_an_index_stays_lost():
+    """A LOST frame runs the relocalization branch; with no BoW index yet
+    (fewer keyframes than the vocabulary needs) it stays lost, and the
+    tracker neither raises nor resets."""
+    t = Tracker(_cfg(), device="cpu")
+    t.state = TrackState.LOST
+    pose = t.track_rgbd(np.zeros((48, 64), np.uint8),
+                        np.zeros((48, 64), np.float32))
+    assert t.state == TrackState.LOST and t.loop_closer is None
+    assert t.track_info[-1] == {"reloc": False, "lost": True}
+    assert t.traj_entries[-1]["lost"] and pose.shape == (7,)
