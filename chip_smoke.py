@@ -1,4 +1,5 @@
-"""Drive the PyTorch port of the RGB-D and stereo tracker on one CUDA card.
+"""Drive the PyTorch port of the RGB-D and stereo tracker, with loop
+closing, on one CUDA card.
 
     python3 chip_smoke.py [--profile] [--parent DIR]
 
@@ -30,7 +31,18 @@ Phases (any failure raises and the script exits non-zero):
        all-zero frames, and must relocalize within 20 frames of a resume at
        views 20-59 (post-recovery ATE <= 8 cm); the vocabulary is trained
        at the 4th keyframe and every keyframe is indexed;
-    e. stereo save/load (run after phase 4's cell-(c) checks): cell (c)'s
+    e. loop closing (cells E and F, each with loop closing off and on, the
+       covisibility window of 10 keyframes and a keyframe at least every 8
+       frames): E, the organic-loop test's QVGA panning circuit
+       (`tests/test_organic_loop.py`, 170 frames, 600 features, 4 levels,
+       16384 points); F, the bench's VGA panning circuit (`bench.py:555-615`,
+       170 frames, the bench's configuration: 1000 features, 8 levels,
+       32768 points, local BA on). Each must end tracking, close at least
+       one loop, and beat its loop-off run's ATE on the corrected
+       trajectory, below 6 cm (the organic-loop test's gates); the
+       global BA's kernels (K5 in its `w_obs` mode, K6) launch exactly when
+       a loop closed.
+    f. stereo save/load (run after phase 4's cell-(c) checks): cell (c)'s
        map through `save_map` and `load_map` into a fresh stereo tracker,
        which must relocalize within 3 pairs from view 40, within 2 cm of
        cell (c)'s pose there in the saved map (the pose it recorded
@@ -53,13 +65,20 @@ Phases (any failure raises and the script exits non-zero):
     relocalization's K1 calls (quantization, matching, the polish's search)
     bit for bit and its K4 calls, the vocabulary trained again on the card
     and by the plain path bit-equal to the tracker's, and `compute_bow`
-    equal to its plain version.
+    equal to its plain version; on cell F's first global BA (its problem
+    holds every live point of the 32768-point map), K5's `w_obs` mode
+    against its plain version, K6 against `ba_schur_mv_plain` on every CG
+    iteration of one LM iteration, the whole global BA with K5 and K6
+    against the plain global BA, and the loop's pose-graph solve on the
+    card against the same solve on the CPU.
  5. torch.profiler windows, after every agreement check: K2's and K3's
     device time on frame 0, K1's and K4's on the recorded tracked frame's
     calls, K5's on the recorded window BA, B9's (and its wrapper's host
     time), the whole association's (no copy to or from the host in it) and
     the stereo K1 call's on the recorded stereo frame; each stage of cell
-    (d)'s relocalization; K4's time split into passes
+    (d)'s relocalization; K6's and K5 `w_obs`'s device time a call, the
+    whole global BA's and the pose graph's device time and operations, and
+    K6's bound; K4's time split into passes
     and LM iterations (the same calls without iterations) and one
     iteration on no observation;
     extraction with the rank rounds in K2 against extraction with the
@@ -112,6 +131,14 @@ RELOC_MAX_FRAMES = 20
 RELOC_ATE_M = 0.08
 # the stereo save/load check resumes a loaded cell-C map at this view
 RELOAD_VIEW = 40
+# cells E and F (loop closing): the circuit's frames and the gates of the
+# JAX package's organic-loop test (`tests/test_organic_loop.py:85-114`)
+CIRCUIT_FRAMES = 170
+LOOP_ATE_M = 0.06
+# the global BA's kernels: they launch only where a loop closes
+LOOP_KERNELS = ("ba_assemble_w_obs", "ba_schur_mv")
+# host seconds between a profiler window's edges and its launches
+GUARD_S = 0.005
 
 
 def sh(cmd):
@@ -221,31 +248,42 @@ def bound_ms(nbytes, ops):
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def profiled_ms(fn, reps, ops_out=None):
-    """Mean device time of one call from torch.profiler's device rows (the
-    card's own kernel and memset times, without the host's issue gaps),
-    and the names of those rows; appends the device operations a call to
-    `ops_out` where given. A window in which the profiler recorded no
-    device row at all (seen once on the H100) is taken again, twice at
-    most; a third empty window raises, so no unmeasured 0 is reported."""
+def profiled_ms(fn, reps, ops_out=None, warm=True, host_ops=True):
+    """Mean device time of one call (after a warm-up call, unless `warm`
+    is false) from torch.profiler's device rows (the card's own kernel and
+    memset times, without the host's issue gaps), and the names of those
+    rows; appends the device operations a call to `ops_out` where given.
+    With `host_ops` false the window records the card's activity only (no
+    aten rows, so fewer records for a long solve). A window in which the profiler recorded no
+    device row at all (seen once on the H100), or one in which a row's
+    launches are not a whole multiple of `reps`, is taken again, four
+    times at most; a fifth such window raises, so no unmeasured 0 is
+    reported. The launches start `GUARD_S` after the window opens and it
+    closes `GUARD_S` after the card is idle: on the H100 windows with no
+    such margin lost the launches at their start (one kept 5 of 20)."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+    for attempt in range(5):
+        with profile(activities=[ProfilerActivity.CPU] * host_ops
+                     + [ProfilerActivity.CUDA]) as prof:
+            time.sleep(GUARD_S)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(GUARD_S)
         rows = [e for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA
                 and e.self_device_time_total > 0]
-        if rows:
+        if rows and all(e.count % reps == 0 for e in rows):
             break
+        print(f"  profiler window {attempt + 1} not whole ({reps} calls): "
+              f"{[(e.key[:40], e.count) for e in rows][:6]}; taken again")
     else:
-        raise RuntimeError("torch.profiler recorded no device row in three "
-                           "windows")
+        raise RuntimeError("torch.profiler recorded no whole window in "
+                           "five")
     us = sum(e.self_device_time_total for e in rows)
     if ops_out is not None:
         ops_out.append(sum(e.count for e in rows) / reps)
@@ -806,7 +844,8 @@ def check_ba(asm_call, solve_call):
     from orb_slam2_refactored_tpu_torch.optim import ba
 
     a = asm_call
-    c = {n: v for n, v in a.items() if n != "index"}  # ba_cost's arguments
+    # ba_cost's arguments
+    c = {n: v for n, v in a.items() if n not in ("index", "w_obs")}
     p = a["p"]
     W, N = p.obs_uv.shape[:2]
     Q = p.pt_pos.shape[0]
@@ -1217,6 +1256,8 @@ def run_main_path(imgs, second, gt, device, local_ba, stereo=False):
     for k, v in launches.items():
         if k == "stereo_sad" and not stereo:
             assert v == 0, f"B9 launched on the RGB-D path ({tag})"
+        elif k in LOOP_KERNELS:
+            assert v == 0, f"{k} launched with loop closing off ({tag})"
         elif local_ba or not k.startswith("ba_"):
             assert v > 0, f"kernel {k} never launched on the path ({tag})"
     # one extraction call of each a frame, two a stereo frame and one B9
@@ -1387,8 +1428,8 @@ def run_kidnap(imgs, depths, gt, device, cfg=None):
     assert ate <= RELOC_ATE_M, ate
     assert rec, "no relocalization was recorded"
     for k, v in launches.items():
-        if k == "stereo_sad":
-            assert v == 0, "B9 launched on the RGB-D path (cell D)"
+        if k == "stereo_sad" or k in LOOP_KERNELS:
+            assert v == 0, f"{k} launched on cell D"
         else:
             assert v > 0, f"kernel {k} never launched on cell D"
     rec["train"] = train_log[0]
@@ -1698,7 +1739,7 @@ def device_times_k5(asm_call, index_r, asm_r, cost_r, reps=20):
     from orb_slam2_refactored_tpu_torch.optim import ba
 
     a = asm_call
-    c = {n: v for n, v in a.items() if n != "index"}
+    c = {n: v for n, v in a.items() if n not in ("index", "w_obs")}
     p, Q = a["p"], a["p"].pt_pos.shape[0]
     out = []
     for name, fn, r, launches in (
@@ -1845,6 +1886,395 @@ def compare_with_parent(parent, frame_k1, dense_k1, frame_k4, fb_k4,
     return res
 
 
+# ---------------------------------------------------------------------------
+# cells E and F: loop closing and global BA
+# ---------------------------------------------------------------------------
+
+def circuit_trajectory(n, overlap=30, radius=0.7):
+    """The panning circuit of `tests/test_organic_loop.py:23-40` and
+    `bench.py:555-593`: the camera orbits the room centre while yawing
+    through 2 pi in n - overlap frames, then re-sees the start views in the
+    last `overlap`; world->camera poses."""
+    from orb_slam2_refactored_tpu_torch.io.synthetic import _np_pose_inverse
+
+    poses = []
+    for i in range(n):
+        a = 2.0 * np.pi * i / (n - overlap)
+        q = np.array([np.cos(a / 2), 0.0, np.sin(a / 2), 0.0], np.float32)
+        pose_wc = np.concatenate([q, np.array(
+            [radius * np.sin(a), 0.0, radius * (1 - np.cos(a)) * 0.5],
+            np.float32)])
+        poses.append(_np_pose_inverse(pose_wc).astype(np.float32))
+    return np.stack(poses)
+
+
+def circuit_frames(cell):
+    """Cell E: the organic-loop test's QVGA circuit (`tests/
+    test_organic_loop.py:43-57`: box room 1.7 x 1.3 x 2.7, f32 images,
+    depth with 2 % noise from seed 23). Cell F: the bench's VGA circuit
+    (`bench.py:555-593`: box room 1.8 x 1.4 x 3.0, uint8 images, f16 depth
+    with 1 % noise from seed 23). Both: distinct textures, 170 frames."""
+    from orb_slam2_refactored_tpu_torch.io.synthetic import (
+        SyntheticScene, box_room)
+
+    gt = circuit_trajectory(CIRCUIT_FRAMES)
+    rng = np.random.default_rng(23)
+    frames = []
+    if cell == "E":
+        scene = SyntheticScene(width=320, height=240, fx=260.0, fy=260.0,
+                               planes=box_room(1.7, 1.3, 2.7, -2.7,
+                                               distinct_textures=True))
+        for pose in gt:
+            img, depth = scene.render(pose)
+            frames.append((img, depth * (1 + rng.normal(
+                0, 0.02, depth.shape).astype(np.float32))))
+        return frames, gt
+    scene = SyntheticScene(width=640, height=480, fx=520.0, fy=520.0,
+                           planes=box_room(1.8, 1.4, 3.0, -3.0,
+                                           distinct_textures=True))
+    for pose in gt:
+        img, depth = scene.render(pose)
+        frames.append((np.clip(img, 0, 255).astype(np.uint8),
+                       (depth * (1 + rng.normal(0, 0.01, depth.shape)))
+                       .astype(np.float16)))
+    return frames, gt
+
+
+def circuit_config(cell, loop):
+    """Cell E: `tests/test_organic_loop.py:60-76`'s configuration (600
+    features, 4 levels, 1024 words, `MapCapacity(96, 16384, 600)`). Cell F:
+    the bench's (`bench_config`: 1000 features, 8 levels,
+    `MapCapacity(128, 32768, 1000)`, local BA on, synchronous) with
+    `bench.py:614-615`'s loop settings. Both: a keyframe at least every 8
+    frames and the 10-keyframe covisibility window."""
+    import dataclasses
+
+    from orb_slam2_refactored_tpu_torch.slam.map_state import MapCapacity
+    from orb_slam2_refactored_tpu_torch.slam.tracking import TrackerConfig
+
+    if cell == "E":
+        return TrackerConfig(
+            width=320, height=240, fx=260.0, fy=260.0, cx=160.0, cy=120.0,
+            bf=0.08 * 260.0, n_features=600, n_levels=4,
+            enable_loop_closing=loop, vocab_words=1024, kf_max_interval=8,
+            local_map_window=10,
+            map_capacity=MapCapacity(max_keyframes=96, max_points=16384,
+                                     max_features=600))
+    return dataclasses.replace(bench_config(True), local_map_window=10,
+                               kf_max_interval=8, enable_loop_closing=loop)
+
+
+def run_circuit(cell, loop, frames, gt, device, record=None):
+    """One run of a loop cell through `Tracker.track_rgbd`, every launch
+    counter set to 0 just before and read just after; the ATE of the
+    corrected trajectory (`corrected_frame_poses`), the loops closed and
+    the host times of `_close_loop` and `kf.gba_merge`. With `record` (a
+    dict), the arguments of the run's global-BA calls (`compact_points`,
+    `ba_solve`) and pose-graph solves are recorded into it."""
+    from orb_slam2_refactored_tpu_torch import kernels
+    from orb_slam2_refactored_tpu_torch.io.evaluation import ate_rmse
+    from orb_slam2_refactored_tpu_torch.slam import loop_closing
+    from orb_slam2_refactored_tpu_torch.slam.system import (
+        corrected_frame_poses)
+    from orb_slam2_refactored_tpu_torch.slam.tracking import Tracker
+
+    tracker = Tracker(circuit_config(cell, loop), device=device)
+    real = tracker._close_loop
+
+    def close_loop(*a, **k):
+        with tracker.timer.time("loop.close_loop"):
+            return real(*a, **k)
+
+    tracker._close_loop = close_loop
+    with contextlib.ExitStack() as stack:
+        if record is not None:
+            for name in ("compact_points", "ba_solve", "pose_graph_solve"):
+                stack.enter_context(recording(record.setdefault(name, []),
+                                              (loop_closing, name)))
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        for i, (img, depth) in enumerate(frames):
+            tracker.track_rgbd(img, depth.astype(np.float32),
+                               timestamp=i / 30.0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.counts()
+    tracker.flush()
+    est = corrected_frame_poses(tracker)
+    assert est.shape == gt.shape and np.isfinite(est).all()
+    ate, _ = ate_rmse(est, gt, align="se3")
+    lc = tracker.loop_closer
+    info = tracker.last_loop_info
+    samples = tracker.timer.samples
+    stats = {
+        "cell": cell, "loop_closing": loop, "frames": len(frames),
+        "ate_m": ate, "loops_closed": lc.loops_closed if lc else 0,
+        "state": int(tracker.state),
+        "lost_frames": sum(1 for t in tracker.track_info if t.get("lost")),
+        "keyframes_alive": len(tracker.graph.alive_kfs()),
+        "map_points_alive": int(tracker.graph.pt_alive.sum()),
+        "last_loop_info": None if info is None else {
+            k: (list(v) if isinstance(v, tuple) else v)
+            for k, v in info.items()},
+        "close_loop_ms": [x * 1e3 for x in samples.get("loop.close_loop",
+                                                      [])],
+        "gba_merge_ms": [x * 1e3 for x in samples.get("kf.gba_merge", [])],
+        "wall_s": wall, "launches": launches}
+    print(f"cell {cell} (loop closing {'on' if loop else 'off'}) "
+          + json.dumps(stats))
+    assert stats["state"] == 1, tracker.track_info[-3:]
+    for k, v in launches.items():
+        if k == "stereo_sad":
+            assert v == 0, f"B9 launched on cell {cell}"
+        elif k in LOOP_KERNELS:
+            # the global BA runs only after a loop closed
+            assert (v > 0) == (stats["loops_closed"] > 0), (k, v, cell)
+        else:
+            assert v > 0, f"kernel {k} never launched on cell {cell}"
+    return stats, tracker
+
+
+def gate_loop_cell(on, off):
+    """The organic-loop test's gates (`tests/test_organic_loop.py:85-114`):
+    tracking OK at the end, at least one loop closed, the corrected ATE
+    with loops below the ATE without, and below 6 cm."""
+    cell = on["cell"]
+    print(f"cell {cell} gates: loops {on['loops_closed']}, ATE with loops "
+          f"{on['ate_m']:.7f} m, without {off['ate_m']:.7f} m (gate "
+          f"{LOOP_ATE_M} m)")
+    assert on["loops_closed"] >= 1, f"cell {cell}: no loop closed"
+    assert on["ate_m"] < off["ate_m"], (cell, on["ate_m"], off["ate_m"])
+    assert on["ate_m"] < LOOP_ATE_M, (cell, on["ate_m"])
+
+
+def check_gba(rec, device):
+    """Phase 4 on the first global BA of cell F: its problem holds every
+    live point of the map (none dropped: P = 32768 at the bench's
+    capacity); K5's `w_obs` mode against its plain version on the first LM
+    iteration's arguments (`k5_agrees`, two calls bit-equal); K6 against
+    `ba_schur_mv_plain` on the recorded arguments of every CG iteration of
+    one LM iteration (within 1e-5 x the larger of |Hpp_d v| and |S v|, two
+    calls bit-equal); the whole global BA with K5 and K6 against the plain
+    global BA on the card (torch's deterministic mode): poses within 1e-3 m
+    / 1e-3 rad, points within 1e-2 m, final costs within 1e-3 relative; and
+    the loop's pose-graph solve on the card against the same solve on the
+    CPU: poses within 1e-3, costs within 1e-3 relative. Returns the rows of
+    `ba_assemble_w_obs` and `ba_schur_mv`, and the recorded calls."""
+    from orb_slam2_refactored_tpu_torch import kernels
+    from orb_slam2_refactored_tpu_torch.geometry import se3
+    from orb_slam2_refactored_tpu_torch.optim import ba, pose_graph
+
+    full = rec["compact_points"][0]["p"]
+    sa = dict(rec["ba_solve"][0])
+    p = sa["p"]
+    K, N = p.obs_pt.shape
+    P, Q = full.pt_pos.shape[0], p.pt_pos.shape[0]
+    n_live = int(full.pt_valid.sum())
+    print(f"  global BA problem: K={K} N={N}, map capacity P={P}, {n_live} "
+          f"live points compacted into Q={Q} (point index limit "
+          f"{ba.point_index_limit(device)}), iters {sa['iters']}, cg_iters "
+          f"{sa['cg_iters']}")
+    assert int(p.pt_valid.sum()) == n_live <= Q, (n_live, Q)
+    assert P == bench_config(True).map_capacity.max_points, P
+    ok0 = (p.obs_pt >= 0) & p.pt_valid[p.obs_pt.clamp(0, Q - 1).long()]
+    live = int(ok0.sum())
+    idx = ba.ba_point_index(p.obs_pt, ok0, Q)
+    a = dict(kf_pose=p.kf_pose, pt_pos=p.pt_pos, p=p, obs_ok=ok0,
+             cam=sa["cam"], use_huber=True, index=idx, w_obs=True)
+    k = ba.ba_assemble(**a)
+    r = ba.ba_assemble_plain(**a)
+    exact = ba.ba_assemble_plain(**{n: _f64(v) for n, v in a.items()})
+    same = all(torch.equal(x, y) for x, y in zip(k, ba.ba_assemble(**a)))
+    print(f"  K5 ba_assemble_w_obs K={K} N={N} Q={Q} live observations "
+          f"{live}: two calls bit-equal {same}; dead slots zero "
+          f"{not bool(k[3][~ok0.reshape(-1)].any())}")
+    assert same and not k[3][~ok0.reshape(-1)].any()
+    for name, x, y, z in zip(("Hpp", "g_p", "Hll|g_l", "W_obs"), k, r, exact):
+        k5_agrees(name, x, y, z, cancels=name == "g_p")
+    asm_err = max(float((x - y).abs().max()) for x, y in zip(k, r))
+
+    # K6 on every CG iteration of the first LM iteration
+    calls = []
+    with recording(calls, (ba, "ba_schur_mv")):
+        ba.ba_solve(**{**sa, "iters": 1})
+    assert len(calls) == sa["cg_iters"], len(calls)
+    k6_err, k6_rel = 0.0, 0.0
+    for c in calls:
+        out = ba.ba_schur_mv(**c)
+        assert torch.equal(out, ba.ba_schur_mv(**c))
+        ref = ba.ba_schur_mv_plain(**c)
+        hv = torch.einsum("kij,kj->ki", c["Hpp_d"], c["v"]).abs().max()
+        scale = max(float(hv), float(ref.abs().max()))
+        err = float((out - ref).abs().max())
+        k6_err, k6_rel = max(k6_err, err), max(k6_rel, err / scale)
+    print(f"  K6 ba_schur_mv on the {len(calls)} CG iterations of one LM "
+          f"iteration: largest difference {k6_err:.3g}, {k6_rel:.3g} of the "
+          "larger of |Hpp_d v| and |S v| (bound 1e-5); two calls bit-equal")
+    assert k6_rel <= 1e-5, k6_rel
+
+    # the whole global BA, kernels against the plain versions
+    before = kernels.counts()
+    res_k = ba.ba_solve(**sa)
+    after = kernels.counts()
+    gba_launches = {n: after[n] - before[n] for n in after
+                    if after[n] != before[n]}
+    it, cg = sa["iters"], sa["cg_iters"]
+    print(f"  global BA launches: {json.dumps(gba_launches)}")
+    assert gba_launches["ba_schur_mv"] == it * (2 * cg + 2), gba_launches
+    assert gba_launches["ba_assemble_w_obs"] == it, gba_launches
+    names = ("ba_assemble", "ba_cost", "ba_schur_mv", "ba_schur_u")
+    real = {n: getattr(ba, n) for n in names + ("ba_schur_ut",)}
+    for n in names:
+        setattr(ba, n, getattr(ba, n + "_plain"))
+    ba.ba_schur_ut = (lambda v, W_obs, obs_pt, obs_ok, index, Q:
+                      ba.ba_schur_ut_plain(v, W_obs, obs_pt, obs_ok, Q))
+    det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        res_p = ba.ba_solve(**sa)
+    finally:
+        for n, fn in real.items():
+            setattr(ba, n, fn)
+        torch.use_deterministic_algorithms(det)
+    d = se3.log(se3.compose(res_k.kf_pose, se3.inverse(res_p.kf_pose)))
+    rot, trans = float(d[:, :3].abs().max()), float(d[:, 3:].abs().max())
+    pts = float((res_k.pt_pos - res_p.pt_pos)[p.pt_valid].abs().max())
+    c_k, c_p = float(res_k.final_cost), float(res_p.final_cost)
+    print(f"  global BA with K5 and K6 vs plain: rot {rot:.3g} rad trans "
+          f"{trans:.3g} m points {pts:.3g} m, cost "
+          f"{float(res_k.initial_cost):.8g} -> {c_k:.8g} (plain "
+          f"{float(res_p.initial_cost):.8g} -> {c_p:.8g})")
+    assert rot <= 1e-3 and trans <= 1e-3 and pts <= 1e-2, (rot, trans, pts)
+    assert abs(c_k - c_p) <= 1e-3 * c_p, (c_k, c_p)
+    assert c_k < float(res_k.initial_cost)
+
+    # the pose-graph solve on the card against the CPU
+    pg = dict(rec["pose_graph_solve"][0])
+    out_d = pose_graph.pose_graph_solve(**pg)
+    out_c = pose_graph.pose_graph_solve(**{
+        **pg, "p": type(pg["p"])(*(t.cpu() for t in pg["p"]))})
+    pd = float((out_d[0].cpu() - out_c[0]).abs().max())
+    costs = [float(x) for x in (out_d[1], out_d[2], out_c[1], out_c[2])]
+    E = pg["p"].edge_i.shape[0]
+    print(f"  pose graph ({E} edges) on the card vs the CPU: poses "
+          f"{pd:.3g}, cost {costs[0]:.6g} -> {costs[1]:.6g} (CPU "
+          f"{costs[2]:.6g} -> {costs[3]:.6g})")
+    assert pd <= 1e-3, pd
+    for x, y in ((costs[0], costs[2]), (costs[1], costs[3])):
+        assert abs(x - y) <= 1e-3 * max(abs(y), 1e-9), costs
+
+    # what this call's data needs: obs_ok for every slot, the rest of an
+    # observation (obs_pt, uv, ur, inv_s2) for the live slots only, and a
+    # point's rows (its position, G, w2) for the points that live slots
+    # observe
+    S = K * N
+    n_pts = int(torch.unique(p.obs_pt[ok0]).numel())
+    asm = (asm_err,
+           cuda_time_ms(lambda: ba.ba_assemble(**a), 20),
+           cuda_time_ms(lambda: ba.ba_assemble_plain(**a), 5),
+           # poses, observed points, obs_ok, live observations and the
+           # index read; Hpp, g_p, the [Q,12] point rows and W_obs
+           # [K*N,18] written once
+           K * 28 + n_pts * 12 + S + live * 20 + (Q + 1) * 4 + live * 4
+           + K * 42 * 4 + Q * 48 + S * 72,
+           # ~480 f32 a live observation (as the dense mode)
+           {"f32": 480 * live})
+    c0 = calls[0]
+    k6 = (k6_err,
+          cuda_time_ms(lambda: ba.ba_schur_mv(**c0), 20),
+          cuda_time_ms(lambda: ba.ba_schur_mv_plain(**c0), 5),
+          # W_obs twice (a live slot's row in each launch), the CSR, G of
+          # the observed points, obs_ok of every slot and obs_pt of the
+          # live ones, Hpp_d and the vectors (w2 of the observed points
+          # out and back)
+          2 * live * 72 + (Q + 1) * 4 + live * 4 + n_pts * 36 + S
+          + live * 4 + K * 144 + K * 24 * 3 + K + n_pts * 12 * 2,
+          # 18 FMAs a live slot each way, G and Hpp_d products; an index
+          # step and a keyframe id a slot
+          {"f32": 36 * live + 9 * n_pts + 36 * K,
+           "int32": 4 * live + 2 * S})
+    print(f"  bounds count {live} live of {S} slots and {n_pts} observed of "
+          f"{Q} point rows")
+    return asm, k6, calls, sa, pg, gba_launches
+
+
+def profiled_solve(fn):
+    """Device time, device operations and profiler rows of one call of a
+    long solve (10^4-10^5 launches), one call a window, the card's
+    activity only, and the operations each window counted. Such windows
+    lose launches on the H100 (the pose graph's counted 74,273, 74,272 and
+    71,552 operations in one run, 74,193, 74,271 and 73,197 in another),
+    so the counts cannot be held equal: two windows are taken, a third
+    when they differ, and the one that counted the most is returned, a
+    lower bound of the device time by the share it lost."""
+    seen = []
+    for i in range(3):
+        ops = []
+        ms, rows = profiled_ms(fn, 1, ops, warm=i == 0, host_ops=False)
+        seen.append((ops[0], ms, rows))
+        if i == 1 and seen[0][0] == seen[1][0]:
+            break
+    best = max(seen, key=lambda x: x[0])
+    counts = [x[0] for x in seen]
+    print(f"  profiler windows of one call: {counts} device operations")
+    return best[1], best[0], best[2], counts
+
+
+def gba_times(calls, sa, pg, asm_r, k6_r, reps=20):
+    """Phase 5 for cell F's global BA: K6's device time a call (two
+    launches) and K5's `w_obs` launch, then the whole global BA and the
+    pose-graph solve, each with its device operations."""
+    from orb_slam2_refactored_tpu_torch.optim import ba, pose_graph
+
+    c0 = calls[0]
+    p = c0["obs_pt"]
+    ops = []
+    k6_ms, rows = profiled_ms(lambda: ba.ba_schur_mv(**c0), reps, ops)
+    print(f"K6 device time ba_schur_mv: {k6_ms:.5f} ms a call, {ops[0]:g} "
+          f"device operations: {rows}")
+    assert ops[0] == 2, rows
+    sp = sa["p"]
+    Q = sp.pt_pos.shape[0]
+    ok0 = (sp.obs_pt >= 0) & sp.pt_valid[sp.obs_pt.clamp(0, Q - 1).long()]
+    idx = ba.ba_point_index(sp.obs_pt, ok0, Q)
+    ops = []
+    asm_ms, rows = profiled_ms(lambda: ba.ba_assemble(
+        sp.kf_pose, sp.pt_pos, sp, ok0, sa["cam"], True, index=idx,
+        w_obs=True), reps, ops)
+    print(f"K5 device time ba_assemble_w_obs: {asm_ms:.5f} ms a call, "
+          f"{ops[0]:g} device operations: {rows}")
+    assert ops[0] == 1, rows
+    gba_ms, gba_ops, rows, gba_win = profiled_solve(
+        lambda: ba.ba_solve(**sa))
+    t0 = time.perf_counter()
+    ba.ba_solve(**sa)
+    torch.cuda.synchronize()
+    gba_host = (time.perf_counter() - t0) * 1e3
+    print(f"global BA (K={p.shape[0]}, Q={Q}, {sa['iters']} LM x "
+          f"{sa['cg_iters']} CG): device time {gba_ms:.4f} ms, {gba_ops:g} "
+          f"device operations, host clock {gba_host:.2f} ms; top rows: "
+          f"{sorted(rows, key=lambda x: -float(x.split()[-2]))[:6]}")
+    pg_ms, pg_ops, rows, pg_win = profiled_solve(
+        lambda: pose_graph.pose_graph_solve(**pg))
+    t0 = time.perf_counter()
+    pose_graph.pose_graph_solve(**pg)
+    torch.cuda.synchronize()
+    pg_host = (time.perf_counter() - t0) * 1e3
+    print(f"pose-graph solve ({pg['p'].edge_i.shape[0]} edges, 20 LM x 50 "
+          f"CG): device time {pg_ms:.4f} ms, {pg_ops:g} device operations, "
+          f"host clock {pg_host:.2f} ms; top rows: "
+          f"{sorted(rows, key=lambda x: -float(x.split()[-2]))[:4]}")
+    b_ms, b_by = bound_ms(k6_r[3], k6_r[4])
+    print(f"K6 bound {b_ms:.6f} ms ({b_by}); device time {k6_ms:.5f} ms "
+          f"({k6_ms / b_ms:.1f}x)")
+    return (asm_r + (asm_ms,), k6_r + (k6_ms,),
+            {"gba_device_ms": gba_ms, "gba_device_ops": gba_ops,
+             "gba_window_ops": gba_win, "gba_host_ms": gba_host,
+             "pose_graph_device_ms": pg_ms, "pose_graph_device_ops": pg_ops,
+             "pose_graph_window_ops": pg_win,
+             "pose_graph_host_ms": pg_host})
+
+
 def kernel_row(name, src, rep, launches, r):
     b_ms, b_by = bound_ms(r[3], r[4])
     return {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -1875,6 +2305,16 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    # wall time of each phase and of the loop cells' longest steps
+    wall, t_phase = {}, time.perf_counter()
+
+    def mark(name, since=None):
+        nonlocal t_phase
+        now = time.perf_counter()
+        wall[name] = now - (t_phase if since is None else since)
+        if since is None:
+            t_phase = now
+
     # ---- phase 1: card, toolchain, build ----
     card = card_line()
     print(card)
@@ -1889,6 +2329,7 @@ def main():
             if "ptxas" in line or "spill" in line:
                 print(f"  [{name}] {line.strip()}")
 
+    mark("1_build")
     # ---- phase 2: K2, K3 and the fallback branch ----
     t0 = time.perf_counter()
     imgs, depths, gt = bench_frames(N_FRAMES)
@@ -1903,6 +2344,7 @@ def main():
     orb_r = check_orb(levels, *kp0, ext.budgets, "frame 0", timed=True)
     fb_k1, fb_k4 = check_fallback(imgs, depths, gt, device)
 
+    mark("2_k2_k3_fallback")
     # ---- phase 3: the main paths ----
     n = N_FRAMES_NO_BA
     run_main_path(imgs[:n], depths[:n], gt[:n], device, local_ba=False)
@@ -1916,6 +2358,22 @@ def main():
           f"{time.perf_counter() - t0:.1f} s")
     stats_c, tracker_c = run_main_path(left, right, gt, device,
                                        local_ba=True, stereo=True)
+    # cells E and F: the loop-closing circuits, loop closing off and on;
+    # cell F's global BA and pose graph recorded for phases 4 and 5
+    mark("3_cells_a_to_d")
+    loop_cells = {}
+    for cell in ("E", "F"):
+        t0 = time.perf_counter()
+        frames, cgt = circuit_frames(cell)
+        print(f"cell {cell}: {len(frames)} frames rendered in "
+              f"{time.perf_counter() - t0:.1f} s")
+        off, _ = run_circuit(cell, False, frames, cgt, device)
+        rec_f = {} if cell == "F" else None
+        on, _ = run_circuit(cell, True, frames, cgt, device, record=rec_f)
+        gate_loop_cell(on, off)
+        loop_cells[cell] = (off, on)
+        del frames
+        mark(f"3_cell_{cell}")
 
     # ---- phase 4: every kernel on the arguments the main path gave it ----
     frame_k1, frame_k2, frame_k3, frame_k4 = record_tracked_frame(
@@ -1950,10 +2408,16 @@ def main():
     check_ba(st_asm, st_solve)
     # cell D: the recovering frame's relocalization and the vocabulary
     reloc_shapes, reloc_k4_err = check_reloc(rec_d, tracker_d)
+    # cell F: its first global BA (K5 `w_obs`, K6) and its pose graph
+    t0 = time.perf_counter()
+    w_obs_r, k6_r, k6_calls, gba_call, pg_call, gba_launches = check_gba(
+        rec_f, device)
+    mark("4_check_gba", since=t0)
     # stereo save/load, a path of its own (after the cell-C checks above,
     # which its drain of cell C's deferred mapping products would move)
     check_stereo_save_load(tracker_c, left, right, gt, device)
 
+    mark("4_checks")
     # ---- phase 5: profiler windows, after every agreement check ----
     from orb_slam2_refactored_tpu_torch.ops import fast, orb
     from orb_slam2_refactored_tpu_torch.ops.orb import EDGE_MARGIN
@@ -1991,6 +2455,17 @@ def main():
     assert not [r for r in assoc_rows if "Memcpy" in r], assoc_rows
     print(f"stereo K1 call: {device_times_k1(st_pair):.5f} ms of device time")
     reloc_breakdown(rec_d, tracker_d)
+    t0 = time.perf_counter()
+    w_obs_r, k6_r, gba_t = gba_times(k6_calls, gba_call, pg_call, w_obs_r,
+                                     k6_r)
+    mark("5_gba_times", since=t0)
+    print("loop cells: " + json.dumps({
+        c: {"ate_off_m": off["ate_m"], "ate_on_m": on["ate_m"],
+            "loops": on["loops_closed"], "close_loop_ms": on["close_loop_ms"],
+            "gba_merge_ms": on["gba_merge_ms"], "wall_off_s": off["wall_s"],
+            "wall_on_s": on["wall_s"]}
+        for c, (off, on) in loop_cells.items()}
+        | {"F_global_ba": {**gba_t, "launches": gba_launches}}))
     if args.parent:
         dense_k1 = {n: a for n, a in {**name_k1_calls("fallback", fb_k1),
                                       **name_k1_calls("triangulation",
@@ -2006,6 +2481,8 @@ def main():
             left[k % N_FRAMES], right[k % N_FRAMES]), range(1, 21),
             "stereo tracked frames (cell C)")
 
+    mark("5_profiles")
+    print("wall s: " + json.dumps(wall))
     pkg, ref = "orb_slam2_refactored_tpu_torch/csrc/", "orb_slam2_refactored_tpu/"
     L = stats["launches"]
     rows = [
@@ -2026,6 +2503,13 @@ def main():
         kernel_row("stereo_sad", pkg + "stereo_sad.cu",
                    ref + "ops/stereo.py:120",
                    stats_c["launches"]["stereo_sad"], sad_r),
+        kernel_row("ba_assemble_w_obs", pkg + "ba_assemble.cu",
+                   ref + "optim/ba.py:317",
+                   loop_cells["F"][1]["launches"]["ba_assemble_w_obs"],
+                   w_obs_r),
+        kernel_row("ba_schur_mv", pkg + "ba_schur.cu",
+                   ref + "optim/ba.py:335",
+                   loop_cells["F"][1]["launches"]["ba_schur_mv"], k6_r),
     ]
     rows[3]["max_abs_err"] = max(rows[3]["max_abs_err"], reloc_k4_err)
     for row in rows:
@@ -2038,7 +2522,10 @@ def main():
           "K5 = one LM iteration of one window BA (its index: once a "
           "solve); stereo_sad = the one launch after K1 of a tracked "
           "stereo frame's association, its "
-          "launches from cell C")
+          "launches from cell C; ba_assemble_w_obs = one LM iteration of "
+          "cell F's first global BA; ba_schur_mv = one reduced-camera "
+          "product of it (two launches), launches from cell F with loop "
+          "closing on (2 a product, 1 for each rhs and back-substitution)")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

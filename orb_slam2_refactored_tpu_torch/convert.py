@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from .optim.ba import BAProblem
+from .optim.pose_graph import PoseGraphProblem
 from .slam.frame import FrameData
 from .slam.map_state import MapArrays
 from .slam.vocabulary import KeyFrameDatabase, Vocabulary
@@ -126,3 +127,32 @@ def mapper_inputs_from_numpy(d, device) -> Dict[str, Any]:
     win_valid, pt_lut, pts_local; observer lists of `_refresh_points_impl`:
     pts, obs_kf, obs_feat, n_obs), as tensors (int64 as int32)."""
     return {k: _to_tensor(k, v, device) for k, v in _as_dict(d).items()}
+
+
+def pose_graph_problem_from_numpy(d, device) -> PoseGraphProblem:
+    """PoseGraphProblem from a dict (or NamedTuple) of numpy arrays."""
+    d = _as_dict(d)
+    return PoseGraphProblem(**{k: _to_tensor(k, d[k], device)
+                               for k in PoseGraphProblem._fields})
+
+
+_LOOP_COUNTERS = ("last_loop_kf", "last_loop_seq", "loops_closed")
+
+
+def loop_state(closer) -> Dict[str, Any]:
+    """The detection state of a `LoopCloser` of either package (its
+    consistency groups as (set, count) pairs, the last loop's keyframe and
+    creation sequence, the loops closed), as plain Python values."""
+    out = {k: int(getattr(closer, k)) for k in _LOOP_COUNTERS}
+    out["consistent_groups"] = [({int(k) for k in g}, int(n))
+                                for g, n in closer.consistent_groups]
+    return out
+
+
+def set_loop_state(closer, state: Dict[str, Any]):
+    """Give `closer` the detection state `state` (see `loop_state`)."""
+    for k in _LOOP_COUNTERS:
+        setattr(closer, k, int(state[k]))
+    closer.consistent_groups = [({int(k) for k in g}, int(n))
+                                for g, n in state["consistent_groups"]]
+    return closer

@@ -54,6 +54,17 @@
 //   The observation's arithmetic (`eval_slot`, the Huber weight, the
 //   depth gate, the mono third row) is the parent kernel's; f32 throughout.
 
+// `ba_assemble_w_obs` (the matrix-free CG branch of global BA, JAX
+// `optim/ba.py:319-360`): the same launch with the camera-point blocks
+// written per observation slot instead of per point: W_obs [W*N, 18],
+// row o = (w Jp)^T Jl of slot o, zero for a dead slot. The camera CTAs,
+// which evaluate every live slot of their chunk anyway, write each slot's
+// row (and zeros for the dead ones); the point warps write Hll|g_l only,
+// with no tile. At whole-map size (W = 128, Q ~ 30k) T would be 300 MB
+// and every product with it a dense GEMV; W_obs is 9 MB. The mode is a
+// template argument, so the dense instantiation is the code above
+// unchanged.
+
 // `ba_cost` (one launch a call, no torch sum after it): one slot a thread
 // over ceil(W*N / 256) CTAs; chi2 stored only when asked for (the final
 // gate); the Huber rho of the live slots summed per block in a fixed tree;
@@ -371,11 +382,13 @@ struct AsmArgs {
   float* Hpp;
   float* g_p;
   float* acc_l;
-  float* T;
+  float* T;        // dense mode: [Q*W, 18]
+  float* W_obs;    // w_obs mode: [W*N, 18]
   float* partial;  // [W, C, 27]
   int* ticket;     // [W], zero between calls
 };
 
+template <bool kWObs>
 __device__ void camera_block(const AsmArgs& a, int cb) {
   __shared__ float s_part[kWarps * 27];
   __shared__ float s_sum[27];
@@ -390,11 +403,27 @@ __device__ void camera_block(const AsmArgs& a, int cb) {
   for (int i = 0; i < 27; ++i) acc[i] = 0.f;
   for (int n = n0 + threadIdx.x; n < n1; n += kThreads) {
     const int o = k * a.N + n;
-    if (!a.obs_ok[o]) continue;
+    if (!a.obs_ok[o]) {
+      if constexpr (kWObs) {
+        for (int e = 0; e < 18; ++e) a.W_obs[(size_t)o * 18 + e] = 0.f;
+      }
+      continue;
+    }
     const int pt = min(max(a.obs_pt[o], 0), a.Q - 1);
     Slot s;
     const float w = observe(pose, R, a.pt_pos, a.obs_uv, a.obs_ur,
                             a.obs_inv_s2, o, pt, a.cam, a.use_huber, s);
+    if constexpr (kWObs) {
+      // the point warps' T term of this slot, written to the slot's row
+      float* wr = a.W_obs + (size_t)o * 18;
+      for (int r = 0; r < 6; ++r) {
+        for (int c = 0; c < 3; ++c) {
+          wr[r * 3 + c] = w * (s.Jp[0][r] * s.Jl[0][c] +
+                               s.Jp[1][r] * s.Jl[1][c] +
+                               s.Jp[2][r] * s.Jl[2][c]);
+        }
+      }
+    }
     int e = 0;
     for (int i = 0; i < 6; ++i) {
       for (int j = i; j < 6; ++j) {
@@ -429,14 +458,17 @@ __device__ void camera_block(const AsmArgs& a, int cb) {
   if (threadIdx.x < 6) a.g_p[k * 6 + threadIdx.x] = s_sum[21 + threadIdx.x];
 }
 
+template <bool kWObs>
 __device__ void point_block(const AsmArgs& a, int pb, float* tiles) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int q = pb * kWarps + warp;
   if (q >= a.Q) return;  // the whole warp leaves together
   const int W = a.W, TW = W * 18;
   float* tile = tiles + (size_t)warp * TW;
-  for (int e = lane; e < TW; e += 32) tile[e] = 0.f;
-  __syncwarp();
+  if constexpr (!kWObs) {
+    for (int e = lane; e < TW; e += 32) tile[e] = 0.f;
+    __syncwarp();
+  }
 
   const int beg = a.offsets[q], end = a.offsets[q + 1];
   float hl[12];
@@ -466,13 +498,17 @@ __device__ void point_block(const AsmArgs& a, int pb, float* tiles) {
                           s.Jl[2][r] * s.r[2]);
       }
       // camera-point block W_obs = (w Jp)^T Jl, [6,3] row-major
-      for (int r = 0; r < 6; ++r) {
-        for (int c = 0; c < 3; ++c) {
-          t[r * 3 + c] = w * (s.Jp[0][r] * s.Jl[0][c] + s.Jp[1][r] * s.Jl[1][c] +
-                              s.Jp[2][r] * s.Jl[2][c]);
+      if constexpr (!kWObs) {
+        for (int r = 0; r < 6; ++r) {
+          for (int c = 0; c < 3; ++c) {
+            t[r * 3 + c] = w * (s.Jp[0][r] * s.Jl[0][c] +
+                                s.Jp[1][r] * s.Jl[1][c] +
+                                s.Jp[2][r] * s.Jl[2][c]);
+          }
         }
       }
     }
+    if constexpr (kWObs) continue;  // the camera CTAs wrote W_obs
     // slots ascend, so one keyframe's observations sit on adjacent lanes:
     // add them into its row in slot order, one round per run position
     const unsigned same = __match_any_sync(kFull, k);
@@ -501,6 +537,7 @@ __device__ void point_block(const AsmArgs& a, int pb, float* tiles) {
                                  : make_float4(hl[8], hl[9], hl[10], hl[11]);
     reinterpret_cast<float4*>(a.acc_l + (size_t)q * 12)[lane] = v;
   }
+  if constexpr (kWObs) return;
   float* dst = a.T + (size_t)q * TW;
   if ((W & 1) == 0) {  // the point's W rows: TW / 4 aligned float4s
     const float4* src = reinterpret_cast<const float4*>(tile);
@@ -511,26 +548,29 @@ __device__ void point_block(const AsmArgs& a, int pb, float* tiles) {
   }
 }
 
+template <bool kWObs>
 __global__ void __launch_bounds__(kThreads) assemble_kernel(AsmArgs a) {
   extern __shared__ float4 s_tiles[];
   if ((int)blockIdx.x < a.W * a.C) {
-    camera_block(a, blockIdx.x);
+    camera_block<kWObs>(a, blockIdx.x);
   } else {
-    point_block(a, blockIdx.x - a.W * a.C, reinterpret_cast<float*>(s_tiles));
+    point_block<kWObs>(a, blockIdx.x - a.W * a.C,
+                       reinterpret_cast<float*>(s_tiles));
   }
 }
 
+template <bool kWObs>
 int launch_assemble(const AsmArgs& a, cudaStream_t stream) {
   const int n_point = (a.Q + kWarps - 1) / kWarps;
-  const size_t smem = (size_t)kWarps * a.W * 18 * sizeof(float);
+  const size_t smem = kWObs ? 0 : (size_t)kWarps * a.W * 18 * sizeof(float);
   if (smem > (size_t)kSharedMax) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        assemble_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        assemble_kernel<kWObs>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  assemble_kernel<<<a.W * a.C + n_point, kThreads, smem, stream>>>(a);
+  assemble_kernel<kWObs><<<a.W * a.C + n_point, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -637,9 +677,30 @@ extern "C" int ba_assemble(const void* kf_pose, const void* pt_pos,
             (const float*)obs_inv_s2, (const unsigned char*)obs_ok,
             (const int*)offsets, (const int*)slots, W, N, Q,
             ba_assemble_row_ctas(W, N), Cam{fx, fy, cx, cy, bf}, use_huber,
-            (float*)Hpp, (float*)g_p, (float*)acc_l, (float*)T,
+            (float*)Hpp, (float*)g_p, (float*)acc_l, (float*)T, nullptr,
             (float*)partial, (int*)ticket};
-  return launch_assemble(a, (cudaStream_t)stream);
+  return launch_assemble<false>(a, (cudaStream_t)stream);
+}
+
+// `ba_assemble` with W_obs [W*N, 18] (every row written) in place of T.
+extern "C" int ba_assemble_w_obs(const void* kf_pose, const void* pt_pos,
+                                 const void* obs_uv, const void* obs_ur,
+                                 const void* obs_pt, const void* obs_inv_s2,
+                                 const void* obs_ok, const void* offsets,
+                                 const void* slots, int W, int N, int Q,
+                                 float fx, float fy, float cx, float cy,
+                                 float bf, int use_huber, void* Hpp,
+                                 void* g_p, void* acc_l, void* W_obs,
+                                 void* partial, void* ticket, void* stream) {
+  if (W <= 0) return (int)cudaGetLastError();
+  AsmArgs a{(const float*)kf_pose, (const float*)pt_pos, (const float*)obs_uv,
+            (const float*)obs_ur, (const int*)obs_pt,
+            (const float*)obs_inv_s2, (const unsigned char*)obs_ok,
+            (const int*)offsets, (const int*)slots, W, N, Q,
+            ba_assemble_row_ctas(W, N), Cam{fx, fy, cx, cy, bf}, use_huber,
+            (float*)Hpp, (float*)g_p, (float*)acc_l, nullptr, (float*)W_obs,
+            (float*)partial, (int*)ticket};
+  return launch_assemble<true>(a, (cudaStream_t)stream);
 }
 
 // CTAs of a `ba_cost` launch (one partial each).

@@ -36,6 +36,7 @@ SOURCES: Dict[str, tuple] = {
     "orb_desc": ("orb_desc.cu", []),
     "pose_lm": ("pose_lm.cu", []),
     "ba_assemble": ("ba_assemble.cu", []),
+    "ba_schur": ("ba_schur.cu", []),
     # `l_x - ur_lvl * sf` must round the product first, as torch does
     "stereo_sad": ("stereo_sad.cu", ["-fmad=false"]),
 }
@@ -44,7 +45,8 @@ SOURCES: Dict[str, tuple] = {
 LAUNCHES: Dict[str, int] = {"hamming_best2": 0, "fast": 0, "orb_desc": 0,
                             "pose_lm": 0, "ba_point_index": 0,
                             "ba_assemble": 0, "ba_cost": 0,
-                            "stereo_sad": 0}
+                            "stereo_sad": 0, "ba_assemble_w_obs": 0,
+                            "ba_schur_mv": 0}
 
 _BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

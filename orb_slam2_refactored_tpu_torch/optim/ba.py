@@ -1,8 +1,9 @@
 """Bundle adjustment: Levenberg-Marquardt with Schur-complement landmark
 marginalization, dense reduced camera system.
 
-Port of `orb_slam2_refactored_tpu/optim/ba.py`, dense-Schur branch only
-(the window BA that `LocalMapper` runs). Observations live in the map's
+Port of `orb_slam2_refactored_tpu/optim/ba.py`: the dense-Schur branch
+(the window BA that `LocalMapper` runs) and the matrix-free CG branch
+(global BA after a loop closure). Observations live in the map's
 dense `[K, N]` layout (keyframe x feature slot) with -1 padding; fixed
 keyframes are a mask projected out of the reduced system; landmarks that
 are frozen get G = 0 (no Schur term, no update); Huber kernel with the
@@ -19,12 +20,17 @@ Differences of form, not of result:
   the assembly reads the live slots by point from a `PointIndex` built
   once a solve (`ba_point_index`), and the cost stores chi2 only for the
   final gate;
-- `_cost_only` uses the same analytic residual as the Jacobian pass.
+- `_cost_only` uses the same analytic residual as the Jacobian pass;
+- the CG branch (`dense_schur=False`) assembles with K5 in its `w_obs`
+  mode (W_obs = (w Jp)^T Jl a slot, [K*N, 18], in place of T) and applies
+  the reduced camera matrix with kernel K6 (`csrc/ba_schur.cu`:
+  `ba_schur_mv`, and `ba_schur_u` / `ba_schur_ut` for the rhs and the
+  back-substitution), with no float atomic; it runs a fixed `cg_iters`
+  with no host read. The CG vector updates stay torch.
 
-Matrix-free CG (`dense_schur=False`) and the sharded forms (`axis_name`,
-`axis_size > 1`) belong to global and multi-GPU BA and raise
-NotImplementedError. Everything is f32 at "highest" matmul precision: the
-S contraction and the solve never run in TF32.
+The sharded forms (`axis_name`, `axis_size > 1`) belong to multi-GPU BA
+and raise NotImplementedError. Everything is f32 at "highest" matmul
+precision: the S contraction and the solves never run in TF32.
 """
 
 from __future__ import annotations
@@ -200,13 +206,16 @@ def ba_point_index_plain(obs_pt, obs_ok, Q: int) -> PointIndex:
 
 
 def ba_assemble_plain(kf_pose, pt_pos, p: BAProblem, obs_ok, cam,
-                      use_huber: bool, index: Optional[PointIndex] = None):
+                      use_huber: bool, index: Optional[PointIndex] = None,
+                      w_obs: bool = False):
     """Plain PyTorch version of K5's `ba_assemble` (same signature; it has
     no use for `index`).
 
     Returns Hpp f32[K,6,6], g_p f32[K,6], the packed point accumulator
     f32[Q,12] (Hll row-major | g_l) and T f32[Q*K,18] (row q*K + k holds
-    sum over k's observations of q of (w Jp)^T Jl, [6,3] row-major)."""
+    sum over k's observations of q of (w Jp)^T Jl, [6,3] row-major); with
+    `w_obs`, W_obs f32[K*N,18] (row k*N + n: slot (k, n)'s (w Jp)^T Jl,
+    zero for a slot without `obs_ok`) in place of T."""
     K, N = p.obs_uv.shape[:2]
     Q = pt_pos.shape[0]
     has_ur = p.obs_ur > 0
@@ -231,6 +240,8 @@ def ba_assemble_plain(kf_pose, pt_pos, p: BAProblem, obs_ok, cam,
     acc.index_add_(0, flat_pt, torch.where(ok, packed,
                                            torch.zeros_like(packed)))
     W_obs = torch.einsum("knci,kncj->knij", JpW, Jl).reshape(-1, 18)
+    if w_obs:
+        return Hpp, g_p, acc, torch.where(ok, W_obs, torch.zeros_like(W_obs))
     kidx = torch.arange(K, device=pt_pos.device)[:, None].expand(K, N)
     T = torch.zeros((Q * K, 18), dtype=pt_pos.dtype, device=pt_pos.device)
     T.index_add_(0, flat_pt * K + kidx.reshape(-1),
@@ -306,13 +317,14 @@ def ba_point_index(obs_pt, obs_ok, Q: int) -> PointIndex:
 
 
 def ba_assemble(kf_pose, pt_pos, p: BAProblem, obs_ok, cam, use_huber: bool,
-                index: Optional[PointIndex] = None):
-    """Per-iteration dense-Schur assembly (see `ba_assemble_plain`), one
-    launch. `index` is `ba_point_index(p.obs_pt, obs_ok, Q)`, built here
-    when not given. CUDA tensors -> kernel `csrc/ba_assemble.cu`; CPU ->
-    plain version."""
+                index: Optional[PointIndex] = None, w_obs: bool = False):
+    """Per-iteration assembly (see `ba_assemble_plain`), one launch: T for
+    the dense Schur branch, W_obs with `w_obs` (the CG branch). `index` is
+    `ba_point_index(p.obs_pt, obs_ok, Q)`, built here when not given. CUDA
+    tensors -> kernel `csrc/ba_assemble.cu`; CPU -> plain version."""
     if not kf_pose.is_cuda:
-        return ba_assemble_plain(kf_pose, pt_pos, p, obs_ok, cam, use_huber)
+        return ba_assemble_plain(kf_pose, pt_pos, p, obs_ok, cam, use_huber,
+                                 w_obs=w_obs)
     args, K, N, Q = _k5_inputs(kf_pose, pt_pos, p, obs_ok)
     if index is None:
         index = ba_point_index(args[4], args[6], Q)
@@ -322,22 +334,24 @@ def ba_assemble(kf_pose, pt_pos, p: BAProblem, obs_ok, cam, use_huber: bool,
     Hpp = torch.empty((K, 6, 6), dtype=torch.float32, device=dev)
     g_p = torch.empty((K, 6), dtype=torch.float32, device=dev)
     acc = torch.empty((Q, 12), dtype=torch.float32, device=dev)
-    T = torch.empty((Q * K, 18), dtype=torch.float32, device=dev)
+    entry = "ba_assemble_w_obs" if w_obs else "ba_assemble"
+    T = torch.empty((K * N, 18) if w_obs else (Q * K, 18),
+                    dtype=torch.float32, device=dev)
     C = kernels.bind("ba_assemble", "ba_assemble_row_ctas",
                      [kernels.CI] * 2)(K, N)
     partial = torch.empty((max(K, 1) * C * 27,), dtype=torch.float32,
                           device=dev)
-    fn = kernels.bind("ba_assemble", "ba_assemble",
+    fn = kernels.bind("ba_assemble", entry,
                       [kernels.VP] * 9 + [kernels.CI] * 3 + _K5_CAM
                       + [kernels.VP] * 7)
-    kernels.LAUNCHES["ba_assemble"] += 1
+    kernels.LAUNCHES[entry] += 1
     kernels.check(fn(*(kernels.ptr(t) for t in args),
                      kernels.ptr(index.offsets), kernels.ptr(index.slots),
                      K, N, Q, cam.fx, cam.fy, cam.cx, cam.cy, cam.bf,
                      int(use_huber),
                      *(kernels.ptr(t) for t in (Hpp, g_p, acc, T, partial)),
                      kernels.ptr(kernels.ticket(dev, "ba_assemble", K)),
-                     kernels.stream_of(kf_pose)), "ba_assemble")
+                     kernels.stream_of(kf_pose)), entry)
     return Hpp, g_p, acc, T
 
 
@@ -372,36 +386,259 @@ def ba_cost(kf_pose, pt_pos, p: BAProblem, obs_ok, cam, use_huber: bool,
 
 
 # ---------------------------------------------------------------------------
+# kernel K6 (the reduced-camera product of the CG branch) and its plain
+# versions
+# ---------------------------------------------------------------------------
+
+def ba_schur_ut_plain(v, W_obs, obs_pt, obs_ok, Q: int):
+    """U^T v: f32[Q,3], each live slot's W_obs^T v_k added to its point
+    (JAX `U_T`)."""
+    K, N = obs_pt.shape
+    contrib = torch.einsum("sij,si->sj", W_obs.reshape(K * N, 6, 3),
+                           v.repeat_interleave(N, 0))
+    flat_pt = torch.clamp(obs_pt, 0, Q - 1).long().reshape(-1)
+    out = torch.zeros((Q, 3), dtype=v.dtype, device=v.device)
+    return out.index_add_(0, flat_pt, torch.where(
+        obs_ok.reshape(-1, 1), contrib, torch.zeros_like(contrib)))
+
+
+def ba_schur_u_plain(y, W_obs, obs_pt, obs_ok):
+    """U y: f32[K,6], each live slot's W_obs y_p summed over its keyframe's
+    features (JAX `U`)."""
+    K, N = obs_pt.shape
+    yk = y[torch.clamp(obs_pt, 0, y.shape[0] - 1).long()]
+    contrib = torch.einsum("knij,knj->kni", W_obs.reshape(K, N, 6, 3), yk)
+    return torch.where(obs_ok[..., None], contrib,
+                       torch.zeros_like(contrib)).sum(1)
+
+
+def ba_schur_mv_plain(v, free, Hpp_d, G, W_obs, obs_pt, obs_ok,
+                      index: Optional[PointIndex] = None):
+    """Plain PyTorch version of K6's `ba_schur_mv` (same signature; it has
+    no use for `index`): S v = (Hpp_d v - U G U^T v) on the free keyframes
+    (JAX `S_mv`), f32[K,6]."""
+    fm = free[:, None].to(v.dtype)
+    v = v * fm
+    out = torch.einsum("kij,kj->ki", Hpp_d, v)
+    w1 = ba_schur_ut_plain(v, W_obs, obs_pt, obs_ok, G.shape[0])
+    w2 = torch.einsum("pij,pj->pi", G, w1)
+    return (out - ba_schur_u_plain(w2, W_obs, obs_pt, obs_ok)) * fm
+
+
+def _k6_check(W_obs, obs_pt, obs_ok, Q):
+    K, N = obs_pt.shape
+    kernels.require(W_obs, "ba_schur W_obs", torch.float32, (K * N, 18))
+    kernels.require(obs_pt, "ba_schur obs_pt", torch.int32, (K, N))
+    kernels.require(obs_ok, "ba_schur obs_ok", torch.bool, (K, N))
+    if K < 1 or N < 1 or Q < 1:
+        raise ValueError(f"ba_schur: needs K, N, Q >= 1, got {K}, {N}, {Q}")
+    return K, N
+
+
+def ba_schur_mv(v, free, Hpp_d, G, W_obs, obs_pt, obs_ok,
+                index: PointIndex):
+    """S v (see `ba_schur_mv_plain`) in two launches: point-major over
+    `index` (K5's `ba_point_index` of the live slots), then camera-major.
+    CUDA tensors -> kernel `csrc/ba_schur.cu`; CPU -> plain version."""
+    if not v.is_cuda:
+        return ba_schur_mv_plain(v, free, Hpp_d, G, W_obs, obs_pt, obs_ok)
+    Q = G.shape[0]
+    K, N = _k6_check(W_obs, obs_pt, obs_ok, Q)
+    args = [t.contiguous() for t in (v, free, Hpp_d, G)]
+    for t, what, dtype, shape in zip(
+            args, ("v", "free", "Hpp_d", "G"),
+            (torch.float32, torch.bool, torch.float32, torch.float32),
+            ((K, 6), (K,), (K, 6, 6), (Q, 3, 3))):
+        kernels.require(t, "ba_schur_mv " + what, dtype, shape)
+    kernels.require(index.offsets, "ba_schur_mv offsets", torch.int32,
+                    (Q + 1,))
+    kernels.require(index.slots, "ba_schur_mv slots", torch.int32, (K * N,))
+    w2 = torch.empty((Q, 3), dtype=torch.float32, device=v.device)
+    out = torch.empty((K, 6), dtype=torch.float32, device=v.device)
+    fn = kernels.bind("ba_schur", "ba_schur_mv",
+                      [kernels.VP] * 9 + [kernels.CI] * 3 + [kernels.VP] * 3)
+    kernels.LAUNCHES["ba_schur_mv"] += 2  # a point and a camera launch
+    kernels.check(fn(*(kernels.ptr(t) for t in args),
+                     *(kernels.ptr(t) for t in (W_obs, obs_pt, obs_ok,
+                                                index.offsets, index.slots)),
+                     K, N, Q, kernels.ptr(w2), kernels.ptr(out),
+                     kernels.stream_of(v)), "ba_schur_mv")
+    return out
+
+
+def ba_schur_ut(v, W_obs, obs_pt, obs_ok, index: PointIndex, Q: int):
+    """U^T v f32[Q,3] (see `ba_schur_ut_plain`), K6's point-major launch
+    alone. CUDA tensors -> kernel; CPU -> plain version."""
+    if not v.is_cuda:
+        return ba_schur_ut_plain(v, W_obs, obs_pt, obs_ok, Q)
+    K, N = _k6_check(W_obs, obs_pt, obs_ok, Q)
+    v = v.contiguous()
+    kernels.require(v, "ba_schur_ut v", torch.float32, (K, 6))
+    kernels.require(index.offsets, "ba_schur_ut offsets", torch.int32,
+                    (Q + 1,))
+    out = torch.empty((Q, 3), dtype=torch.float32, device=v.device)
+    fn = kernels.bind("ba_schur", "ba_schur_ut",
+                      [kernels.VP] * 4 + [kernels.CI] * 2 + [kernels.VP] * 2)
+    kernels.LAUNCHES["ba_schur_mv"] += 1
+    kernels.check(fn(kernels.ptr(v), kernels.ptr(W_obs),
+                     kernels.ptr(index.offsets), kernels.ptr(index.slots),
+                     N, Q, kernels.ptr(out), kernels.stream_of(v)),
+                  "ba_schur_ut")
+    return out
+
+
+def ba_schur_u(y, W_obs, obs_pt, obs_ok):
+    """U y f32[K,6] (see `ba_schur_u_plain`), K6's camera-major launch
+    alone. CUDA tensors -> kernel; CPU -> plain version."""
+    if not y.is_cuda:
+        return ba_schur_u_plain(y, W_obs, obs_pt, obs_ok)
+    Q = y.shape[0]
+    K, N = _k6_check(W_obs, obs_pt, obs_ok, Q)
+    y = y.contiguous()
+    kernels.require(y, "ba_schur_u y", torch.float32, (Q, 3))
+    out = torch.empty((K, 6), dtype=torch.float32, device=y.device)
+    fn = kernels.bind("ba_schur", "ba_schur_u",
+                      [kernels.VP] * 4 + [kernels.CI] * 3 + [kernels.VP] * 2)
+    kernels.LAUNCHES["ba_schur_mv"] += 1
+    kernels.check(fn(kernels.ptr(y), kernels.ptr(W_obs), kernels.ptr(obs_pt),
+                     kernels.ptr(obs_ok), K, N, Q, kernels.ptr(out),
+                     kernels.stream_of(y)), "ba_schur_u")
+    return out
+
+
+def point_index_limit(device) -> Optional[int]:
+    """The most points K5's index holds on `device` (None on the CPU, whose
+    plain index has no limit)."""
+    if torch.device(device).type != "cuda":
+        return None
+    return kernels.bind("ba_assemble", "ba_point_index_max", [])()
+
+
+# the compacted global-BA problem's point count is a multiple of this, so
+# that its shapes repeat from one loop to the next
+POINT_BUCKET = 1024
+
+
+def compact_points(p: BAProblem):
+    """The problem restricted to its live points (`pt_valid`), in index
+    order, padded with dead rows to a multiple of POINT_BUCKET (at most
+    the index's limit); and the live point ids i64[n] (one host read).
+    Every live point is kept: on the card a problem with more live points
+    than K5's index holds raises."""
+    live = torch.nonzero(p.pt_valid).reshape(-1)
+    n = live.numel()
+    Q = max(-(-n // POINT_BUCKET) * POINT_BUCKET, POINT_BUCKET)
+    limit = point_index_limit(p.pt_pos.device)
+    if limit is not None:
+        if n > limit:
+            raise ValueError(
+                f"global BA: {n} live points exceed the {limit} that the "
+                "point index (csrc/ba_assemble.cu) holds")
+        Q = min(Q, limit)
+    dev = p.pt_pos.device
+    lut = torch.full((p.pt_pos.shape[0],), -1, dtype=torch.int32, device=dev)
+    lut[live] = torch.arange(n, dtype=torch.int32, device=dev)
+    obs_pt = torch.where(
+        p.obs_pt >= 0, lut[torch.clamp(p.obs_pt, 0, lut.shape[0] - 1).long()],
+        torch.full_like(p.obs_pt, -1))
+    pt_pos = torch.zeros((Q, 3), dtype=p.pt_pos.dtype, device=dev)
+    pt_pos[:n] = p.pt_pos[live]
+    pt_valid = torch.zeros((Q,), dtype=torch.bool, device=dev)
+    pt_valid[:n] = True
+    frozen = None
+    if p.pt_frozen is not None:
+        frozen = torch.zeros((Q,), dtype=torch.bool, device=dev)
+        frozen[:n] = p.pt_frozen[live]
+    return p._replace(obs_pt=obs_pt, pt_pos=pt_pos, pt_valid=pt_valid,
+                      pt_frozen=frozen), live
+
+
+# ---------------------------------------------------------------------------
 # the solver
 # ---------------------------------------------------------------------------
 
 def ba_solve(p: BAProblem, cam: proj.CameraIntrinsics, iters: int = 10,
-             use_huber: bool = True, chi2_gate: bool = True,
-             axis_name: str = None, lambda0: float = 1e-4,
-             dense_schur: bool = True, axis_size: int = 1) -> BAResult:
-    """LM bundle adjustment on a dense reduced camera system.
+             cg_iters: int = 50, use_huber: bool = True,
+             chi2_gate: bool = True, axis_name: str = None,
+             lambda0: float = 1e-4, dense_schur: bool = False,
+             axis_size: int = 1) -> BAResult:
+    """LM bundle adjustment with the landmarks eliminated (Schur).
 
-    Only `dense_schur=True` is ported: S = blockdiag(Hpp_d) - sum_j T_j G_j
-    T_j^T is formed from the per-point camera-block sums and solved directly
-    ([K*6, K*6], 192x192 for the W=32 window). The JAX solver's `cg_iters`
-    belongs to matrix-free CG and has no counterpart here."""
-    if not dense_schur:
-        raise NotImplementedError(
-            "matrix-free CG BA (dense_schur=False) belongs to the global-BA "
-            "slice")
+    `dense_schur=True` forms S = blockdiag(Hpp_d) - sum_j T_j G_j T_j^T from
+    the per-point camera-block sums and solves it directly ([K*6, K*6],
+    192x192 for the W=32 window; `cg_iters` unused). `dense_schur=False`
+    solves the same system by `cg_iters` iterations of block-Jacobi
+    preconditioned CG, S applied matrix-free (K6)."""
     if axis_name is not None or axis_size > 1:
         raise NotImplementedError(
             "sharded BA (axis_name / axis_size) belongs to the multi-GPU "
             "slice")
     with highest_precision():
-        return _ba_solve_f32(p, cam, iters, use_huber, chi2_gate, lambda0)
+        return _ba_solve_f32(p, cam, iters, use_huber, chi2_gate, lambda0,
+                             dense_schur, cg_iters)
+
+
+def _cg_step(p: BAProblem, Hpp_d, g_p, g_l, G, W_obs, obs_ok0, free, index,
+             cg_iters):
+    """dp [K,6] and U^T dp [P,3] of one LM iteration by preconditioned CG
+    on S dp = -(g_p - U G g_l), free keyframes only (JAX
+    `optim/ba.py:347-414`)."""
+    fm = free[:, None].to(torch.float32)
+    eye6 = torch.eye(6, dtype=torch.float32, device=Hpp_d.device)
+    Minv = torch.linalg.inv(Hpp_d + 1e-9 * eye6)
+
+    def precond(v):
+        return torch.einsum("kij,kj->ki", Minv, v) * fm
+
+    Gg = torch.einsum("pij,pj->pi", G, g_l)
+    rhs = -(g_p - ba_schur_u(Gg, W_obs, p.obs_pt, obs_ok0)) * fm
+    x = torch.zeros_like(rhs)
+    rr = rhs
+    z = precond(rhs)
+    pdir = z
+    rz = torch.sum(rhs * z)
+    for _ in range(cg_iters):
+        Ap = ba_schur_mv(pdir, free, Hpp_d, G, W_obs, p.obs_pt, obs_ok0,
+                         index)
+        denom = torch.sum(pdir * Ap)
+        alpha = rz / torch.where(torch.abs(denom) < 1e-12,
+                                 torch.full_like(denom, 1e-12), denom)
+        x = x + alpha * pdir
+        rr = rr - alpha * Ap
+        z = precond(rr)
+        rz_new = torch.sum(rr * z)
+        beta = rz_new / torch.where(torch.abs(rz) < 1e-12,
+                                    torch.full_like(rz, 1e-12), rz)
+        pdir = z + beta * pdir
+        rz = rz_new
+    return x, ba_schur_ut(x, W_obs, p.obs_pt, obs_ok0, index, G.shape[0])
+
+
+def _dense_step(T, Hpp_d, g_p, g_l, G, free, fmask, rows, cols, K, P):
+    """dp [K,6] and U^T dp [P,3] of one LM iteration from the dense reduced
+    camera system S [K*6, K*6], solved directly (JAX
+    `optim/ba.py:362-391`)."""
+    D = K * 6
+    T3 = T.reshape(P, D, 3)
+    TG = torch.einsum("pdi,pij->pdj", T3, G)
+    S_sub = torch.einsum("pdi,pei->de", TG, T3)
+    S = torch.zeros((D, D), dtype=torch.float32, device=T.device)
+    S.index_put_((rows.reshape(-1), cols.reshape(-1)), Hpp_d.reshape(-1),
+                 accumulate=True)
+    S = S - S_sub
+    S = S * fmask[:, None] * fmask[None, :]
+    S = S + torch.diag(1.0 - fmask)
+    Gg = torch.einsum("pij,pj->pi", G, g_l)
+    rhs = -(g_p.reshape(D) - torch.einsum("pdi,pi->d", T3, Gg)) * fmask
+    dp = torch.linalg.solve(S, rhs).reshape(K, 6)
+    dp = dp * free[:, None]
+    return dp, torch.einsum("pdi,d->pi", T3, dp.reshape(D))
 
 
 def _ba_solve_f32(p: BAProblem, cam, iters, use_huber, chi2_gate,
-                  lambda0) -> BAResult:
+                  lambda0, dense_schur=True, cg_iters=50) -> BAResult:
     K, N = p.obs_uv.shape[:2]
     P = p.pt_pos.shape[0]
-    D = K * 6
     dev = p.pt_pos.device
     has_ur = p.obs_ur > 0
     chi2_th = torch.where(has_ur, torch.full_like(p.obs_ur, CHI2_STEREO),
@@ -427,7 +664,8 @@ def _ba_solve_f32(p: BAProblem, cam, iters, use_huber, chi2_gate,
     done = torch.zeros((), dtype=torch.bool, device=dev)
     for _ in range(iters):
         Hpp, g_p, acc, T = ba_assemble(kf_pose, pt_pos, p, obs_ok0, cam,
-                                       use_huber, index=index)
+                                       use_huber, index=index,
+                                       w_obs=not dense_schur)
         Hll = acc[:, :9].reshape(P, 3, 3)
         g_l = acc[:, 9:]
         dp_diag = torch.diagonal(Hpp, dim1=1, dim2=2)
@@ -439,20 +677,12 @@ def _ba_solve_f32(p: BAProblem, cam, iters, use_huber, chi2_gate,
             # frozen landmarks leave the Schur elimination (G = 0): no
             # -U G U^T term, and dl = 0 in back-substitution
             G = torch.where(p.pt_frozen[:, None, None], torch.zeros_like(G), G)
-        T3 = T.reshape(P, D, 3)
-        TG = torch.einsum("pdi,pij->pdj", T3, G)
-        S_sub = torch.einsum("pdi,pei->de", TG, T3)
-        S = torch.zeros((D, D), dtype=torch.float32, device=dev)
-        S.index_put_((rows.reshape(-1), cols.reshape(-1)), Hpp_d.reshape(-1),
-                     accumulate=True)
-        S = S - S_sub
-        S = S * fmask[:, None] * fmask[None, :]
-        S = S + torch.diag(1.0 - fmask)
-        Gg = torch.einsum("pij,pj->pi", G, g_l)
-        rhs = -(g_p.reshape(D) - torch.einsum("pdi,pi->d", T3, Gg)) * fmask
-        dp = torch.linalg.solve(S, rhs).reshape(K, 6)
-        dp = dp * free[:, None]
-        ut_dp = torch.einsum("pdi,d->pi", T3, dp.reshape(D))
+        if dense_schur:
+            dp, ut_dp = _dense_step(T, Hpp_d, g_p, g_l, G, free, fmask, rows,
+                                    cols, K, P)
+        else:
+            dp, ut_dp = _cg_step(p, Hpp_d, g_p, g_l, G, T, obs_ok0, free,
+                                 index, cg_iters)
         dl = torch.einsum("pij,pj->pi", G, -g_l - ut_dp)
         dl = torch.where(p.pt_valid[:, None], dl, torch.zeros_like(dl))
         new_pose = se3.retract(kf_pose, dp)

@@ -164,7 +164,8 @@ class LocalMapper:
             pt_valid=pt_valid_l,
             pt_frozen=pt_frozen_l,
         )
-        res = ba_solve(prob, self.cam, iters=iters, lambda0=lambda0)
+        res = ba_solve(prob, self.cam, iters=iters, lambda0=lambda0,
+                       dense_schur=True)
 
         # scatter window poses back (padding scatters to row K -> dropped)
         scatter = torch.where(win_valid & win_free, win_idx,

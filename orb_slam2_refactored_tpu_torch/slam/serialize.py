@@ -173,7 +173,9 @@ def load_map(tracker: Tracker, path: str):
             {"words": z["voc_words"], "idf": z["voc_idf"]}, tracker.device)
         tracker.vocabulary = voc
         cap = tracker.cfg.map_capacity.max_keyframes
-        lc = LoopCloser(voc, cap, fix_scale=bool(z["voc_fix_scale"]))
+        lc = LoopCloser(voc, tracker.cam, cap, tracker.cfg.n_levels,
+                        tracker.cfg.scale_factor,
+                        fix_scale=bool(z["voc_fix_scale"]))
         if "voc_bow_ids" in z.files:  # sparse rows (current format)
             ids, cnt = z["voc_bow_ids"], z["voc_bow_cnt"]
         else:  # legacy dense [KF, W] checkpoint: convert to sparse rows

@@ -17,13 +17,22 @@ keyframe culling; the tracker adopts the BA-refined pose of the new
 keyframe). Every keyframe is indexed in the BoW database
 (`_ensure_bow_index`: the vocabulary is trained at the 4th keyframe), and a
 LOST frame relocalizes against it (`_relocalize`: BoW candidates, descriptor
-matching, Horn RANSAC on depth, pose LM, a projection-guided polish).
+matching, Horn RANSAC on depth, pose LM, a projection-guided polish). With
+`enable_loop_closing=True` each keyframe runs the loop stage
+(`_loop_closing_stage`: BoW detection, then `_close_loop`: the Sim3 solve,
+the projection check, the essential-graph correction and a global BA that
+is merged at the next keyframe), with the implicit-loop and seam pathways
+(`_implicit_loop_candidate`, `_seam_check`); with `local_map_window > 0`
+the whole-map projection search sees only the covisibility window's points
+(`_refresh_local_mask`).
 
 Differences of form from the JAX package:
 - the tracker runs on `cuda:0` unless the caller passes another device
   (the tests pass "cpu"); with no card and no explicit device it raises;
-- the frame arrives as tensors (gray or RGB images, f32 depth): there is
-  no wire packing, no pipelined mode and no k-frame or pair chaining;
+- the frame is quantized on the host as the JAX package's wire format
+  quantizes it (`wire_image`: gray, uint8; depth through f16), then
+  uploaded as it is: there is no packed buffer, no pipelined mode and no
+  k-frame or pair chaining;
 - `jax.lax.cond(use_ref, ...)` is a Python branch on `use_ref.item()`, one
   documented host sync per frame, beside the one read of the host pack;
 - the frame counter `fidx` is a Python int (it seeds the RANSAC generator);
@@ -36,7 +45,15 @@ Differences of form from the JAX package:
   frame_id * 31 + kf)` where JAX folds that number into `PRNGKey(0)`: a run
   repeats itself, and its outcome, not its samples, agrees with JAX;
 - a relocalization candidate's two scalars after the RANSAC and the LM
-  (success, inliers) come back in one read.
+  (success, inliers) come back in one read;
+- `_track_impl`, `_step_impl` and `_step_stereo_impl` take the covisibility
+  window's point mask as their last argument, `local_mask` (None: every
+  live point), where the JAX step takes it before `mp_seen`;
+- the global BA of a loop is computed inside `_close_loop` (the JAX
+  package dispatches it there); the tracker merges it at the next keyframe
+  as JAX does, and `flush()` leaves a pending one pending, as JAX's does;
+- the loop closer's RANSAC draws from a generator seeded with the keyframe
+  slot, where JAX uses `PRNGKey(slot)`.
 
 Settings whose machinery this slice does not port raise NotImplementedError
 at construction; none is silently ignored.
@@ -52,7 +69,7 @@ import torch
 
 from .. import resolve_device
 from ..geometry import projection as proj
-from ..geometry import se3
+from ..geometry import se3, sim3
 from ..ops import matching
 from ..ops.orb import OrbExtractor
 from ..ops.stereo import stereo_associate
@@ -63,7 +80,23 @@ from .frame import FrameData, scale_factors
 from .local_mapping import LocalMapper
 from .loop_closing import LoopCloser
 from .map_state import INVALID, MapArrays, MapCapacity, MapGraph, empty_map
+from .system import _np_compose, _np_inverse
 from .vocabulary import train_vocabulary
+
+
+def wire_image(img, rint: bool) -> np.ndarray:
+    """The 8-bit gray image the JAX package's tracker computes on: RGB
+    goes to gray on the host in f32 (`src/System.cc:122-151`), then to
+    uint8 by numpy's cast, which truncates (`_pack_rgbd`), or after a
+    round to nearest and a clip to [0, 255] (`_pack_mono`, also the
+    stereo pair's). A uint8 gray image passes unchanged."""
+    img = np.asarray(img)
+    if img.ndim == 3:
+        img = (img.astype(np.float32) @
+               np.array([0.299, 0.587, 0.114], np.float32))
+    if rint and img.dtype != np.uint8:
+        img = np.clip(np.rint(img), 0, 255)
+    return np.ascontiguousarray(img, np.uint8)
 
 
 @dataclasses.dataclass
@@ -127,10 +160,6 @@ def _unsupported(cfg: TrackerConfig) -> List[str]:
     out = []
     if cfg.pipelined:
         out.append("pipelined=True (the software pipeline)")
-    if cfg.enable_loop_closing:
-        out.append("enable_loop_closing=True (loop closing)")
-    if cfg.local_map_window > 0:
-        out.append("local_map_window>0 (covisibility window)")
     if cfg.local_ba_cg_iters != TrackerConfig.local_ba_cg_iters:
         out.append("local_ba_cg_iters (matrix-free CG BA; the window BA "
                    "is dense Schur)")
@@ -205,6 +234,7 @@ class Tracker:
         self.loop_closer: Optional[LoopCloser] = None
         self.vocabulary = None
         self._vocab_pending: List[int] = []
+        self.last_loop_info = None
         self.trajectory: List[np.ndarray] = []
         self.traj_entries: List[dict] = []
         self.track_info: List[dict] = []
@@ -275,7 +305,7 @@ class Tracker:
 
     def _track_impl(self, frame: FrameData, last: FrameData, last_mp,
                     m: MapArrays, pose_last, velocity, ref_kf: int,
-                    fidx: int = 0):
+                    fidx: int = 0, local_mask=None):
         cfg = self.cfg
         P = m.point_capacity
         N = frame.capacity
@@ -353,10 +383,12 @@ class Tracker:
         # ---- 2. whole-map projection matching (local-map tracking) ----
         taken = (feat_pt0 >= 0) & inl1
         feat_mp = torch.where(taken, feat_pt0, neg)
+        # the covisibility window (all ones unless local_map_window > 0)
+        mp_ok = m.mp_valid if local_mask is None else m.mp_valid & local_mask
         lm, pt_vis = matching.search_by_projection_with_vis(
             frame.xy, frame.level, frame.desc, frame.valid & ~taken,
             m.mp_pos, m.mp_desc, m.mp_normal, m.mp_min_dist, m.mp_max_dist,
-            m.mp_valid, pose1, self.cam, self.sf,
+            mp_ok, pose1, self.cam, self.sf,
             radius=10.0 if use_ref else cfg.local_radius,
             image_bounds=self.image_bounds)
         pidx = torch.clamp(lm.idx, 0, N - 1).long()
@@ -392,31 +424,33 @@ class Tracker:
 
     def _step_impl(self, img, depth_img, last: FrameData, last_mp,
                    m: MapArrays, pose_last, velocity, ref_kf: int, mp_vis,
-                   mp_found, mp_seen, fidx: int):
-        """Fused per-frame step: extract + depth-associate + track. The JAX
-        step's `local_mask` argument is absent: the covisibility window is
-        not ported, so every live map point is matched."""
+                   mp_found, mp_seen, fidx: int, local_mask=None):
+        """Fused per-frame step: extract + depth-associate + track, the
+        whole-map search restricted to `local_mask` (the covisibility
+        window; None: every live map point)."""
         return self._step_frame(self._prepare_impl(img, depth_img), last,
                                 last_mp, m, pose_last, velocity, ref_kf,
-                                mp_vis, mp_found, mp_seen, fidx)
+                                mp_vis, mp_found, mp_seen, fidx, local_mask)
 
     def _step_stereo_impl(self, img_l, img_r, last: FrameData, last_mp,
                           m: MapArrays, pose_last, velocity, ref_kf: int,
-                          mp_vis, mp_found, mp_seen, fidx: int):
+                          mp_vis, mp_found, mp_seen, fidx: int,
+                          local_mask=None):
         """Fused stereo step: extract both images + stereo-associate +
         track; returns what `_step_impl` returns."""
         return self._step_frame(self._prepare_stereo_impl(img_l, img_r),
                                 last, last_mp, m, pose_last, velocity, ref_kf,
-                                mp_vis, mp_found, mp_seen, fidx)
+                                mp_vis, mp_found, mp_seen, fidx, local_mask)
 
     def _step_frame(self, frame: FrameData, last: FrameData, last_mp,
                     m: MapArrays, pose_last, velocity, ref_kf: int, mp_vis,
-                    mp_found, mp_seen, fidx: int):
+                    mp_found, mp_seen, fidx: int, local_mask=None):
         """Track a prepared frame: `_track_impl`, the seam statistics and
         the host pack."""
         (pose, feat_mp, n_inl, n_mm, t_close, u_close, used_ref,
          found_mask, vis_mask, tcr) = self._track_impl(
-            frame, last, last_mp, m, pose_last, velocity, ref_kf, fidx)
+            frame, last, last_mp, m, pose_last, velocity, ref_kf, fidx,
+            local_mask)
         vel_new = se3.compose(pose, se3.inverse(pose_last))
         n_reacq, mp_seen, fidx = self._seam_stats(found_mask, mp_seen, fidx)
         host_pack = _make_host_pack(pose, vel_new, n_inl, n_mm, t_close,
@@ -570,33 +604,37 @@ class Tracker:
 
     def track_rgbd(self, img, depth, timestamp: float = 0.0):
         """Process one RGB-D frame (gray or RGB image, depth in metres);
-        returns the world->camera pose f32[7]."""
-        img_t = self._t(img)
+        returns the world->camera pose f32[7]. The image is truncated to
+        uint8 gray and the depth rounded to f16, as the JAX package's
+        `_pack_rgbd` sends them."""
+        img_t = self._t(wire_image(img, rint=False))
         depth = np.asarray(depth)
         s = self.cfg.depth_subsample
         if s > 1 and depth.shape[0] == self.cfg.height:
             depth = depth[::s, ::s]
-        depth_t = self._t(np.ascontiguousarray(depth, np.float32))
+        depth_t = self._t(np.asarray(depth, np.float16).astype(np.float32))
         return self._run_frame(
             lambda: self._prepare_impl(img_t, depth_t),
             lambda: self._step_impl(
                 img_t, depth_t, self.last_frame, self.last_mp_dev, self.map,
                 self.pose_dev, self.velocity_dev, max(self.ref_kf, 0),
                 self.mp_vis_dev, self.mp_found_dev, self.mp_seen_dev,
-                self.fidx),
+                self.fidx, self.local_mask_dev),
             timestamp)
 
     def track_stereo(self, img_l, img_r, timestamp: float = 0.0):
         """Process one rectified stereo pair (gray or RGB images); returns
-        the world->camera pose f32[7]."""
-        l_t, r_t = self._t(img_l), self._t(img_r)
+        the world->camera pose f32[7]. Each image is rounded to uint8 gray,
+        as the JAX package's `_pack_stereo` sends it."""
+        l_t = self._t(wire_image(img_l, rint=True))
+        r_t = self._t(wire_image(img_r, rint=True))
         return self._run_frame(
             lambda: self._prepare_stereo_impl(l_t, r_t),
             lambda: self._step_stereo_impl(
                 l_t, r_t, self.last_frame, self.last_mp_dev, self.map,
                 self.pose_dev, self.velocity_dev, max(self.ref_kf, 0),
                 self.mp_vis_dev, self.mp_found_dev, self.mp_seen_dev,
-                self.fidx),
+                self.fidx, self.local_mask_dev),
             timestamp)
 
     def _record_frame(self, tcr=None, ref=-1, lost=False):
@@ -673,6 +711,7 @@ class Tracker:
                 self.last_mp_dev = feat_mp_dev
         else:
             self.last_mp_dev = feat_mp_dev
+            self._maybe_refresh_local_mask()
         self.last_frame = frame
         self.track_info.append(
             {"inliers": n_inl, "mm": n_mm, "kf": bool(need_kf),
@@ -696,7 +735,16 @@ class Tracker:
                                         device=self.device)
         self.mp_seen_dev = torch.full((P,), -1, dtype=torch.int32,
                                       device=self.device)
+        # the covisibility-window point mask (all ones: whole-map matching)
+        self.local_mask_dev = torch.ones((P,), dtype=torch.bool,
+                                         device=self.device)
         self.fidx = 0
+        # seam-detection state must not survive into the new map: stale
+        # last-seen stamps on reused point slots would read as long-gap
+        # re-acquisitions
+        self._seam_pending = False
+        self._seam_cooldown_until = 0
+        self._gba_pending = None
         if self.loop_closer is not None:
             self.loop_closer.db.clear()
             self.loop_closer.consistent_groups = []
@@ -798,7 +846,8 @@ class Tracker:
                     iters=6, device=self.device)
             # the Sim3 scale is observable only in monocular mode
             self.loop_closer = LoopCloser(
-                self.vocabulary, self.cfg.map_capacity.max_keyframes,
+                self.vocabulary, self.cam, self.cfg.map_capacity.max_keyframes,
+                self.cfg.n_levels, self.cfg.scale_factor,
                 fix_scale=self.cfg.bf > 0)
             # index every pending keyframe still alive (the current one
             # below)
@@ -834,10 +883,135 @@ class Tracker:
         return max(n, 1)
 
     def _seam_check(self, n_reacq: int) -> bool:
-        """The seam trigger forces a keyframe only for loop closing, which
-        this slice does not port (construction refuses it), so it never
-        fires."""
-        return False
+        """Seam trigger: force a keyframe the moment tracking re-acquires a
+        batch of long-unseen landmarks (`seam_min_reacq`, loop closing
+        only). True when a keyframe should be forced this frame."""
+        cfg = self.cfg
+        if (cfg.seam_min_reacq <= 0 or not cfg.enable_loop_closing
+                or self.loop_closer is None
+                or n_reacq < cfg.seam_min_reacq):
+            return False
+        if self.frame_id < self._seam_cooldown_until:
+            return False
+        if (self.ref_kf >= 0 and self.graph.kf_seq[self.ref_kf]
+                - self.loop_closer.last_loop_seq < 10):
+            return False
+        self._seam_cooldown_until = self.frame_id + 30
+        self._seam_pending = True
+        return True
+
+    def _refresh_local_mask(self, center_slot: int):
+        """Rebuild the covisibility-window point mask around `center_slot`
+        (the reference's local map, `src/Tracking.cc:55-185`): the points
+        of the keyframe and its `local_map_window` best covisibles."""
+        P = self.cfg.map_capacity.max_points
+        kfs = [center_slot] + self.graph.covis_neighbors(
+            center_slot, top_k=self.cfg.local_map_window)
+        mask = np.zeros(P, bool)
+        rows = self.graph.kf_row[kfs]
+        mask[rows[rows >= 0]] = True
+        self.local_mask_dev = self._t(mask)
+
+    def _maybe_refresh_local_mask(self):
+        """Between keyframes, rebuild the window mask around the reference
+        keyframe every 8 frames (long keyframe intervals age it)."""
+        if (self.cfg.local_map_window > 0 and self.ref_kf >= 0
+                and self.frames_since_kf > 0
+                and self.frames_since_kf % 8 == 0):
+            self._refresh_local_mask(self.ref_kf)
+
+    # ------------------------------------------------------------------
+    # the loop stage
+    # ------------------------------------------------------------------
+
+    def _loop_closing_stage(self, frame: FrameData, slot: int):
+        bow = self._ensure_bow_index(slot)
+        if bow is None or not self.cfg.enable_loop_closing:
+            return
+        loop_kf = self.loop_closer.detect(self.map, self.graph, slot, bow)
+        if loop_kf is None:
+            return
+        self._close_loop(frame, slot, loop_kf)
+
+    def _implicit_loop_candidate(self, slot: int,
+                                 min_weight: int = 15) -> Optional[int]:
+        """A silent re-acquisition: a strong covisibility edge from the new
+        keyframe to a keyframe more than `implicit_loop_min_gap` frames
+        older that the previous keyframe's context was not connected to.
+        Whole-map matching makes such edges on revisits under moderate
+        drift; the drifted middle of the chain stays uncorrected, which is
+        what the loop edge and the global BA repair."""
+        g = self.graph
+        gap = self.cfg.implicit_loop_min_gap
+        lc = self.loop_closer
+        if (gap <= 0 or lc is None
+                or g.kf_seq[slot] - lc.last_loop_seq < 10):
+            return None
+        if len(g.alive_kfs()) < 10:
+            return None
+        fid = g.kf_frame_id
+        cur = fid[slot]
+        nbs = g.covis_neighbors(slot, min_weight=min_weight, top_k=30)
+        old = [n for n in nbs if cur - fid[n] > gap]
+        if not old:
+            return None
+        # the previous (temporal) keyframe: if its context already held the
+        # old region, the camera lingered; no revisit
+        prev, best_fid = None, -1
+        for k in g.alive_kfs():
+            if k != slot and best_fid < fid[k] < cur:
+                prev, best_fid = k, fid[k]
+        if prev is None:
+            return None
+        prev_ctx = set(g.covis_neighbors(prev, top_k=30)) | {prev}
+        for n in old:
+            if n not in prev_ctx:
+                return int(n)
+        return None
+
+    def _close_loop(self, frame: FrameData, slot: int, loop_kf: int,
+                    implicit: bool = False):
+        """The Sim3, its verification and the loop correction of a detected
+        candidate (FindLoopInCandidateKFs + LoopCorrector::Correct,
+        `src/LoopClosing.cc:62-155,521-692`), inline (the reference stalls
+        mapping for the correction too, `:532-544`).
+
+        `implicit`: whole-map matching already aligned this keyframe to the
+        revisited region, so the relative Sim3 is the tracked relative pose
+        at scale 1; after a strict projection check (25 matches) only the
+        loop edge and a global BA follow."""
+        lc = self.loop_closer
+        if implicit:
+            kf_poses = self.map.kf_pose.cpu().numpy()
+            rel = _np_compose(kf_poses[slot], _np_inverse(kf_poses[loop_kf]))
+            S = sim3.from_se3(self._t(rel))
+            ok, n_proj = lc.verify_by_projection(
+                self.map, self.graph, slot, loop_kf, S, min_matches=25)
+            if not ok:
+                return
+            self.graph.loop_edges.setdefault(slot, set()).add(loop_kf)
+            self.graph.loop_edges.setdefault(loop_kf, set()).add(slot)
+            self._gba_pending = lc.launch_gba(self.map, self.graph)
+            lc.last_loop_kf = slot
+            lc.last_loop_seq = int(self.graph.kf_seq[slot])
+            lc.loops_closed += 1
+            self.last_loop_info = {"loop_kf": loop_kf, "kf": slot,
+                                   "implicit": True, "n_proj": int(n_proj)}
+            return
+        out = lc.compute_sim3(self.map, slot, loop_kf, slot)
+        if out is None:
+            return
+        S, inl, pt_a, pt_b = out
+        ok, _ = lc.verify_by_projection(self.map, self.graph, slot, loop_kf,
+                                        S)
+        if not ok:
+            return
+        self.map, info = lc.correct(self.map, self.graph, slot, loop_kf, S,
+                                    inl, pt_a, pt_b)
+        self._gba_pending = info.pop("gba_pending", None)
+        self.last_loop_info = {"loop_kf": loop_kf, "kf": slot, **info}
+        self.pose_dev = self.map.kf_pose[slot].clone()
+        self.pose = self.pose_dev.cpu().numpy()
 
     def _need_new_keyframe(self, n_inl, tracked_close, untracked_close) -> bool:
         """NeedNewKeyFrame policy: ratio vs reference KF, close-point
@@ -973,13 +1147,30 @@ class Tracker:
         return self._post_insert(slot, frame)
 
     def _post_insert(self, slot: int, frame: FrameData) -> bool:
-        """Post-insert work: zero the found/visible counters and last-seen
-        stamps of recycled point slots, then dispatch the local-mapping job
-        (reference order, src/LocalMapping.cc:93-130: triangulate -> fuse
-        neighbours -> cull points -> local BA -> cull KFs). True when the
-        job was dispatched. Between the two, under `kf.loop`, the keyframe
-        joins the BoW index (the JAX tracker's `enable_loop_closing=False`
-        branch: the index serves relocalization)."""
+        """Post-insert work: merge a pending global BA (`kf.gba_merge`),
+        rebuild the covisibility window's mask, zero the found/visible
+        counters and last-seen stamps of recycled point slots, then, under
+        `kf.loop`, index the keyframe in the BoW database and, with loop
+        closing on, run the loop stage (BoW detection first; when it closes
+        nothing, the implicit pathway: after a seam keyframe the explicit
+        Sim3 correction, the implicit one if that is refused), then
+        dispatch the local-mapping job (reference order,
+        src/LocalMapping.cc:93-130: triangulate -> fuse neighbours -> cull
+        points -> local BA -> cull KFs). True when the job was
+        dispatched."""
+        cfg = self.cfg
+        # merge a pending global BA before the map grows further (the
+        # reference's GBA thread merges under the map mutex,
+        # src/LoopClosing.cc:370-452)
+        if self._gba_pending is not None and self.loop_closer is not None:
+            with self.timer.time("kf.gba_merge"):
+                self.map, ginfo = self.loop_closer.merge_gba(
+                    self.map, self.graph, self._gba_pending)
+                self._gba_pending = None
+                if self.last_loop_info is not None:
+                    self.last_loop_info.update(ginfo)
+        if cfg.local_map_window > 0:
+            self._refresh_local_mask(slot)
         rec = self.graph.recycled_log
         if rec:
             self.graph.recycled_log = []
@@ -988,7 +1179,35 @@ class Tracker:
             self.mp_found_dev[idx] = 0
             self.mp_seen_dev[idx] = -1
         with self.timer.time("kf.loop"):
-            self._ensure_bow_index(slot)
+            before = (self.loop_closer.loops_closed
+                      if self.loop_closer is not None else 0)
+            if cfg.enable_loop_closing:
+                self._loop_closing_stage(frame, slot)
+            else:
+                self._ensure_bow_index(slot)
+            # a candidate refused by the Sim3 or projection gates closed
+            # nothing: the implicit check still runs
+            fired = (self.loop_closer is not None
+                     and self.loop_closer.loops_closed > before)
+            # the seam flag is consumed whatever happens, so it never
+            # relaxes a later keyframe's covisibility gate
+            seam = self._seam_pending
+            self._seam_pending = False
+            if cfg.enable_loop_closing and not fired:
+                cand = self._implicit_loop_candidate(
+                    slot, min_weight=(8 if seam else 15))
+                if cand is not None:
+                    if seam:
+                        # a seam caught at its first frame: the explicit
+                        # Sim3 correction (which also fuses the drifted
+                        # duplicates), the implicit one if it is refused
+                        before2 = self.loop_closer.loops_closed
+                        self._close_loop(frame, slot, cand, implicit=False)
+                        if self.loop_closer.loops_closed == before2:
+                            self._close_loop(frame, slot, cand,
+                                             implicit=True)
+                    else:
+                        self._close_loop(frame, slot, cand, implicit=True)
         if self.local_mapper is not None and len(self.graph.alive_kfs()) >= 2:
             with self.timer.time("kf.triangulate"):
                 self.map, _ = self.local_mapper.triangulate_new_points(
@@ -1022,9 +1241,17 @@ class Tracker:
         with self.timer.time("kf.cull_points"):
             self.map, _ = lm.cull_points(self.map, self.graph, slot)
             self.map = lm._drain_ratio_cull(self.map, self.graph)
-        with self.timer.time("kf.local_ba"):
-            self.map, self.last_ba_info = lm.local_ba(self.map, self.graph,
-                                                      slot)
+        if self._gba_pending is None:
+            with self.timer.time("kf.local_ba"):
+                self.map, self.last_ba_info = lm.local_ba(self.map,
+                                                          self.graph, slot)
+        else:
+            # a global BA is pending: its merge overwrites every launched
+            # pose, and a window solve now would drag the loop-corrected
+            # seam back toward the still-drifted fixed frontier (the
+            # reference stops local mapping across the correction and GBA,
+            # src/LoopClosing.cc:532-544)
+            self.last_ba_info = None
         with self.timer.time("kf.cull_kfs"):
             self.map, killed = lm.cull_keyframes(self.map, self.graph, slot)
         if killed and self.loop_closer is not None:

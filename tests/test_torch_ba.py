@@ -11,7 +11,8 @@
     third keyframe of the QVGA clip (local BA on): the same tolerances on
     the window's keyframes and landmarks, and the outlier mask equal on
     >= 99.9 % of slots.
-(c) The settings of other slices raise NotImplementedError.
+(c) The settings of other slices (the sharded forms) raise
+    NotImplementedError; the CG branch is `test_torch_ba_cg.py`'s.
 """
 
 import jax
@@ -125,7 +126,7 @@ def test_ba_settings_of_other_slices_raise():
     tc = tproj.CameraIntrinsics.create(FX, FX, CX, CY, BF)
     p = convert.ba_problem_from_numpy(_problem(), "cpu")
     with pytest.raises(NotImplementedError):
-        tba.ba_solve(p, tc, dense_schur=False)
+        tba.ba_solve(p, tc, dense_schur=False, axis_name="kf")
     with pytest.raises(NotImplementedError):
         tba.ba_solve(p, tc, dense_schur=True, axis_name="kf")
     with pytest.raises(NotImplementedError):

@@ -1,0 +1,275 @@
+"""Port parity: matrix-free CG bundle adjustment (global BA) and its pieces.
+
+(a) `ba_solve(dense_schur=False)` on a small seeded problem (8 keyframes, 2
+    fixed; 300 points, 10 frozen, 5 dead; mono and stereo observations; 5 %
+    outliers) against JAX's CG branch: poses within 1e-4 m / 1e-4 rad,
+    points within 1e-3 m, initial cost within 1e-5 relative, final cost
+    within 1e-3 relative, the final chi2 gate equal on >= 99.9 % of slots
+    (the sides differ in the order of f32 sums only).
+(b) K5's `w_obs` mode (plain): W_obs equals (w Jp)^T Jl built from JAX's
+    own Jacobians and Huber weights (within 1e-4 of the largest entry), is
+    zero on dead slots, and Hpp, g_p and Hll|g_l equal the dense mode's bit
+    for bit.
+(c) K6's plain versions: `ba_schur_mv_plain` equals the dense reduced
+    camera matrix S built from the same blocks applied to v (within 1e-5
+    of |S||v|), `ba_schur_u_plain` and `ba_schur_ut_plain` are adjoint;
+    and the CUDA-facing wrappers route CPU tensors to them.
+(d) `compact_points`: the live points in index order, observations
+    remapped, the solve on the compacted problem equal to the solve on the
+    whole one within 1e-5, and the global BA's scatter-back
+    (`LoopCloser._gba_impl`) leaves dead points where they were; a problem
+    over the point index's limit raises.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from orb_slam2_refactored_tpu.geometry import projection as jproj
+from orb_slam2_refactored_tpu.geometry import se3 as jse3
+from orb_slam2_refactored_tpu.optim import ba as jba
+from orb_slam2_refactored_tpu_torch import convert
+from orb_slam2_refactored_tpu_torch.geometry import projection as tproj
+from orb_slam2_refactored_tpu_torch.optim import ba as tba
+
+torch.set_num_threads(1)
+FX, CX, CY, BF = 400.0, 160.0, 120.0, 32.0
+JCAM = jproj.CameraIntrinsics.create(FX, FX, CX, CY, BF)
+TCAM = tproj.CameraIntrinsics.create(FX, FX, CX, CY, BF)
+
+
+def _problem(seed=0, K=8, P=300, N=160):
+    rng = np.random.default_rng(seed)
+    pts = np.stack([rng.uniform(-2, 2, P), rng.uniform(-1.5, 1.5, P),
+                    rng.uniform(4, 9, P)], -1).astype(np.float32)
+    poses = np.stack([np.asarray(jse3.exp(jnp.asarray(np.array(
+        [0, 0.02 * k, 0, 0.25 * k, 0, 0], np.float32)))) for k in range(K)])
+    obs_uv = np.zeros((K, N, 2), np.float32)
+    obs_ur = -np.ones((K, N), np.float32)
+    obs_pt = np.full((K, N), -1, np.int32)
+    inv_s2 = (1.0 / 1.44 ** rng.integers(0, 4, (K, N))).astype(np.float32)
+    for k in range(K):
+        sel = rng.permutation(P)[:N]
+        xc = np.asarray(jse3.transform(jnp.asarray(poses[k]),
+                                       jnp.asarray(pts[sel])))
+        uvr = np.stack([FX * xc[:, 0] / xc[:, 2] + CX,
+                        FX * xc[:, 1] / xc[:, 2] + CY,
+                        FX * xc[:, 0] / xc[:, 2] + CX - BF / xc[:, 2]], -1)
+        vis = (xc[:, 2] > 0.5) & (rng.uniform(size=N) > 0.1)
+        obs_pt[k, vis] = sel[vis]
+        obs_uv[k] = uvr[:, :2] + rng.normal(0, 0.5, (N, 2))
+        stereo = rng.uniform(size=N) < 0.6
+        obs_ur[k] = np.where(stereo, uvr[:, 2] + rng.normal(0, 0.5, N), -1.0)
+    bad = rng.uniform(size=(K, N)) < 0.05
+    obs_uv[bad] += rng.uniform(20, 60, (int(bad.sum()), 2))
+    poses0 = poses.copy()
+    for k in range(1, K):
+        poses0[k] = np.asarray(jse3.retract(jnp.asarray(poses[k]), jnp.asarray(
+            rng.normal(0, 0.02, 6).astype(np.float32))))
+    pts0 = (pts + rng.normal(0, 0.05, pts.shape)).astype(np.float32)
+    fixed = np.zeros(K, bool)
+    fixed[:2] = True
+    valid = np.ones(P, bool)
+    valid[-5:] = False
+    # a point seen by one keyframe has no depth constraint (its update is
+    # set by the damping alone): left out, as in test_torch_ba.py
+    valid &= np.bincount(obs_pt[obs_pt >= 0], minlength=P) >= 2
+    frozen = np.zeros(P, bool)
+    frozen[rng.permutation(P)[:10]] = True
+    return dict(kf_pose=poses0, kf_fixed=fixed, obs_uv=obs_uv, obs_ur=obs_ur,
+                obs_pt=obs_pt, obs_inv_s2=inv_s2, pt_pos=pts0, pt_valid=valid,
+                pt_frozen=frozen)
+
+
+def _pose_err(a, b):
+    d = np.asarray(jse3.log(jse3.compose(jnp.asarray(a),
+                                         jse3.inverse(jnp.asarray(b)))))
+    return np.abs(d[..., :3]).max(), np.abs(d[..., 3:]).max()
+
+
+@pytest.mark.parametrize("iters,cg_iters,use_huber",
+                         [(3, 20, True), (6, 40, True), (4, 40, False)])
+def test_ba_solve_cg_matches_jax(iters, cg_iters, use_huber):
+    d = _problem()
+    ref = jba.ba_solve(jba.BAProblem(**{k: jnp.asarray(v)
+                                        for k, v in d.items()}),
+                       JCAM, iters=iters, cg_iters=cg_iters,
+                       use_huber=use_huber, dense_schur=False)
+    out = tba.ba_solve(convert.ba_problem_from_numpy(d, "cpu"), TCAM,
+                       iters=iters, cg_iters=cg_iters, use_huber=use_huber,
+                       dense_schur=False)
+    rot, trans = _pose_err(out.kf_pose.numpy(), np.asarray(ref.kf_pose))
+    assert rot <= 1e-4 and trans <= 1e-4, (rot, trans)
+    assert np.abs(out.pt_pos.numpy() - np.asarray(ref.pt_pos)).max() <= 1e-3
+    c0, r0 = float(out.initial_cost), float(ref.initial_cost)
+    assert abs(c0 - r0) <= 1e-5 * abs(r0), (c0, r0)
+    c1, r1 = float(out.final_cost), float(ref.final_cost)
+    assert abs(c1 - r1) <= 1e-3 * abs(r1), (c1, r1)
+    assert (out.obs_inlier.numpy() == np.asarray(ref.obs_inlier)).mean() \
+        >= 0.999
+    assert c1 < 0.5 * c0
+    np.testing.assert_array_equal(out.kf_pose.numpy()[:2], d["kf_pose"][:2])
+
+
+def _asm_args(d):
+    p = convert.ba_problem_from_numpy(d, "cpu")
+    P = p.pt_pos.shape[0]
+    ok = (p.obs_pt >= 0) & p.pt_valid[torch.clamp(p.obs_pt, 0, P - 1).long()]
+    return p, ok
+
+
+def test_w_obs_mode_matches_jax_jacobians():
+    d = _problem(seed=2)
+    p, ok = _asm_args(d)
+    dense = tba.ba_assemble_plain(p.kf_pose, p.pt_pos, p, ok, TCAM, True)
+    Hpp, g_p, acc, W = tba.ba_assemble_plain(p.kf_pose, p.pt_pos, p, ok,
+                                             TCAM, True, w_obs=True)
+    for a, b in zip((Hpp, g_p, acc), dense[:3]):
+        assert torch.equal(a, b)
+    K, N = d["obs_pt"].shape
+    assert W.shape == (K * N, 18)
+    jp = jba.BAProblem(**{k: jnp.asarray(v) for k, v in d.items()})
+    r, Jp, Jl = jba._residuals_jacobians(jp.kf_pose, jp.pt_pos, jp, JCAM)
+    has_ur = d["obs_ur"] > 0
+    delta = np.sqrt(np.where(has_ur, jba.CHI2_STEREO, jba.CHI2_MONO))
+    chi2 = np.sum(np.asarray(r) ** 2, -1) * d["obs_inv_s2"]
+    s = np.sqrt(np.maximum(chi2, 1e-12))
+    w = d["obs_inv_s2"] * np.where(s > delta, delta / s, 1.0)
+    w = np.where(ok.numpy(), w, 0.0)
+    ref = np.einsum("knci,kncj->knij", np.asarray(Jp) * w[..., None, None],
+                    np.asarray(Jl)).reshape(K * N, 18)
+    W = W.numpy()
+    assert np.abs(W - ref).max() <= 1e-4 * np.abs(ref).max()
+    assert not W[~ok.numpy().reshape(-1)].any()
+
+
+def _schur_inputs(seed=4):
+    d = _problem(seed=seed)
+    p, ok = _asm_args(d)
+    Hpp, g_p, acc, W = tba.ba_assemble_plain(p.kf_pose, p.pt_pos, p, ok,
+                                             TCAM, True, w_obs=True)
+    P = p.pt_pos.shape[0]
+    eye3, eye6 = torch.eye(3), torch.eye(6)
+    Hll = acc[:, :9].reshape(P, 3, 3)
+    Hpp_d = Hpp + (1e-3 * torch.diagonal(Hpp, dim1=1, dim2=2)
+                   + 1e-6)[:, :, None] * eye6
+    Hll_d = Hll + (1e-3 * torch.diagonal(Hll, dim1=1, dim2=2)
+                   + 1e-6)[:, :, None] * eye3
+    G = tba._inv3x3(Hll_d + 1e-9 * eye3)
+    return p, ok, Hpp_d, G, W
+
+
+def test_schur_mv_plain_equals_dense_reduced_matrix():
+    p, ok, Hpp_d, G, W = _schur_inputs()
+    K, N = p.obs_pt.shape
+    P = G.shape[0]
+    free = ~p.kf_fixed
+    v = torch.as_tensor(np.random.default_rng(0).normal(
+        0, 1, (K, 6)).astype(np.float32))
+    out = tba.ba_schur_mv_plain(v, free, Hpp_d, G, W, p.obs_pt, ok)
+    # dense S = blockdiag(Hpp_d) - sum_p T_p G_p T_p^T, in f64
+    T = np.zeros((P, K * 6, 3))
+    Wn = W.double().numpy().reshape(K, N, 6, 3)
+    okn, ptn = ok.numpy(), p.obs_pt.numpy()
+    for k in range(K):
+        for n in np.nonzero(okn[k])[0]:
+            T[ptn[k, n], k * 6:(k + 1) * 6] += Wn[k, n]
+    S = -np.einsum("pdi,pij,pej->de", T, G.double().numpy(), T)
+    for k in range(K):
+        S[k * 6:(k + 1) * 6, k * 6:(k + 1) * 6] += Hpp_d[k].double().numpy()
+    fm = np.repeat(free.numpy(), 6).astype(np.float64)
+    ref = ((S * fm[:, None] * fm[None, :]) @ v.double().numpy().reshape(-1))
+    scale = np.abs(S).max() * np.abs(v.numpy()).max()
+    assert np.abs(out.double().numpy().reshape(-1) - ref).max() <= 1e-5 * scale
+    assert not out[~free].any()
+    # the wrappers route CPU tensors to the plain versions
+    idx = tba.ba_point_index(p.obs_pt, ok, P)
+    assert torch.equal(tba.ba_schur_mv(v, free, Hpp_d, G, W, p.obs_pt, ok,
+                                       idx), out)
+
+
+def test_schur_u_and_ut_are_adjoint():
+    p, ok, _, G, W = _schur_inputs(seed=5)
+    K = p.obs_pt.shape[0]
+    P = G.shape[0]
+    rng = np.random.default_rng(1)
+    v = torch.as_tensor(rng.normal(0, 1, (K, 6)).astype(np.float32))
+    y = torch.as_tensor(rng.normal(0, 1, (P, 3)).astype(np.float32))
+    ut = tba.ba_schur_ut_plain(v, W, p.obs_pt, ok, P)
+    u = tba.ba_schur_u_plain(y, W, p.obs_pt, ok)
+    a = float((ut.double() * y.double()).sum())
+    b = float((v.double() * u.double()).sum())
+    assert abs(a - b) <= 1e-5 * max(abs(a), 1.0)
+    idx = tba.ba_point_index(p.obs_pt, ok, P)
+    assert torch.equal(tba.ba_schur_ut(v, W, p.obs_pt, ok, idx, P), ut)
+    assert torch.equal(tba.ba_schur_u(y, W, p.obs_pt, ok), u)
+
+
+def test_compact_points_keeps_every_live_point_in_order():
+    d = _problem(seed=6)
+    p = convert.ba_problem_from_numpy(d, "cpu")
+    pc, live = tba.compact_points(p)
+    n = live.numel()
+    np.testing.assert_array_equal(live.numpy(), np.nonzero(d["pt_valid"])[0])
+    assert pc.pt_pos.shape[0] == tba.POINT_BUCKET > n
+    assert pc.pt_valid[:n].all() and not pc.pt_valid[n:].any()
+    np.testing.assert_array_equal(pc.pt_pos[:n].numpy(),
+                                  d["pt_pos"][d["pt_valid"]])
+    np.testing.assert_array_equal(pc.pt_frozen[:n].numpy(),
+                                  d["pt_frozen"][d["pt_valid"]])
+    # every observation of a live point points at its compacted row
+    obs, obs_c = d["obs_pt"], pc.obs_pt.numpy()
+    live_obs = (obs >= 0) & d["pt_valid"][np.clip(obs, 0, None)]
+    np.testing.assert_array_equal(live.numpy()[obs_c[live_obs]],
+                                  obs[live_obs])
+    assert (obs_c[~live_obs] == -1).all()
+    whole = tba.ba_solve(p, TCAM, iters=4, cg_iters=30, dense_schur=False)
+    part = tba.ba_solve(pc, TCAM, iters=4, cg_iters=30, dense_schur=False)
+    np.testing.assert_allclose(part.kf_pose.numpy(), whole.kf_pose.numpy(),
+                               atol=1e-5)
+    np.testing.assert_allclose(part.pt_pos[:n].numpy(),
+                               whole.pt_pos[live].numpy(), atol=1e-5)
+    assert abs(float(part.final_cost) - float(whole.final_cost)) \
+        <= 1e-5 * float(whole.final_cost)
+
+
+def test_compact_points_raises_over_the_index_limit(monkeypatch):
+    p = convert.ba_problem_from_numpy(_problem(seed=6), "cpu")
+    n = int(p.pt_valid.sum())
+    monkeypatch.setattr(tba, "point_index_limit", lambda dev: n - 1)
+    with pytest.raises(ValueError, match="live points"):
+        tba.compact_points(p)
+    monkeypatch.setattr(tba, "point_index_limit", lambda dev: n)
+    pc, live = tba.compact_points(p)
+    assert pc.pt_pos.shape[0] == n and live.numel() == n
+
+
+def test_gba_scatter_back_leaves_dead_points():
+    from orb_slam2_refactored_tpu_torch.slam.loop_closing import LoopCloser
+    from orb_slam2_refactored_tpu_torch.slam.map_state import (
+        MapCapacity, empty_map)
+    from orb_slam2_refactored_tpu_torch.slam.vocabulary import Vocabulary
+
+    d = _problem(seed=8, K=6, P=200, N=120)
+    K, N = d["obs_pt"].shape
+    m = empty_map(MapCapacity(K, 256, N), "cpu")
+    m.kf_pose[:] = torch.as_tensor(d["kf_pose"])
+    m.kf_valid[:] = True
+    m.kf_xy[:] = torch.as_tensor(d["obs_uv"])
+    m.kf_uright[:] = torch.as_tensor(d["obs_ur"])
+    m.kf_mp[:] = torch.as_tensor(d["obs_pt"])
+    m.mp_pos[:200] = torch.as_tensor(d["pt_pos"])
+    m.mp_valid[:200] = torch.as_tensor(d["pt_valid"])
+    m.mp_pos[200:] = 7.0
+    voc = Vocabulary(words=torch.zeros((4, 8), dtype=torch.int32),
+                     idf=torch.ones(4))
+    lc = LoopCloser(voc, TCAM, K, n_levels=1, gba_iters=3, gba_cg_iters=20)
+    free = torch.ones(K, dtype=torch.bool)
+    free[0] = False
+    pose, pts, _, c0, c1 = lc._gba_impl(m, free)
+    assert float(c1) < float(c0)
+    dead = ~m.mp_valid
+    assert torch.equal(pts[dead], m.mp_pos[dead])
+    assert not torch.equal(pts[m.mp_valid], m.mp_pos[m.mp_valid])
+    np.testing.assert_array_equal(pose[0].numpy(), d["kf_pose"][0])

@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain versions, on the card: K1 (in its
 three gate modes), K2 and K3 (on one level and on a whole pyramid in one
-call), K4 (pose LM), K5 (BA assembly and cost) and B9 (the stereo SAD
+call), K4 (pose LM), K5 (BA assembly and cost, both modes), K6 (the
+reduced-camera product of CG BA) and B9 (the stereo SAD
 refinement alone, and the whole stereo association after K1 in one
 launch), and the BoW vocabulary on K1 (quantization, training,
 compute_bow).
@@ -308,14 +309,16 @@ def test_pose_lm_kernel_at_any_observation_count(n):
         ref.final_cost)
 
 
-def _ba_problem(seed=0, K=32, P=1500, N=1000, Q=2048):
+def _ba_problem(seed=0, K=32, P=1500, N=1000, Q=2048, turn=0.01):
     """A window BA at the main path's shapes: 32 keyframes (6 fixed, 2
-    padding rows), 1000 feature slots each, points in a 2048 bucket."""
+    padding rows), 1000 feature slots each, points in a 2048 bucket; each
+    keyframe turns `turn` rad and moves 5 `turn` m from the last."""
     g = np.random.default_rng(seed)
     pts = torch.from_numpy(np.stack([g.uniform(-2, 2, Q), g.uniform(-1.5, 1.5, Q),
                                      g.uniform(3, 8, Q)], -1).astype(np.float32))
     poses = se3.exp(torch.from_numpy(np.stack(
-        [[0, 0.01 * k, 0, 0.05 * k, 0, 0] for k in range(K)]).astype(np.float32)))
+        [[0, turn * k, 0, 5 * turn * k, 0, 0] for k in range(K)]).astype(
+            np.float32)))
     obs_pt = np.full((K, N), -1, np.int32)
     for k in range(K - 2):
         sel = g.permutation(P)[:N]
@@ -470,6 +473,102 @@ def test_k5_point_major_assembly(name):
     assert torch.equal(chi2, chi2_2)
     rc, rchi2 = ba.ba_cost_plain(*args)
     assert close(cost.reshape(1), rc.reshape(1)) and close(chi2, rchi2)
+
+
+@pytest.mark.parametrize("name", ["q2048", "w40", "global"])
+def test_k5_w_obs_and_k6_match_plain(name):
+    """K5's `w_obs` mode: Hpp, g_p and Hll|g_l bit-equal to the dense
+    mode's launch, W_obs within 1e-4 x its largest entry of the plain
+    version and zero on dead slots, two calls bit-equal. K6: `ba_schur_mv`
+    within 1e-5 x the larger term's magnitude of its plain version (or no
+    further from the product in f64 than twice the plain version: the two
+    terms cancel), `ba_schur_u` and `ba_schur_ut` within 1e-5 of theirs,
+    bit-equal on a second call, and 2 / 1 / 1 launches. "global" is a whole-map shape: 128 keyframes x 1000
+    slots over 20000 points."""
+    dev = _card()
+    # the whole map: slower turns, so that every point stays in front
+    p = _ba_problem(7, K=128, P=20000, Q=20000, turn=0.002) \
+        if name == "global" else _k5_case(name)
+    p = ba.BAProblem(*(t.to(dev) for t in p))
+    Q = p.pt_pos.shape[0]
+    obs_ok = (p.obs_pt >= 0) & p.pt_valid[p.obs_pt.clamp(0, Q - 1).long()]
+    idx = ba.ba_point_index(p.obs_pt, obs_ok, Q)
+    args = (p.kf_pose, p.pt_pos, p, obs_ok, CAM, True)
+    before = kernels.counts()
+    out = ba.ba_assemble(*args, index=idx, w_obs=True)
+    again = ba.ba_assemble(*args, index=idx, w_obs=True)
+    assert kernels.counts()["ba_assemble_w_obs"] == \
+        before["ba_assemble_w_obs"] + 2
+    dense = ba.ba_assemble(*args, index=idx) if Q * p.obs_pt.shape[0] \
+        <= 2 ** 22 else None
+    ref = ba.ba_assemble_plain(*args, w_obs=True)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    if dense is not None:
+        assert all(torch.equal(a, b) for a, b in zip(out[:3], dense[:3]))
+    W = out[3]
+    assert (W - ref[3]).abs().max() <= 1e-4 * ref[3].abs().max()
+    assert not W[~obs_ok.reshape(-1)].any()
+    K = p.obs_pt.shape[0]
+    g = torch.Generator(device=dev).manual_seed(0)
+    Hpp_d = out[0] + 1e-3 * torch.eye(6, device=dev)
+    Hll = out[2][:, :9].reshape(Q, 3, 3) + 1e-3 * torch.eye(3, device=dev)
+    G = ba._inv3x3(Hll)
+    v = torch.randn((K, 6), generator=g, device=dev)
+    y = torch.randn((Q, 3), generator=g, device=dev)
+    free = ~p.kf_fixed
+    before = kernels.counts()["ba_schur_mv"]
+    mv = ba.ba_schur_mv(v, free, Hpp_d, G, W, p.obs_pt, obs_ok, idx)
+    u = ba.ba_schur_u(y, W, p.obs_pt, obs_ok)
+    ut = ba.ba_schur_ut(v, W, p.obs_pt, obs_ok, idx, Q)
+    assert kernels.counts()["ba_schur_mv"] == before + 4
+    assert torch.equal(mv, ba.ba_schur_mv(v, free, Hpp_d, G, W, p.obs_pt,
+                                          obs_ok, idx))
+    mv_r = ba.ba_schur_mv_plain(v, free, Hpp_d, G, W, p.obs_pt, obs_ok)
+    u_r = ba.ba_schur_u_plain(y, W, p.obs_pt, obs_ok)
+    ut_r = ba.ba_schur_ut_plain(v, W, p.obs_pt, obs_ok, Q)
+    hv = torch.einsum("kij,kj->ki", Hpp_d, v).abs().max()
+    # S v = Hpp_d v - U G U^T v cancels: where the kernel is not within
+    # 1e-5 of the larger term, it lies no further from the same product in
+    # f64 than twice the plain version does
+    mv_e = ba.ba_schur_mv_plain(v.double(), free, Hpp_d.double(),
+                                G.double(), W.double(), p.obs_pt, obs_ok)
+    e_k = float((mv.double() - mv_e).abs().max())
+    e_p = float((mv_r.double() - mv_e).abs().max())
+    assert e_k <= max(1e-5 * max(float(hv), float(mv_r.abs().max())),
+                      2 * e_p), (e_k, e_p)
+    assert (u - u_r).abs().max() <= 1e-5 * u_r.abs().max()
+    assert (ut - ut_r).abs().max() <= 1e-5 * ut_r.abs().max()
+    assert not mv[~free].any()
+
+
+def test_cg_ba_with_kernels_matches_plain(monkeypatch):
+    """The CG solve with K5 (`w_obs`) and K6 against the same solve with
+    the plain assembly and products, both on the card (torch's
+    deterministic mode for the plain scatter): poses within 1e-3 m /
+    1e-3 rad, final costs within 1e-3 relative; 2 x 20 + 2 K6 launches an
+    LM iteration."""
+    dev = _card()
+    p = ba.BAProblem(*(t.to(dev) for t in _ba_problem(8)))
+    p = p._replace(pt_frozen=None)
+    before = kernels.counts()["ba_schur_mv"]
+    out = ba.ba_solve(p, CAM, iters=3, cg_iters=20, dense_schur=False)
+    assert kernels.counts()["ba_schur_mv"] == before + 3 * (2 * 20 + 2)
+    for n in ("ba_assemble", "ba_cost", "ba_schur_mv", "ba_schur_u",
+              "ba_schur_ut"):
+        monkeypatch.setattr(ba, n, getattr(ba, n + "_plain")
+                            if n != "ba_schur_ut" else
+                            (lambda v, W, pt, ok, idx, Q:
+                             ba.ba_schur_ut_plain(v, W, pt, ok, Q)))
+    torch.use_deterministic_algorithms(True)
+    try:
+        ref = ba.ba_solve(p, CAM, iters=3, cg_iters=20, dense_schur=False)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    d = se3.log(se3.compose(out.kf_pose, se3.inverse(ref.kf_pose))).cpu()
+    assert d[:, :3].abs().max() <= 1e-3 and d[:, 3:].abs().max() <= 1e-3
+    assert abs(float(out.final_cost) - float(ref.final_cost)) <= 1e-3 * \
+        float(ref.final_cost)
+    assert float(out.final_cost) < float(out.initial_cost)
 
 
 VGA_SHAPES = image_ops.pyramid_shapes(480, 640, 8, 1.2)

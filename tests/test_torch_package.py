@@ -54,7 +54,8 @@ def test_every_kernel_source_exists():
         assert os.path.exists(os.path.join(kernels.CSRC_DIR, src)), name
     assert set(kernels.LAUNCHES) == {"hamming_best2", "fast", "orb_desc",
                                      "pose_lm", "ba_point_index",
-                                     "ba_assemble", "ba_cost", "stereo_sad"}
+                                     "ba_assemble", "ba_cost", "stereo_sad",
+                                     "ba_assemble_w_obs", "ba_schur_mv"}
 
 
 def test_empty_frame_and_scale_tables_match_jax():
@@ -78,7 +79,6 @@ def _cfg(**kw):
 
 @pytest.mark.parametrize("setting", [
     dict(pipelined=True), dict(enable_local_ba=True, pipelined=True),
-    dict(enable_loop_closing=True), dict(local_map_window=4),
     dict(local_ba_cg_iters=30),
     dict(depth_encoding="log8"), dict(image_encoding="dct"),
     dict(descriptor_pattern="learned"),
@@ -123,3 +123,4 @@ def test_lost_frame_without_an_index_stays_lost():
     assert t.state == TrackState.LOST and t.loop_closer is None
     assert t.track_info[-1] == {"reloc": False, "lost": True}
     assert t.traj_entries[-1]["lost"] and pose.shape == (7,)
+
