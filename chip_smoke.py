@@ -67,27 +67,35 @@ Phases (any failure raises and the script exits non-zero):
     and by the plain path bit-equal to the tracker's, and `compute_bow`
     equal to its plain version; on cell F's first global BA (its problem
     holds every live point of the 32768-point map), K5's `w_obs` mode
-    against its plain version, K6 against `ba_schur_mv_plain` on every CG
-    iteration of one LM iteration, the whole global BA with K5 and K6
-    against the plain global BA, and the loop's pose-graph solve on the
+    against its plain version (its live rows through the point index) and
+    its dense mode, the fused CG (K6) against `cg_solve_plain` in f64 on
+    every LM iteration of the global BA (beside it the f32 CG's own spread
+    under relabeled keyframes and tf32 and bf16 controls, which the
+    yardstick must tell), the whole global BA with K5 and
+    K6 against the plain global BA, and the loop's pose-graph solve on the
     card against the same solve on the CPU.
  5. torch.profiler windows, after every agreement check: K2's and K3's
     device time on frame 0, K1's and K4's on the recorded tracked frame's
     calls, K5's on the recorded window BA, B9's (and its wrapper's host
     time), the whole association's (no copy to or from the host in it) and
     the stereo K1 call's on the recorded stereo frame; each stage of cell
-    (d)'s relocalization; K6's and K5 `w_obs`'s device time a call, the
-    whole global BA's and the pose graph's device time and operations, and
-    K6's bound; K4's time split into passes
+    (d)'s relocalization; K6's and K5 `w_obs`'s device time a call and
+    their bounds, K6's barrier floor (its launch with empty phases), the
+    whole global BA's and the pose graph's device time and operations,
+    and the pose graph's bound (its operations counted from its shapes);
+    K4's time split into passes
     and LM iterations (the same calls without iterations) and one
     iteration on no observation;
     extraction with the rank rounds in K2 against extraction with the
     plain rank rounds on the card, on the same 20 frames; with --profile, a
-    frame's time broken down; with --parent DIR, K1, K4, K5 and B9 against
-    the kernels of the checkout in DIR on the same recorded arguments
-    (outputs, then device times in turns: parent, change, change, parent;
-    for B9 the parent's torch chain after K1 around its launch against the
-    one launch, also in CUDA-event time).
+    frame's time broken down; with --parent DIR, K1, K4, K5, B9 and K6
+    against the kernels of the checkout in DIR on the same recorded
+    arguments (outputs, then device times and CUDA-event times in turns:
+    parent, change, change, parent; K4's iteration on no observation; for
+    B9 the parent's torch chain after K1 around its launch against the one
+    launch, and for K6 the parent's whole CG step against the one launch;
+    cell F's whole global BA, parent against change, in device time,
+    operations and host time).
 The line before the last is a JSON object with one entry per kernel; the
 last line is `{"ok": true, "device": {...}}`.
 """
@@ -96,6 +104,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import inspect
 import json
 import math
@@ -136,7 +145,7 @@ RELOAD_VIEW = 40
 CIRCUIT_FRAMES = 170
 LOOP_ATE_M = 0.06
 # the global BA's kernels: they launch only where a loop closes
-LOOP_KERNELS = ("ba_assemble_w_obs", "ba_schur_mv")
+LOOP_KERNELS = ("ba_assemble_w_obs", "ba_schur_cg")
 # host seconds between a profiler window's edges and its launches
 GUARD_S = 0.005
 
@@ -831,6 +840,18 @@ def k5_agrees(name, k, r, exact, cancels=False):
         name
 
 
+@contextlib.contextmanager
+def deterministic():
+    """Torch's deterministic algorithms inside the block (warnings only
+    where an op has none); the previous setting restored on exit."""
+    det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(det)
+
+
 def check_ba(asm_call, solve_call):
     """K5 against its plain version on the first LM iteration of one window
     BA of the main path, at its real point bucket: the point index equal
@@ -905,13 +926,11 @@ def check_ba(asm_call, solve_call):
     # others (1.6e-6 or 1.19e-4 m from the kernel's, f64 costs within 3e-7
     # relative). Torch's deterministic mode gives it one order, so the
     # reference is the same in every run.
-    det = torch.are_deterministic_algorithms_enabled()
-    torch.use_deterministic_algorithms(True, warn_only=True)
     try:
-        res_p = ba.ba_solve(**sa)
+        with deterministic():
+            res_p = ba.ba_solve(**sa)
     finally:
         ba.ba_assemble, ba.ba_cost = real
-        torch.use_deterministic_algorithms(det)
     d = se3.log(se3.compose(res_k.kf_pose, se3.inverse(res_p.kf_pose)))
     rot, trans = float(d[:, :3].abs().max()), float(d[:, 3:].abs().max())
     inl = float((res_k.obs_inlier == res_p.obs_inlier).float().mean())
@@ -1759,7 +1778,7 @@ def device_times_k5(asm_call, index_r, asm_r, cost_r, reps=20):
 
 
 # ---------------------------------------------------------------------------
-# --parent: K1, K4, K5 and B9 against the parent commit's kernels
+# --parent: K1, K4, K5, B9 and K6 against the parent commit's kernels
 # ---------------------------------------------------------------------------
 
 def build_parent(parent):
@@ -1767,9 +1786,10 @@ def build_parent(parent):
     the package `parent_port` with its kernels built from its own sources
     (all at once, into its own `build/torch_kernels/`); its wrappers bind
     each kernel with its own C signature. Returns its K1, K4 and K5
-    entries, and its B9 chain after K1 with `associate_from_best2`'s
+    entries, its B9 chain after K1 with `associate_from_best2`'s
     signature: `stereo_match`'s torch tail (unchanged since), then the
-    parent's `refine_subpixel_pyramid`."""
+    parent's `refine_subpixel_pyramid`; and its `optim/ba.py` (its CG step
+    `_cg_step` around its two-launch K6, its `ba_solve`)."""
     import importlib
     import importlib.util
     import os
@@ -1797,38 +1817,168 @@ def build_parent(parent):
             levels_l, levels_r, l_xy, l_level, u, ok, bf, scale_factors)
 
     return (old_hamming.masked_best2_gated, old_pose.pose_optimize,
-            old_ba.ba_assemble, old_ba.ba_cost, parent_b9)
+            old_ba.ba_assemble, old_ba.ba_cost, parent_b9, old_ba)
 
 
-def in_turns(label, calls, fns, reps=20, card=False):
-    """Device time (with `card`, CUDA-event time) of the recorded `calls`
-    through each of `fns` (name -> callable), in the order parent, change,
-    change, parent."""
+def in_turns(label, calls, fns, reps=20):
+    """CUDA-event time over `reps` runs of the recorded `calls` through
+    each of `fns` (name -> callable), in the order parent, change, change,
+    parent."""
     order = list(fns) + list(fns)[::-1]
     ms = {name: [] for name in fns}
     for name in order:
         fn = fns[name]
-
-        def run():
-            return [fn(**a) for a in calls.values()]
-        ms[name].append(cuda_time_ms(run, reps) if card
-                        else profiled_ms(run, reps)[0])
+        ms[name].append(cuda_time_ms(
+            lambda: [fn(**a) for a in calls.values()], reps))
     print(f"in turns, {label}: " + json.dumps(ms))
     return ms
 
 
-def compare_with_parent(parent, frame_k1, dense_k1, frame_k4, fb_k4,
-                        asm_call, st_tail, device):
-    """K1, K4, K5 and B9 against the parent checkout's on the same recorded
-    arguments: outputs (K1 and B9 exactly; K4 bit for bit, reported; K5's
-    largest difference, reported), then device times in turns, K4's
-    iteration on no observation, and for B9 the parent's chain after K1
-    (its torch tail around its launch) against the one launch, in device
-    time and in CUDA-event time."""
+def parent_cg_args(old_ba, c):
+    """The parent's CG step's (`_cg_step`) arguments for a recorded
+    `ba_schur_cg` call `c`: W_obs in the slot layout and the index's first
+    two fields."""
+    import types
+
+    from orb_slam2_refactored_tpu_torch.optim import ba
+
+    live = c["W_obs"]
+    return dict(p=types.SimpleNamespace(obs_pt=c["obs_pt"]), Hpp_d=c["Hpp_d"],
+                g_p=c["g_p"], g_l=c["g_l"], G=c["G"],
+                W_obs=ba.w_obs_slot_rows(live), obs_ok0=c["obs_ok"],
+                free=c["free"], index=old_ba.PointIndex(live.index.offsets,
+                                                        live.index.slots),
+                cg_iters=c["cg_iters"])
+
+
+# what `time_side` times: job -> (the entry's name in `side_entries`,
+# one-call windows)
+SIDE_JOBS = {"k1_frame": ("k1", False), "k1_dense": ("k1", False),
+             "k4_frame": ("k4", False), "k5_ba_assemble": ("asm", False),
+             "k5_ba_cost": ("cost", False), "b9": ("b9", False),
+             "k6": ("cg", True), "gba": ("solve", True)}
+
+
+def side_entries(side, parent):
+    """One side's entries (`--parent`): this checkout's, or the parent's
+    (`build_parent`); every kernel library of that side loaded. For K6,
+    a recorded `ba_schur_cg` call's arguments and the entry that takes
+    them."""
+    from orb_slam2_refactored_tpu_torch import kernels
     from orb_slam2_refactored_tpu_torch.ops import hamming, stereo
     from orb_slam2_refactored_tpu_torch.optim import ba, pose_opt
 
-    old_k1, old_k4, old_asm, old_cost, old_b9 = build_parent(parent)
+    if side == "change":
+        for name in kernels.SOURCES:
+            kernels.load(name)
+        return {"k1": hamming.masked_best2_gated, "k4": pose_opt.pose_optimize,
+                "asm": ba.ba_assemble, "cost": ba.ba_cost,
+                "b9": stereo.associate_from_best2, "cg": ba.ba_schur_cg,
+                "cg_args": lambda c: c, "solve": ba.ba_solve}
+    old_k1, old_k4, old_asm, old_cost, old_b9, old_ba = build_parent(parent)
+    old_kernels = sys.modules["parent_port.kernels"]
+    for name in old_kernels.SOURCES:
+        old_kernels.load(name)
+    return {"k1": old_k1, "k4": old_k4, "asm": old_asm, "cost": old_cost,
+            "b9": old_b9, "cg": old_ba._cg_step,
+            "cg_args": lambda c: parent_cg_args(old_ba, c),
+            "solve": old_ba.ba_solve}
+
+
+def time_side(side, parent, jobs_path):
+    """`--time-side`: the device time and device operations of each job in
+    `jobs_path` (`SIDE_JOBS`: name -> recorded calls) through one side's
+    entries alone, in this process, every job run once before the first
+    profiler window; K4's iteration on no observation; the global BA's
+    host time. Prints them as the last line."""
+    device = torch.device("cuda:0")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    f = side_entries(side, parent)
+    jobs = torch.load(jobs_path, weights_only=False)
+    if "k6" in jobs:
+        jobs["k6"] = {n: f["cg_args"](c) for n, c in jobs["k6"].items()}
+    runs = {}
+    for key, calls in jobs.items():
+        fn = f[SIDE_JOBS[key][0]]
+        runs[key] = (lambda fn=fn, calls=calls:
+                     [fn(**a) for a in calls.values()])
+        runs[key]()
+    torch.cuda.synchronize()
+    out = {}
+    for key, run in runs.items():
+        try:
+            if SIDE_JOBS[key][1]:
+                ms, n_ops, _, _ = profiled_solve(run)
+            else:
+                ops = []
+                ms, _ = profiled_ms(run, 20, ops)
+                n_ops = ops[0]
+            out[key] = {"device_ms": ms, "ops": n_ops}
+        except RuntimeError as e:
+            print(f"  {side} {key}: device time not measured ({e})")
+            out[key] = None
+    t0 = time.perf_counter()
+    runs["gba"]()
+    torch.cuda.synchronize()
+    out["gba_host_ms"] = (time.perf_counter() - t0) * 1e3
+    out["k4_iteration_us"] = k4_iteration_ms(f["k4"], device) * 1e3
+    print(json.dumps(out))
+
+
+def device_times_in_turns(parent, jobs):
+    """Device time and operations of `jobs` (`SIDE_JOBS`) through each
+    side, each side in a process of its own (`--time-side`), in the order
+    parent, change, change, parent: in one process with both sides'
+    kernels loaded, every profiler window lost a few launches on the H100
+    (36 of 40 K1 launches, 136 of 140, 16 of 20), of either side, with any
+    margin."""
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(parent)),
+                        "parent_jobs.pt")
+    torch.save(jobs, path)
+    res = {}
+    try:
+        for side in ("parent", "change", "change", "parent"):
+            t0 = time.perf_counter()
+            done = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--time-side",
+                 side, "--jobs", path, "--parent", parent],
+                capture_output=True, text=True, timeout=900)
+            lines = done.stdout.strip().splitlines()
+            for line in lines[:-1]:
+                print(f"  [{side}] {line}")
+            if done.returncode != 0:
+                print(done.stderr[-3000:])
+                raise RuntimeError(f"--time-side {side}: rc "
+                                   f"{done.returncode}")
+            print(f"  [{side}] took {time.perf_counter() - t0:.1f} s")
+            for key, v in json.loads(lines[-1]).items():
+                res.setdefault(key, {"parent": [], "change": []})[
+                    side].append(v)
+    finally:
+        os.remove(path)
+    print("in turns, each side in a process of its own: " + json.dumps(res))
+    return res
+
+
+def compare_with_parent(parent, frame_k1, dense_k1, frame_k4, fb_k4,
+                        asm_call, st_tail, k6_calls, gba_call):
+    """K1, K4, K5, B9 and K6 against the parent checkout's on the same
+    recorded arguments: outputs (K1 and B9 exactly; K4 bit for bit,
+    reported; K5's largest difference, reported; K6 under the f64
+    yardstick), CUDA-event times in turns in this process, then
+    (`device_times_in_turns`) device times and operations, K4's iteration
+    on no observation and cell F's whole global BA (device time,
+    operations, host time), each side in a process of its own: for B9 the
+    parent's chain after K1 (its torch tail around its launch) against
+    the one launch, for K6 the parent's whole CG step against the one
+    launch."""
+    from orb_slam2_refactored_tpu_torch.ops import hamming, stereo
+    from orb_slam2_refactored_tpu_torch.optim import ba, pose_opt
+
+    old_k1, old_k4, old_asm, old_cost, old_b9, old_ba = build_parent(parent)
     for name, a in {**frame_k1, **dense_k1}.items():
         same = all(torch.equal(x, y) for x, y in zip(
             hamming.masked_best2_gated(**a), old_k1(**a)))
@@ -1844,44 +1994,56 @@ def compare_with_parent(parent, frame_k1, dense_k1, frame_k4, fb_k4,
               f"parent's K4 {same}; cost {float(k.final_cost)!r} vs "
               f"{float(o.final_cost)!r}")
     res = {"k4_bit_equal_calls": f"{n_bits} of {len(k4_calls)}"}
-    res["k1_frame_ms"] = in_turns(
-        "K1 on the tracked frame's calls", frame_k1,
-        {"parent": old_k1, "change": hamming.masked_best2_gated})
-    res["k1_dense_ms"] = in_turns(
-        "K1 on the dense calls (fallback, triangulation)", dense_k1,
-        {"parent": old_k1, "change": hamming.masked_best2_gated})
-    res["k4_frame_ms"] = in_turns(
-        "K4 on the tracked frame's calls", frame_k4,
+    k1_fns = {"parent": old_k1, "change": hamming.masked_best2_gated}
+    res["k1_frame_card_ms"] = in_turns(
+        "K1 on the tracked frame's calls, CUDA events", frame_k1, k1_fns)
+    res["k1_dense_card_ms"] = in_turns(
+        "K1 on the dense calls (fallback, triangulation), CUDA events",
+        dense_k1, k1_fns)
+    res["k4_frame_card_ms"] = in_turns(
+        "K4 on the tracked frame's calls, CUDA events", frame_k4,
         {"parent": old_k4, "change": pose_opt.pose_optimize})
-    it_us = {"parent": [], "change": []}
-    for who, fn in (("parent", old_k4), ("change", pose_opt.pose_optimize),
-                    ("change", pose_opt.pose_optimize), ("parent", old_k4)):
-        it_us[who].append(k4_iteration_ms(fn, device) * 1e3)
-    res["k4_iteration_us"] = it_us
-    cost_call = {n: v for n, v in asm_call.items() if n != "index"}
+    cost_call = {n: v for n, v in asm_call.items()
+                 if n not in ("index", "w_obs")}
     for name, new_fn, old_fn, a in (
             ("ba_assemble", ba.ba_assemble, old_asm, asm_call),
             ("ba_cost", ba.ba_cost, old_cost, cost_call)):
         rel = [_rel_err(x, y) for x, y in zip(new_fn(**a), old_fn(**a))]
         print(f"  K5 {name}: largest difference from the parent's, relative "
               f"to each array's largest magnitude: {rel}")
-        res[f"k5_{name}_ms"] = in_turns(
-            f"K5 {name} on the recorded window BA's first LM iteration",
-            {name: a}, {"parent": old_fn, "change": new_fn})
+        res[f"k5_{name}_card_ms"] = in_turns(
+            f"K5 {name} on the recorded window BA's first LM iteration, "
+            "CUDA events", {name: a}, {"parent": old_fn, "change": new_fn})
     same = [bool(torch.equal(x, y)) for x, y in zip(
         stereo.associate_from_best2(**st_tail), old_b9(**st_tail))]
-    old_ops = []
-    _, old_rows = profiled_ms(lambda: old_b9(**st_tail), 20, old_ops)
     print(f"  B9: (u_right, depth, ok) equal to the parent's chain after K1 "
-          f"{same}; the parent's chain makes {old_ops[0]:g} device "
-          f"operations a call: {old_rows}")
+          f"{same}")
     assert all(same), same
-    fns = {"parent": old_b9, "change": stereo.associate_from_best2}
-    res["b9_device_ms"] = in_turns(
-        "B9, the stereo association after K1 on the recorded stereo frame",
-        {"b9": st_tail}, fns)
     res["b9_card_ms"] = in_turns(
-        "B9, the same, CUDA events", {"b9": st_tail}, fns, card=True)
+        "B9, the stereo association after K1 on the recorded stereo frame, "
+        "CUDA events", {"b9": st_tail},
+        {"parent": old_b9, "change": stereo.associate_from_best2})
+    par = {}
+    for i, c in enumerate(k6_calls):
+        pa = parent_cg_args(old_ba, c)
+        yard, _, _ = cg_yardstick({"change": ba.ba_schur_cg(**c),
+                                   "parent": old_ba._cg_step(**pa)},
+                                  {**c, "W_obs": pa["W_obs"]})
+        par[i] = {n: (e_k / scale, e_p / scale)
+                  for n, (e_k, e_p, scale) in yard.items()}
+    print("  K6: each CG solve's largest difference from the plain solve in "
+          "f64, relative to its largest magnitude (the side's, the f32 "
+          "plain version's): " + json.dumps(par))
+    c0 = k6_calls[0]
+    res["k6_card_ms"] = in_turns(
+        "K6, an LM iteration's CG solve of cell F's first global BA, CUDA "
+        "events", {"k6": {"pa": parent_cg_args(old_ba, c0), "c": c0}},
+        {"parent": lambda **a: old_ba._cg_step(**a["pa"]),
+         "change": lambda **a: ba.ba_schur_cg(**a["c"])})
+    res["device"] = device_times_in_turns(parent, {
+        "k1_frame": frame_k1, "k1_dense": dense_k1, "k4_frame": frame_k4,
+        "k5_ba_assemble": {"a": asm_call}, "k5_ba_cost": {"a": cost_call},
+        "b9": {"b9": st_tail}, "k6": {"k6": c0}, "gba": {"gba": gba_call}})
     print("against the parent " + json.dumps(res))
     return res
 
@@ -2047,19 +2209,168 @@ def gate_loop_cell(on, off):
     assert on["ate_m"] < LOOP_ATE_M, (cell, on["ate_m"])
 
 
+# the fused CG's yardstick: the plain solve in f64; the kernel may lie at
+# most CG_FACTOR times as far from it as the f32 plain solve does, plus
+# CG_FLOOR of the f64 result's largest magnitude. The floor stands for the
+# f32 CG's own spread, which one f32 run does not show: `cg_readings`
+# reads it on every LM iteration as the plain solve with its keyframes
+# relabeled (the same sums in CG_RELABELS other orders). On cell F's
+# first global BA on the H100 that spread reached 1.6e-4 of max |f64| in
+# U^T dp where the plain solve read 2.3e-5 (and twice the bound on
+# another iteration), while the plain solve on inputs rounded to tf32 or
+# bf16 lay 0.4 to 69 times max |f64| away: the system amplifies input
+# rounding ~2000-fold, so CG_FLOOR sits inside f32's spread and far below
+# any lower precision
+CG_FACTOR = 2.0
+CG_FLOOR = 1e-4
+CG_RELABELS = 4
+
+
+def cg_yardstick(outs, plain_args):
+    """For each output (dp, U^T dp) of `outs` (a call's (x, ut), or several
+    such, named): its largest difference from `cg_solve_plain` in f64 on
+    `plain_args` (W_obs in the slot layout), against the f32 plain
+    version's. Returns {name: (e_kernel, e_plain, f64 scale)} for each of
+    outs' entries, the plain f32 result and the f64 one."""
+    from orb_slam2_refactored_tpu_torch.optim import ba
+
+    # the plain scatter (`index_add_`) sums with float atomics on the card;
+    # deterministic mode gives it one order, so the f32 plain version's
+    # distance from f64 (the yardstick) is the same in every run: without
+    # it, one LM iteration's U^T dp moved from 8.6e-5 to 1.3e-5 of its
+    # largest magnitude between two runs on the H100
+    with deterministic():
+        ref = ba.cg_solve_plain(**plain_args)
+        exact = ba.cg_solve_plain(**{n: _f64(v)
+                                     for n, v in plain_args.items()})
+    res = {}
+    for who, out in outs.items():
+        for name, k, r, e in zip(("dp", "ut"), out, ref, exact):
+            res[f"{who} {name}"] = (float((k.double() - e).abs().max()),
+                                    float((r.double() - e).abs().max()),
+                                    float(e.abs().max()))
+    return res, ref, exact
+
+
+def relabeled_plain(plain_args, perm):
+    """`cg_solve_plain` on the same system with its keyframes relabeled by
+    `perm`: the same sums in other orders; dp in the original labels."""
+    from orb_slam2_refactored_tpu_torch.optim import ba
+
+    a = dict(plain_args)
+    K, N = a["obs_pt"].shape
+    for n in ("Hpp_d", "g_p", "obs_pt", "obs_ok", "free"):
+        a[n] = a[n][perm]
+    a["W_obs"] = a["W_obs"].reshape(K, N, 18)[perm].reshape(K * N, 18)
+    x, ut = ba.cg_solve_plain(**a)
+    out = torch.empty_like(x)
+    out[perm] = x
+    return out, ut
+
+
+def mantissa(v, bits):
+    """An f32 tensor `v` rounded to nearest at `bits` mantissa bits (10:
+    tf32's, 7: bf16's); any other value unchanged."""
+    if not (isinstance(v, torch.Tensor) and v.dtype == torch.float32):
+        return v
+    drop = 23 - bits
+    i = v.contiguous().view(torch.int32)
+    return ((i + (1 << (drop - 1))) & ~((1 << drop) - 1)).view(torch.float32)
+
+
+def cg_readings(calls, device):
+    """On each recorded `ba_schur_cg` call: the fused CG against the f64
+    yardstick (`cg_yardstick`) and two calls bit-equal; beside it the f32
+    CG's own spread (the largest difference from f64 of the plain solve
+    with its keyframes relabeled, `relabeled_plain`), the lower-precision
+    controls (the plain solve on inputs rounded to tf32 and to bf16) and
+    where the kernel's U^T dp gap comes from: U^T of the kernel's own dp in
+    f64 against the kernel's U^T dp (the back-substitution's rounding) and
+    against the f64 U^T dp (carried from dp). Fails unless the kernel
+    meets the bound on every call and the bf16 control misses it on one."""
+    from orb_slam2_refactored_tpu_torch.optim import ba
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(0)
+    K = calls[0]["obs_pt"].shape[0]
+    perms = [torch.randperm(K, generator=gen).to(device)
+             for _ in range(CG_RELABELS)]
+    k6_err, worst = 0.0, {}
+    for i, c in enumerate(calls):
+        out = ba.ba_schur_cg(**c)
+        assert all(torch.equal(x, y) for x, y in zip(out,
+                                                     ba.ba_schur_cg(**c)))
+        plain_args = {**c, "W_obs": ba.w_obs_slot_rows(c["W_obs"])}
+        # readings, not the yardstick: torch's own (atomic) sum orders are
+        # more of the spread, and in deterministic mode these readings
+        # took 68 s of a run on the H100
+        others = {f"relabeled{j}": relabeled_plain(plain_args, pm)
+                  for j, pm in enumerate(perms)}
+        for tag, bits in (("tf32", 10), ("bf16", 7)):
+            others[tag] = ba.cg_solve_plain(**{
+                n: mantissa(v, bits) for n, v in plain_args.items()})
+        yard, ref, exact = cg_yardstick({"kernel": out, **others},
+                                        plain_args)
+        k6_err = max(k6_err, *(float((x - y).abs().max())
+                               for x, y in zip(out, ref)))
+        ut_of_dp = ba.ba_schur_ut_plain(
+            out[0].double(), plain_args["W_obs"].double(), c["obs_pt"],
+            c["obs_ok"], c["G"].shape[0])
+        for name in ("dp", "ut"):
+            e_k, e_p, scale = yard[f"kernel {name}"]
+            bound = CG_FACTOR * e_p + CG_FLOOR * scale
+            read = {"kernel": e_k / bound,
+                    "relabeled": max(yard[f"relabeled{j} {name}"][0]
+                                     for j in range(CG_RELABELS)) / bound,
+                    "tf32": yard[f"tf32 {name}"][0] / bound,
+                    "bf16": yard[f"bf16 {name}"][0] / bound}
+            for who, r in read.items():
+                worst[f"{who} {name}"] = max(worst.get(f"{who} {name}", 0.0),
+                                             r)
+            line = (f"    LM iteration {i} {name}: kernel {e_k / scale:.3g}, "
+                    f"plain f32 {e_p / scale:.3g}, relabeled up to "
+                    f"{read['relabeled'] * bound / scale:.3g}, tf32 inputs "
+                    f"{read['tf32'] * bound / scale:.3g}, bf16 inputs "
+                    f"{read['bf16'] * bound / scale:.3g} of max |f64| "
+                    f"{scale:.4g}; kernel {read['kernel']:.3g} of the bound")
+            if name == "ut":
+                e_bs = float((out[1].double() - ut_of_dp).abs().max())
+                e_dp = float((ut_of_dp - exact[1]).abs().max())
+                line += (f"; U^T of the kernel's dp in f64: from the "
+                         f"kernel's U^T dp {e_bs / scale:.3g}, from f64's "
+                         f"{e_dp / scale:.3g}")
+            print(line)
+    print(f"  K6 ba_schur_cg on the {len(calls)} LM iterations of the global "
+          f"BA: largest share of the yardstick's bound {json.dumps(worst)} "
+          f"(bound {CG_FACTOR} x the f32 plain version's difference from "
+          f"f64 + {CG_FLOOR} x max |f64|); two calls bit-equal; largest "
+          f"difference from the f32 plain version {k6_err:.3g}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    assert max(worst["kernel dp"], worst["kernel ut"]) <= 1.0, worst
+    # the yardstick tells a solve at bf16's precision
+    assert max(worst["bf16 dp"], worst["bf16 ut"]) > 1.0, worst
+    return k6_err
+
+
 def check_gba(rec, device):
     """Phase 4 on the first global BA of cell F: its problem holds every
     live point of the map (none dropped: P = 32768 at the bench's
-    capacity); K5's `w_obs` mode against its plain version on the first LM
-    iteration's arguments (`k5_agrees`, two calls bit-equal); K6 against
-    `ba_schur_mv_plain` on the recorded arguments of every CG iteration of
-    one LM iteration (within 1e-5 x the larger of |Hpp_d v| and |S v|, two
-    calls bit-equal); the whole global BA with K5 and K6 against the plain
-    global BA on the card (torch's deterministic mode): poses within 1e-3 m
-    / 1e-3 rad, points within 1e-2 m, final costs within 1e-3 relative; and
-    the loop's pose-graph solve on the card against the same solve on the
-    CPU: poses within 1e-3, costs within 1e-3 relative. Returns the rows of
-    `ba_assemble_w_obs` and `ba_schur_mv`, and the recorded calls."""
+    capacity); K5's `w_obs` mode on the first LM iteration's arguments:
+    `place` equal to the plain index's, Hpp, g_p and Hll|g_l bit-equal to
+    the dense mode's launch and within `k5_agrees` of the plain version,
+    the live rows (in the index's order) within `k5_agrees` of the plain
+    rows gathered through the index, two calls bit-equal; the whole global
+    BA with K5 and K6, one launch of each an LM iteration, its K6 calls
+    recorded: on each, the fused CG against `cg_solve_plain` (the f64
+    yardstick, `cg_readings`: at most CG_FACTOR x the f32 plain
+    version's difference plus CG_FLOOR) and two calls bit-equal; the whole
+    global BA against the plain global BA on the card (torch's
+    deterministic mode): poses within 1e-3 m / 1e-3 rad, points within
+    1e-2 m, final costs within 1e-3 relative; and the loop's pose-graph
+    solve on the card against the same solve on the CPU: poses within
+    1e-3, costs within 1e-3 relative. Returns the rows of
+    `ba_assemble_w_obs` and `ba_schur_cg`, the recorded K6 calls, the
+    solve's and the pose graph's arguments and the solve's launches."""
     from orb_slam2_refactored_tpu_torch import kernels
     from orb_slam2_refactored_tpu_torch.geometry import se3
     from orb_slam2_refactored_tpu_torch.optim import ba, pose_graph
@@ -2079,63 +2390,61 @@ def check_gba(rec, device):
     ok0 = (p.obs_pt >= 0) & p.pt_valid[p.obs_pt.clamp(0, Q - 1).long()]
     live = int(ok0.sum())
     idx = ba.ba_point_index(p.obs_pt, ok0, Q)
+    idx_r = ba.ba_point_index_plain(p.obs_pt, ok0, Q)
+    same_idx = [bool(torch.equal(x, y)) for x, y in zip(idx, idx_r)]
+    L = int(idx.offsets[-1])
+    assert all(same_idx) and L == live, (same_idx, L, live)
     a = dict(kf_pose=p.kf_pose, pt_pos=p.pt_pos, p=p, obs_ok=ok0,
              cam=sa["cam"], use_huber=True, index=idx, w_obs=True)
     k = ba.ba_assemble(**a)
+    k2 = ba.ba_assemble(**a)
+    dense = ba.ba_assemble(**{**a, "w_obs": False})
     r = ba.ba_assemble_plain(**a)
     exact = ba.ba_assemble_plain(**{n: _f64(v) for n, v in a.items()})
-    same = all(torch.equal(x, y) for x, y in zip(k, ba.ba_assemble(**a)))
+    rows = idx.slots[:L].long()
+    assert isinstance(k[3], ba.LiveRows) and k[3].index is idx
+    k, r, exact = (list(k[:3]) + [k[3].rows[:L]], list(r[:3]) + [r[3][rows]],
+                   list(exact[:3]) + [exact[3][rows]])
+    same = all(torch.equal(x, y) for x, y in zip(k, list(k2[:3])
+                                                  + [k2[3].rows[:L]]))
+    as_dense = all(torch.equal(x, y) for x, y in zip(k[:3], dense[:3]))
     print(f"  K5 ba_assemble_w_obs K={K} N={N} Q={Q} live observations "
-          f"{live}: two calls bit-equal {same}; dead slots zero "
-          f"{not bool(k[3][~ok0.reshape(-1)].any())}")
-    assert same and not k[3][~ok0.reshape(-1)].any()
-    for name, x, y, z in zip(("Hpp", "g_p", "Hll|g_l", "W_obs"), k, r, exact):
+          f"{live}: (offsets, slots, place) equal to the plain index "
+          f"{same_idx}; two calls bit-equal {same}; Hpp, g_p and Hll|g_l "
+          f"bit-equal to the dense mode's {as_dense}")
+    assert same and as_dense
+    for name, x, y, z in zip(("Hpp", "g_p", "Hll|g_l", "W_obs live rows"),
+                             k, r, exact):
         k5_agrees(name, x, y, z, cancels=name == "g_p")
     asm_err = max(float((x - y).abs().max()) for x, y in zip(k, r))
+    del dense
 
-    # K6 on every CG iteration of the first LM iteration
+    # the whole global BA with K5 and K6, its K6 calls recorded
     calls = []
-    with recording(calls, (ba, "ba_schur_mv")):
-        ba.ba_solve(**{**sa, "iters": 1})
-    assert len(calls) == sa["cg_iters"], len(calls)
-    k6_err, k6_rel = 0.0, 0.0
-    for c in calls:
-        out = ba.ba_schur_mv(**c)
-        assert torch.equal(out, ba.ba_schur_mv(**c))
-        ref = ba.ba_schur_mv_plain(**c)
-        hv = torch.einsum("kij,kj->ki", c["Hpp_d"], c["v"]).abs().max()
-        scale = max(float(hv), float(ref.abs().max()))
-        err = float((out - ref).abs().max())
-        k6_err, k6_rel = max(k6_err, err), max(k6_rel, err / scale)
-    print(f"  K6 ba_schur_mv on the {len(calls)} CG iterations of one LM "
-          f"iteration: largest difference {k6_err:.3g}, {k6_rel:.3g} of the "
-          "larger of |Hpp_d v| and |S v| (bound 1e-5); two calls bit-equal")
-    assert k6_rel <= 1e-5, k6_rel
-
-    # the whole global BA, kernels against the plain versions
     before = kernels.counts()
-    res_k = ba.ba_solve(**sa)
+    with recording(calls, (ba, "ba_schur_cg")):
+        res_k = ba.ba_solve(**sa)
     after = kernels.counts()
     gba_launches = {n: after[n] - before[n] for n in after
                     if after[n] != before[n]}
     it, cg = sa["iters"], sa["cg_iters"]
     print(f"  global BA launches: {json.dumps(gba_launches)}")
-    assert gba_launches["ba_schur_mv"] == it * (2 * cg + 2), gba_launches
+    assert gba_launches["ba_schur_cg"] == it == len(calls), gba_launches
     assert gba_launches["ba_assemble_w_obs"] == it, gba_launches
-    names = ("ba_assemble", "ba_cost", "ba_schur_mv", "ba_schur_u")
-    real = {n: getattr(ba, n) for n in names + ("ba_schur_ut",)}
+    k6_err = cg_readings(calls, device)
+
+    # the whole global BA, kernels against the plain versions
+    names = ("ba_assemble", "ba_cost")
+    real = {n: getattr(ba, n) for n in names + ("ba_schur_cg",)}
     for n in names:
         setattr(ba, n, getattr(ba, n + "_plain"))
-    ba.ba_schur_ut = (lambda v, W_obs, obs_pt, obs_ok, index, Q:
-                      ba.ba_schur_ut_plain(v, W_obs, obs_pt, obs_ok, Q))
-    det = torch.are_deterministic_algorithms_enabled()
-    torch.use_deterministic_algorithms(True, warn_only=True)
+    ba.ba_schur_cg = ba.cg_solve_plain
     try:
-        res_p = ba.ba_solve(**sa)
+        with deterministic():
+            res_p = ba.ba_solve(**sa)
     finally:
         for n, fn in real.items():
             setattr(ba, n, fn)
-        torch.use_deterministic_algorithms(det)
     d = se3.log(se3.compose(res_k.kf_pose, se3.inverse(res_p.kf_pose)))
     rot, trans = float(d[:, :3].abs().max()), float(d[:, 3:].abs().max())
     pts = float((res_k.pt_pos - res_p.pt_pos)[p.pt_valid].abs().max())
@@ -2164,37 +2473,44 @@ def check_gba(rec, device):
         assert abs(x - y) <= 1e-3 * max(abs(y), 1e-9), costs
 
     # what this call's data needs: obs_ok for every slot, the rest of an
-    # observation (obs_pt, uv, ur, inv_s2) for the live slots only, and a
+    # observation (obs_pt, uv, ur, inv_s2) for the live slots only, a
     # point's rows (its position, G, w2) for the points that live slots
-    # observe
+    # observe, and a keyframe's (Hpp_d, Minv, g_p) for the free keyframes
+    # with a live slot
     S = K * N
     n_pts = int(torch.unique(p.obs_pt[ok0]).numel())
+    n_kf = int((ok0.any(1) & ~p.kf_fixed).sum())
     asm = (asm_err,
            cuda_time_ms(lambda: ba.ba_assemble(**a), 20),
            cuda_time_ms(lambda: ba.ba_assemble_plain(**a), 5),
            # poses, observed points, obs_ok, live observations and the
-           # index read; Hpp, g_p, the [Q,12] point rows and W_obs
-           # [K*N,18] written once
+           # index read; Hpp, g_p, the [Q,12] point rows and the live
+           # W_obs rows written once
            K * 28 + n_pts * 12 + S + live * 20 + (Q + 1) * 4 + live * 4
-           + K * 42 * 4 + Q * 48 + S * 72,
+           + K * 42 * 4 + Q * 48 + live * 72,
            # ~480 f32 a live observation (as the dense mode)
            {"f32": 480 * live})
     c0 = calls[0]
+    c0_plain = {**c0, "W_obs": ba.w_obs_slot_rows(c0["W_obs"])}
     k6 = (k6_err,
-          cuda_time_ms(lambda: ba.ba_schur_mv(**c0), 20),
-          cuda_time_ms(lambda: ba.ba_schur_mv_plain(**c0), 5),
-          # W_obs twice (a live slot's row in each launch), the CSR, G of
-          # the observed points, obs_ok of every slot and obs_pt of the
-          # live ones, Hpp_d and the vectors (w2 of the observed points
-          # out and back)
-          2 * live * 72 + (Q + 1) * 4 + live * 4 + n_pts * 36 + S
-          + live * 4 + K * 144 + K * 24 * 3 + K + n_pts * 12 * 2,
-          # 18 FMAs a live slot each way, G and Hpp_d products; an index
-          # step and a keyframe id a slot
-          {"f32": 36 * live + 9 * n_pts + 36 * K,
-           "int32": 4 * live + 2 * S})
-    print(f"  bounds count {live} live of {S} slots and {n_pts} observed of "
-          f"{Q} point rows")
+          cuda_time_ms(lambda: ba.ba_schur_cg(**c0), 20),
+          cuda_time_ms(lambda: ba.cg_solve_plain(**c0_plain), 3),
+          # each input read once and each output written once: the live
+          # rows, a slot's liveness (a byte, as obs_ok), `place`, obs_pt
+          # and the slot of the live ones, the CSR's offsets, G and g_l of
+          # the observed points, Hpp_d, Minv, g_p and free of the live
+          # keyframes; dp and U^T dp written
+          live * 72 + S + live * 4 * 3 + (Q + 1) * 4 + n_pts * (36 + 12)
+          + n_kf * (144 + 144 + 24 + 1) + K * 24 + Q * 12,
+          # a CG iteration: 36 FMAs a live slot (18 each way), G on the
+          # observed points, Hpp_d p and Minv r (36 each a live keyframe),
+          # ~10 vector operations an entry; the rhs and U^T dp (~18 a slot
+          # each); a live slot's index steps, place and keyframe id
+          {"f32": cg * (36 * live + 9 * n_pts + 72 * n_kf + 60 * n_kf)
+           + 36 * live + 9 * live,
+           "int32": cg * (4 * live + 2 * live) + 4 * live + 2 * live})
+    print(f"  bounds count {live} live of {S} slots, {n_pts} observed of "
+          f"{Q} point rows and {n_kf} live free of {K} keyframes")
     return asm, k6, calls, sa, pg, gba_launches
 
 
@@ -2220,19 +2536,100 @@ def profiled_solve(fn):
     return best[1], best[0], best[2], counts
 
 
+def row_time_us(rows, key):
+    """The device time a call (us) and launches a call of the profiler
+    rows (as `profiled_ms` names them) whose name holds `key`."""
+    us, n = 0.0, 0
+    for r in rows:
+        if key in r:
+            us += float(r.split()[-2])
+            n += int(r.split()[-3][1:])
+    return us, n
+
+
+def cg_barrier_ms(K, iters, reps=20):
+    """Device time of K6's launch with every phase empty: the same grid,
+    loop and 2 x iters + 1 grid barriers (`ba_schur_cg_barriers`)."""
+    from orb_slam2_refactored_tpu_torch import kernels
+
+    fn = kernels.bind("ba_schur", "ba_schur_cg_barriers",
+                      [kernels.CI] * 2 + [kernels.VP])
+    stream = torch.cuda.current_stream()
+
+    def run():
+        kernels.check(fn(K, iters, ctypes.c_void_p(stream.cuda_stream)),
+                      "ba_schur_cg_barriers")
+    ms, _ = profiled_ms(run, reps)
+    return ms
+
+
+def pose_graph_bound(pg):
+    """B11's bound on the recorded pose-graph solve, counted from its
+    shapes (`optim/pose_graph.py:73-151`): its inputs (poses, fixed flags,
+    edges) read once and the poses and two costs written once, against
+    the f32 operations that this run's edges (weight > 0) and live
+    vertices (free keyframes that such an edge touches) need, an FMA one.
+    An LM iteration: a residual (three Sim3 compositions or inverses and a
+    log, ~260) and its two 7x7 Jacobian blocks (an adjoint product each,
+    2 x 343) an edge, the weighted blocks (2 x 49), their gradient and
+    Hessian terms (2 x (49 + 343)), the segment sums (2 x (7 + 49)) and the
+    new cost (~274); a vertex's damping (14), 7x7 inverse (343), rhs,
+    retraction and accept (~113). A CG iteration: J v and J^T (w J v)
+    (4 x 49) and their segment sums (7 + 14) an edge; the damping and
+    masks (21), Minv r (49) and the dot products and updates (35) a
+    vertex."""
+    from orb_slam2_refactored_tpu_torch.optim import pose_graph
+
+    call = inspect.signature(pose_graph.pose_graph_solve).bind(**pg)
+    call.apply_defaults()
+    p, iters, cg = call.arguments["p"], call.arguments["iters"], \
+        call.arguments["cg_iters"]
+    K, E_all = p.poses.shape[0], p.edge_i.shape[0]
+    live = p.edge_w > 0
+    E = int(live.sum())
+    touched = torch.zeros(K, dtype=torch.bool, device=p.poses.device)
+    touched[p.edge_i[live].long()] = True
+    touched[p.edge_j[live].long()] = True
+    V = int((touched & ~p.fixed).sum())
+    n_ops = iters * (E * (260 + 686 + 98 + 784 + 112 + 274)
+                     + V * (14 + 343 + 113)
+                     + cg * (E * (196 + 21) + V * (21 + 49 + 35)))
+    nbytes = K * 32 + K + E_all * (4 + 4 + 32 + 4) + K * 32 + 8
+    b_ms, b_by = bound_ms(nbytes, {"f32": n_ops})
+    print(f"B11 pose_graph_solve bound ({E} live of {E_all} edges, {V} live "
+          f"of {K} vertices, {iters} LM x {cg} CG): {b_ms:.6f} ms ({b_by}; "
+          f"{nbytes} bytes, {n_ops} operations)")
+    return b_ms, b_by, nbytes, n_ops
+
+
 def gba_times(calls, sa, pg, asm_r, k6_r, reps=20):
-    """Phase 5 for cell F's global BA: K6's device time a call (two
-    launches) and K5's `w_obs` launch, then the whole global BA and the
-    pose-graph solve, each with its device operations."""
+    """Phase 5 for cell F's global BA: K6's device time a call (its one
+    launch, and the whole call with the block-Jacobi inverse before it),
+    its barrier floor (the same launch with empty phases, at 40 CG
+    iterations and at none), K5's `w_obs` launch, then the whole global BA
+    and the pose-graph solve, each with its device operations."""
+    from orb_slam2_refactored_tpu_torch import kernels
     from orb_slam2_refactored_tpu_torch.optim import ba, pose_graph
 
     c0 = calls[0]
-    p = c0["obs_pt"]
+    K = c0["obs_pt"].shape[0]
+    cg = c0["cg_iters"]
     ops = []
-    k6_ms, rows = profiled_ms(lambda: ba.ba_schur_mv(**c0), reps, ops)
-    print(f"K6 device time ba_schur_mv: {k6_ms:.5f} ms a call, {ops[0]:g} "
-          f"device operations: {rows}")
-    assert ops[0] == 2, rows
+    call_ms, rows = profiled_ms(lambda: ba.ba_schur_cg(**c0), reps, ops)
+    k6_us, k6_n = row_time_us(rows, "cg_kernel")
+    k6_ms = k6_us / 1e3
+    blocks = kernels.bind("ba_schur", "ba_schur_cg_blocks",
+                          [kernels.CI])(K)
+    print(f"K6 device time ba_schur_cg: {k6_ms:.5f} ms a launch ({blocks} "
+          f"blocks, {cg} CG iterations); the whole call {call_ms:.5f} ms, "
+          f"{ops[0]:g} device operations: {rows}")
+    assert k6_n == 1, rows
+    floor_ms = cg_barrier_ms(K, cg)
+    floor0_ms = cg_barrier_ms(K, 0)
+    print(f"K6 barrier floor: the launch with empty phases {floor_ms:.5f} ms "
+          f"at {cg} CG iterations ({2 * cg + 1} grid barriers), "
+          f"{floor0_ms:.5f} ms at none (1); "
+          f"{(floor_ms - floor0_ms) / (2 * cg) * 1e3:.3f} us a barrier")
     sp = sa["p"]
     Q = sp.pt_pos.shape[0]
     ok0 = (sp.obs_pt >= 0) & sp.pt_valid[sp.obs_pt.clamp(0, Q - 1).long()]
@@ -2246,13 +2643,15 @@ def gba_times(calls, sa, pg, asm_r, k6_r, reps=20):
     assert ops[0] == 1, rows
     gba_ms, gba_ops, rows, gba_win = profiled_solve(
         lambda: ba.ba_solve(**sa))
-    t0 = time.perf_counter()
-    ba.ba_solve(**sa)
-    torch.cuda.synchronize()
-    gba_host = (time.perf_counter() - t0) * 1e3
-    print(f"global BA (K={p.shape[0]}, Q={Q}, {sa['iters']} LM x "
-          f"{sa['cg_iters']} CG): device time {gba_ms:.4f} ms, {gba_ops:g} "
-          f"device operations, host clock {gba_host:.2f} ms; top rows: "
+    hosts = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        ba.ba_solve(**sa)
+        torch.cuda.synchronize()
+        hosts.append((time.perf_counter() - t0) * 1e3)
+    print(f"global BA (K={K}, Q={Q}, {sa['iters']} LM x {cg} CG): device "
+          f"time {gba_ms:.4f} ms, {gba_ops:g} device operations, host clock "
+          f"{hosts} ms; top rows: "
           f"{sorted(rows, key=lambda x: -float(x.split()[-2]))[:6]}")
     pg_ms, pg_ops, rows, pg_win = profiled_solve(
         lambda: pose_graph.pose_graph_solve(**pg))
@@ -2264,15 +2663,22 @@ def gba_times(calls, sa, pg, asm_r, k6_r, reps=20):
           f"CG): device time {pg_ms:.4f} ms, {pg_ops:g} device operations, "
           f"host clock {pg_host:.2f} ms; top rows: "
           f"{sorted(rows, key=lambda x: -float(x.split()[-2]))[:4]}")
-    b_ms, b_by = bound_ms(k6_r[3], k6_r[4])
-    print(f"K6 bound {b_ms:.6f} ms ({b_by}); device time {k6_ms:.5f} ms "
-          f"({k6_ms / b_ms:.1f}x)")
+    pg_bound = pose_graph_bound(pg)
+    for name, r, ms in (("K6", k6_r, k6_ms), ("K5 w_obs", asm_r, asm_ms)):
+        b_ms, b_by = bound_ms(r[3], r[4])
+        print(f"{name} bound {b_ms:.6f} ms ({b_by}; {r[3]} bytes, "
+              f"{json.dumps(r[4])} operations); device time {ms:.5f} ms "
+              f"({ms / b_ms:.1f}x)")
     return (asm_r + (asm_ms,), k6_r + (k6_ms,),
             {"gba_device_ms": gba_ms, "gba_device_ops": gba_ops,
-             "gba_window_ops": gba_win, "gba_host_ms": gba_host,
+             "gba_window_ops": gba_win, "gba_host_ms": hosts,
+             "k6_call_device_ms": call_ms, "k6_blocks": blocks,
+             "k6_barrier_floor_ms": floor_ms,
+             "k6_barrier_floor_0_ms": floor0_ms,
              "pose_graph_device_ms": pg_ms, "pose_graph_device_ops": pg_ops,
              "pose_graph_window_ops": pg_win,
-             "pose_graph_host_ms": pg_host})
+             "pose_graph_host_ms": pg_host, "pose_graph_bound_ms": pg_bound[0],
+             "pose_graph_bound_by": pg_bound[1]})
 
 
 def kernel_row(name, src, rep, launches, r):
@@ -2289,13 +2695,21 @@ def main():
                     help="after the main paths, break a frame's time down "
                     "(cell A's, and a stereo frame's of cell C)")
     ap.add_argument("--parent", metavar="DIR",
-                    help="also hold K1, K4, K5 and B9 against the kernels "
-                    "of the checkout in DIR (outputs and device time, in "
-                    "turns)")
+                    help="also hold K1, K4, K5, B9 and K6 (and cell F's "
+                    "global BA) against the kernels of the checkout in DIR "
+                    "(outputs, device and CUDA-event time, in turns)")
+    ap.add_argument("--time-side", choices=("parent", "change"),
+                    help="with --parent and --jobs: only time the recorded "
+                    "jobs through one side's kernels (a process of its own, "
+                    "started by --parent)")
+    ap.add_argument("--jobs", metavar="FILE", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(1)
+    if args.time_side:
+        time_side(args.time_side, args.parent, args.jobs)
+        return
 
     from orb_slam2_refactored_tpu_torch import kernels
     from orb_slam2_refactored_tpu_torch.ops import image as image_ops
@@ -2473,7 +2887,7 @@ def main():
                     if "uv" not in a}
         compare_with_parent(args.parent, frame_k1, dense_k1, frame_k4,
                             {f"fallback{i}": a for i, a in enumerate(fb_k4)},
-                            asm_call, st_tail, device)
+                            asm_call, st_tail, k6_calls, gba_call)
     compare_extraction(imgs, device)
     if args.profile:
         profile_steps(tracker, imgs, depths)
@@ -2507,9 +2921,9 @@ def main():
                    ref + "optim/ba.py:317",
                    loop_cells["F"][1]["launches"]["ba_assemble_w_obs"],
                    w_obs_r),
-        kernel_row("ba_schur_mv", pkg + "ba_schur.cu",
-                   ref + "optim/ba.py:335",
-                   loop_cells["F"][1]["launches"]["ba_schur_mv"], k6_r),
+        kernel_row("ba_schur_cg", pkg + "ba_schur.cu",
+                   ref + "optim/ba.py:349",
+                   loop_cells["F"][1]["launches"]["ba_schur_cg"], k6_r),
     ]
     rows[3]["max_abs_err"] = max(rows[3]["max_abs_err"], reloc_k4_err)
     for row in rows:
@@ -2523,9 +2937,10 @@ def main():
           "solve); stereo_sad = the one launch after K1 of a tracked "
           "stereo frame's association, its "
           "launches from cell C; ba_assemble_w_obs = one LM iteration of "
-          "cell F's first global BA; ba_schur_mv = one reduced-camera "
-          "product of it (two launches), launches from cell F with loop "
-          "closing on (2 a product, 1 for each rhs and back-substitution)")
+          "cell F's first global BA; ba_schur_cg = the CG solve of one LM "
+          "iteration of it (one launch: the rhs, 40 CG iterations and "
+          "U^T dp), launches from cell F with loop closing on (one an LM "
+          "iteration)")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

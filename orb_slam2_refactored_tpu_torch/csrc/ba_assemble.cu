@@ -25,7 +25,8 @@
 // during a `ba_solve`): a CSR of the live slots by point, offsets [Q+1]
 // and slot ids [W*N] (ascending within each point; -1 past offsets[Q]),
 // points clamped to [0, Q) as the plain version does, dead slots left
-// out. (1) A CTA a keyframe row counts the row's live slots by point in
+// out; and place [W*N], each live slot's position in `slots` (-1 on a
+// dead slot). (1) A CTA a keyframe row counts the row's live slots by point in
 // shared memory, gives each slot its rank among the row's slots of its
 // point in slot order (one warp walks the repeated ones), and writes that
 // row of a [W, Q] table; the last CTA scans the point totals into
@@ -55,15 +56,19 @@
 //   depth gate, the mono third row) is the parent kernel's; f32 throughout.
 
 // `ba_assemble_w_obs` (the matrix-free CG branch of global BA, JAX
-// `optim/ba.py:319-360`): the same launch with the camera-point blocks
-// written per observation slot instead of per point: W_obs [W*N, 18],
-// row o = (w Jp)^T Jl of slot o, zero for a dead slot. The camera CTAs,
-// which evaluate every live slot of their chunk anyway, write each slot's
-// row (and zeros for the dead ones); the point warps write Hll|g_l only,
-// with no tile. At whole-map size (W = 128, Q ~ 30k) T would be 300 MB
-// and every product with it a dense GEMV; W_obs is 9 MB. The mode is a
-// template argument, so the dense instantiation is the code above
-// unchanged.
+// `optim/ba.py:317`): the same launch with the camera-point blocks written
+// per live observation instead of per point. W_live [W*N, 18]: row i =
+// (w Jp)^T Jl of slot `slots[i]`, so point q's rows are rows offsets[q] ..
+// offsets[q+1] - 1, in the index's order, and only the first offsets[Q]
+// rows are written (a dead slot has no row). A point warp, which
+// evaluates its point's live slots 32 at a time anyway, stages the 32
+// rows (2,304 contiguous bytes) in shared memory and stores them as
+// 16-byte stores; the camera CTAs write Hpp and g_p only. At whole-map
+// size (W = 128, Q ~ 30k) T would be 300 MB; the live rows of the bench
+// circuit's first global BA are 0.9 MB (12,191 of 128,000 slots), where
+// a row a slot took 9.2 MB of strided scalar stores. The slot's row is
+// found from the slot through `place` (`ba_point_index`). The mode is a
+// template argument: the dense instantiation is the code above unchanged.
 
 // `ba_cost` (one launch a call, no torch sum after it): one slot a thread
 // over ceil(W*N / 256) CTAs; chi2 stored only when asked for (the final
@@ -238,6 +243,7 @@ struct IndexArgs {
   int S, N, Q;
   int* offsets;  // [Q+1]
   int* slots;    // [S]
+  int* place;    // [S]: a live slot's position in `slots`, -1 on a dead one
   int* table;    // [S/N, Q]: row k's live slots of each point
   int* rank;     // [S]: a live slot's place among its row's of its point
   int* count;    // [Q], zero between solves
@@ -351,14 +357,16 @@ __global__ void __launch_bounds__(kIndexThreads) index_rows_kernel(IndexArgs a) 
 __global__ void __launch_bounds__(kThreads) index_scatter_kernel(IndexArgs a) {
   const int s = blockIdx.x * kThreads + threadIdx.x;
   if (s >= a.S) return;
+  int pos = -1;
   if (a.obs_ok[s]) {
     const int q = min(max(a.obs_pt[s], 0), a.Q - 1);
     const int k = s / a.N;
-    int pos = a.offsets[q] + a.rank[s];
+    pos = a.offsets[q] + a.rank[s];
 #pragma unroll 4
     for (int j = 0; j < k; ++j) pos += a.table[(size_t)j * a.Q + q];
     a.slots[pos] = s;
   }
+  a.place[s] = pos;
   if (s >= a.offsets[a.Q]) a.slots[s] = -1;
 }
 
@@ -383,12 +391,11 @@ struct AsmArgs {
   float* g_p;
   float* acc_l;
   float* T;        // dense mode: [Q*W, 18]
-  float* W_obs;    // w_obs mode: [W*N, 18]
+  float* W_obs;    // w_obs mode: [W*N, 18], the live rows in index order
   float* partial;  // [W, C, 27]
   int* ticket;     // [W], zero between calls
 };
 
-template <bool kWObs>
 __device__ void camera_block(const AsmArgs& a, int cb) {
   __shared__ float s_part[kWarps * 27];
   __shared__ float s_sum[27];
@@ -403,27 +410,11 @@ __device__ void camera_block(const AsmArgs& a, int cb) {
   for (int i = 0; i < 27; ++i) acc[i] = 0.f;
   for (int n = n0 + threadIdx.x; n < n1; n += kThreads) {
     const int o = k * a.N + n;
-    if (!a.obs_ok[o]) {
-      if constexpr (kWObs) {
-        for (int e = 0; e < 18; ++e) a.W_obs[(size_t)o * 18 + e] = 0.f;
-      }
-      continue;
-    }
+    if (!a.obs_ok[o]) continue;
     const int pt = min(max(a.obs_pt[o], 0), a.Q - 1);
     Slot s;
     const float w = observe(pose, R, a.pt_pos, a.obs_uv, a.obs_ur,
                             a.obs_inv_s2, o, pt, a.cam, a.use_huber, s);
-    if constexpr (kWObs) {
-      // the point warps' T term of this slot, written to the slot's row
-      float* wr = a.W_obs + (size_t)o * 18;
-      for (int r = 0; r < 6; ++r) {
-        for (int c = 0; c < 3; ++c) {
-          wr[r * 3 + c] = w * (s.Jp[0][r] * s.Jl[0][c] +
-                               s.Jp[1][r] * s.Jl[1][c] +
-                               s.Jp[2][r] * s.Jl[2][c]);
-        }
-      }
-    }
     int e = 0;
     for (int i = 0; i < 6; ++i) {
       for (int j = i; j < 6; ++j) {
@@ -458,13 +449,46 @@ __device__ void camera_block(const AsmArgs& a, int cb) {
   if (threadIdx.x < 6) a.g_p[k * 6 + threadIdx.x] = s_sum[21 + threadIdx.x];
 }
 
+// w_obs mode: a warp's staging area, 32 rows of 18 floats and 2 floats of
+// shift (a multiple of 4 floats, so every warp's area is 16-byte aligned)
+constexpr int kStage = 32 * 18 + 4;
+
+// W_live's rows base .. base + n - 1 (n <= 32; lane l < n holds row
+// base + l in t): n * 72 contiguous bytes from float e0 = 18 * base, which
+// is 8-byte aligned (e0 even) and 16-byte aligned when e0 % 4 == 0. The
+// rows are staged at `sh` = e0 % 4 floats into the warp's area, so that a
+// float4 of W_live and its source in shared memory share their alignment;
+// the run is stored as float4s, with a float2 at the head when it starts
+// on 8 bytes and at the tail when it stops on 8.
+__device__ void store_rows(float* __restrict__ W_live, float* stage, int base,
+                           int n, const float t[18]) {
+  const int lane = threadIdx.x & 31;
+  const int e0 = base * 18, e1 = e0 + n * 18, sh = e0 & 3;
+  if (lane < n) {
+#pragma unroll
+    for (int e = 0; e < 18; ++e) stage[sh + lane * 18 + e] = t[e];
+  }
+  __syncwarp();
+  const int a0 = (e0 + 3) & ~3, a1 = e1 & ~3;  // the 16-byte-aligned middle
+  const float* src = stage + sh;                // src[e - e0] is W_live[e]
+  if (lane == 0 && a0 != e0)
+    *reinterpret_cast<float2*>(W_live + e0) = make_float2(src[0], src[1]);
+  if (lane == 1 && a1 != e1)
+    *reinterpret_cast<float2*>(W_live + a1) =
+        make_float2(src[a1 - e0], src[a1 - e0 + 1]);
+  for (int e = a0 + 4 * lane; e < a1; e += 128)
+    *reinterpret_cast<float4*>(W_live + e) =
+        *reinterpret_cast<const float4*>(src + (e - e0));
+  __syncwarp();  // the area is reused by the next 32 rows
+}
+
 template <bool kWObs>
 __device__ void point_block(const AsmArgs& a, int pb, float* tiles) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int q = pb * kWarps + warp;
   if (q >= a.Q) return;  // the whole warp leaves together
   const int W = a.W, TW = W * 18;
-  float* tile = tiles + (size_t)warp * TW;
+  float* tile = tiles + (size_t)warp * (kWObs ? kStage : TW);
   if constexpr (!kWObs) {
     for (int e = lane; e < TW; e += 32) tile[e] = 0.f;
     __syncwarp();
@@ -498,17 +522,19 @@ __device__ void point_block(const AsmArgs& a, int pb, float* tiles) {
                           s.Jl[2][r] * s.r[2]);
       }
       // camera-point block W_obs = (w Jp)^T Jl, [6,3] row-major
-      if constexpr (!kWObs) {
-        for (int r = 0; r < 6; ++r) {
-          for (int c = 0; c < 3; ++c) {
-            t[r * 3 + c] = w * (s.Jp[0][r] * s.Jl[0][c] +
-                                s.Jp[1][r] * s.Jl[1][c] +
-                                s.Jp[2][r] * s.Jl[2][c]);
-          }
+      for (int r = 0; r < 6; ++r) {
+        for (int c = 0; c < 3; ++c) {
+          t[r * 3 + c] = w * (s.Jp[0][r] * s.Jl[0][c] +
+                              s.Jp[1][r] * s.Jl[1][c] +
+                              s.Jp[2][r] * s.Jl[2][c]);
         }
       }
     }
-    if constexpr (kWObs) continue;  // the camera CTAs wrote W_obs
+    if constexpr (kWObs) {
+      // the rows at their index positions: W_live[base + lane]
+      store_rows(a.W_obs, tile, base, min(32, end - base), t);
+      continue;
+    }
     // slots ascend, so one keyframe's observations sit on adjacent lanes:
     // add them into its row in slot order, one round per run position
     const unsigned same = __match_any_sync(kFull, k);
@@ -552,7 +578,7 @@ template <bool kWObs>
 __global__ void __launch_bounds__(kThreads) assemble_kernel(AsmArgs a) {
   extern __shared__ float4 s_tiles[];
   if ((int)blockIdx.x < a.W * a.C) {
-    camera_block<kWObs>(a, blockIdx.x);
+    camera_block(a, blockIdx.x);
   } else {
     point_block<kWObs>(a, blockIdx.x - a.W * a.C,
                        reinterpret_cast<float*>(s_tiles));
@@ -562,7 +588,8 @@ __global__ void __launch_bounds__(kThreads) assemble_kernel(AsmArgs a) {
 template <bool kWObs>
 int launch_assemble(const AsmArgs& a, cudaStream_t stream) {
   const int n_point = (a.Q + kWarps - 1) / kWarps;
-  const size_t smem = kWObs ? 0 : (size_t)kWarps * a.W * 18 * sizeof(float);
+  const size_t smem = (size_t)kWarps * (kWObs ? kStage : a.W * 18) *
+                      sizeof(float);
   if (smem > (size_t)kSharedMax) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -621,8 +648,8 @@ cost_kernel(const float* __restrict__ kf_pose, const float* __restrict__ pt_pos,
 
 }  // namespace
 
-// Launches a solve: two. `table` (S/N x Q ints) and `rank` (S) are
-// scratch; `count` Q
+// Launches a solve: two. Writes offsets, slots and place. `table` (S/N x
+// Q ints) and `rank` (S) are scratch; `count` Q
 // ints and `ticket` one, zero between solves (the first launch's last CTA
 // leaves them so). A row's counts and running counts live in shared
 // memory: Q must stay within `ba_point_index_max()`.
@@ -632,13 +659,13 @@ extern "C" int ba_point_index_max() {
 
 extern "C" int ba_point_index(const void* obs_pt, const void* obs_ok, int S,
                               int N, int Q, void* offsets, void* slots,
-                              void* table, void* rank, void* count,
-                              void* ticket, void* stream) {
+                              void* place, void* table, void* rank,
+                              void* count, void* ticket, void* stream) {
   if (Q <= 0 || N <= 0 || S % N != 0 || Q > ba_point_index_max())
     return (int)cudaErrorInvalidValue;
   const IndexArgs a{(const int*)obs_pt, (const unsigned char*)obs_ok, S, N,
-                    Q, (int*)offsets, (int*)slots, (int*)table, (int*)rank,
-                    (int*)count, (int*)ticket};
+                    Q, (int*)offsets, (int*)slots, (int*)place, (int*)table,
+                    (int*)rank, (int*)count, (int*)ticket};
   const size_t smem = (size_t)(2 * Q + 2 * kIndexThreads) * sizeof(int);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -682,7 +709,8 @@ extern "C" int ba_assemble(const void* kf_pose, const void* pt_pos,
   return launch_assemble<false>(a, (cudaStream_t)stream);
 }
 
-// `ba_assemble` with W_obs [W*N, 18] (every row written) in place of T.
+// `ba_assemble` with W_live [W*N, 18] (the first offsets[Q] rows written,
+// in the index's order) in place of T.
 extern "C" int ba_assemble_w_obs(const void* kf_pose, const void* pt_pos,
                                  const void* obs_uv, const void* obs_ur,
                                  const void* obs_pt, const void* obs_inv_s2,

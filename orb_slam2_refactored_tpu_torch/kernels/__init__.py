@@ -46,7 +46,7 @@ LAUNCHES: Dict[str, int] = {"hamming_best2": 0, "fast": 0, "orb_desc": 0,
                             "pose_lm": 0, "ba_point_index": 0,
                             "ba_assemble": 0, "ba_cost": 0,
                             "stereo_sad": 0, "ba_assemble_w_obs": 0,
-                            "ba_schur_mv": 0}
+                            "ba_schur_cg": 0}
 
 _BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

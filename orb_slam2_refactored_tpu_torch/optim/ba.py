@@ -22,11 +22,13 @@ Differences of form, not of result:
   final gate;
 - `_cost_only` uses the same analytic residual as the Jacobian pass;
 - the CG branch (`dense_schur=False`) assembles with K5 in its `w_obs`
-  mode (W_obs = (w Jp)^T Jl a slot, [K*N, 18], in place of T) and applies
-  the reduced camera matrix with kernel K6 (`csrc/ba_schur.cu`:
-  `ba_schur_mv`, and `ba_schur_u` / `ba_schur_ut` for the rhs and the
-  back-substitution), with no float atomic; it runs a fixed `cg_iters`
-  with no host read. The CG vector updates stay torch.
+  mode (W_obs = (w Jp)^T Jl a live slot in place of T: on the card the
+  rows in the point index's order, `LiveRows`; on the CPU JAX's [K*N, 18]
+  slot layout) and solves each LM iteration's reduced camera system with
+  kernel K6 (`csrc/ba_schur.cu`, `ba_schur_cg`): the rhs, the fixed
+  `cg_iters` CG iterations and the back-substitution's U^T dp in one
+  launch, with no float atomic and no host read; `cg_solve_plain` is the
+  same solve op by op.
 
 The sharded forms (`axis_name`, `axis_size > 1`) belong to multi-GPU BA
 and raise NotImplementedError. Everything is f32 at "highest" matmul
@@ -183,9 +185,11 @@ def _inv3x3(A):
 class PointIndex(NamedTuple):
     """The live observation slots grouped by point (CSR): point q's slots
     (flat k * N + n, ascending) are slots[offsets[q]:offsets[q + 1]];
-    slots past offsets[Q] hold -1."""
+    slots past offsets[Q] hold -1. `place` is the inverse on the live
+    slots: slots[place[s]] == s, and -1 on a dead slot."""
     offsets: torch.Tensor  # i32[Q+1]
     slots: torch.Tensor    # i32[K*N]
+    place: torch.Tensor    # i32[K*N]
 
 
 def ba_point_index_plain(obs_pt, obs_ok, Q: int) -> PointIndex:
@@ -202,7 +206,10 @@ def ba_point_index_plain(obs_pt, obs_ok, Q: int) -> PointIndex:
     slots = torch.full((obs_pt.numel(),), -1, dtype=torch.int32,
                        device=obs_pt.device)
     slots[:live.numel()] = live[order].to(torch.int32)
-    return PointIndex(offsets, slots)
+    place = torch.full_like(slots, -1)
+    place[slots[:live.numel()].long()] = torch.arange(
+        live.numel(), dtype=torch.int32, device=obs_pt.device)
+    return PointIndex(offsets, slots, place)
 
 
 def ba_assemble_plain(kf_pose, pt_pos, p: BAProblem, obs_ok, cam,
@@ -247,6 +254,26 @@ def ba_assemble_plain(kf_pose, pt_pos, p: BAProblem, obs_ok, cam,
     T.index_add_(0, flat_pt * K + kidx.reshape(-1),
                  torch.where(ok, W_obs, torch.zeros_like(W_obs)))
     return Hpp, g_p, acc, T
+
+
+class LiveRows(NamedTuple):
+    """W_obs as K5 writes it on the card (`ba_assemble(..., w_obs=True)`):
+    row i of `rows` is live slot `index.slots[i]`'s, and rows past
+    `index.offsets[Q]` are not written. A type of its own, so that a
+    [K*N, 18] W_obs in JAX's slot layout (the plain version's) is never
+    read as these rows: `ba_schur_cg` takes only this on the card, and
+    `w_obs_slot_rows` turns it into the slot layout."""
+    rows: torch.Tensor   # f32[K*N, 18]
+    index: PointIndex
+
+
+def w_obs_slot_rows(live: LiveRows):
+    """`live` in JAX's [K*N, 18] slot layout, zero on the dead slots: the
+    layout of `ba_assemble_plain` and `cg_solve_plain`."""
+    L = int(live.index.offsets[-1])
+    W = torch.zeros_like(live.rows)
+    W[live.index.slots[:L].long()] = live.rows[:L]
+    return W
 
 
 def ba_cost_plain(kf_pose, pt_pos, p: BAProblem, obs_ok, cam,
@@ -301,25 +328,28 @@ def ba_point_index(obs_pt, obs_ok, Q: int) -> PointIndex:
     (K, N), S, dev = obs_pt.shape, obs_pt.numel(), obs_pt.device
     offsets = torch.empty((Q + 1,), dtype=torch.int32, device=dev)
     slots = torch.empty((S,), dtype=torch.int32, device=dev)
+    place = torch.empty((S,), dtype=torch.int32, device=dev)
     table = torch.empty((K, Q), dtype=torch.int32, device=dev)
     rank = torch.empty((S,), dtype=torch.int32, device=dev)
     fn = kernels.bind("ba_assemble", "ba_point_index",
-                      [kernels.VP] * 2 + [kernels.CI] * 3 + [kernels.VP] * 7)
+                      [kernels.VP] * 2 + [kernels.CI] * 3 + [kernels.VP] * 8)
     kernels.LAUNCHES["ba_point_index"] += 2  # a row and a scatter launch
     kernels.check(fn(kernels.ptr(obs_pt), kernels.ptr(obs_ok), S, N, Q,
                      kernels.ptr(offsets), kernels.ptr(slots),
-                     kernels.ptr(table), kernels.ptr(rank),
+                     kernels.ptr(place), kernels.ptr(table), kernels.ptr(rank),
                      kernels.ptr(kernels.ticket(dev, "ba_point_index count",
                                                 Q)),
                      kernels.ptr(kernels.ticket(dev, "ba_point_index", 1)),
                      kernels.stream_of(obs_pt)), "ba_point_index")
-    return PointIndex(offsets, slots)
+    return PointIndex(offsets, slots, place)
 
 
 def ba_assemble(kf_pose, pt_pos, p: BAProblem, obs_ok, cam, use_huber: bool,
                 index: Optional[PointIndex] = None, w_obs: bool = False):
     """Per-iteration assembly (see `ba_assemble_plain`), one launch: T for
-    the dense Schur branch, W_obs with `w_obs` (the CG branch). `index` is
+    the dense Schur branch; with `w_obs` (the CG branch) `LiveRows`, the
+    live slots' W_obs rows in the index's order, in place of the plain
+    version's slot layout. `index` is
     `ba_point_index(p.obs_pt, obs_ok, Q)`, built here when not given. CUDA
     tensors -> kernel `csrc/ba_assemble.cu`; CPU -> plain version."""
     if not kf_pose.is_cuda:
@@ -352,7 +382,7 @@ def ba_assemble(kf_pose, pt_pos, p: BAProblem, obs_ok, cam, use_huber: bool,
                      *(kernels.ptr(t) for t in (Hpp, g_p, acc, T, partial)),
                      kernels.ptr(kernels.ticket(dev, "ba_assemble", K)),
                      kernels.stream_of(kf_pose)), entry)
-    return Hpp, g_p, acc, T
+    return Hpp, g_p, acc, LiveRows(T, index) if w_obs else T
 
 
 def ba_cost(kf_pose, pt_pos, p: BAProblem, obs_ok, cam, use_huber: bool,
@@ -386,7 +416,7 @@ def ba_cost(kf_pose, pt_pos, p: BAProblem, obs_ok, cam, use_huber: bool,
 
 
 # ---------------------------------------------------------------------------
-# kernel K6 (the reduced-camera product of the CG branch) and its plain
+# kernel K6 (an LM iteration's CG solve of the CG branch) and its plain
 # versions
 # ---------------------------------------------------------------------------
 
@@ -412,11 +442,9 @@ def ba_schur_u_plain(y, W_obs, obs_pt, obs_ok):
                        torch.zeros_like(contrib)).sum(1)
 
 
-def ba_schur_mv_plain(v, free, Hpp_d, G, W_obs, obs_pt, obs_ok,
-                      index: Optional[PointIndex] = None):
-    """Plain PyTorch version of K6's `ba_schur_mv` (same signature; it has
-    no use for `index`): S v = (Hpp_d v - U G U^T v) on the free keyframes
-    (JAX `S_mv`), f32[K,6]."""
+def ba_schur_mv_plain(v, free, Hpp_d, G, W_obs, obs_pt, obs_ok):
+    """S v = (Hpp_d v - U G U^T v) on the free keyframes (JAX `S_mv`),
+    f32[K,6]."""
     fm = free[:, None].to(v.dtype)
     v = v * fm
     out = torch.einsum("kij,kj->ki", Hpp_d, v)
@@ -425,85 +453,92 @@ def ba_schur_mv_plain(v, free, Hpp_d, G, W_obs, obs_pt, obs_ok,
     return (out - ba_schur_u_plain(w2, W_obs, obs_pt, obs_ok)) * fm
 
 
-def _k6_check(W_obs, obs_pt, obs_ok, Q):
+def cg_solve_plain(Hpp_d, g_p, g_l, G, W_obs, obs_pt, obs_ok, free,
+                   cg_iters: int):
+    """Plain PyTorch version of K6's `ba_schur_cg` (same signature; W_obs
+    in JAX's [K*N, 18] slot layout, as `ba_assemble_plain` gives it):
+    dp [K,6] and U^T dp [Q,3] of one LM iteration by `cg_iters` iterations
+    of block-Jacobi preconditioned CG on S dp = -(g_p - U G g_l), free
+    keyframes only (JAX `optim/ba.py:319-360, 400-412`)."""
+    fm = free[:, None].to(torch.float32)
+    eye6 = torch.eye(6, dtype=torch.float32, device=Hpp_d.device)
+    Minv = torch.linalg.inv(Hpp_d + 1e-9 * eye6)
+
+    def precond(v):
+        return torch.einsum("kij,kj->ki", Minv, v) * fm
+
+    Gg = torch.einsum("pij,pj->pi", G, g_l)
+    rhs = -(g_p - ba_schur_u_plain(Gg, W_obs, obs_pt, obs_ok)) * fm
+    x = torch.zeros_like(rhs)
+    rr = rhs
+    z = precond(rhs)
+    pdir = z
+    rz = torch.sum(rhs * z)
+    for _ in range(cg_iters):
+        Ap = ba_schur_mv_plain(pdir, free, Hpp_d, G, W_obs, obs_pt, obs_ok)
+        denom = torch.sum(pdir * Ap)
+        alpha = rz / torch.where(torch.abs(denom) < 1e-12,
+                                 torch.full_like(denom, 1e-12), denom)
+        x = x + alpha * pdir
+        rr = rr - alpha * Ap
+        z = precond(rr)
+        rz_new = torch.sum(rr * z)
+        beta = rz_new / torch.where(torch.abs(rz) < 1e-12,
+                                    torch.full_like(rz, 1e-12), rz)
+        pdir = z + beta * pdir
+        rz = rz_new
+    return x, ba_schur_ut_plain(x, W_obs, obs_pt, obs_ok, G.shape[0])
+
+
+def ba_schur_cg(Hpp_d, g_p, g_l, G, W_obs, obs_pt, obs_ok, free,
+                cg_iters: int):
+    """dp [K,6] and U^T dp [Q,3] of one LM iteration (see
+    `cg_solve_plain`). CUDA tensors -> kernel `csrc/ba_schur.cu`, one
+    cooperative launch for the whole solve, on W_obs as `ba_assemble(...,
+    w_obs=True)` gives it on the card (`LiveRows`, and nothing else); the
+    block-Jacobi inverse is computed before it, as JAX computes it outside
+    the CG loop. CPU -> plain version."""
+    if not Hpp_d.is_cuda:
+        return cg_solve_plain(Hpp_d, g_p, g_l, G, W_obs, obs_pt, obs_ok,
+                              free, cg_iters)
+    if not isinstance(W_obs, LiveRows):
+        raise TypeError("ba_schur_cg: on the card W_obs is K5's LiveRows "
+                        f"(the live rows in point order), got {type(W_obs)}")
+    rows, index = W_obs
     K, N = obs_pt.shape
-    kernels.require(W_obs, "ba_schur W_obs", torch.float32, (K * N, 18))
-    kernels.require(obs_pt, "ba_schur obs_pt", torch.int32, (K, N))
-    kernels.require(obs_ok, "ba_schur obs_ok", torch.bool, (K, N))
-    if K < 1 or N < 1 or Q < 1:
-        raise ValueError(f"ba_schur: needs K, N, Q >= 1, got {K}, {N}, {Q}")
-    return K, N
-
-
-def ba_schur_mv(v, free, Hpp_d, G, W_obs, obs_pt, obs_ok,
-                index: PointIndex):
-    """S v (see `ba_schur_mv_plain`) in two launches: point-major over
-    `index` (K5's `ba_point_index` of the live slots), then camera-major.
-    CUDA tensors -> kernel `csrc/ba_schur.cu`; CPU -> plain version."""
-    if not v.is_cuda:
-        return ba_schur_mv_plain(v, free, Hpp_d, G, W_obs, obs_pt, obs_ok)
     Q = G.shape[0]
-    K, N = _k6_check(W_obs, obs_pt, obs_ok, Q)
-    args = [t.contiguous() for t in (v, free, Hpp_d, G)]
+    limit = kernels.bind("ba_schur", "ba_schur_cg_max_k", [])()
+    if not 1 <= K <= limit or N < 1 or Q < 1 or cg_iters < 0:
+        raise ValueError(f"ba_schur_cg: needs 1 <= K <= {limit}, N, Q >= 1 "
+                         f"and cg_iters >= 0, got {K}, {N}, {Q}, {cg_iters}")
+    args = [t.contiguous() for t in (Hpp_d, g_p, g_l, G, rows, obs_pt, free,
+                                     index.offsets, index.slots, index.place)]
     for t, what, dtype, shape in zip(
-            args, ("v", "free", "Hpp_d", "G"),
-            (torch.float32, torch.bool, torch.float32, torch.float32),
-            ((K, 6), (K,), (K, 6, 6), (Q, 3, 3))):
-        kernels.require(t, "ba_schur_mv " + what, dtype, shape)
-    kernels.require(index.offsets, "ba_schur_mv offsets", torch.int32,
-                    (Q + 1,))
-    kernels.require(index.slots, "ba_schur_mv slots", torch.int32, (K * N,))
-    w2 = torch.empty((Q, 3), dtype=torch.float32, device=v.device)
-    out = torch.empty((K, 6), dtype=torch.float32, device=v.device)
-    fn = kernels.bind("ba_schur", "ba_schur_mv",
-                      [kernels.VP] * 9 + [kernels.CI] * 3 + [kernels.VP] * 3)
-    kernels.LAUNCHES["ba_schur_mv"] += 2  # a point and a camera launch
-    kernels.check(fn(*(kernels.ptr(t) for t in args),
-                     *(kernels.ptr(t) for t in (W_obs, obs_pt, obs_ok,
-                                                index.offsets, index.slots)),
-                     K, N, Q, kernels.ptr(w2), kernels.ptr(out),
-                     kernels.stream_of(v)), "ba_schur_mv")
-    return out
-
-
-def ba_schur_ut(v, W_obs, obs_pt, obs_ok, index: PointIndex, Q: int):
-    """U^T v f32[Q,3] (see `ba_schur_ut_plain`), K6's point-major launch
-    alone. CUDA tensors -> kernel; CPU -> plain version."""
-    if not v.is_cuda:
-        return ba_schur_ut_plain(v, W_obs, obs_pt, obs_ok, Q)
-    K, N = _k6_check(W_obs, obs_pt, obs_ok, Q)
-    v = v.contiguous()
-    kernels.require(v, "ba_schur_ut v", torch.float32, (K, 6))
-    kernels.require(index.offsets, "ba_schur_ut offsets", torch.int32,
-                    (Q + 1,))
-    out = torch.empty((Q, 3), dtype=torch.float32, device=v.device)
-    fn = kernels.bind("ba_schur", "ba_schur_ut",
-                      [kernels.VP] * 4 + [kernels.CI] * 2 + [kernels.VP] * 2)
-    kernels.LAUNCHES["ba_schur_mv"] += 1
-    kernels.check(fn(kernels.ptr(v), kernels.ptr(W_obs),
-                     kernels.ptr(index.offsets), kernels.ptr(index.slots),
-                     N, Q, kernels.ptr(out), kernels.stream_of(v)),
-                  "ba_schur_ut")
-    return out
-
-
-def ba_schur_u(y, W_obs, obs_pt, obs_ok):
-    """U y f32[K,6] (see `ba_schur_u_plain`), K6's camera-major launch
-    alone. CUDA tensors -> kernel; CPU -> plain version."""
-    if not y.is_cuda:
-        return ba_schur_u_plain(y, W_obs, obs_pt, obs_ok)
-    Q = y.shape[0]
-    K, N = _k6_check(W_obs, obs_pt, obs_ok, Q)
-    y = y.contiguous()
-    kernels.require(y, "ba_schur_u y", torch.float32, (Q, 3))
-    out = torch.empty((K, 6), dtype=torch.float32, device=y.device)
-    fn = kernels.bind("ba_schur", "ba_schur_u",
-                      [kernels.VP] * 4 + [kernels.CI] * 3 + [kernels.VP] * 2)
-    kernels.LAUNCHES["ba_schur_mv"] += 1
-    kernels.check(fn(kernels.ptr(y), kernels.ptr(W_obs), kernels.ptr(obs_pt),
-                     kernels.ptr(obs_ok), K, N, Q, kernels.ptr(out),
-                     kernels.stream_of(y)), "ba_schur_u")
-    return out
+            args, ("Hpp_d", "g_p", "g_l", "G", "W_obs", "obs_pt", "free",
+                   "offsets", "slots", "place"),
+            (torch.float32,) * 5 + (torch.int32, torch.bool)
+            + (torch.int32,) * 3,
+            ((K, 6, 6), (K, 6), (Q, 3), (Q, 3, 3), (K * N, 18), (K, N), (K,),
+             (Q + 1,), (K * N,), (K * N,))):
+        kernels.require(t, "ba_schur_cg " + what, dtype, shape)
+    Hpp_d, g_p, g_l, G, rows, obs_pt, free, offsets, slots, place = args
+    eye6 = torch.eye(6, dtype=torch.float32, device=Hpp_d.device)
+    # `inv_ex`: `inv`'s result without its error check, which reads the
+    # device's status back to the host
+    Minv = torch.linalg.inv_ex(Hpp_d + 1e-9 * eye6).inverse.contiguous()
+    scratch = torch.empty((3 * Q + 6 * K,), dtype=torch.float32,
+                          device=Hpp_d.device)
+    x = torch.empty((K, 6), dtype=torch.float32, device=Hpp_d.device)
+    ut = torch.empty((Q, 3), dtype=torch.float32, device=Hpp_d.device)
+    fn = kernels.bind("ba_schur", "ba_schur_cg",
+                      [kernels.VP] * 11 + [kernels.CI] * 4
+                      + [kernels.VP] * 4)
+    kernels.LAUNCHES["ba_schur_cg"] += 1
+    kernels.check(fn(*(kernels.ptr(t) for t in (
+        Hpp_d, Minv, g_p, g_l, G, rows, obs_pt, offsets, slots, place,
+        free)), K, N, Q, cg_iters, kernels.ptr(scratch), kernels.ptr(x),
+        kernels.ptr(ut), kernels.stream_of(Hpp_d)), "ba_schur_cg")
+    return x, ut
 
 
 def point_index_limit(device) -> Optional[int]:
@@ -568,7 +603,8 @@ def ba_solve(p: BAProblem, cam: proj.CameraIntrinsics, iters: int = 10,
     the per-point camera-block sums and solves it directly ([K*6, K*6],
     192x192 for the W=32 window; `cg_iters` unused). `dense_schur=False`
     solves the same system by `cg_iters` iterations of block-Jacobi
-    preconditioned CG, S applied matrix-free (K6)."""
+    preconditioned CG, S applied matrix-free, one K6 launch an LM
+    iteration."""
     if axis_name is not None or axis_size > 1:
         raise NotImplementedError(
             "sharded BA (axis_name / axis_size) belongs to the multi-GPU "
@@ -576,42 +612,6 @@ def ba_solve(p: BAProblem, cam: proj.CameraIntrinsics, iters: int = 10,
     with highest_precision():
         return _ba_solve_f32(p, cam, iters, use_huber, chi2_gate, lambda0,
                              dense_schur, cg_iters)
-
-
-def _cg_step(p: BAProblem, Hpp_d, g_p, g_l, G, W_obs, obs_ok0, free, index,
-             cg_iters):
-    """dp [K,6] and U^T dp [P,3] of one LM iteration by preconditioned CG
-    on S dp = -(g_p - U G g_l), free keyframes only (JAX
-    `optim/ba.py:347-414`)."""
-    fm = free[:, None].to(torch.float32)
-    eye6 = torch.eye(6, dtype=torch.float32, device=Hpp_d.device)
-    Minv = torch.linalg.inv(Hpp_d + 1e-9 * eye6)
-
-    def precond(v):
-        return torch.einsum("kij,kj->ki", Minv, v) * fm
-
-    Gg = torch.einsum("pij,pj->pi", G, g_l)
-    rhs = -(g_p - ba_schur_u(Gg, W_obs, p.obs_pt, obs_ok0)) * fm
-    x = torch.zeros_like(rhs)
-    rr = rhs
-    z = precond(rhs)
-    pdir = z
-    rz = torch.sum(rhs * z)
-    for _ in range(cg_iters):
-        Ap = ba_schur_mv(pdir, free, Hpp_d, G, W_obs, p.obs_pt, obs_ok0,
-                         index)
-        denom = torch.sum(pdir * Ap)
-        alpha = rz / torch.where(torch.abs(denom) < 1e-12,
-                                 torch.full_like(denom, 1e-12), denom)
-        x = x + alpha * pdir
-        rr = rr - alpha * Ap
-        z = precond(rr)
-        rz_new = torch.sum(rr * z)
-        beta = rz_new / torch.where(torch.abs(rz) < 1e-12,
-                                    torch.full_like(rz, 1e-12), rz)
-        pdir = z + beta * pdir
-        rz = rz_new
-    return x, ba_schur_ut(x, W_obs, p.obs_pt, obs_ok0, index, G.shape[0])
 
 
 def _dense_step(T, Hpp_d, g_p, g_l, G, free, fmask, rows, cols, K, P):
@@ -681,8 +681,8 @@ def _ba_solve_f32(p: BAProblem, cam, iters, use_huber, chi2_gate,
             dp, ut_dp = _dense_step(T, Hpp_d, g_p, g_l, G, free, fmask, rows,
                                     cols, K, P)
         else:
-            dp, ut_dp = _cg_step(p, Hpp_d, g_p, g_l, G, T, obs_ok0, free,
-                                 index, cg_iters)
+            dp, ut_dp = ba_schur_cg(Hpp_d, g_p, g_l, G, T, p.obs_pt,
+                                    obs_ok0, free, cg_iters)
         dl = torch.einsum("pij,pj->pi", G, -g_l - ut_dp)
         dl = torch.where(p.pt_valid[:, None], dl, torch.zeros_like(dl))
         new_pose = se3.retract(kf_pose, dp)

@@ -13,7 +13,14 @@
 (c) K6's plain versions: `ba_schur_mv_plain` equals the dense reduced
     camera matrix S built from the same blocks applied to v (within 1e-5
     of |S||v|), `ba_schur_u_plain` and `ba_schur_ut_plain` are adjoint;
-    and the CUDA-facing wrappers route CPU tensors to them.
+    `cg_solve_plain` solves the dense system in f64 (0, 1 and 40
+    iterations, within 2e-4 of the largest entry), and `ba_schur_cg`
+    routes CPU tensors to it.
+(e) the card's layouts: the point index's `place` inverts `slots` on the
+    live slots and is -1 elsewhere, and the plain W_obs gathered into
+    point order through `slots` puts slot s's row at `place[s]`, the
+    layout in which K5 writes the rows on the card (`LiveRows`;
+    `w_obs_slot_rows` takes it back).
 (d) `compact_points`: the live points in index order, observations
     remapped, the solve on the compacted problem equal to the solve on the
     whole one within 1e-5, and the global BA's scatter-back
@@ -160,15 +167,11 @@ def _schur_inputs(seed=4):
     return p, ok, Hpp_d, G, W
 
 
-def test_schur_mv_plain_equals_dense_reduced_matrix():
-    p, ok, Hpp_d, G, W = _schur_inputs()
+def _dense_reduced(p, ok, Hpp_d, G, W):
+    """In f64: T [P, K*6, 3] (each point's camera-block sums of W_obs) and
+    the dense S = blockdiag(Hpp_d) - sum_p T_p G_p T_p^T."""
     K, N = p.obs_pt.shape
     P = G.shape[0]
-    free = ~p.kf_fixed
-    v = torch.as_tensor(np.random.default_rng(0).normal(
-        0, 1, (K, 6)).astype(np.float32))
-    out = tba.ba_schur_mv_plain(v, free, Hpp_d, G, W, p.obs_pt, ok)
-    # dense S = blockdiag(Hpp_d) - sum_p T_p G_p T_p^T, in f64
     T = np.zeros((P, K * 6, 3))
     Wn = W.double().numpy().reshape(K, N, 6, 3)
     okn, ptn = ok.numpy(), p.obs_pt.numpy()
@@ -178,15 +181,31 @@ def test_schur_mv_plain_equals_dense_reduced_matrix():
     S = -np.einsum("pdi,pij,pej->de", T, G.double().numpy(), T)
     for k in range(K):
         S[k * 6:(k + 1) * 6, k * 6:(k + 1) * 6] += Hpp_d[k].double().numpy()
+    return T, S
+
+
+def test_schur_mv_plain_equals_dense_reduced_matrix():
+    p, ok, Hpp_d, G, W = _schur_inputs()
+    K, N = p.obs_pt.shape
+    P = G.shape[0]
+    free = ~p.kf_fixed
+    v = torch.as_tensor(np.random.default_rng(0).normal(
+        0, 1, (K, 6)).astype(np.float32))
+    out = tba.ba_schur_mv_plain(v, free, Hpp_d, G, W, p.obs_pt, ok)
+    _, S = _dense_reduced(p, ok, Hpp_d, G, W)
     fm = np.repeat(free.numpy(), 6).astype(np.float64)
     ref = ((S * fm[:, None] * fm[None, :]) @ v.double().numpy().reshape(-1))
     scale = np.abs(S).max() * np.abs(v.numpy()).max()
     assert np.abs(out.double().numpy().reshape(-1) - ref).max() <= 1e-5 * scale
     assert not out[~free].any()
-    # the wrappers route CPU tensors to the plain versions
-    idx = tba.ba_point_index(p.obs_pt, ok, P)
-    assert torch.equal(tba.ba_schur_mv(v, free, Hpp_d, G, W, p.obs_pt, ok,
-                                       idx), out)
+    # the CG's one wrapper and its plain version on the CPU
+    g_p = torch.as_tensor(np.random.default_rng(2).normal(
+        0, 1, (K, 6)).astype(np.float32))
+    g_l = torch.as_tensor(np.random.default_rng(3).normal(
+        0, 1, (P, 3)).astype(np.float32))
+    args = (Hpp_d, g_p, g_l, G, W, p.obs_pt, ok, free, 10)
+    assert all(torch.equal(a, b) for a, b in zip(
+        tba.ba_schur_cg(*args), tba.cg_solve_plain(*args)))
 
 
 def test_schur_u_and_ut_are_adjoint():
@@ -201,9 +220,114 @@ def test_schur_u_and_ut_are_adjoint():
     a = float((ut.double() * y.double()).sum())
     b = float((v.double() * u.double()).sum())
     assert abs(a - b) <= 1e-5 * max(abs(a), 1.0)
-    idx = tba.ba_point_index(p.obs_pt, ok, P)
-    assert torch.equal(tba.ba_schur_ut(v, W, p.obs_pt, ok, idx, P), ut)
-    assert torch.equal(tba.ba_schur_u(y, W, p.obs_pt, ok), u)
+    # U^T v is zero on points no live slot observes, U y on keyframes
+    # with no live slot
+    seen = torch.zeros(P, dtype=torch.bool)
+    seen[p.obs_pt[ok].long()] = True
+    assert not ut[~seen].any() and ut[seen].abs().sum() > 0
+    assert not u[~ok.any(1)].any()
+
+
+@pytest.mark.parametrize("seed,cg_iters", [(4, 40), (5, 1), (6, 0)])
+def test_cg_solve_plain_solves_the_reduced_system(seed, cg_iters):
+    """`cg_solve_plain` against the reduced camera system built densely in
+    f64 from the same blocks: rhs = -(g_p - T^T G g_l) on the free
+    keyframes; no iteration gives dp = 0; one gives the preconditioned
+    steepest-descent step alpha z0, alpha = r.z0 / z0.S z0, z0 = Minv r;
+    40 (more than the 36 free unknowns) give S^-1 rhs. U^T dp is T dp."""
+    p, ok, Hpp_d, G, W = _schur_inputs(seed)
+    _, g_p, acc, _ = tba.ba_assemble_plain(p.kf_pose, p.pt_pos, p, ok, TCAM,
+                                           True, w_obs=True)
+    g_l = acc[:, 9:]
+    free = ~p.kf_fixed
+    G = torch.where(p.pt_frozen[:, None, None], torch.zeros_like(G), G)
+    x, ut = tba.cg_solve_plain(Hpp_d, g_p, g_l, G, W, p.obs_pt, ok, free,
+                               cg_iters)
+    assert not x[~free].any()
+    T, S = _dense_reduced(p, ok, Hpp_d, G, W)
+    f = np.repeat(free.numpy(), 6)
+    Gg = np.einsum("pij,pj->pi", G.double().numpy(), g_l.double().numpy())
+    rhs = -(g_p.double().numpy().reshape(-1)
+            - np.einsum("pdi,pi->d", T, Gg))[f]
+    if cg_iters == 0:
+        ref = np.zeros_like(rhs)
+    elif cg_iters == 1:
+        Minv = np.linalg.inv(Hpp_d.double().numpy()
+                             + 1e-9 * np.eye(6))[free.numpy()]
+        z = np.einsum("kij,kj->ki", Minv, rhs.reshape(-1, 6)).reshape(-1)
+        ref = (rhs @ z) / (z @ S[np.ix_(f, f)] @ z) * z
+    else:
+        ref = np.linalg.solve(S[np.ix_(f, f)], rhs)
+    dp = x.double().numpy().reshape(-1)
+    scale = max(np.abs(ref).max(), 1e-30)
+    assert np.abs(dp[f] - ref).max() <= 2e-4 * scale, (
+        np.abs(dp[f] - ref).max(), scale)
+    if cg_iters:
+        assert np.abs(dp[f]).max() > 0
+    ut_ref = np.einsum("pdi,d->pi", T, dp)
+    assert np.abs(ut.double().numpy() - ut_ref).max() <= 1e-5 * max(
+        np.abs(ut_ref).max(), 1e-30)
+
+
+def _place_case(name):
+    d = _problem(seed=9)
+    p, ok = _asm_args(d)
+    obs_pt, Q = p.obs_pt.clone(), p.pt_pos.shape[0]
+    if name == "repeats":  # a point three times in one keyframe, 24 in all
+        obs_pt[:8, 3:6] = 7
+        ok[:8, 3:6] = True
+    elif name == "beyond_q":  # clamped to [0, Q) as the assembly does
+        obs_pt[2, :5] = Q + 3
+        obs_pt[3, :5] = -4
+        ok[2:4, :5] = True
+    elif name == "all_dead":
+        ok[:] = False
+    return obs_pt, ok, Q
+
+
+@pytest.mark.parametrize("name", ["problem", "repeats", "beyond_q",
+                                  "all_dead"])
+def test_point_index_place_inverts_slots(name):
+    obs_pt, ok, Q = _place_case(name)
+    idx = tba.ba_point_index_plain(obs_pt, ok, Q)
+    L = int(idx.offsets[-1])
+    assert idx.place.dtype == torch.int32 and idx.place.shape == ok.reshape(
+        -1).shape
+    live = torch.nonzero(ok.reshape(-1)).reshape(-1)
+    assert L == live.numel()
+    assert torch.equal(idx.slots[idx.place[live].long()].long(), live)
+    assert torch.equal(idx.place[idx.slots[:L].long()],
+                       torch.arange(L, dtype=torch.int32))
+    assert (idx.place[~ok.reshape(-1)] == -1).all()
+    # a point's rows are contiguous: place falls in its point's range
+    q = torch.clamp(obs_pt.reshape(-1)[live], 0, Q - 1).long()
+    pl = idx.place[live].long()
+    assert ((idx.offsets[q] <= pl) & (pl < idx.offsets[q + 1])).all()
+
+
+def test_w_obs_rows_in_point_order():
+    d = _problem(seed=10)
+    p, ok = _asm_args(d)
+    Q = p.pt_pos.shape[0]
+    W = tba.ba_assemble_plain(p.kf_pose, p.pt_pos, p, ok, TCAM, True,
+                              w_obs=True)[3]
+    idx = tba.ba_point_index_plain(p.obs_pt, ok, Q)
+    L = int(idx.offsets[-1])
+    W_live = W[idx.slots[:L].long()]
+    live = torch.nonzero(ok.reshape(-1)).reshape(-1)
+    assert torch.equal(W_live[idx.place[live].long()], W[live])
+    # point q's rows are W_live[offsets[q]:offsets[q + 1]], slot ids
+    # ascending
+    for q in torch.nonzero(idx.offsets[1:] > idx.offsets[:-1])[:20, 0]:
+        a, b = int(idx.offsets[q]), int(idx.offsets[q + 1])
+        s = idx.slots[a:b].long()
+        assert (s[1:] > s[:-1]).all()
+        assert (p.obs_pt.reshape(-1)[s] == q).all()
+        assert torch.equal(W_live[a:b], W[s])
+    # and back to the slot layout, as the card's rows are for the plain CG
+    padded = torch.full_like(W, float("nan"))
+    padded[:L] = W_live
+    assert torch.equal(tba.w_obs_slot_rows(tba.LiveRows(padded, idx)), W)
 
 
 def test_compact_points_keeps_every_live_point_in_order():

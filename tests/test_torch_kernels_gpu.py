@@ -1,7 +1,7 @@
 """The CUDA kernels against their plain versions, on the card: K1 (in its
 three gate modes), K2 and K3 (on one level and on a whole pyramid in one
-call), K4 (pose LM), K5 (BA assembly and cost, both modes), K6 (the
-reduced-camera product of CG BA) and B9 (the stereo SAD
+call), K4 (pose LM), K5 (BA assembly and cost, both modes), K6 (the fused CG
+solve of global BA) and B9 (the stereo SAD
 refinement alone, and the whole stereo association after K1 in one
 launch), and the BoW vocabulary on K1 (quantization, training,
 compute_bow).
@@ -475,24 +475,92 @@ def test_k5_point_major_assembly(name):
     assert close(cost.reshape(1), rc.reshape(1)) and close(chi2, rchi2)
 
 
-@pytest.mark.parametrize("name", ["q2048", "w40", "global"])
+def _cg_case(name):
+    """The fused CG's card cases: the K5 cases below, and "small": 12
+    keyframes (6 fixed, 2 without observations), 5 % of the points frozen,
+    point 0 with at least 40 live slots (four in each of the 10 observing
+    keyframes, more than a warp has lanes), Q = 1003 points (not a multiple
+    of the 8 warps a block)."""
+    if name != "small":
+        # the whole map: slower turns, so that every point stays in front
+        return _ba_problem(7, K=128, P=20000, Q=20000, turn=0.002) \
+            if name == "global" else _k5_case(name)
+    p = _ba_problem(11, K=12, P=900, N=300, Q=1003)
+    obs_pt = p.obs_pt.clone()
+    obs_pt[:10, 40:44] = 0
+    return p._replace(obs_pt=obs_pt)
+
+
+def _cg_args(p, out):
+    """`ba_schur_cg`'s arguments from one LM iteration's assembly, as
+    `_ba_solve_f32` forms them (lambda 1e-3, frozen points out of the
+    elimination)."""
+    Hpp, g_p, acc, W = out
+    Q = acc.shape[0]
+    eye3 = torch.eye(3, device=Hpp.device)
+    eye6 = torch.eye(6, device=Hpp.device)
+    Hll = acc[:, :9].reshape(Q, 3, 3)
+    Hpp_d = Hpp + (1e-3 * torch.diagonal(Hpp, dim1=1, dim2=2)
+                   + 1e-6)[:, :, None] * eye6
+    Hll_d = Hll + (1e-3 * torch.diagonal(Hll, dim1=1, dim2=2)
+                   + 1e-6)[:, :, None] * eye3
+    G = ba._inv3x3(Hll_d + 1e-9 * eye3)
+    G = torch.where(p.pt_frozen[:, None, None], torch.zeros_like(G), G)
+    obs_ok = (p.obs_pt >= 0) & p.pt_valid[p.obs_pt.clamp(0, Q - 1).long()]
+    return dict(Hpp_d=Hpp_d, g_p=g_p, g_l=acc[:, 9:], G=G, W_obs=W,
+                obs_pt=p.obs_pt, obs_ok=obs_ok, free=~p.kf_fixed,
+                cg_iters=40)
+
+
+def _cg_agrees(args):
+    """The fused CG against `cg_solve_plain` on the same arguments (W_obs
+    in the slot layout): two calls bit-equal, one launch a call; the
+    yardstick is the plain solve in f64: the kernel's largest difference
+    from it, in dp and in U^T dp, at most twice the f32 plain version's
+    plus 1e-4 of the f64 result's largest magnitude (40 f32 CG iterations
+    amplify rounding the same way in both). The plain solves run in
+    torch's deterministic mode, so that their scatter sums in one order."""
+    before = kernels.counts()["ba_schur_cg"]
+    out = ba.ba_schur_cg(**args)
+    again = ba.ba_schur_cg(**args)
+    assert kernels.counts()["ba_schur_cg"] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    plain_args = {**args, "W_obs": ba.w_obs_slot_rows(args["W_obs"])}
+    torch.use_deterministic_algorithms(True)
+    try:
+        ref = ba.cg_solve_plain(**plain_args)
+        exact = ba.cg_solve_plain(**{
+            n: v.double() if isinstance(v, torch.Tensor)
+            and v.is_floating_point() else v for n, v in plain_args.items()})
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for name, k, r, e in zip(("dp", "U^T dp"), out, ref, exact):
+        assert k.shape == e.shape, name
+        e_k = float((k.double() - e).abs().max())
+        e_p = float((r.double() - e).abs().max())
+        assert e_k <= 2 * e_p + 1e-4 * float(e.abs().max()), (name, e_k, e_p)
+    assert not out[0][~args["free"]].any()
+    return out
+
+
+@pytest.mark.parametrize("name", ["q2048", "w40", "global", "small"])
 def test_k5_w_obs_and_k6_match_plain(name):
     """K5's `w_obs` mode: Hpp, g_p and Hll|g_l bit-equal to the dense
-    mode's launch, W_obs within 1e-4 x its largest entry of the plain
-    version and zero on dead slots, two calls bit-equal. K6: `ba_schur_mv`
-    within 1e-5 x the larger term's magnitude of its plain version (or no
-    further from the product in f64 than twice the plain version: the two
-    terms cancel), `ba_schur_u` and `ba_schur_ut` within 1e-5 of theirs,
-    bit-equal on a second call, and 2 / 1 / 1 launches. "global" is a whole-map shape: 128 keyframes x 1000
-    slots over 20000 points."""
+    mode's launch; its live rows (in the point index's order) within 1e-4 x
+    the largest entry of the plain version's rows gathered through the
+    index; `place` equal to the plain index's; two calls bit-equal. K6: the
+    fused CG solve against `cg_solve_plain` (`_cg_agrees`). "global" is a
+    whole-map shape: 128 keyframes x 1000 slots over 20000 points."""
     dev = _card()
-    # the whole map: slower turns, so that every point stays in front
-    p = _ba_problem(7, K=128, P=20000, Q=20000, turn=0.002) \
-        if name == "global" else _k5_case(name)
-    p = ba.BAProblem(*(t.to(dev) for t in p))
+    p = ba.BAProblem(*(t.to(dev) for t in _cg_case(name)))
     Q = p.pt_pos.shape[0]
     obs_ok = (p.obs_pt >= 0) & p.pt_valid[p.obs_pt.clamp(0, Q - 1).long()]
     idx = ba.ba_point_index(p.obs_pt, obs_ok, Q)
+    ref_idx = ba.ba_point_index_plain(p.obs_pt.cpu(), obs_ok.cpu(), Q)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(idx, ref_idx))
+    L = int(idx.offsets[-1])
+    if name == "small":
+        assert int(idx.offsets[1] - idx.offsets[0]) > 32 and Q % 8
     args = (p.kf_pose, p.pt_pos, p, obs_ok, CAM, True)
     before = kernels.counts()
     out = ba.ba_assemble(*args, index=idx, w_obs=True)
@@ -502,63 +570,35 @@ def test_k5_w_obs_and_k6_match_plain(name):
     dense = ba.ba_assemble(*args, index=idx) if Q * p.obs_pt.shape[0] \
         <= 2 ** 22 else None
     ref = ba.ba_assemble_plain(*args, w_obs=True)
-    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    assert isinstance(out[3], ba.LiveRows) and out[3].index is idx
+    assert all(torch.equal(a, b) for a, b in zip(out[:3], again[:3]))
+    assert torch.equal(out[3].rows[:L], again[3].rows[:L])
     if dense is not None:
         assert all(torch.equal(a, b) for a, b in zip(out[:3], dense[:3]))
-    W = out[3]
-    assert (W - ref[3]).abs().max() <= 1e-4 * ref[3].abs().max()
-    assert not W[~obs_ok.reshape(-1)].any()
-    K = p.obs_pt.shape[0]
-    g = torch.Generator(device=dev).manual_seed(0)
-    Hpp_d = out[0] + 1e-3 * torch.eye(6, device=dev)
-    Hll = out[2][:, :9].reshape(Q, 3, 3) + 1e-3 * torch.eye(3, device=dev)
-    G = ba._inv3x3(Hll)
-    v = torch.randn((K, 6), generator=g, device=dev)
-    y = torch.randn((Q, 3), generator=g, device=dev)
-    free = ~p.kf_fixed
-    before = kernels.counts()["ba_schur_mv"]
-    mv = ba.ba_schur_mv(v, free, Hpp_d, G, W, p.obs_pt, obs_ok, idx)
-    u = ba.ba_schur_u(y, W, p.obs_pt, obs_ok)
-    ut = ba.ba_schur_ut(v, W, p.obs_pt, obs_ok, idx, Q)
-    assert kernels.counts()["ba_schur_mv"] == before + 4
-    assert torch.equal(mv, ba.ba_schur_mv(v, free, Hpp_d, G, W, p.obs_pt,
-                                          obs_ok, idx))
-    mv_r = ba.ba_schur_mv_plain(v, free, Hpp_d, G, W, p.obs_pt, obs_ok)
-    u_r = ba.ba_schur_u_plain(y, W, p.obs_pt, obs_ok)
-    ut_r = ba.ba_schur_ut_plain(v, W, p.obs_pt, obs_ok, Q)
-    hv = torch.einsum("kij,kj->ki", Hpp_d, v).abs().max()
-    # S v = Hpp_d v - U G U^T v cancels: where the kernel is not within
-    # 1e-5 of the larger term, it lies no further from the same product in
-    # f64 than twice the plain version does
-    mv_e = ba.ba_schur_mv_plain(v.double(), free, Hpp_d.double(),
-                                G.double(), W.double(), p.obs_pt, obs_ok)
-    e_k = float((mv.double() - mv_e).abs().max())
-    e_p = float((mv_r.double() - mv_e).abs().max())
-    assert e_k <= max(1e-5 * max(float(hv), float(mv_r.abs().max())),
-                      2 * e_p), (e_k, e_p)
-    assert (u - u_r).abs().max() <= 1e-5 * u_r.abs().max()
-    assert (ut - ut_r).abs().max() <= 1e-5 * ut_r.abs().max()
-    assert not mv[~free].any()
+    W_live = out[3].rows
+    assert W_live.shape == ref[3].shape
+    ref_rows = ref[3][idx.slots[:L].long()]
+    assert (W_live[:L] - ref_rows).abs().max() <= 1e-4 * ref_rows.abs().max()
+    _cg_agrees(_cg_args(p, out))
 
 
 def test_cg_ba_with_kernels_matches_plain(monkeypatch):
     """The CG solve with K5 (`w_obs`) and K6 against the same solve with
-    the plain assembly and products, both on the card (torch's
-    deterministic mode for the plain scatter): poses within 1e-3 m /
-    1e-3 rad, final costs within 1e-3 relative; 2 x 20 + 2 K6 launches an
-    LM iteration."""
+    the plain assembly and CG, both on the card (torch's deterministic
+    mode for the plain scatter): poses within 1e-3 m / 1e-3 rad, final
+    costs within 1e-3 relative; one K6 and one K5 `w_obs` launch an LM
+    iteration."""
     dev = _card()
     p = ba.BAProblem(*(t.to(dev) for t in _ba_problem(8)))
     p = p._replace(pt_frozen=None)
-    before = kernels.counts()["ba_schur_mv"]
+    before = kernels.counts()
     out = ba.ba_solve(p, CAM, iters=3, cg_iters=20, dense_schur=False)
-    assert kernels.counts()["ba_schur_mv"] == before + 3 * (2 * 20 + 2)
-    for n in ("ba_assemble", "ba_cost", "ba_schur_mv", "ba_schur_u",
-              "ba_schur_ut"):
-        monkeypatch.setattr(ba, n, getattr(ba, n + "_plain")
-                            if n != "ba_schur_ut" else
-                            (lambda v, W, pt, ok, idx, Q:
-                             ba.ba_schur_ut_plain(v, W, pt, ok, Q)))
+    after = kernels.counts()
+    assert after["ba_schur_cg"] == before["ba_schur_cg"] + 3
+    assert after["ba_assemble_w_obs"] == before["ba_assemble_w_obs"] + 3
+    monkeypatch.setattr(ba, "ba_assemble", ba.ba_assemble_plain)
+    monkeypatch.setattr(ba, "ba_cost", ba.ba_cost_plain)
+    monkeypatch.setattr(ba, "ba_schur_cg", ba.cg_solve_plain)
     torch.use_deterministic_algorithms(True)
     try:
         ref = ba.ba_solve(p, CAM, iters=3, cg_iters=20, dense_schur=False)
@@ -569,6 +609,37 @@ def test_cg_ba_with_kernels_matches_plain(monkeypatch):
     assert abs(float(out.final_cost) - float(ref.final_cost)) <= 1e-3 * \
         float(ref.final_cost)
     assert float(out.final_cost) < float(out.initial_cost)
+
+
+def test_schur_cg_wrapper_refuses_what_the_kernel_does_not_take():
+    """The fused CG's wrapper raises on shapes and types the kernel does
+    not take (K over its limit, W_obs of the wrong width or in the plain
+    version's slot layout, an index without `place`), and never falls back
+    to the plain solve."""
+    dev = _card()
+    p = ba.BAProblem(*(t.to(dev) for t in _cg_case("small")))
+    Q = p.pt_pos.shape[0]
+    obs_ok = (p.obs_pt >= 0) & p.pt_valid[p.obs_pt.clamp(0, Q - 1).long()]
+    idx = ba.ba_point_index(p.obs_pt, obs_ok, Q)
+    out = ba.ba_assemble(p.kf_pose, p.pt_pos, p, obs_ok, CAM, True,
+                         index=idx, w_obs=True)
+    args = _cg_args(p, out)
+    live = args["W_obs"]
+    with pytest.raises(ValueError):
+        ba.ba_schur_cg(**{**args, "W_obs": live._replace(
+            rows=live.rows[:, :9])})
+    with pytest.raises(TypeError):
+        ba.ba_schur_cg(**{**args, "W_obs": ba.w_obs_slot_rows(live)})
+    with pytest.raises(ValueError):
+        ba.ba_schur_cg(**{**args, "G": args["G"].double()})
+    with pytest.raises(ValueError):
+        ba.ba_schur_cg(**{**args, "W_obs": live._replace(
+            index=idx._replace(place=idx.place[:-1]))})
+    K = 2 * kernels.bind("ba_schur", "ba_schur_cg_max_k", [])()
+    big = {**args, "Hpp_d": args["Hpp_d"][:1].expand(K, 6, 6),
+           "obs_pt": args["obs_pt"][:1].expand(K, -1)}
+    with pytest.raises(ValueError, match="K <="):
+        ba.ba_schur_cg(**big)
 
 
 VGA_SHAPES = image_ops.pyramid_shapes(480, 640, 8, 1.2)

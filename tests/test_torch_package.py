@@ -55,7 +55,7 @@ def test_every_kernel_source_exists():
     assert set(kernels.LAUNCHES) == {"hamming_best2", "fast", "orb_desc",
                                      "pose_lm", "ba_point_index",
                                      "ba_assemble", "ba_cost", "stereo_sad",
-                                     "ba_assemble_w_obs", "ba_schur_mv"}
+                                     "ba_assemble_w_obs", "ba_schur_cg"}
 
 
 def test_empty_frame_and_scale_tables_match_jax():
