@@ -1,5 +1,5 @@
-"""Drive the PyTorch port of the RGB-D and stereo tracker, with loop
-closing, on one CUDA card.
+"""Drive the PyTorch port of the RGB-D, stereo and monocular tracker, with
+loop closing, on one CUDA card.
 
     python3 chip_smoke.py [--profile] [--parent DIR]
 
@@ -42,6 +42,18 @@ Phases (any failure raises and the script exits non-zero):
        trajectory, below 6 cm (the organic-loop test's gates); the
        global BA's kernels (K5 in its `w_obs` mode, K6) launch exactly when
        a loop closed.
+    g. mono orbit (cell G, the bench's mono probe, `bench.py:653-702`):
+       cell (b)'s 120 VGA views through `Tracker.track_mono` twice, a
+       warm-up lap that initializes (the H/F initializer, two keyframes,
+       a 2-keyframe BA) and a measured lap; bf = 0, `kf_ref_ratio=0.9`,
+       local BA on. Gates: OK at the end, >= 2 keyframes, sim3 ATE of the
+       measured lap under 0.35 m; every kernel of the path launched, one
+       K2 and one K3 call a frame;
+    h. mono circuit with loop closing (cell H, `tests/test_mono_loop.py`'s
+       scenario): 240 QVGA frames, 900 features, 4 levels, 1024 words.
+       Gates (JAX's): OK at the end, a loop closed (an implicit one with
+       >= 25 projected matches), sim3 ATE of the corrected trajectory under
+       0.45 m; the global BA's kernels launched;
     f. stereo save/load (run after phase 4's cell-(c) checks): cell (c)'s
        map through `save_map` and `load_map` into a fresh stereo tracker,
        which must relocalize within 3 pairs from view 40, within 2 cm of
@@ -73,7 +85,15 @@ Phases (any failure raises and the script exits non-zero):
     under relabeled keyframes and tf32 and bf16 controls, which the
     yardstick must tell), the whole global BA with K5 and
     K6 against the plain global BA, and the loop's pose-graph solve on the
-    card against the same solve on the CPU.
+    card against the same solve on the CPU; on cell G, K1's window match of
+    the bootstrap (both passes, under a dense [1000, 1000] pair gate) bit
+    for bit, one more tracked mono frame's K1 and K4 calls (every row mono),
+    K5 on the bootstrap's 2-keyframe window and on a later one; the mono
+    fallback branch (`pnp_ransac`, then K4); the card's `initialize` and
+    `pnp_ransac` against the CPU on the same samples (same success, model
+    and winning hypotheses, pose within 1e-3); and C11: a global BA at
+    P = 32768 with 30,000 live points, K5's index equal to the plain one
+    and one LM iteration's K6 within the f64 yardstick.
  5. torch.profiler windows, after every agreement check: K2's and K3's
     device time on frame 0, K1's and K4's on the recorded tracked frame's
     calls, K5's on the recorded window BA, B9's (and its wrapper's host
@@ -83,6 +103,10 @@ Phases (any failure raises and the script exits non-zero):
     their bounds, K6's barrier floor (its launch with empty phases), the
     whole global BA's and the pose graph's device time and operations,
     and the pose graph's bound (its operations counted from its shapes);
+    the initializer's population and `pnp_ransac` (device time and
+    operations, host time, bound), K1's mono window call and K4 on a mono
+    frame, and cell G's tracked mono frames under the profiler (device
+    operations, busy share);
     K4's time split into passes
     and LM iterations (the same calls without iterations) and one
     iteration on no observation;
@@ -2382,8 +2406,7 @@ def check_gba(rec, device):
     P, Q = full.pt_pos.shape[0], p.pt_pos.shape[0]
     n_live = int(full.pt_valid.sum())
     print(f"  global BA problem: K={K} N={N}, map capacity P={P}, {n_live} "
-          f"live points compacted into Q={Q} (point index limit "
-          f"{ba.point_index_limit(device)}), iters {sa['iters']}, cg_iters "
+          f"live points compacted into Q={Q}, iters {sa['iters']}, cg_iters "
           f"{sa['cg_iters']}")
     assert int(p.pt_valid.sum()) == n_live <= Q, (n_live, Q)
     assert P == bench_config(True).map_capacity.max_points, P
@@ -2681,6 +2704,585 @@ def gba_times(calls, sa, pg, asm_r, k6_r, reps=20):
              "pose_graph_bound_by": pg_bound[1]})
 
 
+# ---------------------------------------------------------------------------
+# the monocular slice: cells G and H, the solvers on the card, C11
+# ---------------------------------------------------------------------------
+
+MONO_ATE_M = 0.35  # bench.py:696-697, the mono probe's sim3 sanity bar
+MONO_LOOP_ATE_M = 0.45  # tests/test_mono_loop.py's sim3 gate
+MONO_CIRCUIT_FRAMES = 240
+# the live points K5's point index held before its counts could move to
+# global memory (C11)
+OLD_INDEX_LIMIT = 27904
+
+
+def mono_config(**kw):
+    """`bench.py:663-670`'s mono probe: the bench's VGA configuration with
+    bf = 0 and `kf_ref_ratio=0.9`, local BA on; synchronous (the port has
+    no software pipeline)."""
+    import dataclasses
+
+    return dataclasses.replace(bench_config(True), bf=0.0, kf_ref_ratio=0.9,
+                               **kw)
+
+
+def mono_launch_gates(launches, tag, loop_closed=False):
+    """Every kernel of the mono path launched; B9 never; the global BA's
+    only where a loop closed."""
+    for k, v in launches.items():
+        if k == "stereo_sad":
+            assert v == 0, f"B9 launched on {tag}"
+        elif k in LOOP_KERNELS:
+            assert (v > 0) == loop_closed, (k, v, tag)
+        else:
+            assert v > 0, f"kernel {k} never launched on {tag}"
+
+
+def run_mono_orbit(imgs, gt, device):
+    """Cell G: the bench's orbit through `Tracker.track_mono` twice, a
+    warm-up lap (which initializes) and a measured lap, as the bench's mono
+    probe runs it, every launch counter set to 0 just before the first lap
+    and read after the second. On the frame that initializes, its K1 calls
+    (the 100 px window match, both passes), its `initialize` call and the
+    bootstrap BA's first `ba_assemble` and its `ba_solve` are recorded.
+    Gates: OK at the end, >= 2 keyframes, sim3 ATE of the measured lap
+    under MONO_ATE_M."""
+    from orb_slam2_refactored_tpu_torch import kernels
+    from orb_slam2_refactored_tpu_torch.io.evaluation import ate_rmse
+    from orb_slam2_refactored_tpu_torch.optim import ba
+    from orb_slam2_refactored_tpu_torch.slam import local_mapping, tracking
+    from orb_slam2_refactored_tpu_torch.utils.timing import StageTimer
+
+    tracker = tracking.Tracker(mono_config(), device=device)
+    timer = StageTimer(device)
+    n = len(imgs)
+    boot = None
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    for lap in range(2):
+        for j in range(n):
+            cur = {"k1": [], "init": [], "asm": [], "solve": []}
+            with contextlib.ExitStack() as st:
+                if tracker.state == tracking.TrackState.NOT_INITIALIZED:
+                    st.enter_context(recording_k1(cur["k1"]))
+                    st.enter_context(recording(cur["init"],
+                                               (tracking, "initialize")))
+                    st.enter_context(recording(cur["asm"],
+                                               (ba, "ba_assemble")))
+                    st.enter_context(recording(
+                        cur["solve"], (local_mapping, "ba_solve")))
+                with timer.time("step"):
+                    tracker.track_mono(imgs[j], timestamp=(lap * n + j) / 30.0)
+            if cur["init"] and tracker.state == tracking.TrackState.OK:
+                boot = cur
+        tracker.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.counts()
+    est = np.stack(tracker.trajectory[-n:])
+    assert est.shape == gt.shape and np.isfinite(est).all()
+    ate, _ = ate_rmse(est, gt, align="sim3")
+    steps = np.asarray(timer.samples["step"][n:])
+    init_frame = next(i for i, e in enumerate(tracker.traj_entries)
+                      if not e["lost"])
+    stats = {
+        "cell": "G", "frames": 2 * n, "ate_sim3_m": ate,
+        "state": int(tracker.state), "init_frame": init_frame,
+        "lost_frames": sum(1 for t in tracker.track_info if t.get("lost")),
+        "ref_fallbacks": sum(1 for t in tracker.track_info
+                             if t.get("ref_fallback")),
+        "keyframes_alive": len(tracker.graph.alive_kfs()),
+        "window_ba_solves": tracker.local_mapper.n_ba,
+        "map_points_alive": int(tracker.graph.pt_alive.sum()),
+        "fps_measured_lap": float(n / steps.sum()),
+        "step_ms_median": float(np.median(steps) * 1e3),
+        "step_ms_p90": float(np.percentile(steps, 90) * 1e3),
+        "wall_s": wall, "launches": launches}
+    print("cell G (mono orbit) " + json.dumps(stats))
+    print("keyframe stages (host clock, synchronized):")
+    for line in tracker.timer.report().splitlines():
+        print("  " + line)
+    assert stats["state"] == 1, tracker.track_info[-3:]
+    assert stats["keyframes_alive"] >= 2, stats
+    assert ate < MONO_ATE_M, f"cell G: sim3 ATE {ate} m"
+    mono_launch_gates(launches, "cell G")
+    # one extraction a frame, whatever the frame's branch
+    assert launches["fast"] == launches["orb_desc"] == 2 * n, launches
+    assert boot is not None and len(boot["init"]) == 1, "no bootstrap"
+    N = tracker.cfg.n_features
+    window = [a for a in boot["k1"] if "pair_ok" in a]
+    assert len(window) == 2 and all(
+        a["pair_ok"].shape == (N, N) for a in window), len(window)
+    assert boot["asm"] and len(boot["solve"]) == 1
+    return stats, tracker, boot
+
+
+def mono_circuit_frames():
+    """Cell H: `tests/test_mono_loop.py`'s scenario: 240 QVGA views of
+    `circuit_trajectory(240, overlap=40)` in the box room 1.7 x 1.3 x 2.7
+    with distinct textures (f32 images, rounded as the JAX package's
+    `_pack_mono` rounds them)."""
+    from orb_slam2_refactored_tpu_torch.io.synthetic import (
+        SyntheticScene, box_room)
+
+    gt = circuit_trajectory(MONO_CIRCUIT_FRAMES, overlap=40)
+    scene = SyntheticScene(width=320, height=240, fx=260.0, fy=260.0,
+                           planes=box_room(1.7, 1.3, 2.7, -2.7,
+                                           distinct_textures=True))
+    return [scene.render(pose)[0] for pose in gt], gt
+
+
+def mono_circuit_config():
+    """Cell H: `tests/test_mono_loop.py`'s configuration (900 features, 4
+    levels, 1024 words, a keyframe at least every 8 frames, `MapCapacity(
+    96, 16384, 900)`, loop closing on, bf = 0)."""
+    from orb_slam2_refactored_tpu_torch.slam.map_state import MapCapacity
+    from orb_slam2_refactored_tpu_torch.slam.tracking import TrackerConfig
+
+    return TrackerConfig(
+        width=320, height=240, fx=260.0, fy=260.0, cx=160.0, cy=120.0,
+        bf=0.0, n_features=900, n_levels=4, enable_loop_closing=True,
+        vocab_words=1024, kf_max_interval=8,
+        map_capacity=MapCapacity(max_keyframes=96, max_points=16384,
+                                 max_features=900))
+
+
+def run_mono_circuit(frames, gt, device):
+    """Cell H (`mono_circuit_config`) through `track_mono`, every launch
+    counter set to 0 just before and read just after. Gates (JAX's own):
+    OK at the end, a loop closed (an implicit one verified by >= 25
+    projected matches), sim3 ATE of `corrected_frame_poses` under
+    MONO_LOOP_ATE_M. The Sim3 of a mono loop has a free scale."""
+    from orb_slam2_refactored_tpu_torch import kernels
+    from orb_slam2_refactored_tpu_torch.io.evaluation import ate_rmse
+    from orb_slam2_refactored_tpu_torch.slam.system import (
+        corrected_frame_poses)
+    from orb_slam2_refactored_tpu_torch.slam.tracking import Tracker
+
+    tracker = Tracker(mono_circuit_config(), device=device)
+    real = tracker._close_loop
+
+    def close_loop(*a, **k):
+        with tracker.timer.time("loop.close_loop"):
+            return real(*a, **k)
+
+    tracker._close_loop = close_loop
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    for i, img in enumerate(frames):
+        tracker.track_mono(img, timestamp=i / 30.0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.counts()
+    tracker.flush()
+    est = corrected_frame_poses(tracker)
+    assert est.shape == gt.shape and np.isfinite(est).all()
+    ate, _ = ate_rmse(est, gt, align="sim3")
+    lc, info = tracker.loop_closer, tracker.last_loop_info
+    samples = tracker.timer.samples
+    # the views lost after the bootstrap (mid-run losses that
+    # relocalization recovers are in JAX's gates)
+    ok = [not e["lost"] for e in tracker.traj_entries]
+    lost = [i for i in range(ok.index(True), len(ok)) if not ok[i]]
+    stats = {
+        "cell": "H", "frames": len(frames), "ate_sim3_m": ate,
+        "loops_closed": lc.loops_closed if lc else 0,
+        "state": int(tracker.state), "lost_frames": len(lost),
+        "lost_views_first_last": lost[:1] + lost[-1:],
+        "keyframes_alive": len(tracker.graph.alive_kfs()),
+        "map_points_alive": int(tracker.graph.pt_alive.sum()),
+        "last_loop_info": None if info is None else {
+            k: (list(v) if isinstance(v, tuple) else v)
+            for k, v in info.items()},
+        "close_loop_ms": [x * 1e3 for x in samples.get("loop.close_loop",
+                                                      [])],
+        "gba_merge_ms": [x * 1e3 for x in samples.get("kf.gba_merge", [])],
+        "wall_s": wall, "launches": launches}
+    print("cell H (mono circuit, loop closing on) " + json.dumps(stats))
+    assert stats["state"] == 1, tracker.track_info[-3:]
+    assert stats["loops_closed"] >= 1, "cell H: no loop closed"
+    if info.get("implicit"):
+        assert info["n_proj"] >= 25, info
+    assert ate < MONO_LOOP_ATE_M, f"cell H: sim3 ATE {ate} m"
+    mono_launch_gates(launches, "cell H", loop_closed=True)
+    return stats
+
+
+def check_mono_fallback(imgs, gt, device, n=12):
+    """The mono step's other branch on the card: with `min_matches_mm` out
+    of reach every tracked frame takes the reference-keyframe fallback,
+    which in mono seeds its LM with `pnp_ransac`. Returns the `pnp_ransac`
+    and K4 calls of its last frame."""
+    from orb_slam2_refactored_tpu_torch.io.evaluation import ate_rmse
+    from orb_slam2_refactored_tpu_torch.slam import tracking
+
+    tracker = tracking.Tracker(mono_config(min_matches_mm=10 ** 6),
+                               device=device)
+    for i in range(n - 1):
+        tracker.track_mono(imgs[i])
+    pnp, k4 = [], []
+    with recording(pnp, (tracking, "pnp_ransac")), recording_k4(k4):
+        tracker.track_mono(imgs[n - 1])
+    info = [t for t in tracker.track_info if "ref_fallback" in t]
+    ate, _ = ate_rmse(np.stack(tracker.trajectory), gt[:n], align="sim3")
+    print(f"mono fallback branch: {n} frames, {len(info)} tracked, all by "
+          f"the fallback: {all(t['ref_fallback'] for t in info)}, sim3 ATE "
+          f"{ate:.4f} m")
+    assert not any(t.get("lost") for t in tracker.track_info)
+    # every frame after the bootstrap tracked, each through the fallback
+    assert len(info) >= n // 2 and all(t["ref_fallback"] for t in info)
+    assert len(pnp) == 1 and ate <= MONO_ATE_M, (len(pnp), ate)
+    return pnp[0], k4
+
+
+def record_tracked_mono_frame(tracker, imgs):
+    """The K1 and K4 calls of one more mono frame tracked after cell G."""
+    k1, k4 = [], []
+    with recording_k1(k1), recording_k4(k4):
+        tracker.track_mono(imgs[0])
+    info = tracker.track_info[-1]
+    assert not info.get("lost") and not info.get("ref_fallback"), info
+    assert all(bool((a["obs_ur"] <= 0).all()) for a in k4), "a stereo row"
+    return k1, k4
+
+
+def _cpu(a):
+    return {n: v.cpu() if isinstance(v, torch.Tensor) else v
+            for n, v in a.items()}
+
+
+def _rot_dir_err(p, q):
+    """(rotation rad, translation direction rad) of pose p against q."""
+    from orb_slam2_refactored_tpu_torch.geometry import se3
+
+    p, q = p.cpu(), q.cpu()
+    rot = float(se3.log(se3.compose(p, se3.inverse(q)))[:3].norm())
+    # the angle between the translations, in f64 and from both its sine
+    # and cosine (an f32 acos near 1 reads 3e-4 for equal vectors)
+    a, b = se3.translation(p).double(), se3.translation(q).double()
+    return rot, math.atan2(float(torch.linalg.cross(a, b).norm()),
+                           float(a @ b))
+
+
+def init_winners(a):
+    """The initializer's winning H and F hypotheses on call `a`."""
+    from orb_slam2_refactored_tpu_torch.solvers import initializer as ini
+
+    xn1, T1 = ini._normalize(a["x1"], a["valid"])
+    xn2, T2 = ini._normalize(a["x2"], a["valid"])
+    s = a["samples"]
+    Hs = torch.linalg.inv(T2) @ ini._compute_h(xn1[s], xn2[s]) @ T1
+    Fs = T2.T @ ini._compute_f(xn1[s], xn2[s]) @ T1
+    sh, _ = ini._score_h(Hs, a["x1"], a["x2"], a["valid"])
+    sf, _ = ini._score_f(Fs, a["x1"], a["x2"], a["valid"])
+    return int(torch.argmax(sh)), int(torch.argmax(sf))
+
+
+def pnp_winner(a):
+    """`pnp_ransac`'s winning hypothesis on call `a` (its samples given)."""
+    from orb_slam2_refactored_tpu_torch.solvers import ransac
+
+    s, half = a["samples"], a["samples"].shape[0] // 2
+    xn = ransac._normalized(a["cam"], a["uv"])
+    poses = torch.cat([ransac._dlt_resection(a["pts3d"][s[:half]],
+                                             xn[s[:half]]),
+                       ransac._planar_resection(a["pts3d"][s[half:]],
+                                                xn[s[half:]])])
+    e2, inl = ransac._reproj(a["cam"], poses, a["pts3d"], a["uv"],
+                             a["valid"], a.get("inlier_th_px", 9.0))
+    n = inl.sum(-1)
+    score = n.float() - torch.where(inl, e2, torch.zeros_like(e2)).sum(-1) \
+        / n.clamp(min=1) / a.get("inlier_th_px", 9.0)
+    return int(torch.argmax(score))
+
+
+def check_solvers(init_call, pnp_call):
+    """The card's `initialize` (cell G's bootstrap call) and `pnp_ransac`
+    (the mono fallback's call, its samples drawn once and passed to both)
+    against the same function on the CPU: the same success, model and
+    winning hypotheses; the pose within 1e-3 rad and 1e-3 rad of
+    translation direction."""
+    from orb_slam2_refactored_tpu_torch.solvers import initializer, ransac
+
+    out = {}
+    a = dict(init_call)
+    d, c = initializer.initialize(**a), initializer.initialize(**_cpu(a))
+    wins = (init_winners(a), init_winners(_cpu(a)))
+    rot, ang = _rot_dir_err(d.pose21, c.pose21)
+    good = float((d.is_good.cpu() == c.is_good).float().mean())
+    print(f"  initialize on the card vs the CPU: success {bool(d.success)} / "
+          f"{bool(c.success)}, homography {bool(d.used_homography)} / "
+          f"{bool(c.used_homography)}, winning (H, F) {wins[0]} / {wins[1]}, "
+          f"rotation {rot:.3g} rad, translation direction {ang:.3g} rad, "
+          f"is_good equal {good:.4f}")
+    assert bool(d.success) == bool(c.success) is True
+    assert bool(d.used_homography) == bool(c.used_homography)
+    assert wins[0] == wins[1] and rot <= 1e-3 and ang <= 1e-3
+    out["initialize"] = max(rot, ang)
+    p = dict(pnp_call)
+    gen = torch.Generator(device=p["pts3d"].device).manual_seed(0)
+    p["samples"] = ransac.draw_samples(p["valid"], p.get("n_iters", 256),
+                                       p.get("sample_size", 8), gen)
+    p.pop("generator", None)
+    d, c = ransac.pnp_ransac(**p), ransac.pnp_ransac(**_cpu(p))
+    wins = (pnp_winner(p), pnp_winner(_cpu(p)))
+    rot, ang = _rot_dir_err(d.pose, c.pose)
+    print(f"  pnp_ransac on the card vs the CPU ({int(p['valid'].sum())} "
+          f"matches): success {bool(d.success)} / {bool(c.success)}, "
+          f"inliers {int(d.n_inliers)} / {int(c.n_inliers)}, winning "
+          f"hypothesis {wins[0]} / {wins[1]}, rotation {rot:.3g} rad, "
+          f"translation direction {ang:.3g} rad")
+    assert bool(d.success) == bool(c.success) is True
+    assert wins[0] == wins[1] and rot <= 1e-3 and ang <= 1e-3
+    out["pnp_ransac"] = max(rot, ang)
+    return out, p
+
+
+def full_map_ba_problem(device, K=128, N=1000, P=32768, n_live=30000,
+                        seed=5):
+    """A global-BA problem at the bench's map capacity (P = 32768) with
+    more live points than the point index held before (27,904): K cameras
+    along a line, each point seen by 2-5 neighbouring keyframes (mono
+    rows, 0.5 px noise), the first two keyframes fixed, poses and points
+    perturbed."""
+    from orb_slam2_refactored_tpu_torch.geometry import se3
+    from orb_slam2_refactored_tpu_torch.optim import ba
+
+    rng = np.random.default_rng(seed)
+    cam = bench_cam()
+    cx = 0.05 * np.arange(K)
+    ids = np.sort(rng.permutation(P)[:n_live])
+    home = rng.integers(0, K, n_live)
+    per = rng.integers(2, 6, n_live)
+    pts = np.zeros((P, 3), np.float32)
+    pts[ids] = np.stack([cx[home] + rng.uniform(-1.2, 1.2, n_live),
+                         rng.uniform(-1.2, 1.2, n_live),
+                         rng.uniform(3, 7, n_live)], -1)
+    kf = np.concatenate([np.clip(home[i] + np.arange(per[i]) - per[i] // 2,
+                                 0, K - 1) for i in range(n_live)])
+    pt = np.repeat(ids, per)
+    kf, first = np.unique(kf * P + pt, return_index=True)
+    kf, pt = kf // P, pt[first]
+    order = rng.permutation(len(kf))
+    kf, pt = kf[order], pt[order]
+    slot = np.zeros(len(kf), np.int64)
+    for k in range(K):  # each keyframe's observations take its first slots
+        sel = np.nonzero(kf == k)[0]
+        slot[sel] = np.arange(len(sel))
+    keep = slot < N
+    kf, pt, slot = kf[keep], pt[keep], slot[keep]
+    obs_pt = np.full((K, N), -1, np.int32)
+    obs_pt[kf, slot] = pt
+    xc = pts[pt] - np.stack([cx[kf], np.zeros(len(kf)), np.zeros(len(kf))],
+                            -1)
+    uv = np.zeros((K, N, 2), np.float32)
+    uv[kf, slot] = (np.stack([cam.fx * xc[:, 0] / xc[:, 2] + cam.cx,
+                              cam.fy * xc[:, 1] / xc[:, 2] + cam.cy], -1)
+                    + rng.normal(0, 0.5, (len(kf), 2)))
+    poses = np.zeros((K, 7), np.float32)
+    poses[:, 0] = 1.0
+    poses[:, 4] = -cx
+    t = lambda x: torch.as_tensor(x, device=device)
+    kf_pose = se3.retract(t(poses), t(rng.normal(0, 0.005, (K, 6))
+                                      .astype(np.float32)))
+    kf_pose[:2] = t(poses[:2])
+    valid = np.zeros(P, bool)
+    valid[ids] = True
+    valid &= np.bincount(obs_pt[obs_pt >= 0], minlength=P) >= 2
+    fixed = np.zeros(K, bool)
+    fixed[:2] = True
+    noisy = pts + rng.normal(0, 0.02, pts.shape).astype(np.float32)
+    return ba.BAProblem(
+        kf_pose=kf_pose, kf_fixed=t(fixed), obs_uv=t(uv),
+        obs_ur=t(-np.ones((K, N), np.float32)), obs_pt=t(obs_pt),
+        obs_inv_s2=t(np.ones((K, N), np.float32)), pt_pos=t(noisy),
+        pt_valid=t(valid), pt_frozen=None), cam
+
+
+def check_full_map_ba(device):
+    """C11 on the card: a global BA at P = 32768 with more than 27,904 live
+    points. `compact_points` keeps every live point (padded to the
+    bucket), K5's index (past its shared-memory rows: counts in global
+    memory) equals the plain index, and one LM iteration's `ba_schur_cg`
+    meets the f64 CG yardstick (`cg_yardstick`)."""
+    from orb_slam2_refactored_tpu_torch.optim import ba
+
+    t0 = time.perf_counter()
+    full, cam = full_map_ba_problem(device)
+    n_live = int(full.pt_valid.sum())
+    p, live = ba.compact_points(full)
+    Q = p.pt_pos.shape[0]
+    assert n_live > OLD_INDEX_LIMIT and live.numel() == n_live, (
+        n_live, live.numel())
+    assert Q % ba.POINT_BUCKET == 0 and n_live <= Q < n_live + \
+        ba.POINT_BUCKET, Q
+    ok0 = (p.obs_pt >= 0) & p.pt_valid[p.obs_pt.clamp(0, Q - 1).long()]
+    idx = ba.ba_point_index(p.obs_pt, ok0, Q)
+    idx_r = ba.ba_point_index_plain(p.obs_pt, ok0, Q)
+    same = [bool(torch.equal(x, y)) for x, y in zip(idx, idx_r)]
+    again = all(torch.equal(x, y) for x, y in zip(
+        idx, ba.ba_point_index(p.obs_pt, ok0, Q)))
+    calls = []
+    with recording(calls, (ba, "ba_schur_cg")):
+        res = ba.ba_solve(p, cam, iters=1, cg_iters=40, dense_schur=False)
+    c = calls[0]
+    out = ba.ba_schur_cg(**c)
+    yard, _, _ = cg_yardstick({"kernel": out}, {
+        **c, "W_obs": ba.w_obs_slot_rows(c["W_obs"])})
+    reads = {}
+    for name in ("dp", "ut"):
+        e_k, e_p, scale = yard[f"kernel {name}"]
+        reads[name] = e_k / (CG_FACTOR * e_p + CG_FLOOR * scale)
+    print(f"  C11 global BA at P={full.pt_pos.shape[0]}: {n_live} live points "
+          f"kept in Q={Q}, {int(ok0.sum())} live slots; point index equal to "
+          f"the plain one {same}, two builds bit-equal {again}; one LM "
+          f"iteration's ba_schur_cg against the f64 yardstick {json.dumps(reads)} "
+          f"of the bound; cost {float(res.initial_cost):.6g} -> "
+          f"{float(res.final_cost):.6g}; {time.perf_counter() - t0:.1f} s")
+    assert all(same) and again, same
+    assert max(reads.values()) <= 1.0, reads
+    assert float(res.final_cost) < float(res.initial_cost)
+    return reads
+
+
+def svd_flops(m, n):
+    """The operations of an SVD of an m x n matrix with its V (R-SVD,
+    Golub and Van Loan, Matrix Computations, 4th ed., table 8.6.1:
+    4 m n^2 + 8 n^3 for the singular values and V; m < n as its
+    transpose)."""
+    m, n = max(m, n), min(m, n)
+    return 4 * m * n * n + 8 * n ** 3
+
+
+def init_bound(a):
+    """Bytes and operations of one `initialize` call on this run's data:
+    200 [16, 9] and 200 [8, 9] SVDs with their 3 x 3 projections, both
+    models scored on the valid matches (~70 f32 a match for H's two
+    transfers, ~50 for F's two lines), then the 12 motions checked on the
+    inliers (a [4, 4] SVD and ~120 f32 a point each)."""
+    S = a["samples"].shape[0]
+    M = a["x1"].shape[0]
+    n_v = int(a["valid"].sum())
+    ops = S * (svd_flops(16, 9) + svd_flops(8, 9) + svd_flops(3, 3) + 200)
+    ops += S * n_v * (70 + 50) + 12 * n_v * (svd_flops(4, 4) + 120)
+    # x1, x2, valid and the samples read; pose, points, flags written
+    nbytes = M * 17 + S * 8 * 8 + 28 + M * 13 + 1
+    return nbytes, {"f32": ops}
+
+
+def pnp_bound(a, n_inl):
+    """Bytes and operations of one `pnp_ransac` call on this run's data:
+    128 [16, 12] and 128 [16, 9] SVDs with their 3 x 3 rotations (and a
+    3 x 3 eigh a planar sample), the 256 poses scored on the valid matches
+    (~40 f32 a match: transform, projection, error), the two refits on the
+    winner's inliers and their scores."""
+    S = a["samples"].shape[0]
+    M = a["pts3d"].shape[0]
+    n_v = int(a["valid"].sum())
+    ops = (S // 2) * (svd_flops(16, 12) + svd_flops(16, 9)
+                      + 2 * svd_flops(3, 3) + 400)
+    ops += (S + 2) * n_v * 40
+    ops += svd_flops(2 * n_inl, 12) + svd_flops(2 * n_inl, 9) \
+        + 2 * svd_flops(3, 3)
+    nbytes = M * (12 + 8 + 1) + S * 8 * 8 + 28 + M + 8
+    return nbytes, {"f32": ops}
+
+
+def mono_times(init_call, pnp_call, frame_bytes, frame_ops):
+    """Phase 5 for the mono slice: the initializer's population and
+    `pnp_ransac` (device time and operations from torch.profiler, the host
+    clock of a synchronized call, the bound from their shapes), and the
+    bound of the work of a tracked mono frame's kernels."""
+    from orb_slam2_refactored_tpu_torch.solvers import initializer, ransac
+
+    out = {}
+    for name, fn, (nb, ops) in (
+            ("initialize", lambda: initializer.initialize(**init_call),
+             init_bound(init_call)),
+            ("pnp_ransac", lambda: ransac.pnp_ransac(**pnp_call),
+             pnp_bound(pnp_call, int(ransac.pnp_ransac(
+                 **pnp_call).n_inliers)))):
+        # ~750 launches a call: one call a window (`profiled_solve`)
+        ms, n_ops, rows, _ = profiled_solve(fn)
+        host = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+        b_ms, b_by = bound_ms(nb, ops)
+        out[name] = {"device_ms": ms, "device_ops": n_ops,
+                     "host_ms_median": float(np.median(host)),
+                     "card_ms": cuda_time_ms(fn, 10), "bound_ms": b_ms,
+                     "bound_by": b_by}
+        src = ("cell G's bootstrap call" if name == "initialize"
+               else "the mono fallback's call")
+        print(f"{name} ({src}): {json.dumps(out[name])}")
+        for r in rows[:8]:
+            print(f"  {r}")
+    b_ms, b_by = bound_ms(frame_bytes, frame_ops)
+    print(f"cell G tracked mono frame: bound of its kernels' work "
+          f"{b_ms:.6f} ms ({b_by})")
+    out["frame_bound_ms"] = b_ms
+    return out
+
+
+def plain_stage_times(img0, n_levels, scale_factor, sbp_call):
+    """Two stages of the tracked frame that stay plain torch, timed on the
+    card beside the bound of their work counted from their shapes: B8,
+    `build_pyramid` on frame 0 (the resizes' banded weights: their nonzero
+    taps a product, each level read and written once, the weight matrices
+    read once); B6, the gates and candidate compaction of
+    `search_by_projection_with_vis` on the tracked frame's call (its K1
+    launch, read off the profiler rows, taken out): per map point ~70 f32
+    operations (transform, projection, bounds, distance band, predicted
+    level, view angle), its position, normal, distances and validity read
+    and (uv, radius, level, gates) written, then the candidates' rows and
+    descriptors gathered."""
+    from orb_slam2_refactored_tpu_torch.ops import image as image_ops
+    from orb_slam2_refactored_tpu_torch.ops import matching
+
+    out = {}
+    gray = image_ops.to_gray(img0)
+    h, w = gray.shape
+    shapes = image_ops.pyramid_shapes(h, w, n_levels, scale_factor)
+    nbytes, ops = 4 * sum(a * b for a, b in shapes), 0
+    for (ph, pw), (oh, ow) in zip(shapes[:-1], shapes[1:]):
+        wh = image_ops._resize_weights_np(ph, oh)
+        ww = image_ops._resize_weights_np(pw, ow)
+        nbytes += 4 * (wh.size + ww.size)
+        ops += 2 * (np.count_nonzero(wh) * pw + oh * np.count_nonzero(ww))
+    n_ops = []
+    ms, rows = profiled_ms(lambda: image_ops.build_pyramid(
+        gray, n_levels, scale_factor), 20, n_ops)
+    b_ms, b_by = bound_ms(nbytes, {"f32": ops})
+    out["B8 build_pyramid"] = {
+        "device_ms": ms, "card_ms": cuda_time_ms(
+            lambda: image_ops.build_pyramid(gray, n_levels, scale_factor),
+            20), "bound_ms": b_ms, "bound_by": b_by,
+        "device_ops": n_ops[0]}
+    a = sbp_call
+    P = a["mp_pos"].shape[0]
+    cap = min(a.get("candidate_cap", 8192), P)
+    ms, rows = profiled_ms(lambda: matching.search_by_projection_with_vis(
+        **a), 20, n_ops)
+    k1_us, _ = row_time_us(rows, "search_gated")
+    b_ms, b_by = bound_ms(P * 33 + P * 18 + cap * (32 + 49),
+                          {"f32": 70 * P, "int32": 20 * P})
+    out["B6 search_by_projection gates"] = {
+        "device_ms": ms - k1_us / 1e3, "device_ms_with_k1": ms,
+        "card_ms_with_k1": cuda_time_ms(
+            lambda: matching.search_by_projection_with_vis(**a), 20),
+        "bound_ms": b_ms, "bound_by": b_by, "device_ops": n_ops[1],
+        "points": P,
+        "candidate_cap": cap}
+    print("plain stages: " + json.dumps(out))
+    for r in rows:
+        print(f"  {r}")
+    return out
+
+
 def kernel_row(name, src, rep, launches, r):
     b_ms, b_by = bound_ms(r[3], r[4])
     return {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -2788,10 +3390,25 @@ def main():
         loop_cells[cell] = (off, on)
         del frames
         mark(f"3_cell_{cell}")
+    # cells G and H: the mono slice (the bench's orbit through track_mono;
+    # the mono circuit with loop closing)
+    stats_g, tracker_g, boot_g = run_mono_orbit(imgs, gt, device)
+    mark("3_cell_G")
+    t0 = time.perf_counter()
+    frames_h, gt_h = mono_circuit_frames()
+    print(f"cell H: {len(frames_h)} frames rendered in "
+          f"{time.perf_counter() - t0:.1f} s")
+    stats_h = run_mono_circuit(frames_h, gt_h, device)
+    del frames_h
+    mark("3_cell_H")
 
     # ---- phase 4: every kernel on the arguments the main path gave it ----
-    frame_k1, frame_k2, frame_k3, frame_k4 = record_tracked_frame(
-        tracker, imgs, depths)
+    from orb_slam2_refactored_tpu_torch.ops import matching
+
+    sbp = []
+    with recording(sbp, (matching, "search_by_projection_with_vis")):
+        frame_k1, frame_k2, frame_k3, frame_k4 = record_tracked_frame(
+            tracker, imgs, depths)
     check_fast(frame_k2["levels"], frame_k2["ks"], "tracked frame")
     check_orb(frame_k3["levels"], frame_k3["ys"], frame_k3["xs"],
               frame_k3["counts"], "tracked frame")
@@ -2830,6 +3447,31 @@ def main():
     # stereo save/load, a path of its own (after the cell-C checks above,
     # which its drain of cell C's deferred mapping products would move)
     check_stereo_save_load(tracker_c, left, right, gt, device)
+    # cell G: the bootstrap's window match (K1, both passes), one more
+    # tracked mono frame's K1 and K4 calls (every row mono), the
+    # bootstrap's 2-keyframe window BA and a later window (K5); the mono
+    # fallback (pnp_ransac); the card's initialize and pnp_ransac against
+    # the CPU; C11's global BA at the full map capacity
+    t0 = time.perf_counter()
+    mono_win = {n: a for n, a in name_k1_calls(
+        "mono_window", boot_g["k1"]).items() if "pair_ok" in a}
+    win_ham = check_hamming(mono_win, per_frame=mono_win)
+    mono_k1, mono_k4 = record_tracked_mono_frame(tracker_g, imgs)
+    mono_k1 = name_k1_calls("mono", mono_k1)
+    mono_k4 = {f"mono{i}": a for i, a in enumerate(mono_k4)}
+    mono_ham = check_hamming(mono_k1, per_frame=mono_k1)
+    mono_pose = check_pose_lm(mono_k4, per_frame=mono_k4)
+    print("  K5 on cell G's bootstrap window (2 keyframes, one fixed):")
+    check_ba(boot_g["asm"][0], boot_g["solve"][0])
+    _, g_asm, g_solve = record_mapping(tracker_g)
+    print("  K5 on a later window of cell G:")
+    check_ba(g_asm, g_solve)
+    pnp_call, fb_mono_k4 = check_mono_fallback(imgs, gt, device)
+    check_pose_lm({f"mono_fallback{i}": a for i, a in enumerate(fb_mono_k4)},
+                  per_frame={})
+    solver_err, pnp_call = check_solvers(boot_g["init"][0], pnp_call)
+    c11 = check_full_map_ba(device)
+    mark("4_mono_and_c11", since=t0)
 
     mark("4_checks")
     # ---- phase 5: profiler windows, after every agreement check ----
@@ -2869,10 +3511,39 @@ def main():
     assert not [r for r in assoc_rows if "Memcpy" in r], assoc_rows
     print(f"stereo K1 call: {device_times_k1(st_pair):.5f} ms of device time")
     reloc_breakdown(rec_d, tracker_d)
+    # windows of a few launches come before the one-call windows of long
+    # solves (`profiled_solve`) and the tracked-frame windows: on the H100
+    # the K1 windows taken after those lost 4 of 20 launches in every try
+    mono_t = {}
+    b_ms, b_by = bound_ms(win_ham[3], win_ham[4])
+    mono_t["k1_window"] = {"card_ms": win_ham[1], "plain_ms": win_ham[2],
+                           "device_ms": device_times_k1(mono_win),
+                           "bound_ms": b_ms, "bound_by": b_by}
+    b_ms, b_by = bound_ms(mono_pose[3], mono_pose[4])
+    mono_t["k4_mono_frame"] = {"card_ms": mono_pose[1],
+                               "plain_ms": mono_pose[2],
+                               "device_ms": device_times_k4(mono_k4),
+                               "bound_ms": b_ms, "bound_by": b_by}
+    plain_stage_times(img0, cfg.n_levels, cfg.scale_factor, sbp[-1])
     t0 = time.perf_counter()
     w_obs_r, k6_r, gba_t = gba_times(k6_calls, gba_call, pg_call, w_obs_r,
                                      k6_r)
     mark("5_gba_times", since=t0)
+    t0 = time.perf_counter()
+    frame_ops = {}
+    for r in (fast_r, orb_r, mono_ham, mono_pose):
+        add_ops(frame_ops, **r[4])
+    mono_t.update(mono_times(boot_g["init"][0], pnp_call,
+                             fast_r[3] + orb_r[3] + mono_ham[3]
+                             + mono_pose[3], frame_ops))
+    print("mono slice: " + json.dumps({
+        **mono_t, "solvers_card_vs_cpu": solver_err, "c11_yardstick": c11,
+        "G": {k: stats_g[k] for k in ("ate_sim3_m", "init_frame",
+                                      "fps_measured_lap", "step_ms_median",
+                                      "step_ms_p90")},
+        "H": {k: stats_h[k] for k in ("ate_sim3_m", "loops_closed",
+                                      "close_loop_ms")}}))
+    mark("5_mono_times", since=t0)
     print("loop cells: " + json.dumps({
         c: {"ate_off_m": off["ate_m"], "ate_on_m": on["ate_m"],
             "loops": on["loops_closed"], "close_loop_ms": on["close_loop_ms"],
@@ -2889,6 +3560,8 @@ def main():
                             {f"fallback{i}": a for i, a in enumerate(fb_k4)},
                             asm_call, st_tail, k6_calls, gba_call)
     compare_extraction(imgs, device)
+    _profile_window(tracker_g, lambda k: tracker_g.track_mono(
+        imgs[k % N_FRAMES]), range(1, 21), "mono tracked frames (cell G)")
     if args.profile:
         profile_steps(tracker, imgs, depths)
         _profile_window(tracker_c, lambda k: tracker_c.track_stereo(
@@ -2928,6 +3601,8 @@ def main():
     rows[3]["max_abs_err"] = max(rows[3]["max_abs_err"], reloc_k4_err)
     for row in rows:
         row["launches_cell_d"] = stats_d["launches"][row["name"]]
+        row["launches_cell_g"] = stats_g["launches"][row["name"]]
+        row["launches_cell_h"] = stats_h["launches"][row["name"]]
     print(f"relocalization K1 and K4 calls, and one training K1 call "
           f"(cell D): {json.dumps(reloc_shapes)}")
     print(f"per frame: K1 = {', '.join(frame_k1)}; K4 = "
@@ -2940,7 +3615,7 @@ def main():
           "cell F's first global BA; ba_schur_cg = the CG solve of one LM "
           "iteration of it (one launch: the rhs, 40 CG iterations and "
           "U^T dp), launches from cell F with loop closing on (one an LM "
-          "iteration)")
+          "iteration); launches_cell_g / _h: the mono cells' own runs")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -26,13 +26,18 @@
 // and slot ids [W*N] (ascending within each point; -1 past offsets[Q]),
 // points clamped to [0, Q) as the plain version does, dead slots left
 // out; and place [W*N], each live slot's position in `slots` (-1 on a
-// dead slot). (1) A CTA a keyframe row counts the row's live slots by point in
-// shared memory, gives each slot its rank among the row's slots of its
-// point in slot order (one warp walks the repeated ones), and writes that
-// row of a [W, Q] table; the last CTA scans the point totals into
-// offsets. (2) A thread a slot writes it to its place: its point's start,
-// plus the table's column above its row, plus its rank. Every place is
-// computed, not claimed: no sort, and the same bits every build.
+// dead slot). (1) A CTA a keyframe row counts the row's live slots by point,
+// gives each slot its rank among the row's slots of its point in slot
+// order (one warp walks the repeated ones), and writes that row of a
+// [W, Q] table; the last CTA scans the point totals into offsets. (2) A
+// thread a slot writes it to its place: its point's start, plus the
+// table's column above its row, plus its rank. Every place is computed,
+// not claimed: no sort, and the same bits every build. A row's counts and
+// running counts are kept in shared memory while 2 Q ints fit there (the
+// window BA, Q <= 8192); past that (the global BA, Q up to the map's
+// 32,768 points) the counts are kept in the row's own `table` row and the
+// running counts in a second [W, Q] block of the same scratch, with the
+// same integer operations in the same order, so both give the same index.
 //
 // `ba_assemble` (one launch a call, no fill before it): a heterogeneous
 // grid.
@@ -244,14 +249,15 @@ struct IndexArgs {
   int* offsets;  // [Q+1]
   int* slots;    // [S]
   int* place;    // [S]: a live slot's position in `slots`, -1 on a dead one
-  int* table;    // [S/N, Q]: row k's live slots of each point
+  int* table;    // [2 S/N, Q]: row k's live slots of each point, then
+                 // (past kIndexSharedQ) the rows' running counts
   int* rank;     // [S]: a live slot's place among its row's of its point
   int* count;    // [Q], zero between solves
   int* ticket;   // [1], zero between solves
 };
 
 // Launch 1, a CTA a keyframe row: the row's live slots counted by point
-// in shared memory (integer atomics); a slot whose point the row holds
+// (integer atomics); a slot whose point the row holds
 // once has rank 0; the others are gathered in slot order (a block-wide
 // ordered compaction) and one warp walks them 32 at a time: lanes of one
 // point find each other (`__match_any_sync`), the lowest reads and
@@ -259,18 +265,22 @@ struct IndexArgs {
 // plus the lanes of its point below it. So ranks follow slot order. The
 // row of `table` is written whole and its nonzero counts added to the
 // point totals in `count`; the last CTA scans the totals into offsets and
-// zeroes `count`.
+// zeroes `count`. The counts and running counts are in shared memory, or
+// with kGlobal (a Q whose 2 Q ints do not fit there) in the row's `table`
+// row and its row of the block after the table.
+template <bool kGlobal>
 __global__ void __launch_bounds__(kIndexThreads) index_rows_kernel(IndexArgs a) {
-  // cnt[Q] | run[Q] | the repeated slots [1024] | their points [1024]
+  // shared: [cnt[Q] | run[Q] |] the repeated slots [1024] | their points
   extern __shared__ int s_idx[];
   __shared__ int s_warp[kIndexThreads / 32];
   __shared__ int s_last;
-  int* cnt = s_idx;
-  int* run = s_idx + a.Q;
-  int* rep = s_idx + 2 * a.Q;
-  int* rep_q = rep + kIndexThreads;
   const int k = blockIdx.x, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
+  int* trow = a.table + (size_t)k * a.Q;
+  int* cnt = kGlobal ? trow : s_idx;
+  int* run = kGlobal ? a.table + ((size_t)gridDim.x + k) * a.Q : s_idx + a.Q;
+  int* rep = kGlobal ? s_idx : s_idx + 2 * a.Q;
+  int* rep_q = rep + kIndexThreads;
   const bool row = k * a.N < a.S;  // no row at all when S = 0
   for (int q = tid; q < a.Q; q += kIndexThreads) cnt[q] = run[q] = 0;
   __syncthreads();
@@ -283,7 +293,8 @@ __global__ void __launch_bounds__(kIndexThreads) index_rows_kernel(IndexArgs a) 
     const int n = c0 + tid, s = k * a.N + n;
     const int q = n < a.N && a.obs_ok[s] ? min(max(a.obs_pt[s], 0), a.Q - 1)
                                          : -1;
-    const bool repeated = q >= 0 && cnt[q] > 1;
+    // in global memory the counts were added at L2: read them there
+    const bool repeated = q >= 0 && (kGlobal ? __ldcg(cnt + q) : cnt[q]) > 1;
     if (q >= 0 && !repeated) a.rank[s] = 0;
     // ordered compaction of the repeated slots
     const unsigned ballot = __ballot_sync(kFull, repeated);
@@ -318,10 +329,9 @@ __global__ void __launch_bounds__(kIndexThreads) index_rows_kernel(IndexArgs a) 
     }
     __syncthreads();
   }
-  int* trow = a.table + (size_t)k * a.Q;
   for (int q = tid; row && q < a.Q; q += kIndexThreads) {
-    const int c = cnt[q];
-    trow[q] = c;
+    const int c = kGlobal ? __ldcg(cnt + q) : cnt[q];
+    if (!kGlobal) trow[q] = c;
     if (c) atomicAdd(&a.count[q], c);
   }
   if (!last_to_arrive(a.ticket, gridDim.x, &s_last)) return;
@@ -648,33 +658,38 @@ cost_kernel(const float* __restrict__ kf_pose, const float* __restrict__ pt_pos,
 
 }  // namespace
 
-// Launches a solve: two. Writes offsets, slots and place. `table` (S/N x
-// Q ints) and `rank` (S) are scratch; `count` Q
-// ints and `ticket` one, zero between solves (the first launch's last CTA
-// leaves them so). A row's counts and running counts live in shared
-// memory: Q must stay within `ba_point_index_max()`.
-extern "C" int ba_point_index_max() {
-  return (kSharedMax / (int)sizeof(int) - 2 * kIndexThreads) / 2;
-}
+// Launches a solve: two. Writes offsets, slots and place. `table` (2 S/N
+// x Q ints) and `rank` (S) are scratch; `count` Q ints and `ticket` one,
+// zero between solves (the first launch's last CTA leaves them so). A
+// row's counts live in shared memory while Q <= kIndexSharedQ, in
+// `table` past it (the second S/N x Q block holds the running counts).
+constexpr int kIndexSharedQ =
+    (kSharedMax / (int)sizeof(int) - 2 * kIndexThreads) / 2;
 
 extern "C" int ba_point_index(const void* obs_pt, const void* obs_ok, int S,
                               int N, int Q, void* offsets, void* slots,
                               void* place, void* table, void* rank,
                               void* count, void* ticket, void* stream) {
-  if (Q <= 0 || N <= 0 || S % N != 0 || Q > ba_point_index_max())
-    return (int)cudaErrorInvalidValue;
+  if (Q <= 0 || N <= 0 || S % N != 0) return (int)cudaErrorInvalidValue;
   const IndexArgs a{(const int*)obs_pt, (const unsigned char*)obs_ok, S, N,
                     Q, (int*)offsets, (int*)slots, (int*)place, (int*)table,
                     (int*)rank, (int*)count, (int*)ticket};
-  const size_t smem = (size_t)(2 * Q + 2 * kIndexThreads) * sizeof(int);
+  const bool global = Q > kIndexSharedQ;
+  const size_t smem =
+      (size_t)((global ? 0 : 2 * Q) + 2 * kIndexThreads) * sizeof(int);
+  const void* fn = global ? (const void*)index_rows_kernel<true>
+                          : (const void*)index_rows_kernel<false>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        index_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const cudaStream_t st = (cudaStream_t)stream;
-  index_rows_kernel<<<max(1, S / N), kIndexThreads, smem, st>>>(a);
+  const int rows = max(1, S / N);
+  if (global)
+    index_rows_kernel<true><<<rows, kIndexThreads, smem, st>>>(a);
+  else
+    index_rows_kernel<false><<<rows, kIndexThreads, smem, st>>>(a);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   index_scatter_kernel<<<max(1, (S + kThreads - 1) / kThreads), kThreads, 0,

@@ -34,16 +34,19 @@ def _neg1(x):
 
 def match_descriptors(desc_a, desc_b, valid_a, valid_b,
                       max_dist: int = hamming.TH_LOW, nn_ratio: float = 0.9,
-                      mutual: bool = True) -> Matches:
+                      mutual: bool = True, extra_mask=None) -> Matches:
     """Best-match a->b with distance threshold + Lowe ratio + optional
-    mutual-NN check (the b->a pass is a second launch with roles swapped)."""
-    idx, best, second = hamming.masked_best2_gated(desc_a, desc_b, valid_a,
-                                                   valid_b)
+    mutual-NN check (the b->a pass is a second launch with roles swapped).
+    extra_mask: bool[M,N] candidate gate (the mono initializer's window),
+    K1's dense pair gate; the b->a pass takes its transpose."""
+    idx, best, second = hamming.masked_best2_gated(
+        desc_a, desc_b, valid_a, valid_b, pair_ok=extra_mask)
     ok = (best <= max_dist) & (best.to(torch.float32)
                                <= nn_ratio * second.to(torch.float32))
     if mutual:
-        idx_b, _, _ = hamming.masked_best2_gated(desc_b, desc_a, valid_b,
-                                                 valid_a)
+        idx_b, _, _ = hamming.masked_best2_gated(
+            desc_b, desc_a, valid_b, valid_a,
+            pair_ok=None if extra_mask is None else extra_mask.T.contiguous())
         ok = ok & hamming.mutual_filter(idx, idx_b)
     keep = hamming.resolve_duplicates(idx, best, ok, desc_b.shape[0])
     return Matches(torch.where(keep, idx, _neg1(idx)), best, keep)

@@ -320,16 +320,16 @@ def ba_point_index(obs_pt, obs_ok, Q: int) -> PointIndex:
     kernels.require(obs_pt, "ba_point_index obs_pt", torch.int32)
     kernels.require(obs_ok, "ba_point_index obs_ok", torch.bool,
                     obs_pt.shape)
-    limit = kernels.bind("ba_assemble", "ba_point_index_max", [])()
-    if obs_pt.dim() != 2 or obs_pt.shape[1] < 1 or not 1 <= Q <= limit:
+    if obs_pt.dim() != 2 or obs_pt.shape[1] < 1 or Q < 1:
         raise ValueError(f"ba_point_index: needs obs_pt [K, N >= 1] and "
-                         f"1 <= Q <= {limit}, got {tuple(obs_pt.shape)}, "
-                         f"Q={Q}")
+                         f"Q >= 1, got {tuple(obs_pt.shape)}, Q={Q}")
     (K, N), S, dev = obs_pt.shape, obs_pt.numel(), obs_pt.device
     offsets = torch.empty((Q + 1,), dtype=torch.int32, device=dev)
     slots = torch.empty((S,), dtype=torch.int32, device=dev)
     place = torch.empty((S,), dtype=torch.int32, device=dev)
-    table = torch.empty((K, Q), dtype=torch.int32, device=dev)
+    # a row's counts, then (for a Q past the kernel's shared-memory rows)
+    # its running counts
+    table = torch.empty((2 * max(K, 1), Q), dtype=torch.int32, device=dev)
     rank = torch.empty((S,), dtype=torch.int32, device=dev)
     fn = kernels.bind("ba_assemble", "ba_point_index",
                       [kernels.VP] * 2 + [kernels.CI] * 3 + [kernels.VP] * 8)
@@ -541,14 +541,6 @@ def ba_schur_cg(Hpp_d, g_p, g_l, G, W_obs, obs_pt, obs_ok, free,
     return x, ut
 
 
-def point_index_limit(device) -> Optional[int]:
-    """The most points K5's index holds on `device` (None on the CPU, whose
-    plain index has no limit)."""
-    if torch.device(device).type != "cuda":
-        return None
-    return kernels.bind("ba_assemble", "ba_point_index_max", [])()
-
-
 # the compacted global-BA problem's point count is a multiple of this, so
 # that its shapes repeat from one loop to the next
 POINT_BUCKET = 1024
@@ -556,20 +548,11 @@ POINT_BUCKET = 1024
 
 def compact_points(p: BAProblem):
     """The problem restricted to its live points (`pt_valid`), in index
-    order, padded with dead rows to a multiple of POINT_BUCKET (at most
-    the index's limit); and the live point ids i64[n] (one host read).
-    Every live point is kept: on the card a problem with more live points
-    than K5's index holds raises."""
+    order, padded with dead rows to a multiple of POINT_BUCKET; and the
+    live point ids i64[n] (one host read). Every live point is kept."""
     live = torch.nonzero(p.pt_valid).reshape(-1)
     n = live.numel()
     Q = max(-(-n // POINT_BUCKET) * POINT_BUCKET, POINT_BUCKET)
-    limit = point_index_limit(p.pt_pos.device)
-    if limit is not None:
-        if n > limit:
-            raise ValueError(
-                f"global BA: {n} live points exceed the {limit} that the "
-                "point index (csrc/ba_assemble.cu) holds")
-        Q = min(Q, limit)
     dev = p.pt_pos.device
     lut = torch.full((p.pt_pos.shape[0],), -1, dtype=torch.int32, device=dev)
     lut[live] = torch.arange(n, dtype=torch.int32, device=dev)

@@ -90,8 +90,11 @@ class LocalMapper:
     MAXOBS = 8  # observers considered per point for descriptor/normal refresh
 
     def __init__(self, cam: proj.CameraIntrinsics, n_levels: int,
-                 scale_factor: float, ba_iters: int = 6, window: int = 12, lambda0: float = 1e-4, min_kfs: int = 2,
+                 scale_factor: float, ba_iters: int = 6, cg_iters: int = 30,
+                 window: int = 12, lambda0: float = 1e-4, min_kfs: int = 2,
                  tri_neighbors: int = 6, device=None):
+        """`cg_iters` is accepted and unused, as in the JAX package: the
+        window BA solves its reduced camera system densely (Schur)."""
         self.cam = cam
         self.window = window
         self.min_kfs = min_kfs

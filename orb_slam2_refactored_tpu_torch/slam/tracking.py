@@ -1,23 +1,29 @@
-"""Tracking stage: per-frame RGB-D and stereo pose estimation over
-device-resident map state.
+"""Tracking stage: per-frame RGB-D, stereo and monocular pose estimation
+over device-resident map state.
 
-Port of the RGB-D and stereo subset of
-`orb_slam2_refactored_tpu/slam/tracking.py`: `_prepare_impl` (ORB
-extraction + depth association) and `_prepare_stereo_impl` (left and right
-extraction, the row-banded stereo association and the per-level SAD
-refinement, `ops/stereo.py`), `_track_impl` (motion-model matching,
-rotation check, pose LM, reference-keyframe fallback with Horn RANSAC,
-whole-map projection matching, final pose LM, found/visible statistics),
-the fused `_step_impl` and `_step_stereo_impl`, keyframe insertion
-(`_insert_kf_impl` / `_insert_kf_auto_impl`), the synchronous host loops
-`track_rgbd` and `track_stereo` and, with `enable_local_ba=True`, the
+Port of `orb_slam2_refactored_tpu/slam/tracking.py` in its synchronous
+mode: `_prepare_impl` (ORB extraction + depth association),
+`_prepare_stereo_impl` (left and right extraction, the row-banded stereo
+association and the per-level SAD refinement, `ops/stereo.py`) and
+`_prepare_mono_impl` (extraction, no depth), `_track_impl` (motion-model
+matching, rotation check, pose LM, reference-keyframe fallback with Horn
+RANSAC on depth or, in mono, planar-safe PnP RANSAC, whole-map projection
+matching, final pose LM, found/visible statistics), the fused
+`_step_impl`, `_step_stereo_impl` and `_mono_step`, keyframe insertion
+(`_insert_kf_impl` / `_insert_kf_auto_impl`), the monocular bootstrap
+(`_initialize_mono`: windowed matching against a reference frame, the
+H/F initializer of `solvers/initializer.py`, two keyframes and their
+triangulated landmarks at unit median depth, a 2-keyframe BA), the
+synchronous host loops `track_rgbd`, `track_stereo` and `track_mono` and,
+with `enable_local_ba=True`, the
 synchronous local-mapping job that follows each keyframe
 (`slam/local_mapping.py`: triangulation, fusion, point culling, window BA,
 keyframe culling; the tracker adopts the BA-refined pose of the new
 keyframe). Every keyframe is indexed in the BoW database
 (`_ensure_bow_index`: the vocabulary is trained at the 4th keyframe), and a
 LOST frame relocalizes against it (`_relocalize`: BoW candidates, descriptor
-matching, Horn RANSAC on depth, pose LM, a projection-guided polish). With
+matching, Horn RANSAC on depth or PnP RANSAC in mono, pose LM, a
+projection-guided polish). With
 `enable_loop_closing=True` each keyframe runs the loop stage
 (`_loop_closing_stage`: BoW detection, then `_close_loop`: the Sim3 solve,
 the projection check, the essential-graph correction and a global BA that
@@ -36,6 +42,9 @@ Differences of form from the JAX package:
 - `jax.lax.cond(use_ref, ...)` is a Python branch on `use_ref.item()`, one
   documented host sync per frame, beside the one read of the host pack;
 - the frame counter `fidx` is a Python int (it seeds the RANSAC generator);
+- the mono initializer's samples are drawn from a `torch.Generator`
+  seeded with the frame id (`_mono_init_samples`), where JAX uses
+  `PRNGKey(frame_id)`;
 - map updates at keyframe insertion happen in place;
 - every device read is synchronous, so the JAX tracker's staged mapping
   pump (`_pump_mapping_once`, which waits for each stage's read to land)
@@ -74,7 +83,8 @@ from ..ops import matching
 from ..ops.orb import OrbExtractor
 from ..ops.stereo import stereo_associate
 from ..optim.pose_opt import pose_optimize
-from ..solvers.ransac import horn_ransac
+from ..solvers.initializer import initialize
+from ..solvers.ransac import draw_samples, horn_ransac, pnp_ransac
 from ..utils.timing import StageTimer
 from .frame import FrameData, scale_factors
 from .local_mapping import LocalMapper
@@ -160,9 +170,6 @@ def _unsupported(cfg: TrackerConfig) -> List[str]:
     out = []
     if cfg.pipelined:
         out.append("pipelined=True (the software pipeline)")
-    if cfg.local_ba_cg_iters != TrackerConfig.local_ba_cg_iters:
-        out.append("local_ba_cg_iters (matrix-free CG BA; the window BA "
-                   "is dense Schur)")
     if cfg.depth_encoding != "f16":
         out.append(f"depth_encoding={cfg.depth_encoding!r} (wire formats)")
     if cfg.image_encoding != "raw":
@@ -193,7 +200,8 @@ class TrackState:
 
 
 class Tracker:
-    """Host-orchestrated RGB-D and stereo tracking over device tensors."""
+    """Host-orchestrated RGB-D, stereo and mono tracking over device
+    tensors."""
 
     def __init__(self, cfg: TrackerConfig, device=None):
         bad = _unsupported(cfg)
@@ -225,7 +233,8 @@ class Tracker:
         if cfg.enable_local_ba:
             self.local_mapper = LocalMapper(
                 self.cam, cfg.n_levels, cfg.scale_factor,
-                ba_iters=cfg.local_ba_iters, device=self.device)
+                ba_iters=cfg.local_ba_iters, cg_iters=cfg.local_ba_cg_iters,
+                device=self.device)
         else:
             self.local_mapper = None
         self.last_ba_info = None
@@ -293,6 +302,35 @@ class Tracker:
             response=lf.response, desc=lf.desc, u_right=u_right, depth=depth,
             valid=lf.valid,
         )
+
+    def _prepare_mono_impl(self, img) -> FrameData:
+        """Extract ORB (one K2 and one K3 call); no depth and no right
+        coordinate (-1)."""
+        feats = self.extractor(img)
+        xy_und = (proj.undistort_points(self.cam, self.dist, feats.xy)
+                  if self._has_dist else feats.xy)
+        neg = torch.full_like(feats.xy[:, 0], -1.0)
+        return FrameData(
+            xy=xy_und, xy_raw=feats.xy, level=feats.level, angle=feats.angle,
+            response=feats.response, desc=feats.desc, u_right=neg,
+            depth=neg.clone(), valid=feats.valid,
+        )
+
+    def _mono_match_impl(self, curr: FrameData, ref: FrameData):
+        """SearchForInitialization (`src/ORBmatcher.cc:614`): descriptor
+        matching inside a 100 px window (K1's dense pair gate, both ways)
+        with rotation consistency. Returns (idx i32[N] into `curr` per
+        `ref` feature, keep bool[N])."""
+        d2 = torch.sum((ref.xy[:, None, :] - curr.xy[None, :, :]) ** 2, -1)
+        win = d2 <= 100.0 ** 2
+        mm = matching.match_descriptors(
+            ref.desc, curr.desc, ref.valid, curr.valid, max_dist=50,
+            nn_ratio=0.9, extra_mask=win)
+        midx = torch.clamp(mm.idx, 0, curr.capacity - 1).long()
+        keep = matching.rotation_consistency(
+            ref.angle, torch.where(mm.idx >= 0, curr.angle[midx],
+                                   torch.zeros_like(ref.angle)), mm.valid)
+        return mm.idx, keep
 
     def _seam_stats(self, found_mask, mp_seen, fidx: int):
         """Count re-acquired old landmarks and advance the last-seen array."""
@@ -363,13 +401,19 @@ class Tracker:
             feat_pt_ref = torch.where(keep_ref, ref_mp[ridx], neg)
             has_ref = feat_pt_ref >= 0
             pts_ref = m.mp_pos[torch.clamp(feat_pt_ref, 0, P - 1).long()]
-            xc_cur = proj.unproject(self.cam, frame.xy,
-                                    torch.clamp(frame.depth, min=1e-3))
-            ok3d = has_ref & (frame.depth > 0)
             gen = torch.Generator(device=dev)
             gen.manual_seed(int(fidx))
-            res = horn_ransac(pts_ref, xc_cur, ok3d, gen, with_scale=False,
-                              inlier_th=0.05, min_inliers=10)
+            if cfg.bf > 0:
+                # 3D-3D Horn on the unprojected depth (planar-safe)
+                xc_cur = proj.unproject(self.cam, frame.xy,
+                                        torch.clamp(frame.depth, min=1e-3))
+                ok3d = has_ref & (frame.depth > 0)
+                res = horn_ransac(pts_ref, xc_cur, ok3d, gen,
+                                  with_scale=False, inlier_th=0.05,
+                                  min_inliers=10)
+            else:
+                res = pnp_ransac(pts_ref, frame.xy, has_ref, self.cam, gen,
+                                 n_iters=256, sample_size=8)
             pose_seed = torch.where(res.success, res.pose, pose_last)
             seed_ok = torch.where(res.success, res.inliers & has_ref, has_ref)
             r = pose_optimize(
@@ -544,21 +588,22 @@ class Tracker:
 
     def _reloc_solve_impl(self, frame: FrameData, pts3d, valid, seed: int):
         """RANSAC seed and pose LM of one relocalization candidate: 3D-3D
-        Horn RANSAC on the unprojected depth (planar-safe), then K4 over
-        its inliers. `seed` varies the hypotheses per frame and candidate.
-        """
-        if self.cfg.bf <= 0:
-            raise NotImplementedError(
-                "monocular relocalization (pnp_ransac) belongs to the mono "
-                "slice (A5)")
+        Horn RANSAC on the unprojected depth (planar-safe) or, in mono,
+        planar-safe PnP RANSAC (the reference's EPnP, `src/Tracking.cc:
+        349-441`), then K4 over its inliers. `seed` varies the hypotheses
+        per frame and candidate."""
         dev = frame.xy.device
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(seed))
-        xc = proj.unproject(self.cam, frame.xy,
-                            torch.clamp(frame.depth, min=1e-3))
-        ok3 = valid & (frame.depth > 0)
-        res = horn_ransac(pts3d, xc, ok3, gen, with_scale=False,
-                          inlier_th=0.05, min_inliers=10)
+        if self.cfg.bf > 0:
+            xc = proj.unproject(self.cam, frame.xy,
+                                torch.clamp(frame.depth, min=1e-3))
+            ok3 = valid & (frame.depth > 0)
+            res = horn_ransac(pts3d, xc, ok3, gen, with_scale=False,
+                              inlier_th=0.05, min_inliers=10)
+        else:
+            res = pnp_ransac(pts3d, frame.xy, valid, self.cam, gen,
+                             n_iters=256, sample_size=8)
         seed_ok = torch.where(res.success, res.inliers & valid, valid)
         r = pose_optimize(
             torch.where(res.success, res.pose, se3.identity(device=dev)),
@@ -637,6 +682,27 @@ class Tracker:
                 self.fidx, self.local_mask_dev),
             timestamp)
 
+    def track_mono(self, img, timestamp: float = 0.0):
+        """Process one monocular frame (gray or RGB image); returns the
+        world->camera pose f32[7]. The image is rounded to uint8 gray, as
+        the JAX package's `_pack_mono` sends it. Until the map exists, each
+        frame goes to `_initialize_mono` (`MonocularInitialization`,
+        `src/Tracking.cc:1020-1185`)."""
+        img_t = self._t(wire_image(img, rint=True))
+        return self._run_frame(
+            lambda: self._prepare_mono_impl(img_t),
+            lambda: self._mono_step(self._prepare_mono_impl(img_t)),
+            timestamp, init_fn=self._initialize_mono)
+
+    def _mono_step(self, frame: FrameData):
+        """Track a prepared mono frame: `_step_frame` on the tracker's
+        state."""
+        return self._step_frame(
+            frame, self.last_frame, self.last_mp_dev, self.map, self.pose_dev,
+            self.velocity_dev, max(self.ref_kf, 0), self.mp_vis_dev,
+            self.mp_found_dev, self.mp_seen_dev, self.fidx,
+            self.local_mask_dev)
+
     def _record_frame(self, tcr=None, ref=-1, lost=False):
         """Append one trajectory slot: the track-time pose plus the
         reference-KF-relative record (ref slot, Tcr)."""
@@ -660,10 +726,10 @@ class Tracker:
         the one-keyframe lag of the erasure is kept while tracking."""
         self._finalize_map()
 
-    def _run_frame(self, prep_fn, step_fn, timestamp: float):
+    def _run_frame(self, prep_fn, step_fn, timestamp: float, init_fn=None):
         if self.state == TrackState.NOT_INITIALIZED:
             frame = prep_fn()
-            self._initialize(frame, timestamp)
+            (init_fn or self._initialize)(frame, timestamp)
             ok = self.state == TrackState.OK
             self._record_frame(
                 tcr=se3.identity().numpy() if ok else None,
@@ -758,6 +824,9 @@ class Tracker:
         self.ref_kf_tracked = 0
         self._ref_mp_row = None
         self.frames_since_kf = 0
+        # the monocular bootstrap's reference frame
+        self._mono_ref: Optional[FrameData] = None
+        self._mono_ref_ts = 0.0
         self.state = TrackState.NOT_INITIALIZED
 
     def _maybe_auto_reset(self) -> bool:
@@ -1037,6 +1106,112 @@ class Tracker:
         self._create_keyframe(frame, np.full(frame.capacity, INVALID, np.int64),
                               timestamp, create_mask=create)
         self.last_frame = frame
+        self.state = TrackState.OK
+
+    def _mono_init_samples(self, valid):
+        """The initializer's 200 samples of 8 matches, drawn from a
+        generator seeded with the frame id."""
+        gen = torch.Generator(device=valid.device)
+        gen.manual_seed(int(self.frame_id))
+        return draw_samples(valid, 200, 8, gen)
+
+    def _initialize_mono(self, frame: FrameData, timestamp: float):
+        """Monocular bootstrap (`MonocularInitialization` +
+        `CreateInitialMapMonocular`, `src/Tracking.cc:1020-1185`): the first
+        frame with enough features becomes the reference; a later one
+        matched to it (windowed) runs the H/F initializer. On success the
+        structure is scaled to unit median depth, both frames become
+        keyframes with the triangulated landmarks and their observations,
+        and a 2-keyframe BA refines them. Too few matches restart from the
+        current frame."""
+        cfg = self.cfg
+        if int(frame.valid.sum()) < cfg.mono_init_min_matches:
+            self._mono_ref = None
+            return
+        if self._mono_ref is None:
+            self._mono_ref, self._mono_ref_ts = frame, timestamp
+            return
+        ref = self._mono_ref
+        idx, keep = self._mono_match_impl(frame, ref)
+        if int(keep.sum()) < cfg.mono_init_min_matches:
+            # the reference is too old: restart (:1044)
+            self._mono_ref, self._mono_ref_ts = frame, timestamp
+            return
+        midx = torch.clamp(idx, 0, frame.capacity - 1).long()
+        res = initialize(ref.xy, frame.xy[midx], keep, self.cam,
+                         samples=self._mono_init_samples(keep))
+        if not bool(res.success):
+            return
+        good = res.is_good.cpu().numpy()
+        n_good = int(good.sum())
+        if n_good < 50:
+            return
+        # unit median scene depth (:1138-1163)
+        X = res.points3d.cpu().numpy()
+        med_depth = float(np.median(X[good][:, 2]))
+        if med_depth <= 0:
+            return
+        X = X / med_depth
+        pose21 = res.pose21.cpu().numpy().copy()
+        pose21[4:7] /= med_depth
+
+        # the bootstrap map: two keyframes and the triangulated landmarks
+        N = frame.capacity
+        none = self._t(np.full(N, INVALID, np.int32))
+        slot0 = self.graph.alloc_kf_slot()
+        self.map, p0 = self._insert_kf_impl(
+            self.map, slot0, ref, se3.identity(device=self.device), none,
+            none)
+        slot1 = self.graph.alloc_kf_slot()
+        self.map, p1 = self._insert_kf_impl(
+            self.map, slot1, frame, self._t(pose21), none, none)
+        self.graph.set_levels(slot0, p0[1].cpu().numpy())
+        self.graph.set_levels(slot1, p1[1].cpu().numpy())
+        slots_np = np.full(N, -1, np.int32)
+        new_slots = self.graph.alloc_point_slots(n_good)
+        if len(new_slots) < n_good:
+            sel = np.nonzero(good)[0][: len(new_slots)]
+            good = np.zeros_like(good)
+            good[sel] = True
+        slots_np[np.nonzero(good)[0]] = new_slots
+        lm = self.local_mapper
+        if lm is None:  # local BA off: a mapper for the bootstrap's BA
+            lm = LocalMapper(self.cam, cfg.n_levels, cfg.scale_factor,
+                             device=self.device)
+            self.local_mapper = lm
+        self.map = lm._tri_insert_impl(
+            self.map, slot0, slot1, self._t(slots_np), midx,
+            self._t(X, torch.float32))
+        idx_np = midx.cpu().numpy()
+        for k, (slot, ts) in enumerate([(slot0, self._mono_ref_ts),
+                                        (slot1, timestamp)]):
+            self.graph.set_kf_alive(slot, True)
+            self.graph.kf_frame_id[slot] = self.frame_id - (1 - k)
+            self.graph.kf_timestamp[slot] = ts
+        self.graph.origin_kf = slot0
+        for f, s in zip(np.nonzero(good)[0], new_slots):
+            s = int(s)
+            self.graph.pt_alive[s] = True
+            self.graph.note_new_point(s, slot0)
+            self.graph.add_observation(s, slot0, int(f), False)
+            self.graph.add_observation(s, slot1, int(idx_np[f]), False)
+        self.graph.update_connections(slot1, self.graph.kf_row[slot1])
+
+        # refine the bootstrap with a 2-keyframe BA
+        # (GlobalBundleAdjustemnt(20) at :1128)
+        self.map, _ = lm.local_ba(self.map, self.graph, slot1)
+
+        self.pose_dev = self.map.kf_pose[slot1].clone()
+        self.pose = self.pose_dev.cpu().numpy()
+        self.velocity = se3.identity().numpy()
+        self.velocity_dev = self._t(self.velocity)
+        self.last_frame = frame
+        self.last_mp_dev = self.map.kf_mp[slot1].clone()
+        self.ref_kf = slot1
+        self.ref_kf_tracked = n_good
+        self._ref_mp_row = self.graph.kf_row[slot1].copy()
+        self.frames_since_kf = 0
+        self._mono_ref = None
         self.state = TrackState.OK
 
     def _create_keyframe(self, frame: FrameData, feat_mp: np.ndarray,

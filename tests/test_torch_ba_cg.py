@@ -24,8 +24,11 @@
 (d) `compact_points`: the live points in index order, observations
     remapped, the solve on the compacted problem equal to the solve on the
     whole one within 1e-5, and the global BA's scatter-back
-    (`LoopCloser._gba_impl`) leaves dead points where they were; a problem
-    over the point index's limit raises.
+    (`LoopCloser._gba_impl`) leaves dead points where they were; at the
+    bench's map capacity (P = 32,768) with 30,000 live points, past the
+    27,904 that the card's index once held, every live point is kept, the
+    compacted rows pad to the bucket, and the plain index holds each live
+    slot once, by point, ascending.
 """
 
 import jax.numpy as jnp
@@ -358,15 +361,55 @@ def test_compact_points_keeps_every_live_point_in_order():
         <= 1e-5 * float(whole.final_cost)
 
 
-def test_compact_points_raises_over_the_index_limit(monkeypatch):
-    p = convert.ba_problem_from_numpy(_problem(seed=6), "cpu")
-    n = int(p.pt_valid.sum())
-    monkeypatch.setattr(tba, "point_index_limit", lambda dev: n - 1)
-    with pytest.raises(ValueError, match="live points"):
-        tba.compact_points(p)
-    monkeypatch.setattr(tba, "point_index_limit", lambda dev: n)
+def test_compact_points_keeps_every_point_at_full_capacity():
+    K, N, P, n_live = 128, 1000, 32768, 30000
+    rng = np.random.default_rng(11)
+    live_ids = np.sort(rng.permutation(P)[:n_live])
+    valid = np.zeros(P, bool)
+    valid[live_ids] = True
+    # every live point seen by 2-5 keyframes; dead points observed too
+    obs_pt = np.full((K, N), -1, np.int32)
+    flat = rng.permutation(K * N)
+    per = rng.integers(2, 6, n_live)
+    ends = np.cumsum(per)
+    assert ends[-1] < K * N - 2000
+    pt_of = np.repeat(live_ids, per)
+    obs_pt.reshape(-1)[flat[:ends[-1]]] = pt_of
+    dead = np.nonzero(~valid)[0]
+    obs_pt.reshape(-1)[flat[ends[-1]:ends[-1] + 1000]] = rng.choice(dead, 1000)
+    p = tba.BAProblem(
+        kf_pose=torch.zeros((K, 7)), kf_fixed=torch.zeros(K, dtype=torch.bool),
+        obs_uv=torch.zeros((K, N, 2)), obs_ur=-torch.ones((K, N)),
+        obs_pt=torch.from_numpy(obs_pt), obs_inv_s2=torch.ones((K, N)),
+        pt_pos=torch.from_numpy(rng.normal(0, 1, (P, 3)).astype(np.float32)),
+        pt_valid=torch.from_numpy(valid), pt_frozen=None)
     pc, live = tba.compact_points(p)
-    assert pc.pt_pos.shape[0] == n and live.numel() == n
+    Q = pc.pt_pos.shape[0]
+    assert Q == 30 * tba.POINT_BUCKET and Q % tba.POINT_BUCKET == 0
+    np.testing.assert_array_equal(live.numpy(), live_ids)
+    assert int(pc.pt_valid.sum()) == n_live and not pc.pt_valid[n_live:].any()
+    np.testing.assert_array_equal(pc.pt_pos[:n_live].numpy(),
+                                  p.pt_pos.numpy()[live_ids])
+    obs_c = pc.obs_pt.numpy()
+    on_live = (obs_pt >= 0) & valid[np.clip(obs_pt, 0, None)]
+    np.testing.assert_array_equal(live_ids[obs_c[on_live]], obs_pt[on_live])
+    assert (obs_c[~on_live] == -1).all()
+    ok = (pc.obs_pt >= 0) & pc.pt_valid[pc.obs_pt.clamp(0, Q - 1).long()]
+    idx = tba.ba_point_index_plain(pc.obs_pt, ok, Q)
+    counts = np.bincount(obs_c[on_live], minlength=Q)
+    np.testing.assert_array_equal(np.diff(idx.offsets.numpy()), counts)
+    n_obs = int(counts.sum())
+    assert n_obs == ends[-1]
+    slots = idx.slots.numpy()
+    assert (slots[n_obs:] == -1).all()
+    np.testing.assert_array_equal(obs_c.reshape(-1)[slots[:n_obs]],
+                                  np.repeat(np.arange(Q), counts))
+    off = idx.offsets.numpy()
+    for q in (0, 1, n_live - 1, 27904, 29999):
+        run = slots[off[q]:off[q + 1]]
+        assert (np.diff(run) > 0).all()
+    np.testing.assert_array_equal(idx.place.numpy()[slots[:n_obs]],
+                                  np.arange(n_obs))
 
 
 def test_gba_scatter_back_leaves_dead_points():

@@ -421,6 +421,25 @@ def _k5_case(name):
     return p
 
 
+@pytest.mark.parametrize("Q", [27904, 27905, 32768])
+def test_k5_point_index_past_shared_rows(Q):
+    """Past 27,904 points a row's counts live in the index's `table`
+    scratch, not in shared memory (a global BA over the whole map): the
+    index still equals its plain version, and two builds the same bits.
+    Slots repeat their point inside a keyframe, as the map's do."""
+    dev = _card()
+    gen = torch.Generator().manual_seed(Q)
+    K, N = 128, 1000
+    obs_pt = torch.randint(0, Q, (K, N), generator=gen, dtype=torch.int32)
+    obs_pt[:, ::7] = obs_pt[:, 1::7][:, : obs_pt[:, ::7].shape[1]]
+    obs_ok = torch.rand((K, N), generator=gen) < 0.8
+    idx = ba.ba_point_index(obs_pt.to(dev), obs_ok.to(dev), Q)
+    ref = ba.ba_point_index_plain(obs_pt, obs_ok, Q)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(idx, ref))
+    again = ba.ba_point_index(obs_pt.to(dev), obs_ok.to(dev), Q)
+    assert all(torch.equal(a, b) for a, b in zip(idx, again))
+
+
 @pytest.mark.parametrize("name", ["q2048", "q8192", "many_obs", "all_dead",
                                   "w20", "w13", "w40"])
 def test_k5_point_major_assembly(name):

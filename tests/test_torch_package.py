@@ -79,13 +79,71 @@ def _cfg(**kw):
 
 @pytest.mark.parametrize("setting", [
     dict(pipelined=True), dict(enable_local_ba=True, pipelined=True),
-    dict(local_ba_cg_iters=30),
     dict(depth_encoding="log8"), dict(image_encoding="dct"),
     dict(descriptor_pattern="learned"),
 ])
 def test_unported_settings_raise(setting):
     with pytest.raises(NotImplementedError):
         Tracker(_cfg(**setting), device="cpu")
+
+
+def _window_map(K=4, P=200, N=64, seed=0):
+    """A map of K keyframes seeing P points (mono and stereo rows), the
+    first keyframe fixed by the window: the arguments of `_ba_impl`."""
+    from orb_slam2_refactored_tpu_torch.geometry import se3
+    from orb_slam2_refactored_tpu_torch.slam.map_state import empty_map
+
+    rng = np.random.default_rng(seed)
+    m = empty_map(MapCapacity(K, P, N), "cpu")
+    pts = torch.from_numpy(np.stack([
+        rng.uniform(-1, 1, P), rng.uniform(-0.8, 0.8, P),
+        rng.uniform(3, 6, P)], -1).astype(np.float32))
+    m.mp_pos.copy_(pts + 0.03 * torch.from_numpy(
+        rng.normal(size=(P, 3)).astype(np.float32)))
+    m.mp_valid[:] = True
+    for k in range(K):
+        pose = se3.exp(torch.tensor([0.0, 0.02 * k, 0.0, 0.1 * k, 0.0, 0.0]))
+        sel = torch.from_numpy(rng.permutation(P)[:N])
+        xc = se3.transform(pose, pts[sel])
+        uv = 50.0 * xc[:, :2] / xc[:, 2:] + torch.tensor([32.0, 24.0])
+        m.kf_pose[k] = se3.retract(pose, torch.from_numpy(
+            rng.normal(0, 0.01, 6).astype(np.float32))) if k else pose
+        m.kf_valid[k] = True
+        m.kf_xy[k] = uv + torch.from_numpy(
+            rng.normal(0, 0.5, (N, 2)).astype(np.float32))
+        stereo = torch.from_numpy(rng.uniform(size=N) < 0.5)
+        m.kf_uright[k] = torch.where(stereo, uv[:, 0] - 4.0 / xc[:, 2],
+                                     torch.full((N,), -1.0))
+        m.kf_feat_valid[k] = True
+        m.kf_mp[k] = sel.to(torch.int32)
+    win = dict(win_idx=torch.arange(K, dtype=torch.int32),
+               win_free=torch.arange(K) > 0,
+               win_valid=torch.ones(K, dtype=torch.bool),
+               pt_lut=torch.arange(P, dtype=torch.int32),
+               pts_local=torch.cat([torch.arange(P, dtype=torch.int32),
+                                    torch.tensor([P], dtype=torch.int32)]))
+    return m, win
+
+
+def test_local_ba_cg_iters_is_accepted_and_unused():
+    """The JAX package accepts `local_ba_cg_iters` and never reads it (its
+    window BA is dense Schur): a tracker constructs with it, and its window
+    BA gives the default's result bit for bit."""
+    out = []
+    for cg in (12, 30):
+        t = Tracker(_cfg(enable_local_ba=True, local_ba_cg_iters=cg),
+                    device="cpu")
+        assert t.cfg.local_ba_cg_iters == cg and t.local_mapper is not None
+        m, w = _window_map()
+        out.append(t.local_mapper._ba_impl(
+            m, w["win_idx"], w["win_free"], w["win_valid"], w["pt_lut"],
+            w["pts_local"], 3, 1e-4))
+    (m12, o12, a12, b12), (m30, o30, a30, b30) = out
+    assert float(b12) < float(a12)  # the solve ran and lowered the cost
+    assert not torch.equal(m12.kf_pose, _window_map()[0].kf_pose)
+    for x, y in ((m12.kf_pose, m30.kf_pose), (m12.mp_pos, m30.mp_pos),
+                 (o12, o30), (a12, a30), (b12, b30)):
+        assert torch.equal(x, y)
 
 
 def test_local_mapping_is_ported():

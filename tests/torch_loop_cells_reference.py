@@ -1,8 +1,9 @@
-"""Cells E and F of `chip_smoke.py` through the JAX package on the CPU: the
-reference numbers beside the port's loop cells. Not a test; run by hand:
+"""Cells E, F and H of `chip_smoke.py` through the JAX package on the CPU:
+the reference numbers beside the port's loop cells. Not a test; run by
+hand:
 
     JAX_PLATFORMS=cpu TPU_SLAM_NATIVE_GRAPH=0 \\
-        python3 tests/torch_loop_cells_reference.py [--port] [E] [F]
+        python3 tests/torch_loop_cells_reference.py [--port] [E] [F] [H]
     JAX_PLATFORMS=cpu TPU_SLAM_NATIVE_GRAPH=0 \\
         python3 tests/torch_loop_cells_reference.py --lockstep [--jax-pyramid] E
 
@@ -15,6 +16,9 @@ Without `--lockstep`, the JAX package's `Tracker.track_rgbd` (with
 on, and prints one JSON line a run: the corrected trajectory's ATE
 (`corrected_frame_poses`), the loops closed, the final state, lost frames,
 alive keyframes and points, the last loop's record and the wall time.
+Cell H (the mono circuit, `chip_smoke.mono_circuit_frames` and
+`mono_circuit_config`) runs through `track_mono` with loop closing on
+only, and its ATE is sim3-aligned.
 
 With `--lockstep`, the port (on the CPU) and the JAX package run the cell
 frame by frame with loop closing off, and print one JSON line a frame: the
@@ -45,14 +49,20 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 
-def jax_config(cell, loop):
-    """The port configuration of `chip_smoke.circuit_config` as the JAX
-    package's `TrackerConfig`."""
+def port_config(cell, loop):
     import chip_smoke
+
+    return (chip_smoke.mono_circuit_config() if cell == "H"
+            else chip_smoke.circuit_config(cell, loop))
+
+
+def jax_config(cell, loop):
+    """The port configuration of `port_config` as the JAX package's
+    `TrackerConfig`."""
     from orb_slam2_refactored_tpu.slam.map_state import MapCapacity
     from orb_slam2_refactored_tpu.slam.tracking import TrackerConfig
 
-    cfg = chip_smoke.circuit_config(cell, loop)
+    cfg = port_config(cell, loop)
     fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
     cap = cfg.map_capacity
     fields["map_capacity"] = MapCapacity(cap.max_keyframes, cap.max_points,
@@ -72,17 +82,22 @@ def ate_runs(cell, port=False):
             corrected_frame_poses)
         from orb_slam2_refactored_tpu.slam.tracking import Tracker
 
-    frames, gt = chip_smoke.circuit_frames(cell)
-    for loop in (False, True):
+    mono = cell == "H"
+    frames, gt = (chip_smoke.mono_circuit_frames() if mono
+                  else chip_smoke.circuit_frames(cell))
+    for loop in (True,) if mono else (False, True):
         t0 = time.time()
-        tracker = (Tracker(chip_smoke.circuit_config(cell, loop),
-                           device="cpu") if port
+        tracker = (Tracker(port_config(cell, loop), device="cpu") if port
                    else Tracker(jax_config(cell, loop)))
-        for i, (img, depth) in enumerate(frames):
-            tracker.track_rgbd(img, depth.astype(np.float32),
-                               timestamp=i / 30.0)
+        for i, frame in enumerate(frames):
+            if mono:
+                tracker.track_mono(frame, timestamp=i / 30.0)
+            else:
+                tracker.track_rgbd(frame[0], frame[1].astype(np.float32),
+                                   timestamp=i / 30.0)
         tracker.flush()
-        ate, _ = ate_rmse(corrected_frame_poses(tracker), gt, align="se3")
+        ate, _ = ate_rmse(corrected_frame_poses(tracker), gt,
+                          align="sim3" if mono else "se3")
         lc = tracker.loop_closer
         print(json.dumps({
             "package": "port" if port else "jax",
