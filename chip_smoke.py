@@ -1,5 +1,5 @@
 """Drive the PyTorch port of the RGB-D, stereo and monocular tracker, with
-loop closing, on one CUDA card.
+loop closing, and its system facade and CLI drivers, on one CUDA card.
 
     python3 chip_smoke.py [--profile] [--parent DIR]
 
@@ -54,6 +54,22 @@ Phases (any failure raises and the script exits non-zero):
        Gates (JAX's): OK at the end, a loop closed (an implicit one with
        >= 25 projected matches), sim3 ATE of the corrected trajectory under
        0.45 m; the global BA's kernels launched;
+    i. the facade through the CLI (cell I): cell (b)'s 120 VGA frames
+       written in the TUM layout through the port's `io/png.py` (8-bit
+       gray, depth x 5000 in 16 bits, rgb.txt, depth.txt, groundtruth.txt)
+       into a temporary directory, a settings YAML with the bench's camera
+       and `ORBextractor.pattern: learned`, then
+       `drivers.main(["rgbd_tum", ...])` in this process on cuda:0 (the
+       settings reader, the TUM reader, `SlamSystem`, the three savers; the
+       tracker takes `TrackerConfig`'s default map capacity, as JAX's CLI
+       does). Gates: rc 0, the TUM file's 120 lines on the sequence's
+       timestamps, the saved file's ATE against groundtruth.txt <= 3 cm, no
+       frame lost, the KITTI file's 120 lines of 12 numbers, a keyframe
+       line a live keyframe, every kernel of the path launched, K7 once a
+       frame and K3 never, window BA at every keyframe after the second;
+    j. the `stereo_kitti` and `mono_tum` CLIs on the JAX driver tests' own
+       40-frame QVGA exports and gates (ATE < 5 cm, a line a frame; sim3
+       ATE < 0.3 m, >= 30 lines);
     f. stereo save/load (run after phase 4's cell-(c) checks): cell (c)'s
        map through `save_map` and `load_map` into a fresh stereo tracker,
        which must relocalize within 3 pairs from view 40, within 2 cm of
@@ -93,9 +109,14 @@ Phases (any failure raises and the script exits non-zero):
     `pnp_ransac` against the CPU on the same samples (same success, model
     and winning hypotheses, pose within 1e-3); and C11: a global BA at
     P = 32768 with 30,000 live points, K5's index equal to the plain one
-    and one LM iteration's K6 within the f64 yardstick.
+    and one LM iteration's K6 within the f64 yardstick; K7 (the learned
+    pattern) on frame 0's keypoints and on the call of one more frame that
+    cell I's system tracks: given the plain version's angles bit for bit,
+    whole within the printed exceptions of `learned_tie_gate`, and a table
+    with one pair swapped that must fail the same hold.
  5. torch.profiler windows, after every agreement check: K2's and K3's
-    device time on frame 0, K1's and K4's on the recorded tracked frame's
+    device time on frame 0 (and K7's), K1's and K4's on the recorded
+    tracked frame's
     calls, K5's on the recorded window BA, B9's (and its wrapper's host
     time), the whole association's (no copy to or from the host in it) and
     the stereo K1 call's on the recorded stereo frame; each stage of cell
@@ -127,13 +148,16 @@ last line is `{"ok": true, "device": {...}}`.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import ctypes
 import inspect
 import json
 import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -170,6 +194,9 @@ CIRCUIT_FRAMES = 170
 LOOP_ATE_M = 0.06
 # the global BA's kernels: they launch only where a loop closes
 LOOP_KERNELS = ("ba_assemble_w_obs", "ba_schur_cg")
+# the learned BRIEF pattern's kernel: it launches only on cell I (cells A-H
+# run the fresh pattern on K3)
+LEARNED_KERNEL = "orb_desc_learned"
 # host seconds between a profiler window's edges and its launches
 GUARD_S = 0.005
 
@@ -1297,7 +1324,9 @@ def run_main_path(imgs, second, gt, device, local_ba, stereo=False):
     assert ate <= ATE_GATE_M, f"ATE {ate} m above the {ATE_GATE_M} m gate"
     assert lost == 0, f"{lost} frames lost"
     for k, v in launches.items():
-        if k == "stereo_sad" and not stereo:
+        if k == LEARNED_KERNEL:
+            assert v == 0, f"K7 launched on the fresh pattern's path ({tag})"
+        elif k == "stereo_sad" and not stereo:
             assert v == 0, f"B9 launched on the RGB-D path ({tag})"
         elif k in LOOP_KERNELS:
             assert v == 0, f"{k} launched with loop closing off ({tag})"
@@ -1471,7 +1500,7 @@ def run_kidnap(imgs, depths, gt, device, cfg=None):
     assert ate <= RELOC_ATE_M, ate
     assert rec, "no relocalization was recorded"
     for k, v in launches.items():
-        if k == "stereo_sad" or k in LOOP_KERNELS:
+        if k in ("stereo_sad", LEARNED_KERNEL) or k in LOOP_KERNELS:
             assert v == 0, f"{k} launched on cell D"
         else:
             assert v > 0, f"kernel {k} never launched on cell D"
@@ -2210,8 +2239,8 @@ def run_circuit(cell, loop, frames, gt, device, record=None):
           + json.dumps(stats))
     assert stats["state"] == 1, tracker.track_info[-3:]
     for k, v in launches.items():
-        if k == "stereo_sad":
-            assert v == 0, f"B9 launched on cell {cell}"
+        if k in ("stereo_sad", LEARNED_KERNEL):
+            assert v == 0, f"{k} launched on cell {cell}"
         elif k in LOOP_KERNELS:
             # the global BA runs only after a loop closed
             assert (v > 0) == (stats["loops_closed"] > 0), (k, v, cell)
@@ -2730,8 +2759,8 @@ def mono_launch_gates(launches, tag, loop_closed=False):
     """Every kernel of the mono path launched; B9 never; the global BA's
     only where a loop closed."""
     for k, v in launches.items():
-        if k == "stereo_sad":
-            assert v == 0, f"B9 launched on {tag}"
+        if k in ("stereo_sad", LEARNED_KERNEL):
+            assert v == 0, f"{k} launched on {tag}"
         elif k in LOOP_KERNELS:
             assert (v > 0) == loop_closed, (k, v, tag)
         else:
@@ -3283,6 +3312,380 @@ def plain_stage_times(img0, n_levels, scale_factor, sbp_call):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the facade, its settings file, the dataset readers and the CLI (cell I,
+# phase 3j), and the learned pattern's kernel K7
+# ---------------------------------------------------------------------------
+
+# cell I: the bench's RGB-D camera (`bench.py:98-107`) in the reference's
+# settings schema, with the learned BRIEF table; the CLI passes no map
+# capacity, so the tracker takes `TrackerConfig`'s default
+CELL_I_SETTINGS = """%YAML:1.0
+# the bench's VGA RGB-D camera, the learned BRIEF table
+Camera.fx: 520.0
+Camera.fy: 520.0
+Camera.cx: 320.0
+Camera.cy: 240.0
+Camera.k1: 0.0
+Camera.k2: 0.0
+Camera.p1: 0.0
+Camera.p2: 0.0
+Camera.k3: 0.0
+Camera.width: 640
+Camera.height: 480
+Camera.fps: 30.0
+Camera.bf: 41.6
+Camera.RGB: 1
+ThDepth: 35.0
+DepthMapFactor: 5000.0
+ORBextractor.nFeatures: 1000
+ORBextractor.scaleFactor: 1.2
+ORBextractor.nLevels: 8
+ORBextractor.iniThFAST: 20
+ORBextractor.minThFAST: 7
+ORBextractor.pattern: learned
+"""
+# phase 3j: the JAX driver tests' QVGA cameras
+# (tests/test_stereo_dataset_drivers.py, tests/test_mono_drivers.py)
+QVGA_SETTINGS = """%YAML:1.0
+Camera.fx: 260.0
+Camera.fy: 260.0
+Camera.cx: 160.0
+Camera.cy: 120.0
+Camera.k1: 0.0
+Camera.k2: 0.0
+Camera.p1: 0.0
+Camera.p2: 0.0
+Camera.k3: 0.0
+Camera.width: 320
+Camera.height: 240
+Camera.fps: {fps}
+Camera.bf: 20.8
+Camera.RGB: 1
+ThDepth: 35.0
+ORBextractor.nFeatures: 600
+ORBextractor.scaleFactor: 1.2
+ORBextractor.nLevels: 4
+ORBextractor.iniThFAST: 20
+ORBextractor.minThFAST: 7
+"""
+DRIVER_FRAMES = 40
+STEREO_DRIVER_ATE_M = 0.05  # tests/test_stereo_dataset_drivers.py:141
+MONO_DRIVER_ATE_M = 0.3     # tests/test_mono_drivers.py:103
+
+
+def _write(path, text):
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+@contextlib.contextmanager
+def _driver_report(out):
+    """Inside the block, the CLI's report hands its step times and its
+    system to `out` (the CLI keeps them to itself otherwise)."""
+    from orb_slam2_refactored_tpu_torch import drivers
+
+    real = drivers._report
+
+    def report(times, system, *a):
+        out["times"], out["system"] = list(times), system
+        return real(times, system, *a)
+
+    drivers._report = report
+    try:
+        yield out
+    finally:
+        drivers._report = real
+
+
+def _read_tum_file(path):
+    from orb_slam2_refactored_tpu_torch.geometry import se3
+
+    v = np.loadtxt(path, ndmin=2)
+    wc = torch.tensor(v[:, [7, 4, 5, 6, 1, 2, 3]], dtype=torch.float32)
+    return v[:, 0], se3.inverse(wc).numpy()
+
+
+def _read_kitti_file(path):
+    """KITTI rows (3x4 row-major Twc) -> world->camera poses f32[N,7]."""
+    from orb_slam2_refactored_tpu_torch.geometry import se3
+
+    m = torch.tensor(np.loadtxt(path, ndmin=2).reshape(-1, 3, 4),
+                     dtype=torch.float32)
+    wc = se3.make(se3.quat_from_matrix(m[:, :, :3]), m[:, :, 3])
+    return se3.inverse(wc).numpy()
+
+
+def run_cell_i(imgs, depths, gt, tmp):
+    """Cell I: cell A's 120 VGA frames written in the TUM layout through
+    `io/png.py` (8-bit gray, depth x 5000 in 16 bits), then
+    `drivers.main(["rgbd_tum", ...])` in this process on cuda:0 with the
+    bench's camera and the learned pattern, every launch counter set to 0
+    just before and read just after. Gates: rc 0; the TUM file's 120 lines
+    on the sequence's timestamps; the saved file's ATE against
+    groundtruth.txt (timestamps associated) <= 3 cm; no frame lost; the
+    KITTI file's 120 lines of 12 numbers; the keyframe file's line a live
+    keyframe; every kernel of the path launched, K7 once a frame, K3 never;
+    window BA at every keyframe after the second."""
+    import os
+
+    from orb_slam2_refactored_tpu_torch import drivers, kernels
+    from orb_slam2_refactored_tpu_torch.io.datasets import (
+        load_tum_groundtruth)
+    from orb_slam2_refactored_tpu_torch.io.evaluation import ate_rmse_assoc
+    from orb_slam2_refactored_tpu_torch.io.synthetic import (
+        write_tum_sequence)
+
+    seq = os.path.join(tmp, "cell_i")
+    t0 = time.perf_counter()
+    write_tum_sequence(seq, ((imgs[i], depths[i].astype(np.float32))
+                             for i in range(len(imgs))), gt, fps=30.0)
+    t_write = time.perf_counter() - t0
+    settings = _write(os.path.join(tmp, "cell_i.yaml"), CELL_I_SETTINGS)
+    out, kf_out, kitti_out = (os.path.join(tmp, f"cell_i_{n}.txt")
+                              for n in ("tum", "kf", "kitti"))
+    rep = {}
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    with _driver_report(rep):
+        rc = drivers.main(["rgbd_tum", "--settings", settings, "--sequence",
+                           seq, "--out", out, "--kf-out", kf_out,
+                           "--kitti-out", kitti_out, "--no-loop-closing"])
+    torch.cuda.synchronize()
+    launches = kernels.counts()
+    wall = time.perf_counter() - t0
+    system = rep["system"]
+    tracker = system.tracker
+    n = len(imgs)
+    est_ts, est_cw = _read_tum_file(out)
+    gt_ts, gt_cw = load_tum_groundtruth(os.path.join(seq, "groundtruth.txt"))
+    with open(os.path.join(seq, "rgb.txt")) as f:
+        seq_ts = [ln.split()[0] for ln in f if ln.strip()
+                  and not ln.startswith("#")]
+    with open(out) as f:
+        out_ts = [ln.split()[0] for ln in f]
+    ate, _, n_assoc = ate_rmse_assoc(est_ts, est_cw, gt_ts, gt_cw)
+    kitti_rows = np.loadtxt(kitti_out, ndmin=2)
+    with open(kf_out) as f:
+        kf_lines = len(f.read().splitlines())
+    lost = sum(1 for t in tracker.track_info if t.get("lost"))
+    created = 1 + sum(1 for t in tracker.track_info if t.get("kf"))
+    n_ba = tracker.local_mapper.n_ba
+    steps = np.asarray(rep["times"][WARMUP_FRAMES:])
+    cap = tracker.cfg.map_capacity
+    stats = {
+        "cell": "I", "frames": n, "rc": rc, "ate_saved_file_m": ate,
+        "associated": n_assoc, "lost_frames": lost,
+        "keyframes_created": created,
+        "keyframes_alive": len(tracker.graph.alive_kfs()),
+        "window_ba_solves": n_ba, "pattern": tracker.cfg.descriptor_pattern,
+        "map_capacity": [cap.max_keyframes, cap.max_points,
+                         cap.max_features],
+        "step_ms_median": float(np.median(steps) * 1e3),
+        "step_ms_p90": float(np.percentile(steps, 90) * 1e3),
+        "write_s": t_write, "wall_s": wall, "launches": launches}
+    print("cell I (rgbd_tum CLI, learned pattern) " + json.dumps(stats))
+    assert rc == 0
+    assert out_ts == seq_ts and len(out_ts) == n, (len(out_ts), n)
+    assert ate <= ATE_GATE_M, f"cell I: ATE of the saved file {ate} m"
+    assert lost == 0, f"cell I: {lost} frames lost"
+    assert kitti_rows.shape == (n, 12), kitti_rows.shape
+    assert kf_lines == len(tracker.graph.alive_kfs()), kf_lines
+    for k, v in launches.items():
+        if k in ("stereo_sad", "orb_desc") or k in LOOP_KERNELS:
+            assert v == 0, f"{k} launched on cell I"
+        else:
+            assert v > 0, f"kernel {k} never launched on cell I"
+    assert launches[LEARNED_KERNEL] == launches["fast"] == n, launches
+    assert n_ba >= created - 2 >= 1, (n_ba, created)
+    return stats, system, seq
+
+
+def record_tracked_frame_i(system, seq):
+    """The K7 call of one more frame that cell I's system tracks (the
+    sequence's frame 0 again, read by the port's reader: the orbit
+    closes)."""
+    from orb_slam2_refactored_tpu_torch.io import datasets
+    from orb_slam2_refactored_tpu_torch.ops import orb
+
+    ts, img, depth = next(datasets.tum_rgbd_sequence(seq))
+    k7 = []
+    with recording(k7, (orb, "angles_and_descriptors_learned_levels")):
+        system.track_rgbd(img, depth, ts + 120 / 30.0)
+    info = system.tracker.track_info[-1]
+    assert not info.get("lost"), info
+    assert len(k7) == 1, len(k7)
+    return k7[0]
+
+
+def run_driver_cells(tmp):
+    """Phase 3j: the `stereo_kitti` and `mono_tum` CLIs on the card, on the
+    JAX driver tests' own exports and gates: a 40-frame QVGA KITTI stereo
+    export (`tests/test_stereo_dataset_drivers.py:115-141`: one KITTI line a
+    frame, ATE < 5 cm against poses_gt.txt) and a 40-frame TUM export
+    through `mono_tum` (`tests/test_mono_drivers.py:68-103`: >= 30 tracked
+    lines, sim3 ATE < 0.3 m over >= 25 associated frames)."""
+    import os
+
+    from orb_slam2_refactored_tpu_torch import drivers, kernels
+    from orb_slam2_refactored_tpu_torch.io.datasets import (
+        load_tum_groundtruth)
+    from orb_slam2_refactored_tpu_torch.io.evaluation import (
+        ate_rmse, ate_rmse_assoc)
+    from orb_slam2_refactored_tpu_torch.io.synthetic import (
+        SyntheticScene, box_room, export_kitti_sequence, export_tum_sequence,
+        orbit_trajectory)
+
+    planes = box_room(half_x=1.5, half_y=1.2, z_far=2.5, z_near=-2.5)
+    res = {}
+    # stereo_kitti
+    t0 = time.perf_counter()
+    kitti = os.path.join(tmp, "kitti")
+    export_kitti_sequence(kitti, SyntheticScene(
+        width=320, height=240, fx=260.0, fy=260.0, baseline=0.08,
+        planes=planes), orbit_trajectory(DRIVER_FRAMES, radius=0.3,
+                                         yaw_amp=0.2), fps=10.0)
+    t_export = time.perf_counter() - t0
+    settings = _write(os.path.join(tmp, "kitti.yaml"),
+                      QVGA_SETTINGS.format(fps=10.0))
+    k_out = os.path.join(tmp, "kitti_traj.txt")
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    rc = drivers.main(["stereo_kitti", "--settings", settings, "--sequence",
+                       kitti, "--out", os.path.join(tmp, "kitti_tum.txt"),
+                       "--kitti-out", k_out, "--no-loop-closing"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.counts()
+    est = _read_kitti_file(k_out)
+    ate, _ = ate_rmse(est, _read_kitti_file(os.path.join(kitti,
+                                                         "poses_gt.txt")),
+                      align="se3")
+    res["stereo_kitti"] = {"rc": rc, "lines": len(est), "ate_m": ate,
+                           "export_s": t_export, "wall_s": wall,
+                           "launches": launches}
+    print("phase 3j stereo_kitti CLI " + json.dumps(res["stereo_kitti"]))
+    assert rc == 0 and len(est) == DRIVER_FRAMES, len(est)
+    assert ate < STEREO_DRIVER_ATE_M, f"stereo_kitti: ATE {ate} m"
+    assert launches["fast"] == launches["orb_desc"] == 2 * DRIVER_FRAMES
+    assert launches["stereo_sad"] == DRIVER_FRAMES, launches
+    # mono_tum
+    t0 = time.perf_counter()
+    tum = os.path.join(tmp, "mono_tum")
+    export_tum_sequence(tum, SyntheticScene(
+        width=320, height=240, fx=260.0, fy=260.0, planes=planes),
+        orbit_trajectory(DRIVER_FRAMES, radius=0.35, yaw_amp=0.3), fps=30.0)
+    t_export = time.perf_counter() - t0
+    settings = _write(os.path.join(tmp, "mono.yaml"),
+                      QVGA_SETTINGS.format(fps=30.0))
+    m_out = os.path.join(tmp, "mono_traj.txt")
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    rc = drivers.main(["mono_tum", "--settings", settings, "--sequence", tum,
+                       "--out", m_out, "--no-loop-closing"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.counts()
+    est_ts, est_cw = _read_tum_file(m_out)
+    gt_ts, gt_cw = load_tum_groundtruth(os.path.join(tum, "groundtruth.txt"))
+    ate, _, n_assoc = ate_rmse_assoc(est_ts, est_cw, gt_ts, gt_cw,
+                                     align="sim3")
+    res["mono_tum"] = {"rc": rc, "lines": len(est_ts), "ate_sim3_m": ate,
+                       "associated": n_assoc, "export_s": t_export,
+                       "wall_s": wall, "launches": launches}
+    print("phase 3j mono_tum CLI " + json.dumps(res["mono_tum"]))
+    assert rc == 0 and len(est_ts) >= 30, len(est_ts)
+    assert n_assoc >= 25 and ate < MONO_DRIVER_ATE_M, (n_assoc, ate)
+    assert launches["fast"] == launches["orb_desc"] == DRIVER_FRAMES
+    return res
+
+
+def _desc_bits(d):
+    return np.unpackbits(d.cpu().numpy().view(np.uint8), axis=1,
+                         bitorder="little").astype(bool)
+
+
+def check_orb_learned(levels, ys, xs, ks, tag, timed=False):
+    """K7 against its plain version on one frame's keypoints (the one
+    launch over every level, as extraction makes it): fed the plain
+    version's angles, its descriptors bit for bit and the angles returned
+    as given; whole (its own angles), level-0 angles equal, the others
+    within 3e-5 rad, and every descriptor bit equal except at the tests of
+    `learned_tie_gate` (a rotated coordinate within 1e-4 of a half-integer,
+    widened by 18 px times the keypoint's angle difference, or the blurred
+    samples within 1e-3 gray): those exceptions are counted, printed and
+    must be under 0.1 % of the tests. A control must fail the same hold:
+    the table with pair 5 swapped. With `timed`, CUDA events time the
+    launch and the plain version, and the bound is counted."""
+    from orb_slam2_refactored_tpu_torch.ops import orb
+
+    def call():
+        return orb.angles_and_descriptors_learned_levels(levels, ys, xs, ks)
+
+    def plain():
+        return orb.angles_and_descriptors_learned_plain(levels, ys, xs, ks)
+
+    ap, dp = plain()
+    ag, dg = orb.angles_and_descriptors_learned_levels(levels, ys, xs, ks,
+                                                       angles=ap)
+    ak, dk = call()
+    pat = orb.learned_pattern().copy()
+    pat[5] = pat[5, ::-1]
+    _, dx = orb.angles_and_descriptors_learned_levels(levels, ys, xs, ks,
+                                                      pattern=pat)
+    torch.cuda.synchronize()
+    given = bool(torch.equal(ag, ap) and torch.equal(dg, dp))
+    d = (torch.remainder(ak - ap + math.pi, 2 * math.pi) - math.pi).abs()
+    lvl0_equal = bool(torch.equal(ak[:ks[0]], ap[:ks[0]]))
+    gate = orb.learned_tie_gate(levels, ys, xs, ks, ap,
+                                half_tol=1e-4 + 18 * d.double()
+                                ).cpu().numpy()
+    bp = _desc_bits(dp)
+    diff = _desc_bits(dk) != bp
+    outside = int((diff & ~gate).sum())
+    excepted = int((diff & gate).sum())
+    control = int(((_desc_bits(dx) != bp) & ~gate).sum())
+    where = np.argwhere(diff & gate)[:8].tolist()
+    print(f"  K7 {tag}: {ys.shape[0]} keypoints on {len(levels)} levels; "
+          f"given the plain angles bit for bit {given}; own angles: level 0 "
+          f"equal {lvl0_equal}, max_abs_err {float(d.max()):.3g} rad; bits "
+          f"differing outside the gate {outside}, inside it (exceptions) "
+          f"{excepted} of {diff.size} tests (gated {int(gate.sum())}), first "
+          f"[keypoint, test] {where}; control (pair 5 swapped) differing "
+          f"outside the gate {control}")
+    assert given, "K7 given the angles differs from its plain version"
+    assert lvl0_equal and float(d.max()) < 3e-5, float(d.max())
+    assert outside == 0, f"K7: {outside} bits differ outside the gate"
+    assert excepted <= 1e-3 * diff.size, excepted
+    assert control > 100, f"the swapped-pair control was not told: {control}"
+    if not timed:
+        return float(d.max())
+    # bytes: the level's pixels under the union of the 43x43 raw windows
+    # (f32), the coordinates in, the angle and 8 descriptor words out
+    r = orb.LEARNED_REACH + 3
+    win = torch.arange(-r, r + 1, device=ys.device)
+    moment_px = int(orb.circular_patch_masks()[0].sum())
+    nbytes, ops, start = 0, {}, 0
+    for lvl, K in zip(levels, ks):
+        h, w = lvl.shape
+        sl = slice(start, start + K)
+        start += K
+        yy = torch.clamp(ys[sl, None, None] + win[None, :, None], 0, h - 1)
+        xx = torch.clamp(xs[sl, None, None] + win[None, None, :], 0, w - 1)
+        covered = torch.zeros((h, w), dtype=torch.bool, device=lvl.device)
+        covered[yy.long(), xx.long()] = True
+        nbytes += int(covered.sum()) * 4 + K * 8 + K * 36
+        # f32 instructions a keypoint, an FMA counted once: the separable
+        # 7-tap blur (43x37 then 37x37 outputs), two moment FMAs a pixel of
+        # the circular patch, and a test's four rotated coordinates (two
+        # instructions each), two roundings and a compare
+        add_ops(ops, f32=K * ((43 * 37 + 37 * 37) * 7 + 2 * moment_px
+                              + 256 * 11))
+    return (float(d.max()), cuda_time_ms(call, 50), cuda_time_ms(plain, 5),
+            nbytes, ops)
+
+
 def kernel_row(name, src, rep, launches, r):
     b_ms, b_by = bound_ms(r[3], r[4])
     return {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -3401,6 +3804,15 @@ def main():
     stats_h = run_mono_circuit(frames_h, gt_h, device)
     del frames_h
     mark("3_cell_H")
+    # cell I: the facade through the CLI (settings file, TUM reader, the
+    # three savers) with the learned pattern (K7); phase 3j: the
+    # stereo_kitti and mono_tum CLIs
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    atexit.register(shutil.rmtree, tmp, True)
+    stats_i, system_i, seq_i = run_cell_i(imgs, depths, gt, tmp)
+    mark("3_cell_I")
+    drivers_3j = run_driver_cells(tmp)
+    mark("3_j_drivers")
 
     # ---- phase 4: every kernel on the arguments the main path gave it ----
     from orb_slam2_refactored_tpu_torch.ops import matching
@@ -3472,6 +3884,15 @@ def main():
     solver_err, pnp_call = check_solvers(boot_g["init"][0], pnp_call)
     c11 = check_full_map_ba(device)
     mark("4_mono_and_c11", since=t0)
+    # cell I: K7 on frame 0's keypoints and on one more tracked frame's
+    # call, both holds and the swapped-pair control
+    t0 = time.perf_counter()
+    k7_r = check_orb_learned(levels, *kp0, ext.budgets, "frame 0",
+                             timed=True)
+    frame_k7 = record_tracked_frame_i(system_i, seq_i)
+    check_orb_learned(frame_k7["levels"], frame_k7["ys"], frame_k7["xs"],
+                      frame_k7["counts"], "cell I tracked frame")
+    mark("4_k7", since=t0)
 
     mark("4_checks")
     # ---- phase 5: profiler windows, after every agreement check ----
@@ -3482,10 +3903,20 @@ def main():
         levels, 20.0, 7.0, ext.budgets, margin=EDGE_MARGIN), 20)
     k3_ms, k3_rows = profiled_ms(lambda: orb.angles_and_descriptors_levels(
         levels, *kp0, ext.budgets), 20)
+    k7_ms, k7_rows = profiled_ms(
+        lambda: orb.angles_and_descriptors_learned_levels(
+            levels, *kp0, ext.budgets), 20)
     print(f"K2 device time {k2_ms:.5f} ms a call: {k2_rows}")
     print(f"K3 device time {k3_ms:.5f} ms a call: {k3_rows}")
+    print(f"K7 device time {k7_ms:.5f} ms a call: {k7_rows}")
     fast_r += (k2_ms,)
     orb_r += (k3_ms,)
+    k7_r += (k7_ms,)
+    b_ms, b_by = bound_ms(k7_r[3], k7_r[4])
+    print(f"K7 frame 0: card {k7_r[1]:.5f} ms, device {k7_ms:.5f} ms, plain "
+          f"{k7_r[2]:.5f} ms, bound {b_ms:.6f} ms ({b_by}); cell I's "
+          f"tracked frame: " + json.dumps(
+              {"launches": stats_i["launches"][LEARNED_KERNEL]}))
     ham_r += (device_times_k1(frame_k1),)
     pose_r += (device_times_k4(frame_k4),)
     k4_chain(frame_k4, device)
@@ -3597,12 +4028,16 @@ def main():
         kernel_row("ba_schur_cg", pkg + "ba_schur.cu",
                    ref + "optim/ba.py:349",
                    loop_cells["F"][1]["launches"]["ba_schur_cg"], k6_r),
+        kernel_row(LEARNED_KERNEL, pkg + "orb_desc_learned.cu",
+                   ref + "ops/orb.py:532",
+                   stats_i["launches"][LEARNED_KERNEL], k7_r),
     ]
     rows[3]["max_abs_err"] = max(rows[3]["max_abs_err"], reloc_k4_err)
     for row in rows:
         row["launches_cell_d"] = stats_d["launches"][row["name"]]
         row["launches_cell_g"] = stats_g["launches"][row["name"]]
         row["launches_cell_h"] = stats_h["launches"][row["name"]]
+        row["launches_cell_i"] = stats_i["launches"][row["name"]]
     print(f"relocalization K1 and K4 calls, and one training K1 call "
           f"(cell D): {json.dumps(reloc_shapes)}")
     print(f"per frame: K1 = {', '.join(frame_k1)}; K4 = "
@@ -3615,7 +4050,13 @@ def main():
           "cell F's first global BA; ba_schur_cg = the CG solve of one LM "
           "iteration of it (one launch: the rhs, 40 CG iterations and "
           "U^T dp), launches from cell F with loop closing on (one an LM "
-          "iteration); launches_cell_g / _h: the mono cells' own runs")
+          "iteration); orb_desc_learned = one launch over all 8 levels of "
+          "frame 0 with the learned table, its launches from cell I "
+          "(rgbd_tum through the CLI); launches_cell_g / _h / _i: those "
+          "cells' own runs")
+    print("phase 3j: " + json.dumps(
+        {k: {kk: vv for kk, vv in v.items() if kk != "launches"}
+         for k, v in drivers_3j.items()}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

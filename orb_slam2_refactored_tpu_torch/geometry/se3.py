@@ -143,6 +143,15 @@ def inverse(p):
     return make(qi, -quat_rotate(qi, translation(p)))
 
 
+def to_matrix(p):
+    """[...,7] -> [...,4,4] homogeneous matrix."""
+    r = quat_to_matrix(rotation(p))
+    top = torch.cat([r, translation(p)[..., :, None]], dim=-1)
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=p.dtype,
+                          device=p.device).expand(p.shape[:-1] + (1, 4))
+    return torch.cat([top, bottom], dim=-2)
+
+
 def _bcast(field, x):
     """Broadcast a pose field [...,k] against points [..., N, 3] if needed."""
     if field.ndim == x.ndim:

@@ -106,6 +106,50 @@ def ate_rmse(est_cw: np.ndarray, gt_cw: np.ndarray,
     return float(np.sqrt((err ** 2).mean())), err
 
 
+def associate_timestamps(ts_a: np.ndarray, ts_b: np.ndarray,
+                         max_dt: float = 0.02):
+    """Greedy nearest-timestamp association (TUM associate.py semantics).
+
+    Returns (idx_a, idx_b) index arrays of matched pairs with |dt| <= max_dt;
+    each b index is used at most once."""
+    ts_a = np.asarray(ts_a, np.float64)
+    ts_b = np.asarray(ts_b, np.float64)
+    order = np.argsort(ts_b)
+    ts_b_sorted = ts_b[order]
+    used = np.zeros(len(ts_b), bool)
+    ia, ib = [], []
+    for i, t in enumerate(ts_a):
+        j = int(np.searchsorted(ts_b_sorted, t))
+        best, best_dt = -1, max_dt
+        for k in (j - 1, j):
+            if 0 <= k < len(ts_b_sorted) and not used[k]:
+                dt = abs(ts_b_sorted[k] - t)
+                if dt <= best_dt:
+                    best, best_dt = k, dt
+        if best >= 0:
+            used[best] = True
+            ia.append(i)
+            ib.append(int(order[best]))
+    return np.asarray(ia, np.int64), np.asarray(ib, np.int64)
+
+
+def ate_rmse_assoc(est_ts: np.ndarray, est_cw: np.ndarray,
+                   gt_ts: np.ndarray, gt_cw: np.ndarray,
+                   align: str = "se3", max_dt: float = 0.02
+                   ) -> Tuple[float, np.ndarray, int]:
+    """ATE RMSE between trajectories on different timestamp grids, as the
+    TUM tools score a saved trajectory against a groundtruth file:
+    timestamp association, then the aligned RMSE.
+
+    Returns (rmse, per-pair errors, n_matched)."""
+    ia, ib = associate_timestamps(est_ts, gt_ts, max_dt)
+    if len(ia) < 3:
+        raise ValueError(
+            f"only {len(ia)} associated pairs (need >=3 for alignment)")
+    rmse, err = ate_rmse(np.asarray(est_cw)[ia], np.asarray(gt_cw)[ib], align)
+    return rmse, err, len(ia)
+
+
 def rpe(est_cw: np.ndarray, gt_cw: np.ndarray,
         delta: int = 1) -> Tuple[float, float]:
     """Relative pose error over frame offsets of `delta`. Returns (trans RMSE

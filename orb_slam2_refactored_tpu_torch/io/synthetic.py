@@ -22,6 +22,9 @@ from typing import List, Tuple
 
 import numpy as np
 
+from . import png
+
+
 def _np_quat_mul(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     aw, ax, ay, az = a
     bw, bx, by, bz = b
@@ -206,26 +209,42 @@ def export_tum_sequence(out_dir: str, scene: "SyntheticScene",
     depth_factor), `rgb.txt`, `depth.txt` and `groundtruth.txt` — byte-format
     compatible with the files `rgbd_tum.cc` and the TUM tools consume
     (`reference Examples/RGB-D/rgbd_tum.cc`, association format of
-    associate.py). Lets the REAL dataset driver (`drivers.py rgbd_tum`) run
-    end-to-end in a zero-egress container. Returns out_dir.
+    associate.py), written through `io/png.py`. Lets the CLI
+    (`drivers.py rgbd_tum`) run end to end on rendered frames. Returns
+    out_dir.
     """
-    import cv2
+    rng = np.random.default_rng(seed)
 
+    def frames():
+        for pose in poses_cw:
+            img, depth = scene.render(pose)
+            if depth_noise:
+                depth = depth * (1 + rng.normal(0, depth_noise, depth.shape))
+            yield img, depth
+
+    return write_tum_sequence(out_dir, frames(), poses_cw, fps, depth_factor,
+                              t0)
+
+
+def write_tum_sequence(out_dir: str, frames, poses_cw: np.ndarray,
+                       fps: float = 30.0, depth_factor: float = 5000.0,
+                       t0: float = 1000.0) -> str:
+    """Write (image, depth in metres) pairs and their world->camera poses
+    in the TUM RGB-D layout of `export_tum_sequence`: the image clipped
+    and truncated to 8-bit gray, the depth times `depth_factor` to
+    16-bit."""
     os.makedirs(os.path.join(out_dir, "rgb"), exist_ok=True)
     os.makedirs(os.path.join(out_dir, "depth"), exist_ok=True)
-    rng = np.random.default_rng(seed)
     rgb_lines, depth_lines, gt_lines = [], [], []
-    for i, pose in enumerate(poses_cw):
+    for i, ((img, depth), pose) in enumerate(zip(frames, poses_cw)):
         ts = t0 + i / fps
-        img, depth = scene.render(pose)
-        if depth_noise:
-            depth = depth * (1 + rng.normal(0, depth_noise, depth.shape))
         rgb_name = f"rgb/{ts:.6f}.png"
         depth_name = f"depth/{ts:.6f}.png"
-        cv2.imwrite(os.path.join(out_dir, rgb_name),
-                    np.clip(img, 0, 255).astype(np.uint8))
-        cv2.imwrite(os.path.join(out_dir, depth_name),
-                    np.clip(depth * depth_factor, 0, 65535).astype(np.uint16))
+        png.write_png(os.path.join(out_dir, rgb_name),
+                      np.clip(img, 0, 255).astype(np.uint8))
+        png.write_png(os.path.join(out_dir, depth_name),
+                      np.clip(depth * depth_factor, 0, 65535).astype(
+                          np.uint16))
         rgb_lines.append(f"{ts:.6f} {rgb_name}")
         depth_lines.append(f"{ts:.6f} {depth_name}")
         wc = _np_pose_inverse(pose)
@@ -272,17 +291,15 @@ def export_kitti_sequence(out_dir: str, scene: "SyntheticScene",
     line, the devkit convention and `SaveTrajectoryKITTI`'s output format,
     `src/System.cc:790-843`) so the driver's saved trajectory can be scored
     frame-by-frame. Returns out_dir."""
-    import cv2
-
     os.makedirs(os.path.join(out_dir, "image_0"), exist_ok=True)
     os.makedirs(os.path.join(out_dir, "image_1"), exist_ok=True)
     times, gt_rows = [], []
     for i, pose in enumerate(poses_cw):
         left, right, _ = scene.render_stereo(pose)
-        cv2.imwrite(os.path.join(out_dir, "image_0", f"{i:06d}.png"),
-                    np.clip(left, 0, 255).astype(np.uint8))
-        cv2.imwrite(os.path.join(out_dir, "image_1", f"{i:06d}.png"),
-                    np.clip(right, 0, 255).astype(np.uint8))
+        png.write_png(os.path.join(out_dir, "image_0", f"{i:06d}.png"),
+                      np.clip(left, 0, 255).astype(np.uint8))
+        png.write_png(os.path.join(out_dir, "image_1", f"{i:06d}.png"),
+                      np.clip(right, 0, 255).astype(np.uint8))
         times.append(f"{i / fps:.6e}")
         wc = _np_pose_inverse(pose)
         q, t = wc[0:4], wc[4:7]
@@ -387,8 +404,6 @@ def export_euroc_sequence(out_dir: str, planes, poses_cw: np.ndarray,
     `stereo_euroc.cc:61-107`), a `timestamps.txt` (nanosecond stamps, the
     format the reference's EuRoC timestamp files use), and
     `groundtruth_tum.txt` (TUM-format, for scoring). Returns out_dir."""
-    import cv2
-
     if rig is None:
         rig = make_euroc_rig()
     os.makedirs(os.path.join(out_dir, "mav0", "cam0", "data"), exist_ok=True)
@@ -422,10 +437,12 @@ def export_euroc_sequence(out_dir: str, planes, poses_cw: np.ndarray,
         pose_r = _np_pose_compose(rot_r, _np_pose_compose(shift, pose))
         img_l, _ = scene_l.render(pose_l)
         img_r, _ = scene_r.render(pose_r)
-        cv2.imwrite(os.path.join(out_dir, "mav0", "cam0", "data", f"{ns}.png"),
-                    np.clip(img_l, 0, 255).astype(np.uint8))
-        cv2.imwrite(os.path.join(out_dir, "mav0", "cam1", "data", f"{ns}.png"),
-                    np.clip(img_r, 0, 255).astype(np.uint8))
+        png.write_png(os.path.join(out_dir, "mav0", "cam0", "data",
+                                   f"{ns}.png"),
+                      np.clip(img_l, 0, 255).astype(np.uint8))
+        png.write_png(os.path.join(out_dir, "mav0", "cam1", "data",
+                                   f"{ns}.png"),
+                      np.clip(img_r, 0, 255).astype(np.uint8))
         stamps.append(str(ns))
         wc = _np_pose_inverse(pose)
         qw, qx, qy, qz, tx, ty, tz = wc

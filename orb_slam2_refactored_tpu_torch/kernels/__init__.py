@@ -34,6 +34,9 @@ SOURCES: Dict[str, tuple] = {
     "hamming": ("hamming.cu", ["-fmad=false"]),
     "fast": ("fast.cu", []),
     "orb_desc": ("orb_desc.cu", []),
+    # every rounding the parity depends on is written out (`__fmul_rn`,
+    # `__fadd_rn`), so the default flags keep cosf and sinf torch's own
+    "orb_desc_learned": ("orb_desc_learned.cu", []),
     "pose_lm": ("pose_lm.cu", []),
     "ba_assemble": ("ba_assemble.cu", []),
     "ba_schur": ("ba_schur.cu", []),
@@ -46,7 +49,7 @@ LAUNCHES: Dict[str, int] = {"hamming_best2": 0, "fast": 0, "orb_desc": 0,
                             "pose_lm": 0, "ba_point_index": 0,
                             "ba_assemble": 0, "ba_cost": 0,
                             "stereo_sad": 0, "ba_assemble_w_obs": 0,
-                            "ba_schur_cg": 0}
+                            "ba_schur_cg": 0, "orb_desc_learned": 0}
 
 _BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -59,13 +59,19 @@ def candidate_mask(row_ok, col_ok, uv=None, rad=None, lvl_r=None, xy=None,
                    lvl_c=None, pair_ok=None):
     """bool[M,N] gate shared by the matchers: `row_ok[i] & col_ok[j]`,
     optionally `& |uv_i - xy_j|^2 <= r_i^2 & |lvl_j - lvl_i| <= 1`, and
-    optionally `& pair_ok[i, j]`."""
+    optionally `& pair_ok[i, j]`. The window gate is computed on the
+    valid rows and columns only (the same bits: dx*dx + dy*dy is the
+    two-term sum), which keeps the CPU's window-gated calls cheap."""
     mask = row_ok[:, None] & col_ok[None, :]
     if uv is not None:
-        d2 = torch.sum((uv[:, None, :] - xy[None, :, :]) ** 2, dim=-1)
-        win = d2 <= (rad[:, None] * rad[:, None])
-        lvl_ok = torch.abs(lvl_c[None, :] - lvl_r[:, None]) <= 1
-        mask = mask & win & lvl_ok
+        ri = torch.nonzero(row_ok).squeeze(1)
+        ci = torch.nonzero(col_ok).squeeze(1)
+        dx = uv[ri, None, 0] - xy[None, ci, 0]
+        dy = uv[ri, None, 1] - xy[None, ci, 1]
+        win = dx * dx + dy * dy <= rad[ri, None] * rad[ri, None]
+        lvl_ok = torch.abs(lvl_c[None, ci] - lvl_r[ri, None]) <= 1
+        mask = torch.zeros_like(mask)
+        mask[ri[:, None], ci[None, :]] = win & lvl_ok
     if pair_ok is not None:
         mask = mask & pair_ok
     return mask

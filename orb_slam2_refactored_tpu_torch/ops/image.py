@@ -1,4 +1,4 @@
-"""Image-space primitives: grayscale, pyramid resize, Gaussian kernel.
+"""Image-space primitives: grayscale, pyramid resize, Gaussian blur.
 
 Port of `orb_slam2_refactored_tpu/ops/image.py`.
 
@@ -92,3 +92,27 @@ def _gaussian_kernel(ksize: int, sigma: float) -> np.ndarray:
     x = np.arange(-r, r + 1, dtype=np.float64)
     k = np.exp(-(x * x) / (2.0 * sigma * sigma))
     return (k / k.sum()).astype(np.float32)
+
+
+def _gaussian_pass(p, k, n: int, dim: int):
+    """One 7-tap pass along `dim` of the padded image `p`, giving `n`
+    samples: the taps' products rounded one by one and added in tap order
+    (no fused multiply-add), the order kernel K7 (`csrc/orb_desc_learned.cu`)
+    sums them in, so the two agree bit for bit."""
+    acc = k[0] * p.narrow(dim, 0, n)
+    for t in range(1, k.shape[0]):
+        acc = acc + k[t] * p.narrow(dim, t, n)
+    return acc
+
+
+def gaussian_blur(img, ksize: int = 7, sigma: float = 2.0):
+    """Separable Gaussian blur of an f32 [H,W] image, borders mirrored
+    without repeating the edge (`jnp.pad(mode="reflect")`: -1 -> 1): a
+    horizontal, then a vertical pass. The pre-descriptor blur of the
+    reference (GaussianBlur(7,7,2,2), `src/ORBextractor.cc:791`)."""
+    k = torch.as_tensor(_gaussian_kernel(ksize, sigma), device=img.device)
+    r = ksize // 2
+    h, w = img.shape
+    p = torch.nn.functional.pad(img[None, None].to(torch.float32),
+                                (r, r, r, r), mode="reflect")[0, 0]
+    return _gaussian_pass(_gaussian_pass(p, k, w, 1), k, h, 0)

@@ -8,13 +8,18 @@ in-window blur + IC angle + steered BRIEF of every level's keypoints,
 `csrc/orb_desc.cu`, wrapper `angles_and_descriptors_levels`). Descriptors
 are int32[K,8], bit-identical to the JAX package's uint32.
 
-Only the "fresh" BRIEF pattern and the in-window (raw) descriptor path that
-the JAX tracker runs are ported.
+Both BRIEF test tables are ported. The "fresh" pattern fits K3's 31x31
+window; the "learned" table (OpenCV's `bit_pattern_31_`, `orb_pattern_cv.npy`)
+reaches 18 px once rotated, so, as in the JAX package, it takes the
+full-image path: the level blurred with reflected borders, the IC angle of
+the raw level and the continuously rotated tests, here kernel K7
+(`csrc/orb_desc_learned.cu`, wrapper `angles_and_descriptors_learned_levels`).
 """
 
 from __future__ import annotations
 
 import functools
+import os
 from typing import List, NamedTuple, Tuple
 
 import numpy as np
@@ -57,6 +62,28 @@ def brief_pattern() -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=1)
+def learned_pattern() -> np.ndarray:
+    """[256,2,2] int32: the learned ORB test-pair table of the ORB paper
+    (Rublee et al. 2011), OpenCV's `bit_pattern_31_` and the reference's
+    (`src/ORBextractor.cc:142`), a byte-for-byte copy of the JAX package's
+    `orb_pattern_cv.npy`. Layout [pair, (A, B), (x, y)]; coordinates within
+    13, radius up to 18.4. Descriptors computed with it live in the bit
+    space of externally trained vocabularies."""
+    pat = np.load(os.path.join(os.path.dirname(__file__),
+                               "orb_pattern_cv.npy"))
+    assert pat.shape == (256, 2, 2)
+    return pat.astype(np.int32)
+
+
+def get_pattern(name: str) -> np.ndarray:
+    if name == "fresh":
+        return brief_pattern()
+    if name == "learned":
+        return learned_pattern()
+    raise ValueError(f"unknown BRIEF pattern {name!r} (fresh|learned)")
+
+
+@functools.lru_cache(maxsize=1)
 def _umax_table() -> np.ndarray:
     """The reference's circular-patch rim table (cvRound + symmetry fix)."""
     half = HALF_PATCH
@@ -81,6 +108,14 @@ def circular_patch_masks() -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     ys, xs = np.mgrid[-HALF_PATCH: HALF_PATCH + 1, -HALF_PATCH: HALF_PATCH + 1]
     mask = (np.abs(xs) <= umax[np.abs(ys)]).astype(np.float32)
     return mask, (xs * mask).astype(np.float32), (ys * mask).astype(np.float32)
+
+
+def pattern_fits_window(pattern: str) -> bool:
+    """True when every rotated and rounded test point stays inside the
+    31x31 patch (radius <= 14): the fresh pattern (radius 13) does and runs
+    on K3; the learned table (radius 18.4) does not and runs on K7."""
+    pat = get_pattern(pattern).astype(np.float64)
+    return float(np.sqrt((pat ** 2).sum(-1)).max()) <= HALF_PATCH - 1
 
 
 def features_per_level(n_features: int, n_levels: int,
@@ -146,6 +181,7 @@ def _device_tables(device_str: str):
         "pairs": torch.as_tensor(steered_pairs(), device=dev),
         "blur": torch.as_tensor(_blur31_matrix(), device=dev),
         "shifts": torch.arange(32, dtype=torch.int64, device=dev),
+        "learned": _pattern_table("learned", dev),
     }
 
 
@@ -293,6 +329,161 @@ def angles_and_descriptors_raw(lvl, ys, xs):
 
 
 # ---------------------------------------------------------------------------
+# The learned pattern: raw-level IC angle, blurred level, rotated tests (K7)
+# ---------------------------------------------------------------------------
+
+LEARNED_REACH = 18  # |rotated, rounded offset| of a point within radius 18.5
+
+
+def _pattern_table(pattern, device) -> torch.Tensor:
+    """int32[256, 4] (ax, ay, bx, by) of a pattern name or a [256, 2, 2]
+    table on `device`."""
+    pat = get_pattern(pattern) if isinstance(pattern, str) else pattern
+    return torch.as_tensor(np.asarray(pat, np.int32).reshape(256, 4),
+                           device=device).contiguous()
+
+
+def ic_angles(img, ys, xs):
+    """Intensity-centroid orientation f32[K] of keypoints at integer
+    (ys, xs), from the 31x31 circular patch of the (raw) level `img`."""
+    tb = _tables(img.device)
+    d = torch.arange(-HALF_PATCH, HALF_PATCH + 1, device=img.device)
+    patches = img[(ys.long()[:, None] + d)[:, :, None],
+                  (xs.long()[:, None] + d)[:, None, :]]  # [K,31,31]
+    m10 = torch.sum(patches * tb["xm"].reshape(PATCH_SIZE, PATCH_SIZE),
+                    dim=(1, 2))
+    m01 = torch.sum(patches * tb["ym"].reshape(PATCH_SIZE, PATCH_SIZE),
+                    dim=(1, 2))
+    return torch.atan2(m01, m10)
+
+
+def brief_descriptors(blurred, ys, xs, angles, pattern="fresh"):
+    """Steered BRIEF int32[K,8] sampled from the blurred level at the
+    pattern's offsets rotated by the exact angle: x c - y s and x s + y c,
+    each product and the sum rounded apart, then rounded half to even
+    (`ComputeOrbDescriptor`, `src/ORBextractor.cc:103-140`); bit = A < B.
+    `pattern` is a name or a [256, 2, 2] table."""
+    pat = _pattern_table(pattern, blurred.device).to(torch.float32)
+    c = torch.cos(angles)[:, None]
+    s = torch.sin(angles)[:, None]
+    px, py = pat[None, :, 0::2], pat[None, :, 1::2]  # [1,256,2]: A, B
+    c, s = c[..., None], s[..., None]
+    rx = torch.round(px * c - py * s).long()
+    ry = torch.round(px * s + py * c).long()
+    w = blurred.shape[1]
+    flat = (ys.long()[:, None, None] + ry) * w + xs.long()[:, None, None] + rx
+    samples = blurred.reshape(-1)[flat]  # [K,256,2]
+    return pack_bits(samples[..., 0] < samples[..., 1])
+
+
+def angles_and_descriptors_learned_plain(levels, ys, xs, counts, angles=None,
+                                         pattern="learned"):
+    """Plain PyTorch version of kernel K7 (same signature): each level
+    blurred whole (`ops/image.py::gaussian_blur`), the IC angle of its raw
+    pixels (unless `angles` are given), the rotated tests on the blurred
+    level."""
+    splits = list(counts)
+    angs, descs = [], []
+    given = angles.split(splits) if angles is not None else [None] * len(
+        splits)
+    for lvl, y, x, a in zip(levels, ys.split(splits), xs.split(splits),
+                            given):
+        if a is None:
+            a = ic_angles(lvl, y, x)
+        angs.append(a)
+        descs.append(brief_descriptors(image_ops.gaussian_blur(lvl, 7, 2.0),
+                                       y, x, a, pattern))
+    return torch.cat(angs), torch.cat(descs)
+
+
+def learned_tie_gate(levels, ys, xs, counts, angles, pattern="learned",
+                     half_tol=1e-4, gray_tol=1e-3):
+    """bool[K,256]: the tests whose bit two correct implementations may
+    set apart: a rotated coordinate within `half_tol` (a float, or one a
+    keypoint) of a half-integer in f64, where the f32 rounding of
+    x c - y s may go either way, or the two blurred samples within
+    `gray_tol` gray. K7 is held against its plain version, and the plain
+    version against JAX's, on the tests outside it; the tracking path
+    never asks for it."""
+    pat = _pattern_table(pattern, ys.device).to(torch.float64)
+    ht = torch.as_tensor(half_tol, dtype=torch.float64,
+                         device=ys.device).expand(ys.shape[0])
+    out, start = [], 0
+    for lvl, k in zip(levels, counts):
+        sl = slice(start, start + k)
+        start += k
+        blur = image_ops.gaussian_blur(lvl, 7, 2.0)
+        a = angles[sl].to(torch.float64)[:, None, None]
+        px, py = pat[None, :, 0::2], pat[None, :, 1::2]
+        rx = px * torch.cos(a) - py * torch.sin(a)
+        ry = px * torch.sin(a) + py * torch.cos(a)
+        tol = ht[sl, None, None]
+        near = ((torch.abs(rx - torch.floor(rx) - 0.5) < tol)
+                | (torch.abs(ry - torch.floor(ry) - 0.5) < tol)).any(-1)
+        w = blur.shape[1]
+        flat = ((ys[sl].long()[:, None, None] + torch.round(ry).long()) * w
+                + xs[sl].long()[:, None, None] + torch.round(rx).long())
+        smp = blur.reshape(-1)[flat]
+        out.append(near | (torch.abs(smp[..., 0] - smp[..., 1]) < gray_tol))
+    return torch.cat(out)
+
+
+def angles_and_descriptors_learned_levels(levels, ys, xs, counts,
+                                          angles=None, pattern="learned"):
+    """IC angle f32[K] and steered-BRIEF int32[K,8] with a test table that
+    does not fit the 31x31 window (the learned one), for keypoints at
+    integer (ys, xs) of several pyramid levels, grouped by level as for
+    `angles_and_descriptors_levels`. With `angles` given, the descriptors
+    are steered by them and they are returned as they are. `pattern` is a
+    name or a numpy [256, 2, 2] table whose points lie within radius 18.5
+    (a swapped pair makes a control that must disagree). One
+    launch of kernel `csrc/orb_desc_learned.cu` for every level on CUDA
+    tensors; the plain version on CPU tensors."""
+    if not levels[0].is_cuda:
+        return angles_and_descriptors_learned_plain(levels, ys, xs, counts,
+                                                    angles, pattern)
+    K = ys.shape[0]
+    n = len(levels)
+    if len(counts) != n or sum(counts) != K:
+        raise ValueError(f"orb: counts {list(counts)} do not split {K} "
+                         f"keypoints over {n} levels")
+    if n > kernels.MAX_LEVELS:
+        raise ValueError(f"orb: {n} levels, the kernel takes at most "
+                         f"{kernels.MAX_LEVELS}")
+    for lvl in levels:
+        kernels.require(lvl, "orb level", torch.float32)
+    kernels.require(ys, "orb ys", torch.int32, (K,))
+    kernels.require(xs, "orb xs", torch.int32, (K,))
+    if angles is not None:
+        kernels.require(angles, "orb angles", torch.float32, (K,))
+    dev = levels[0].device
+    tb = _tables(dev)
+    pat_np = get_pattern(pattern) if isinstance(pattern, str) else pattern
+    radius = float(np.sqrt((np.asarray(pat_np, np.float64) ** 2).sum(-1)).max())
+    pat = (tb["learned"] if isinstance(pattern, str) and pattern == "learned"
+           else _pattern_table(pattern, dev))
+    if radius >= LEARNED_REACH + 0.5:
+        raise ValueError(f"orb: a test point at radius {radius:.2f} leaves "
+                         f"the kernel's {LEARNED_REACH}-px window")
+    ang = torch.empty((K,), dtype=torch.float32, device=dev)
+    desc = torch.empty((K, 8), dtype=torch.int32, device=dev)
+    fn = kernels.bind("orb_desc_learned", "orb_learned_levels",
+                      [kernels.CI, kernels.VP, kernels.VP, kernels.VP,
+                       kernels.VP, kernels.CI] + [kernels.VP] * 8)
+    kernels.LAUNCHES["orb_desc_learned"] += 1
+    kernels.check(fn(n, kernels.ptr_array(levels),
+                     kernels.int_array([d for lvl in levels for d in lvl.shape]
+                                       + list(counts)),
+                     kernels.ptr(ys), kernels.ptr(xs), K,
+                     kernels.ptr(tb["gk"]), kernels.ptr(tb["xm"]),
+                     kernels.ptr(tb["ym"]), kernels.ptr(pat),
+                     None if angles is None else kernels.ptr(angles),
+                     kernels.ptr(ang), kernels.ptr(desc),
+                     kernels.stream_of(levels[0])), "orb_learned_levels")
+    return ang, desc
+
+
+# ---------------------------------------------------------------------------
 # Full extractor
 # ---------------------------------------------------------------------------
 
@@ -313,9 +504,9 @@ class OrbExtractor:
                  scale_factor: float = 1.2, n_levels: int = 8,
                  ini_th_fast: float = 20.0, min_th_fast: float = 7.0,
                  cell: int = 32, pattern: str = "fresh"):
-        if pattern != "fresh":
-            raise NotImplementedError(
-                f"BRIEF pattern {pattern!r}: only 'fresh' is ported")
+        self.pattern = pattern
+        # an unknown name raises ValueError; the learned table runs on K7
+        self.full_image_path = not pattern_fits_window(pattern)
         self.height, self.width = height, width
         self.n_features = n_features
         self.scale_factor = scale_factor
@@ -331,7 +522,9 @@ class OrbExtractor:
     def _extract_impl_pyr(self, img) -> Tuple[OrbFeatures, List]:
         """Pyramid, one K2 call (FAST, NMS, edge margin and the per-cell
         rank rounds of every level), the global top-k of each level in
-        plain torch, then one K3 call for every level's keypoints."""
+        plain torch, then one K3 call for every level's keypoints, or one
+        K7 call when the pattern does not fit K3's window (the learned
+        table), as the JAX package branches."""
         img = image_ops.to_gray(img)
         levels = image_ops.build_pyramid(img, self.n_levels, self.scale_factor)
         used = [l for l in range(self.n_levels) if self.budgets[l] > 0]
@@ -356,8 +549,13 @@ class OrbExtractor:
                                           device=img.device), resp, valid))
             ys_all.append(ys_c)
             xs_all.append(xs_c)
-        ang, desc = angles_and_descriptors_levels(
-            lv, torch.cat(ys_all), torch.cat(xs_all), ks)
+        if self.full_image_path:
+            ang, desc = angles_and_descriptors_learned_levels(
+                lv, torch.cat(ys_all), torch.cat(xs_all), ks,
+                pattern=self.pattern)
+        else:
+            ang, desc = angles_and_descriptors_levels(
+                lv, torch.cat(ys_all), torch.cat(xs_all), ks)
         xy, level, resp, valid = (torch.cat(f) for f in zip(*parts))
         return OrbFeatures(xy=xy, level=level, angle=ang, response=resp,
                            desc=desc, valid=valid), levels

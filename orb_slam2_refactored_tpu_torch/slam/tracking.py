@@ -30,7 +30,9 @@ the projection check, the essential-graph correction and a global BA that
 is merged at the next keyframe), with the implicit-loop and seam pathways
 (`_implicit_loop_candidate`, `_seam_check`); with `local_map_window > 0`
 the whole-map projection search sees only the covisibility window's points
-(`_refresh_local_mask`).
+(`_refresh_local_mask`). `change_calibration` swaps the camera model
+mid-session, and `localization_only` (set by the facade's localization
+mode) stops keyframes and holds the mapping job.
 
 Differences of form from the JAX package:
 - the tracker runs on `cuda:0` unless the caller passes another device
@@ -174,8 +176,6 @@ def _unsupported(cfg: TrackerConfig) -> List[str]:
         out.append(f"depth_encoding={cfg.depth_encoding!r} (wire formats)")
     if cfg.image_encoding != "raw":
         out.append(f"image_encoding={cfg.image_encoding!r} (wire formats)")
-    if cfg.descriptor_pattern != "fresh":
-        out.append(f"descriptor_pattern={cfg.descriptor_pattern!r}")
     return out
 
 
@@ -210,17 +210,7 @@ class Tracker:
                 "not ported in this slice: " + "; ".join(bad))
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.cam = proj.CameraIntrinsics.create(cfg.fx, cfg.fy, cfg.cx,
-                                                cfg.cy, cfg.bf)
-        self._has_dist = any(float(c) != 0.0 for c in cfg.dist_coeffs)
-        self.dist = proj.DistCoeffs.create(*cfg.dist_coeffs)
-        if self._has_dist:
-            self.image_bounds = proj.image_bounds_np(
-                cfg.fx, cfg.fy, cfg.cx, cfg.cy, cfg.dist_coeffs,
-                cfg.width, cfg.height)
-        else:
-            self.image_bounds = (0.0, float(cfg.width), 0.0,
-                                 float(cfg.height))
+        self._set_intrinsics()
         self.extractor = OrbExtractor(
             cfg.height, cfg.width, cfg.n_features, cfg.scale_factor,
             cfg.n_levels, cfg.ini_th_fast, cfg.min_th_fast,
@@ -248,7 +238,51 @@ class Tracker:
         self.traj_entries: List[dict] = []
         self.track_info: List[dict] = []
         self.frame_id = 0
+        # track-only mode (`SlamSystem.activate_localization_mode`): no
+        # keyframe is made and no mapping job runs
+        self.localization_only = False
         self.reset_map()
+
+    def _set_intrinsics(self):
+        """The camera model and what is built from it: the intrinsics, the
+        distortion and the undistorted image bounds."""
+        cfg = self.cfg
+        self.cam = proj.CameraIntrinsics.create(cfg.fx, cfg.fy, cfg.cx,
+                                                cfg.cy, cfg.bf)
+        self._has_dist = any(float(c) != 0.0 for c in cfg.dist_coeffs)
+        self.dist = proj.DistCoeffs.create(*cfg.dist_coeffs)
+        if self._has_dist:
+            self.image_bounds = proj.image_bounds_np(
+                cfg.fx, cfg.fy, cfg.cx, cfg.cy, cfg.dist_coeffs,
+                cfg.width, cfg.height)
+        else:
+            self.image_bounds = (0.0, float(cfg.width), 0.0,
+                                 float(cfg.height))
+
+    def change_calibration(self, fx: float, fy: float, cx: float, cy: float,
+                           bf: Optional[float] = None, dist_coeffs=None):
+        """System::ChangeCalibration analog (`src/System.cc:869-875`): swap
+        the camera model mid-session; the map and the trajectory survive.
+        A half-done monocular initialization is dropped (its reference
+        frame was taken under the old intrinsics); the mapping job's
+        deferred products are drained, then the `LocalMapper` is rebuilt
+        with the new camera, and the loop closer points at it."""
+        cfg = self.cfg
+        cfg.fx, cfg.fy, cfg.cx, cfg.cy = fx, fy, cx, cy
+        self._mono_ref = None
+        if bf is not None:
+            cfg.bf = bf
+        if dist_coeffs is not None:
+            cfg.dist_coeffs = tuple(dist_coeffs)
+        self._set_intrinsics()
+        if self.local_mapper is not None:
+            self._finalize_map()
+            self.local_mapper = LocalMapper(
+                self.cam, cfg.n_levels, cfg.scale_factor,
+                ba_iters=cfg.local_ba_iters, cg_iters=cfg.local_ba_cg_iters,
+                device=self.device)
+        if self.loop_closer is not None:
+            self.loop_closer.cam = self.cam
 
     # ------------------------------------------------------------------
     # device programs
@@ -727,6 +761,8 @@ class Tracker:
         self._finalize_map()
 
     def _run_frame(self, prep_fn, step_fn, timestamp: float, init_fn=None):
+        if not self.localization_only:
+            self._run_held_map_job()
         if self.state == TrackState.NOT_INITIALIZED:
             frame = prep_fn()
             (init_fn or self._initialize)(frame, timestamp)
@@ -811,6 +847,7 @@ class Tracker:
         self._seam_pending = False
         self._seam_cooldown_until = 0
         self._gba_pending = None
+        self._held_map_job: Optional[int] = None
         if self.loop_closer is not None:
             self.loop_closer.db.clear()
             self.loop_closer.consistent_groups = []
@@ -1084,7 +1121,10 @@ class Tracker:
 
     def _need_new_keyframe(self, n_inl, tracked_close, untracked_close) -> bool:
         """NeedNewKeyFrame policy: ratio vs reference KF, close-point
-        pressure, interval gates."""
+        pressure, interval gates. Localization-only mode suppresses
+        keyframes outright (`src/Tracking.cc:470-471`)."""
+        if self.localization_only:
+            return False
         if self.frames_since_kf < self.cfg.kf_min_interval:
             return False
         need_close = (tracked_close < 100) and (untracked_close > 70)
@@ -1395,11 +1435,17 @@ class Tracker:
             return True
         return False
 
-    def _run_mapping_job(self, slot: int):
+    def _run_mapping_job(self, slot: int, force: bool = False):
         """The keyframe's mapping job, in the stage order of the JAX
         tracker's `_pump_mapping_once`. The BA outlier erasure stays pending
         until the NEXT keyframe's drain (the reference's mapping-thread
         lag); `_finalize_map` drains it."""
+        if self.localization_only and not force:
+            # localization mode froze the map: a job made here (a seam
+            # keyframe) is held until deactivation or `_finalize_map`, as
+            # the JAX tracker's pump holds it
+            self._held_map_job = slot
+            return
         lm = self.local_mapper
         # triangulation results: insert points, then neighbour fusion over
         # the refreshed covisibility ring
@@ -1439,7 +1485,14 @@ class Tracker:
             self.pose_dev = self.map.kf_pose[slot].clone()
             self.pose = self.pose_dev.cpu().numpy()
 
+    def _run_held_map_job(self, force: bool = False):
+        """Run a mapping job held by localization mode."""
+        slot, self._held_map_job = self._held_map_job, None
+        if slot is not None:
+            self._run_mapping_job(slot, force)
+
     def _finalize_map(self):
-        """Drain every deferred mapping product."""
+        """Drain every deferred mapping product (a held mapping job too)."""
+        self._run_held_map_job(force=True)
         if self.local_mapper is not None:
             self.map = self.local_mapper.drain_pending(self.map, self.graph)

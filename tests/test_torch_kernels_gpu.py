@@ -1,6 +1,6 @@
 """The CUDA kernels against their plain versions, on the card: K1 (in its
 three gate modes), K2 and K3 (on one level and on a whole pyramid in one
-call), K4 (pose LM), K5 (BA assembly and cost, both modes), K6 (the fused CG
+call), K7 (the learned pattern, given the angles and whole), K4 (pose LM), K5 (BA assembly and cost, both modes), K6 (the fused CG
 solve of global BA) and B9 (the stereo SAD
 refinement alone, and the whole stereo association after K1 in one
 launch), and the BoW vocabulary on K1 (quantization, training,
@@ -222,6 +222,100 @@ def test_extractor_launches_k2_and_k3_once():
     assert after["fast"] == before["fast"] + 1
     assert after["orb_desc"] == before["orb_desc"] + 1
     assert feats.desc.shape == (1000, 8) and bool(feats.valid.any())
+
+
+def _vga_keypoints(levels, ks):
+    ys_all, xs_all = [], []
+    for lvl, k, (_, raw, pos) in zip(
+            levels, ks, fast.detect_and_rank_plain(levels, 20.0, 7.0, ks,
+                                                   margin=19)):
+        h, w = lvl.shape
+        ys, xs, _, _ = orb.topk_from_ranks(raw, pos, k, h, w)
+        ys_all.append(torch.clamp(ys, 19, h - 20).to(torch.int32))
+        xs_all.append(torch.clamp(xs, 19, w - 20).to(torch.int32))
+    return torch.cat(ys_all), torch.cat(xs_all)
+
+
+def _k7_case():
+    dev = _card()
+    levels = [lvl.to(dev) for lvl in _vga_pyramid()]
+    ks = orb.features_per_level(1000, 8, 1.2)
+    ys, xs = _vga_keypoints([lvl.cpu() for lvl in levels], ks)
+    return levels, ys.to(dev), xs.to(dev), ks
+
+
+def test_orb_learned_kernel_equals_plain_given_angles():
+    """K7 fed the plain version's angles gives its descriptors bit for bit
+    (the blur's products and sums and the rotation's are rounded one by
+    one in both, cosf/sinf are torch's), and returns the angles as they
+    are; one launch a call."""
+    levels, ys, xs, ks = _k7_case()
+    ap, dp = orb.angles_and_descriptors_learned_plain(levels, ys, xs, ks)
+    before = kernels.counts()["orb_desc_learned"]
+    ak, dk = orb.angles_and_descriptors_learned_levels(levels, ys, xs, ks,
+                                                       angles=ap)
+    torch.cuda.synchronize()
+    assert kernels.counts()["orb_desc_learned"] == before + 1
+    assert torch.equal(ak, ap) and torch.equal(dk, dp)
+
+
+def test_orb_learned_kernel_matches_plain():
+    """Whole K7 (its own angles) against the plain version: level-0 angles
+    equal (integer moments are exact), the others within 3e-5 rad (the
+    moments of a resized level sum in another order); every descriptor bit
+    equal outside `learned_tie_gate`, widened by 18 px times a keypoint's
+    angle difference; and a table with one pair swapped must fail that
+    hold."""
+    levels, ys, xs, ks = _k7_case()
+    ap, dp = orb.angles_and_descriptors_learned_plain(levels, ys, xs, ks)
+    ak, dk = orb.angles_and_descriptors_learned_levels(levels, ys, xs, ks)
+    torch.cuda.synchronize()
+    assert torch.equal(ak[:ks[0]], ap[:ks[0]])
+    d = torch.remainder(ak - ap + np.pi, 2 * np.pi) - np.pi
+    assert float(d.abs().max()) < 3e-5
+    gate = orb.learned_tie_gate(levels, ys, xs, ks, ap,
+                                half_tol=1e-4 + 18 * d.abs().double()
+                                ).cpu().numpy()
+    assert (~gate).mean() > 0.75
+
+    def bits(d):
+        return np.unpackbits(d.cpu().numpy().view(np.uint8), axis=1,
+                             bitorder="little").astype(bool)
+
+    assert not ((bits(dk) != bits(dp)) & ~gate).any()
+    pat = orb.learned_pattern().copy()
+    pat[5] = pat[5, ::-1]
+    _, dx = orb.angles_and_descriptors_learned_levels(levels, ys, xs, ks,
+                                                      pattern=pat)
+    assert ((bits(dx) != bits(dp)) & ~gate).sum() > 100
+
+
+def test_extractor_with_the_learned_pattern_launches_k7_not_k3():
+    dev = _card()
+    scene = SyntheticScene(width=640, height=480, fx=520.0, fy=520.0)
+    img, _ = scene.render(orbit_trajectory(4)[2])
+    img = torch.from_numpy(np.clip(img, 0, 255).astype(np.uint8)).to(dev)
+    before = kernels.counts()
+    feats = orb.OrbExtractor(480, 640, pattern="learned")(img)
+    torch.cuda.synchronize()
+    after = kernels.counts()
+    assert after["fast"] == before["fast"] + 1
+    assert after["orb_desc_learned"] == before["orb_desc_learned"] + 1
+    assert after["orb_desc"] == before["orb_desc"]
+    assert feats.desc.shape == (1000, 8) and bool(feats.valid.any())
+
+
+def test_orb_learned_wrapper_refuses_what_the_kernel_does_not_take():
+    levels, ys, xs, ks = _k7_case()
+    far = orb.learned_pattern().copy()
+    far[0, 0] = (19, 0)  # radius 19 leaves the 18-px window
+    with pytest.raises(ValueError, match="radius"):
+        orb.angles_and_descriptors_learned_levels(levels, ys, xs, ks,
+                                                  pattern=far)
+    with pytest.raises(ValueError):
+        orb.angles_and_descriptors_learned_levels(levels, ys.long(), xs, ks)
+    with pytest.raises(ValueError):
+        orb.angles_and_descriptors_learned_levels(levels, ys, xs, ks[:-1])
 
 
 CAM = proj.CameraIntrinsics.create(520.0, 520.0, 320.0, 240.0, 41.6)

@@ -1,5 +1,6 @@
-"""Port package rules: it imports neither JAX nor the JAX package, keeps the
-JAX package's frame layout, and refuses settings it has not ported."""
+"""Port package rules: it imports neither JAX nor the JAX package (nor PyYAML
+or OpenCV, which the card's machine lacks), keeps the JAX package's frame
+layout, and refuses settings it has not ported."""
 
 import ast
 import os
@@ -38,13 +39,17 @@ def _imported_modules(path):
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
+    """Nor `yaml` or `cv2`: the machine with the card has neither, so the
+    settings reader, the PNG codec and the dataset readers are the port's
+    own."""
     bad = []
     srcs = _sources()
     assert len(srcs) > 15
     for path in srcs:
         for mod in _imported_modules(path):
             root = mod.split(".")[0]
-            if root in ("jax", "jaxlib", "flax", "orb_slam2_refactored_tpu"):
+            if root in ("jax", "jaxlib", "flax", "orb_slam2_refactored_tpu",
+                        "yaml", "cv2"):
                 bad.append((os.path.relpath(path, ROOT), mod))
     assert not bad, bad
 
@@ -55,7 +60,8 @@ def test_every_kernel_source_exists():
     assert set(kernels.LAUNCHES) == {"hamming_best2", "fast", "orb_desc",
                                      "pose_lm", "ba_point_index",
                                      "ba_assemble", "ba_cost", "stereo_sad",
-                                     "ba_assemble_w_obs", "ba_schur_cg"}
+                                     "ba_assemble_w_obs", "ba_schur_cg",
+                                     "orb_desc_learned"}
 
 
 def test_empty_frame_and_scale_tables_match_jax():
@@ -80,11 +86,26 @@ def _cfg(**kw):
 @pytest.mark.parametrize("setting", [
     dict(pipelined=True), dict(enable_local_ba=True, pipelined=True),
     dict(depth_encoding="log8"), dict(image_encoding="dct"),
-    dict(descriptor_pattern="learned"),
 ])
 def test_unported_settings_raise(setting):
     with pytest.raises(NotImplementedError):
         Tracker(_cfg(**setting), device="cpu")
+
+
+def test_learned_pattern_is_accepted():
+    """The learned BRIEF table is ported: the tracker builds with it and
+    its extractor takes the full-image path (K7), not K3's window."""
+    from orb_slam2_refactored_tpu_torch.ops.orb import pattern_fits_window
+
+    t = Tracker(_cfg(descriptor_pattern="learned"), device="cpu")
+    assert t.extractor.pattern == "learned"
+    assert not pattern_fits_window("learned") and pattern_fits_window("fresh")
+
+
+def test_unknown_pattern_raises():
+    """An unknown pattern name raises ValueError, as JAX's `get_pattern`."""
+    with pytest.raises(ValueError, match="unknown BRIEF pattern"):
+        Tracker(_cfg(descriptor_pattern="orbvoc"), device="cpu")
 
 
 def _window_map(K=4, P=200, N=64, seed=0):
