@@ -7,14 +7,20 @@ Phases (any failure raises and the script exits non-zero):
  1. print the card, its power limit and the toolchain; build every CUDA
     kernel from `orb_slam2_refactored_tpu_torch/csrc` (one nvcc per source,
     all started together) and print each one's ptxas resource usage;
- 2. hold K2 and K3 against their plain PyTorch versions on the card, on
-    the 8 pyramid levels of the first frame and its 1000 keypoints, as
-    extraction calls them (one call each for every level; K2 with the
-    per-cell rank rounds), and each level alone; time both with CUDA
-    events; drive the step's
+ 2. hold extraction's kernels against their plain PyTorch versions on
+    the card, as extraction calls them: K8 (the pyramid, one launch for
+    levels 1-7, its tables built when the extractor is constructed) within
+    1e-4 gray on the first frame and on every frame of cell A's 120, with
+    each level's bit-equal share printed; K2 (FAST, NMS and the rank
+    rounds of every level in one call, and each level alone), K9 (the
+    spread top-k of every level in one launch) bit for bit, and K3, on
+    the first frame's 8 levels and 1000 keypoints; time each with CUDA
+    events (and the library's antialiased `F.interpolate` level by
+    level); drive the step's
     reference-keyframe fallback branch (local BA off);
  3. the main paths, each with every launch counter set to 0 just before
-    and read just after:
+    and read just after, and no frame of any of them building K8's tables
+    (a tracker builds them when it is constructed):
     a. local BA off (the path of the first slice): the first 60 frames of
        the bench's VGA box-room orbit (1000 features, 8 levels, 32768 map
        points) through `Tracker.track_rgbd` on cuda:0;
@@ -77,13 +83,15 @@ Phases (any failure raises and the script exits non-zero):
        relative to its reference keyframe, on that keyframe's saved pose).
     Each of (a)-(c) checks ATE against the 3 cm gate, that no frame was
     lost, that every kernel of its path launched and that K2 and K3
-    launched once a frame (twice a stereo frame, with one B9 launch); (b)
+    launched once a frame (twice a stereo frame, with one B9 launch); every
+    cell (a)-(j) and the save/load check that K8, K2 and K9 launched once
+    an image (twice a stereo frame); (b)
     and (c) also that window BA ran at every keyframe after the second, and
     print the keyframe stages' times (`kf.loop`: the BoW index, on the
     training keyframe and on the others).
  4. every kernel against its plain version on the arguments the main path
-    gave it, timed with CUDA events: K1, K2, K3 and K4 on the calls of one
-    more tracked frame (K1 and K4 also on the last fallback frame), K1's
+    gave it, timed with CUDA events: K1, K2, K9, K3 and K4 on the calls of
+    one more tracked frame (K1 and K4 also on the last fallback frame), K1's
     pair gate on one triangulation, K5 on one window BA at its real point
     bucket (and the whole window BA with K5 against the plain assembly);
     then, on cell (c), K1 and K4 on the calls of one more tracked stereo
@@ -115,10 +123,11 @@ Phases (any failure raises and the script exits non-zero):
     whole within the printed exceptions of `learned_tie_gate`, and a table
     with one pair swapped that must fail the same hold.
  5. torch.profiler windows, after every agreement check: K2's and K3's
-    device time on frame 0 (and K7's), K1's and K4's on the recorded
-    tracked frame's
-    calls, K5's on the recorded window BA, B9's (and its wrapper's host
-    time), the whole association's (no copy to or from the host in it) and
+    device time on frame 0 (and K7's), K8's, K9's, the plain pyramid's
+    and top-k's and the library's resize, each with its device
+    operations, K1's and K4's on the recorded tracked frame's calls, K5's
+    on the recorded window BA, B9's (and its wrapper's host time), the
+    whole association's (no copy to or from the host in it) and
     the stereo K1 call's on the recorded stereo frame; each stage of cell
     (d)'s relocalization; K6's and K5 `w_obs`'s device time a call and
     their bounds, K6's barrier floor (its launch with empty phases), the
@@ -131,8 +140,10 @@ Phases (any failure raises and the script exits non-zero):
     K4's time split into passes
     and LM iterations (the same calls without iterations) and one
     iteration on no observation;
-    extraction with the rank rounds in K2 against extraction with the
-    plain rank rounds on the card, on the same 20 frames; with --profile, a
+    extraction in three variants on the same 20 frames: the plain rank
+    rounds, the rank rounds in K2 (both with the plain pyramid and
+    top-k), and K8, K2, K9 and K3 (at most 10 device operations and no
+    upload a frame); with --profile, a
     frame's time broken down; with --parent DIR, K1, K4, K5, B9 and K6
     against the kernels of the checkout in DIR on the same recorded
     arguments (outputs, then device times and CUDA-event times in turns:
@@ -199,11 +210,23 @@ LOOP_KERNELS = ("ba_assemble_w_obs", "ba_schur_cg")
 LEARNED_KERNEL = "orb_desc_learned"
 # host seconds between a profiler window's edges and its launches
 GUARD_S = 0.005
+# extraction's kernels that launch once an image, whatever the pattern:
+# K8 (the pyramid), K2 (FAST and the rank rounds), K9 (the spread top-k)
+EXTRACTION_KERNELS = ("pyramid", "fast", "spread_topk")
 
 
 def sh(cmd):
     return subprocess.run(cmd, capture_output=True, text=True,
                           check=True).stdout.strip()
+
+
+def extraction_launches(launches, images, tag):
+    """K8, K2 and K9 launched once for each of the cell's `images` (two a
+    stereo frame)."""
+    got = {k: launches[k] for k in EXTRACTION_KERNELS}
+    print(f"  {tag}: extraction launches {json.dumps(got)} for {images} "
+          "images")
+    assert set(got.values()) == {images}, (tag, got, images)
 
 
 def card_line():
@@ -414,19 +437,14 @@ def check_fast(levels, ks, tag, timed=False):
 def level_keypoints(levels, ks):
     """Every level's clamped (ys, xs) as extraction selects them (plain
     versions), concatenated in budget order."""
-    from orb_slam2_refactored_tpu_torch.ops import fast
-    from orb_slam2_refactored_tpu_torch.ops.orb import (
-        EDGE_MARGIN, topk_from_ranks)
+    from orb_slam2_refactored_tpu_torch.ops import fast, orb
 
-    ys_all, xs_all = [], []
-    for lvl, k, (_, raw, pos) in zip(levels, ks, fast.detect_and_rank_plain(
-            levels, 20.0, 7.0, ks, margin=EDGE_MARGIN)):
-        h, w = lvl.shape
-        ys, xs, _, _ = topk_from_ranks(raw, pos, k, h, w)
-        ys_all.append(torch.clamp(ys, EDGE_MARGIN, h - 1 - EDGE_MARGIN))
-        xs_all.append(torch.clamp(xs, EDGE_MARGIN, w - 1 - EDGE_MARGIN))
-    return (torch.cat(ys_all).to(torch.int32),
-            torch.cat(xs_all).to(torch.int32))
+    sel = orb.spread_topk_levels_plain(
+        [(r, p) for _, r, p in fast.detect_and_rank_plain(
+            levels, 20.0, 7.0, ks, margin=orb.EDGE_MARGIN)], ks,
+        [tuple(x.shape) for x in levels], list(range(len(levels))),
+        [1.0] * len(levels))
+    return sel.ys, sel.xs
 
 
 def check_orb(levels, ys, xs, ks, tag, timed=False):
@@ -488,6 +506,223 @@ def check_orb(levels, ys, xs, ks, tag, timed=False):
         return worst_ang
     return (worst_ang, cuda_time_ms(call, 50), cuda_time_ms(plain, 5),
             nbytes, ops)
+
+
+def pyramid_work(shapes):
+    """Bytes and operations of one pyramid (K8's function): level 0 read
+    once, levels 1 to n-1 written once (the taps follow from the sizes, so
+    K8's tables are not counted); one FMA a tap of every vertical output
+    (output rows x input columns) and of every horizontal one."""
+    from orb_slam2_refactored_tpu_torch.ops import image as image_ops
+
+    nbytes, fma = 4 * shapes[0][0] * shapes[0][1], 0
+    for (ih, iw), (oh, ow) in zip(shapes[:-1], shapes[1:]):
+        nbytes += 4 * oh * ow
+        for n_in, n_out, other in ((ih, oh, iw), (iw, ow, oh)):
+            idx, _ = image_ops.resize_taps(n_in, n_out)
+            fma += int(idx[:, 1].sum()) * other
+    return nbytes, {"f32": fma}
+
+
+def interpolate_pyramid(gray, n_levels, scale_factor):
+    """The library's antialiased bilinear resize, level by level from the
+    previous level: `F.interpolate(mode="bilinear", antialias=True)`."""
+    import torch.nn.functional as F
+
+    from orb_slam2_refactored_tpu_torch.ops import image as image_ops
+
+    shapes = image_ops.pyramid_shapes(*gray.shape, n_levels, scale_factor)
+    levels = [gray]
+    for sh in shapes[1:]:
+        levels.append(F.interpolate(levels[-1][None, None], size=sh,
+                                    mode="bilinear", align_corners=False,
+                                    antialias=True)[0, 0])
+    return levels
+
+
+def pyramid_agreement(a, b):
+    """Per level max |a - b| and the share of bit-equal pixels (counted
+    exactly: 1.0 only where every pixel is equal)."""
+    return ([float((x - y).abs().max()) for x, y in zip(a, b)],
+            [int((x == y).sum()) / x.numel() for x, y in zip(a, b)])
+
+
+def gemm_cuts(shapes, device_str):
+    """Per level pair and pass, the input indices at which the card's GEMM
+    splits an output's taps (`gemm_tap_splits`): the first few, and how
+    many outputs a pass splits."""
+    from orb_slam2_refactored_tpu_torch.ops import image as image_ops
+
+    out = {}
+    for (ih, iw), (oh, ow) in zip(shapes[:-1], shapes[1:]):
+        for tag, n_in, n_out, other, vertical in (
+                ("v", ih, oh, iw, True), ("h", iw, ow, oh, False)):
+            idx, _ = image_ops.resize_taps(n_in, n_out)
+            split = image_ops.gemm_tap_splits(n_in, n_out, other, vertical,
+                                              device_str)
+            cut = split < idx[:, 1]
+            cuts = np.unique(idx[cut, 0] + split[cut]).tolist()
+            out[f"{tag} {n_in}->{n_out}"] = {"outputs": int(cut.sum()),
+                                             "cuts": cuts[:6]}
+    return out
+
+
+def unsplit_shares(gray, n_levels, scale_factor):
+    """K8 with every output's taps as one chain (the GEMM's splits not
+    applied): each level's bit-equal share against the plain version. The
+    tap tables are rebuilt for it and rebuilt again after."""
+    from orb_slam2_refactored_tpu_torch.ops import image as image_ops
+
+    found = image_ops.gemm_tap_splits
+    caches = (image_ops._device_taps, image_ops._pyramid_plan)
+    image_ops.gemm_tap_splits = lambda n_in, n_out, *a: image_ops.resize_taps(
+        n_in, n_out)[0][:, 4]
+    try:
+        for c in caches:
+            c.cache_clear()
+        one = image_ops.build_pyramid(gray, n_levels, scale_factor)
+        ref = image_ops.build_pyramid_plain(gray, n_levels, scale_factor)
+        torch.cuda.synchronize()
+        return pyramid_agreement(one, ref)
+    finally:
+        image_ops.gemm_tap_splits = found
+        for c in caches:
+            c.cache_clear()
+
+
+def check_pyramid(gray, frames, n_levels, scale_factor, t_plan):
+    """K8 against its plain version on the card: frame 0's levels within
+    1e-4 gray, the bit-equal share of each level printed; then every frame
+    of cell A's (`frames`, uint8), each level's largest difference and
+    bit-equal share over them and the frames bit-equal on every level.
+    CUDA events time K8 and the plain version; the library's antialiased
+    resize is timed and held against the plain version (the same function
+    only within 1e-4 gray). `t_plan` is the seconds the extractor's
+    construction took to build K8's tables. Returns K8's row (error, card
+    ms, plain ms, bytes, ops), the library's ms and its largest
+    difference."""
+    from orb_slam2_refactored_tpu_torch.ops import image as image_ops
+
+    def call():
+        return image_ops.build_pyramid(gray, n_levels, scale_factor)
+
+    def plain():
+        return image_ops.build_pyramid_plain(gray, n_levels, scale_factor)
+
+    def library():
+        return interpolate_pyramid(gray, n_levels, scale_factor)
+
+    out, ref = call(), plain()
+    torch.cuda.synchronize()
+    print(f"  K8's tables (the GEMM's splits found by probes) built at the "
+          f"extractor's construction in {t_plan:.3f} s; outputs no split "
+          f"explains: "
+          f"{sum(image_ops.SPLIT_MISSES.values())}; the GEMM's cuts "
+          + json.dumps(gemm_cuts([tuple(x.shape) for x in out],
+                                 str(gray.device))))
+    one_err, one_share = unsplit_shares(gray, n_levels, scale_factor)
+    print(f"  K8 with one chain an output (no split): max_abs_err per level "
+          f"{one_err}, bit-equal share per level {one_share}")
+    err, share = pyramid_agreement(out, ref)
+    shapes = [tuple(x.shape) for x in out]
+    print(f"  K8 frame 0 {shapes}: max_abs_err per level {err}, bit-equal "
+          f"share per level {share}")
+    assert max(err) <= 1e-4, f"K8 differs from its plain version: {err}"
+    worst, low, mean = [0.0] * n_levels, [1.0] * n_levels, [0.0] * n_levels
+    whole = 0
+    for f in frames:
+        g = image_ops.to_gray(torch.as_tensor(f, device=gray.device))
+        e, sh = pyramid_agreement(image_ops.build_pyramid(
+            g, n_levels, scale_factor), image_ops.build_pyramid_plain(
+                g, n_levels, scale_factor))
+        worst = [max(a, b) for a, b in zip(worst, e)]
+        low = [min(a, b) for a, b in zip(low, sh)]
+        mean = [a + b / len(frames) for a, b in zip(mean, sh)]
+        whole += all(x == 1.0 for x in sh)
+    print(f"  K8 over {len(frames)} frames: max_abs_err per level {worst}, "
+          f"bit-equal share per level min {low} mean {mean}, frames "
+          f"bit-equal on every level {whole}")
+    assert max(worst) <= 1e-4, f"K8 differs from its plain version: {worst}"
+    lib_err = max(pyramid_agreement(library(), ref)[0])
+    nbytes, ops = pyramid_work(shapes)
+    r = (max(err), cuda_time_ms(call, 50), cuda_time_ms(plain, 20), nbytes,
+         ops)
+    lib_ms = cuda_time_ms(library, 50)
+    b_ms, b_by = bound_ms(nbytes, ops)
+    print(f"  K8: card {r[1]:.5f} ms, plain {r[2]:.5f} ms, bound "
+          f"{b_ms:.6f} ms ({b_by}); F.interpolate(bilinear, antialias) "
+          f"{lib_ms:.5f} ms, max_abs_err from the plain version {lib_err}")
+    return r, lib_ms, lib_err
+
+
+@contextlib.contextmanager
+def counting_plan_builds(builds):
+    """Inside the block, every K8 call that had to build its geometry's
+    tables (the GEMM's probes and the uploads) instead of finding them
+    built by the extractor's construction adds one to builds[0]."""
+    from orb_slam2_refactored_tpu_torch.ops import image as image_ops
+
+    real = image_ops.pyramid_levels
+
+    def call(*args, **kwargs):
+        before = image_ops._pyramid_plan.cache_info().misses
+        out = real(*args, **kwargs)
+        builds[0] += image_ops._pyramid_plan.cache_info().misses - before
+        return out
+
+    image_ops.pyramid_levels = call
+    try:
+        yield builds
+    finally:
+        image_ops.pyramid_levels = real
+
+
+def topk_work(ranked, ks):
+    """Bytes and operations of the spread top-k (K9's function): each
+    candidate's raw response read once (its key needs nothing else), the
+    pos of the k selected read and 25 bytes written a keypoint; a key a
+    candidate (a compare and an add), n log2 n compares to order a level's
+    n keys, ~20 integer operations to decode and clamp a keypoint."""
+    nbytes, f32, i32 = 0, 0, 0
+    for (raw, _), k in zip(ranked, ks):
+        n = raw.numel()
+        if k <= 0 or n == 0:
+            continue
+        nbytes += 4 * n + (4 + 25) * k
+        f32 += 2 * n + 2 * k
+        i32 += int(n * math.ceil(math.log2(max(n, 2)))) + 20 * k
+    return nbytes, {"f32": f32, "int32": i32}
+
+
+def check_topk(levels, ks, scales, tag, timed=False):
+    """K9 against its plain version on the card, on the rank rounds of one
+    K2 call over `levels`, as extraction makes it: every output bit for
+    bit. With `timed`, CUDA events time both and the bound is counted."""
+    from orb_slam2_refactored_tpu_torch.ops import fast, orb
+
+    ranked = [(r, p) for _, r, p in fast.detect_and_rank(
+        levels, 20.0, 7.0, ks, margin=orb.EDGE_MARGIN)]
+    args = (ranked, ks, [tuple(x.shape) for x in levels],
+            list(range(len(levels))), scales)
+
+    def call():
+        return orb.spread_topk_levels(*args)
+
+    def plain():
+        return orb.spread_topk_levels_plain(*args)
+
+    out, ref = call(), plain()
+    torch.cuda.synchronize()
+    same = {f: bool(a.dtype == b.dtype and torch.equal(a, b))
+            for f, a, b in zip(orb.SpreadTopk._fields, out, ref)}
+    print(f"  K9 {tag}: {len(levels)} levels, candidates "
+          f"{[r.numel() for r, _ in ranked]}, {int(out.valid.sum())} valid "
+          f"of {sum(ks)}, bit for bit {same}")
+    assert all(same.values()), f"K9 differs from its plain version: {same}"
+    if not timed:
+        return 0.0
+    nbytes, ops = topk_work(ranked, ks)
+    return 0.0, cuda_time_ms(call, 50), cuda_time_ms(plain, 20), nbytes, ops
 
 
 def _clone(v):
@@ -1337,6 +1572,7 @@ def run_main_path(imgs, second, gt, device, local_ba, stereo=False):
     for k in ("fast", "orb_desc"):
         assert launches[k] == per_frame * len(imgs), (k, launches[k],
                                                       len(imgs))
+    extraction_launches(launches, per_frame * len(imgs), tag)
     if stereo:
         assert launches["stereo_sad"] == len(imgs), launches
     if local_ba:
@@ -1495,6 +1731,8 @@ def run_kidnap(imgs, depths, gt, device, cfg=None):
         [tracker.VOCAB_TRAIN_KFS], train_log
     assert lc is not None and lc.db.active[alive].all()
     assert len(loop_ms) == g.num_kfs, (len(loop_ms), g.num_kfs)
+    extraction_launches(launches, KIDNAP_MAP + KIDNAP_BLANK
+                        + len(KIDNAP_RESUME), "cell D")
     assert first_ok <= RELOC_MAX_FRAMES, resume
     assert resume[-1] == TrackState.OK, resume
     assert ate <= RELOC_ATE_M, ate
@@ -1580,6 +1818,7 @@ def check_stereo_save_load(tracker_c, left, right, gt, device):
     assert gap <= 0.02, gap
     for k in ("hamming_best2", "pose_lm", "fast", "orb_desc", "stereo_sad"):
         assert launches[k] > 0, (k, launches)
+    extraction_launches(launches, 2 * len(states), "stereo save/load")
     return res
 
 
@@ -1664,19 +1903,27 @@ def profile_steps(tracker, imgs, depths, n_split=10, n_prof=20, n_kf=3):
 
 
 def compare_extraction(imgs, device, n=20):
-    """Extraction with the rank rounds inside K2 against extraction with
-    the rank rounds through the plain `cell_rank_rounds` on the card (K2
-    then gives the score planes only), on the same `n` frames, in turns
-    (plain, fused, fused, plain): host clock around synchronized frames,
-    then one torch.profiler window of each for the device time and the
-    device operations a frame. The two must select the same features."""
+    """Extraction in three variants on the same `n` frames: "plain" (the
+    rank rounds through the plain `cell_rank_rounds` on the card, K2 then
+    giving the score planes only, with the plain pyramid and top-k),
+    "fused" (the rank rounds in K2, the plain pyramid and top-k: the
+    extraction before K8 and K9) and "kernels" (K8, K2, K9 and K3: four
+    launches). Host clock around synchronized frames in turns (plain,
+    fused, kernels, kernels, fused, plain), then one torch.profiler window
+    of each for the device time, the device operations and the pageable
+    uploads a frame. "plain" and "fused" must select the same features;
+    "kernels" must too on every frame whose K8 pyramid equals the plain
+    one bit for bit (the others are counted)."""
     from torch.profiler import ProfilerActivity, profile
 
     from orb_slam2_refactored_tpu_torch.ops import fast, orb
+    from orb_slam2_refactored_tpu_torch.ops import image as image_ops
 
-    ext = orb.OrbExtractor(480, 640, 1000, 1.2, 8)
+    ext = orb.OrbExtractor(480, 640, 1000, 1.2, 8, device=device)
     frames = [torch.as_tensor(imgs[i], device=device) for i in range(n)]
     fused = fast.detect_and_rank
+    kernels_path = (image_ops.build_pyramid, orb.spread_topk_levels)
+    plain_path = (image_ops.build_pyramid_plain, orb.spread_topk_levels_plain)
 
     def plain_ranking(levels, ini_th, min_th, ks, cell=30, margin=0,
                       rank_cell=32, rank_rounds=4):
@@ -1687,24 +1934,39 @@ def compare_extraction(imgs, device, n=20):
 
     def run(variant):
         fast.detect_and_rank = plain_ranking if variant == "plain" else fused
+        image_ops.build_pyramid, orb.spread_topk_levels = (
+            kernels_path if variant == "kernels" else plain_path)
         try:
             out = [ext(f) for f in frames]
             torch.cuda.synchronize()
         finally:
             fast.detect_and_rank = fused
+            image_ops.build_pyramid, orb.spread_topk_levels = kernels_path
         return out
 
-    feats = {v: run(v) for v in ("plain", "fused")}  # warm-up
+    variants = ("plain", "fused", "kernels")
+    feats = {v: run(v) for v in variants}  # warm-up
     for a, b in zip(feats["plain"], feats["fused"]):
         assert all(torch.equal(x, y) for x, y in zip(a, b)), \
             "the fused ranking selects other features"
-    wall = {"plain": [], "fused": []}
-    for v in ("plain", "fused", "fused", "plain"):
+    pyr_equal, same = 0, 0
+    for f, a, b in zip(frames, feats["kernels"], feats["fused"]):
+        g = image_ops.to_gray(f)
+        eq = all(torch.equal(x, y) for x, y in zip(
+            image_ops.build_pyramid(g, 8, 1.2),
+            image_ops.build_pyramid_plain(g, 8, 1.2)))
+        s = all(torch.equal(x, y) for x, y in zip(a, b))
+        assert s or not eq, "K8 and K9 select other features on equal levels"
+        pyr_equal += eq
+        same += s
+    wall = {v: [] for v in variants}
+    for v in variants + variants[::-1]:
         t0 = time.perf_counter()
         run(v)
         wall[v].append((time.perf_counter() - t0) * 1e3 / n)
-    res = {"frames": n}
-    for v in ("plain", "fused"):
+    res = {"frames": n, "frames_k8_bit_equal": pyr_equal,
+           "frames_kernels_same_features": same}
+    for v in variants:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -1718,13 +1980,18 @@ def compare_extraction(imgs, device, n=20):
             "device_ms_per_frame": sum(e.self_device_time_total
                                        for e in rows) / 1e3 / n,
             "device_ops_per_frame": sum(e.count for e in rows) / n,
+            "uploads_per_frame": sum(e.count for e in rows
+                                     if "HtoD" in e.key) / n,
             "profiled_wall_ms_per_frame": prof_wall * 1e3 / n,
         }
-        print(f"  extraction, {v} ranking, top device rows a frame:")
-        for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"  extraction, {v}, top device rows a frame:")
+        for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
             print(f"    {e.self_device_time_total / 1e3 / n:8.4f} ms "
                   f"{e.count / n:6.1f} calls  {e.key[:70]}")
     print("extraction " + json.dumps(res))
+    k = res["kernels"]
+    assert k["device_ops_per_frame"] <= 10, k
+    assert k["uploads_per_frame"] == 0, k
     return res
 
 
@@ -2246,6 +2513,7 @@ def run_circuit(cell, loop, frames, gt, device, record=None):
             assert (v > 0) == (stats["loops_closed"] > 0), (k, v, cell)
         else:
             assert v > 0, f"kernel {k} never launched on cell {cell}"
+    extraction_launches(launches, len(frames), f"cell {cell}")
     return stats, tracker
 
 
@@ -2837,6 +3105,7 @@ def run_mono_orbit(imgs, gt, device):
     mono_launch_gates(launches, "cell G")
     # one extraction a frame, whatever the frame's branch
     assert launches["fast"] == launches["orb_desc"] == 2 * n, launches
+    extraction_launches(launches, 2 * n, "cell G")
     assert boot is not None and len(boot["init"]) == 1, "no bootstrap"
     N = tracker.cfg.n_features
     window = [a for a in boot["k1"] if "pair_ok" in a]
@@ -2934,6 +3203,7 @@ def run_mono_circuit(frames, gt, device):
         assert info["n_proj"] >= 25, info
     assert ate < MONO_LOOP_ATE_M, f"cell H: sim3 ATE {ate} m"
     mono_launch_gates(launches, "cell H", loop_closed=True)
+    extraction_launches(launches, len(frames), "cell H")
     return stats
 
 
@@ -3257,40 +3527,19 @@ def mono_times(init_call, pnp_call, frame_bytes, frame_ops):
     return out
 
 
-def plain_stage_times(img0, n_levels, scale_factor, sbp_call):
-    """Two stages of the tracked frame that stay plain torch, timed on the
-    card beside the bound of their work counted from their shapes: B8,
-    `build_pyramid` on frame 0 (the resizes' banded weights: their nonzero
-    taps a product, each level read and written once, the weight matrices
-    read once); B6, the gates and candidate compaction of
-    `search_by_projection_with_vis` on the tracked frame's call (its K1
-    launch, read off the profiler rows, taken out): per map point ~70 f32
-    operations (transform, projection, bounds, distance band, predicted
-    level, view angle), its position, normal, distances and validity read
-    and (uv, radius, level, gates) written, then the candidates' rows and
-    descriptors gathered."""
-    from orb_slam2_refactored_tpu_torch.ops import image as image_ops
+def plain_stage_times(sbp_call):
+    """A stage of the tracked frame that stays plain torch, timed on the
+    card beside the bound of its work counted from its shapes: B6, the
+    gates and candidate compaction of `search_by_projection_with_vis` on
+    the tracked frame's call (its K1 launch, read off the profiler rows,
+    taken out): per map point ~70 f32 operations (transform, projection,
+    bounds, distance band, predicted level, view angle), its position,
+    normal, distances and validity read and (uv, radius, level, gates)
+    written, then the candidates' rows and descriptors gathered."""
     from orb_slam2_refactored_tpu_torch.ops import matching
 
     out = {}
-    gray = image_ops.to_gray(img0)
-    h, w = gray.shape
-    shapes = image_ops.pyramid_shapes(h, w, n_levels, scale_factor)
-    nbytes, ops = 4 * sum(a * b for a, b in shapes), 0
-    for (ph, pw), (oh, ow) in zip(shapes[:-1], shapes[1:]):
-        wh = image_ops._resize_weights_np(ph, oh)
-        ww = image_ops._resize_weights_np(pw, ow)
-        nbytes += 4 * (wh.size + ww.size)
-        ops += 2 * (np.count_nonzero(wh) * pw + oh * np.count_nonzero(ww))
     n_ops = []
-    ms, rows = profiled_ms(lambda: image_ops.build_pyramid(
-        gray, n_levels, scale_factor), 20, n_ops)
-    b_ms, b_by = bound_ms(nbytes, {"f32": ops})
-    out["B8 build_pyramid"] = {
-        "device_ms": ms, "card_ms": cuda_time_ms(
-            lambda: image_ops.build_pyramid(gray, n_levels, scale_factor),
-            20), "bound_ms": b_ms, "bound_by": b_by,
-        "device_ops": n_ops[0]}
     a = sbp_call
     P = a["mp_pos"].shape[0]
     cap = min(a.get("candidate_cap", 8192), P)
@@ -3303,7 +3552,7 @@ def plain_stage_times(img0, n_levels, scale_factor, sbp_call):
         "device_ms": ms - k1_us / 1e3, "device_ms_with_k1": ms,
         "card_ms_with_k1": cuda_time_ms(
             lambda: matching.search_by_projection_with_vis(**a), 20),
-        "bound_ms": b_ms, "bound_by": b_by, "device_ops": n_ops[1],
+        "bound_ms": b_ms, "bound_by": b_by, "device_ops": n_ops[0],
         "points": P,
         "candidate_cap": cap}
     print("plain stages: " + json.dumps(out))
@@ -3498,6 +3747,7 @@ def run_cell_i(imgs, depths, gt, tmp):
         else:
             assert v > 0, f"kernel {k} never launched on cell I"
     assert launches[LEARNED_KERNEL] == launches["fast"] == n, launches
+    extraction_launches(launches, n, "cell I")
     assert n_ba >= created - 2 >= 1, (n_ba, created)
     return stats, system, seq
 
@@ -3570,6 +3820,7 @@ def run_driver_cells(tmp):
     assert ate < STEREO_DRIVER_ATE_M, f"stereo_kitti: ATE {ate} m"
     assert launches["fast"] == launches["orb_desc"] == 2 * DRIVER_FRAMES
     assert launches["stereo_sad"] == DRIVER_FRAMES, launches
+    extraction_launches(launches, 2 * DRIVER_FRAMES, "3j stereo_kitti")
     # mono_tum
     t0 = time.perf_counter()
     tum = os.path.join(tmp, "mono_tum")
@@ -3598,6 +3849,7 @@ def run_driver_cells(tmp):
     assert rc == 0 and len(est_ts) >= 30, len(est_ts)
     assert n_assoc >= 25 and ate < MONO_DRIVER_ATE_M, (n_assoc, ate)
     assert launches["fast"] == launches["orb_desc"] == DRIVER_FRAMES
+    extraction_launches(launches, DRIVER_FRAMES, "3j mono_tum")
     return res
 
 
@@ -3686,12 +3938,13 @@ def check_orb_learned(levels, ys, xs, ks, tag, timed=False):
             nbytes, ops)
 
 
-def kernel_row(name, src, rep, launches, r):
+def kernel_row(name, src, rep, launches, r, library_ms=None):
     b_ms, b_by = bound_ms(r[3], r[4])
     return {"name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": launches, "max_abs_err": float(r[0]), "ms": r[1],
             "plain_ms": r[2], "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None, "device_ms": r[5] if len(r) > 5 else None}
+            "library_ms": library_ms,
+            "device_ms": r[5] if len(r) > 5 else None}
 
 
 def main():
@@ -3754,17 +4007,28 @@ def main():
     imgs, depths, gt = bench_frames(N_FRAMES)
     print(f"{N_FRAMES} VGA frames rendered in {time.perf_counter() - t0:.1f} s")
     cfg = bench_config(True)
-    ext = OrbExtractor(480, 640, cfg.n_features, cfg.scale_factor, cfg.n_levels)
+    t0 = time.perf_counter()
+    ext = OrbExtractor(480, 640, cfg.n_features, cfg.scale_factor,
+                       cfg.n_levels, device=device)  # builds K8's tables
+    torch.cuda.synchronize()
+    t_plan = time.perf_counter() - t0
     img0 = torch.as_tensor(imgs[0], device=device)
-    levels = image_ops.build_pyramid(image_ops.to_gray(img0), cfg.n_levels,
-                                     cfg.scale_factor)
+    gray0 = image_ops.to_gray(img0)
+    pyr_r, pyr_lib_ms, pyr_lib_err = check_pyramid(
+        gray0, imgs, cfg.n_levels, cfg.scale_factor, t_plan)
+    levels = image_ops.build_pyramid(gray0, cfg.n_levels, cfg.scale_factor)
     fast_r = check_fast(levels, ext.budgets, "frame 0", timed=True)
+    topk_r = check_topk(levels, ext.budgets, ext.level_scales, "frame 0",
+                        timed=True)
     kp0 = level_keypoints(levels, ext.budgets)
     orb_r = check_orb(levels, *kp0, ext.budgets, "frame 0", timed=True)
     fb_k1, fb_k4 = check_fallback(imgs, depths, gt, device)
 
-    mark("2_k2_k3_fallback")
+    mark("2_k8_k2_k9_k3_fallback")
     # ---- phase 3: the main paths ----
+    # no frame builds K8's tables: each tracker built them when constructed
+    main_paths = contextlib.ExitStack()
+    plan_builds = main_paths.enter_context(counting_plan_builds([0]))
     n = N_FRAMES_NO_BA
     run_main_path(imgs[:n], depths[:n], gt[:n], device, local_ba=False)
     stats, tracker = run_main_path(imgs, depths, gt, device, local_ba=True)
@@ -3812,6 +4076,10 @@ def main():
     stats_i, system_i, seq_i = run_cell_i(imgs, depths, gt, tmp)
     mark("3_cell_I")
     drivers_3j = run_driver_cells(tmp)
+    main_paths.close()
+    print(f"phase 3: K8 calls that built their tables on a frame "
+          f"{plan_builds[0]}")
+    assert plan_builds[0] == 0, "a frame built K8's tables"
     mark("3_j_drivers")
 
     # ---- phase 4: every kernel on the arguments the main path gave it ----
@@ -3822,6 +4090,8 @@ def main():
         frame_k1, frame_k2, frame_k3, frame_k4 = record_tracked_frame(
             tracker, imgs, depths)
     check_fast(frame_k2["levels"], frame_k2["ks"], "tracked frame")
+    check_topk(frame_k2["levels"], frame_k2["ks"], ext.level_scales,
+               "tracked frame")
     check_orb(frame_k3["levels"], frame_k3["ys"], frame_k3["xs"],
               frame_k3["counts"], "tracked frame")
     frame_k1 = name_k1_calls("tracked", frame_k1)
@@ -3901,6 +4171,35 @@ def main():
 
     k2_ms, k2_rows = profiled_ms(lambda: fast.detect_and_rank(
         levels, 20.0, 7.0, ext.budgets, margin=EDGE_MARGIN), 20)
+    ranked0 = [(r, p) for _, r, p in fast.detect_and_rank(
+        levels, 20.0, 7.0, ext.budgets, margin=EDGE_MARGIN)]
+    topk_args = (ranked0, ext.budgets, [tuple(x.shape) for x in levels],
+                 list(range(cfg.n_levels)), ext.level_scales)
+    ext_t = {}
+    for name, fn in (
+            ("K8", lambda: image_ops.build_pyramid(
+                gray0, cfg.n_levels, cfg.scale_factor)),
+            ("plain pyramid", lambda: image_ops.build_pyramid_plain(
+                gray0, cfg.n_levels, cfg.scale_factor)),
+            ("F.interpolate pyramid", lambda: interpolate_pyramid(
+                gray0, cfg.n_levels, cfg.scale_factor)),
+            ("K9", lambda: orb.spread_topk_levels(*topk_args)),
+            ("plain top-k", lambda: orb.spread_topk_levels_plain(
+                *topk_args))):
+        n_ops = []
+        ms, rows = profiled_ms(fn, 20, n_ops)
+        ext_t[name] = {"device_ms": ms, "device_ops": n_ops[0]}
+        print(f"{name} device time {ms:.5f} ms a call, {n_ops[0]:g} device "
+              f"operations: {rows}")
+    pyr_r += (ext_t["K8"]["device_ms"],)
+    topk_r += (ext_t["K9"]["device_ms"],)
+    for name, r in (("K8", pyr_r), ("K9", topk_r)):
+        b_ms, b_by = bound_ms(r[3], r[4])
+        ext_t[name].update(card_ms=r[1], plain_card_ms=r[2], bound_ms=b_ms,
+                           bound_by=b_by)
+    ext_t["F.interpolate pyramid"].update(card_ms=pyr_lib_ms,
+                                          max_abs_err=pyr_lib_err)
+    print("K8 and K9 on frame 0: " + json.dumps(ext_t))
     k3_ms, k3_rows = profiled_ms(lambda: orb.angles_and_descriptors_levels(
         levels, *kp0, ext.budgets), 20)
     k7_ms, k7_rows = profiled_ms(
@@ -3955,7 +4254,7 @@ def main():
                                "plain_ms": mono_pose[2],
                                "device_ms": device_times_k4(mono_k4),
                                "bound_ms": b_ms, "bound_by": b_by}
-    plain_stage_times(img0, cfg.n_levels, cfg.scale_factor, sbp[-1])
+    plain_stage_times(sbp[-1])
     t0 = time.perf_counter()
     w_obs_r, k6_r, gba_t = gba_times(k6_calls, gba_call, pg_call, w_obs_r,
                                      k6_r)
@@ -4031,6 +4330,11 @@ def main():
         kernel_row(LEARNED_KERNEL, pkg + "orb_desc_learned.cu",
                    ref + "ops/orb.py:532",
                    stats_i["launches"][LEARNED_KERNEL], k7_r),
+        kernel_row("pyramid", pkg + "pyramid.cu", ref + "ops/image.py:42",
+                   L["pyramid"], pyr_r,
+                   pyr_lib_ms if pyr_lib_err <= 1e-4 else None),
+        kernel_row("spread_topk", pkg + "spread_topk.cu",
+                   ref + "ops/orb.py:203", L["spread_topk"], topk_r),
     ]
     rows[3]["max_abs_err"] = max(rows[3]["max_abs_err"], reloc_k4_err)
     for row in rows:
@@ -4052,8 +4356,11 @@ def main():
           "U^T dp), launches from cell F with loop closing on (one an LM "
           "iteration); orb_desc_learned = one launch over all 8 levels of "
           "frame 0 with the learned table, its launches from cell I "
-          "(rgbd_tum through the CLI); launches_cell_g / _h / _i: those "
-          "cells' own runs")
+          "(rgbd_tum through the CLI); pyramid (K8) = one launch for "
+          "levels 1-7 of frame 0, library_ms F.interpolate(bilinear, "
+          "antialias) level by level where within 1e-4 gray of the plain "
+          "version; spread_topk (K9) = one launch for the 8 levels' top-k "
+          "of frame 0; launches_cell_g / _h / _i: those cells' own runs")
     print("phase 3j: " + json.dumps(
         {k: {kk: vv for kk, vv in v.items() if kk != "launches"}
          for k, v in drivers_3j.items()}))

@@ -11,8 +11,8 @@
 //   - the rank rounds of `select_spread_topk` (ops/orb.py:146-212, the loop
 //     at :185-199): per round an argmax, a gather and a scatter over the
 //     level's 32x32 tiles.
-// The global top-k over the rounds' candidates stays in plain torch
-// (`topk_from_ranks`).
+// The global top-k over the rounds' candidates is kernel K9
+// (`csrc/spread_topk.cu`), which reads the rounds' (raw, pos) as written.
 //
 // What bounds it on the H100. Over the 8 VGA levels (950,532 px) the
 // function must read each f32 image once and write each f32 score plane

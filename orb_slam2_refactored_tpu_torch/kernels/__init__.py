@@ -42,6 +42,10 @@ SOURCES: Dict[str, tuple] = {
     "ba_schur": ("ba_schur.cu", []),
     # `l_x - ur_lvl * sf` must round the product first, as torch does
     "stereo_sad": ("stereo_sad.cu", ["-fmad=false"]),
+    # every rounding is written out (`__fmul_rn`, `__fmaf_rn`, `__fadd_rn`),
+    # so the default flags change no result of these two
+    "pyramid": ("pyramid.cu", []),
+    "spread_topk": ("spread_topk.cu", []),
 }
 
 # kernel name -> launches of that kernel since the last reset
@@ -49,7 +53,8 @@ LAUNCHES: Dict[str, int] = {"hamming_best2": 0, "fast": 0, "orb_desc": 0,
                             "pose_lm": 0, "ba_point_index": 0,
                             "ba_assemble": 0, "ba_cost": 0,
                             "stereo_sad": 0, "ba_assemble_w_obs": 0,
-                            "ba_schur_cg": 0, "orb_desc_learned": 0}
+                            "ba_schur_cg": 0, "orb_desc_learned": 0,
+                            "pyramid": 0, "spread_topk": 0}
 
 _BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -159,7 +164,8 @@ def ptr(t: torch.Tensor):
     return ctypes.c_void_p(t.data_ptr())
 
 
-# levels a multi-level kernel (K2, K3, B9) takes in its by-value table
+# levels a multi-level kernel (K2, K3, K7, K8, K9, B9) takes in its by-value
+# table
 MAX_LEVELS = 16
 
 

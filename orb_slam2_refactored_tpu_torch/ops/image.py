@@ -9,15 +9,33 @@ not that function (it is off by tens of gray levels), so each axis here is
 one product with the same f32 weight matrix that JAX builds
 (`jax/_src/image/scale.py::compute_weight_mat`); only the summation order
 of the two products differs from XLA's.
+
+`build_pyramid` runs kernel K8 (`csrc/pyramid.cu`, one launch a frame for
+every level) on a CUDA image and the plain version, `build_pyramid_plain`,
+on a CPU image. K8 reads each weight matrix as a table of its nonzero
+taps (`resize_taps`), uploaded once per size and device. The card's f32
+GEMM, which the plain version runs there, does not add an output's taps
+in one chain: it adds partial sums of 8-wide blocks of its K loop, or of
+split-K slices, as its heuristics choose for the shape. So on a CUDA
+device each table also records, per output, where the GEMM splits its
+taps (`gemm_tap_splits`, found once per shape by a probe of the GEMM),
+and K8 adds the two partial chains there: its levels then equal the plain
+version's bit for bit. The probes run on the card, so a geometry's tables
+are built once, before its first frame: `prepare_pyramid`, which
+`OrbExtractor` calls when it is given a CUDA device (the tracker gives it
+its own).
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
-from typing import List, Tuple
+from typing import List, NamedTuple, Tuple
 
 import numpy as np
 import torch
+
+from .. import kernels
 
 
 def to_gray(img):
@@ -75,14 +93,290 @@ def pyramid_shapes(h: int, w: int, n_levels: int,
     return shapes
 
 
-def build_pyramid(img, n_levels: int, scale_factor: float):
-    """List of per-level images, level 0 = input resolution; each level is
-    resized from the previous one, like the reference's cascade."""
+def build_pyramid_plain(img, n_levels: int, scale_factor: float):
+    """Plain PyTorch version of kernel K8: list of per-level images, level
+    0 = input resolution; each level is resized from the previous one, like
+    the reference's cascade."""
     h, w = img.shape
     shapes = pyramid_shapes(h, w, n_levels, scale_factor)
     levels = [img]
     for l in range(1, n_levels):
         levels.append(resize_bilinear(levels[-1], shapes[l]))
+    return levels
+
+
+def build_pyramid(img, n_levels: int, scale_factor: float):
+    """List of per-level f32 images, level 0 = `img` itself; each level is
+    resized from the previous one, like the reference's cascade. One launch
+    of kernel K8 (`pyramid_levels`) on a CUDA image, the plain version on a
+    CPU image."""
+    if not img.is_cuda:
+        return build_pyramid_plain(img, n_levels, scale_factor)
+    return pyramid_levels(img, n_levels, scale_factor)
+
+
+# ---------------------------------------------------------------------------
+# Kernel K8: the whole pyramid in one launch
+# ---------------------------------------------------------------------------
+
+PYR_MAX_TAPS = 8  # taps an output may have (`kMaxTaps` in csrc/pyramid.cu)
+PYR_TILE = (16, 64)  # output rows x columns of a tile (`TY`, `TX` there)
+
+
+@functools.lru_cache(maxsize=64)
+def resize_taps(in_size: int, out_size: int):
+    """K8's table of one axis, int32[out, 5] and f32[out, PYR_MAX_TAPS]:
+    per output index o its first input index, its tap count (from its
+    first to its last nonzero weight of `_resize_weights_np`, zeros between
+    kept), the least first index of the outputs from o on and the largest
+    end (first + count) of the outputs up to o, which bound a tile's input
+    span, and the count of taps in its first partial chain (here all of
+    them: one chain); then the taps. An axis the resize keeps (in == out;
+    the plain version skips its product) is one tap of 1.0 an output, an
+    exact copy."""
+    if in_size == out_size:
+        wm = np.eye(in_size, dtype=np.float32)
+    else:
+        wm = _resize_weights_np(in_size, out_size)
+    nz = wm != 0
+    has = nz.any(axis=0)
+    first = np.where(has, nz.argmax(axis=0), 0)
+    last = np.where(has, in_size - 1 - nz[::-1].argmax(axis=0), -1)
+    count = np.where(has, last - first + 1, 0)
+    if count.max(initial=0) > PYR_MAX_TAPS:
+        raise ValueError(f"pyramid: a {in_size} -> {out_size} resize needs "
+                         f"{count.max()} taps, K8 takes {PYR_MAX_TAPS}")
+    cols = np.arange(out_size)
+    taps = np.zeros((out_size, PYR_MAX_TAPS), np.float32)
+    for t in range(PYR_MAX_TAPS):
+        m = t < count
+        taps[m, t] = wm[first[m] + t, cols[m]]
+    lo = np.minimum.accumulate(np.where(has, first, in_size)[::-1])[::-1]
+    hi = np.maximum.accumulate(np.where(has, first + count, 0))
+    idx = np.stack([first, count, lo, hi, count], axis=1).astype(np.int32)
+    return idx, taps
+
+
+def fmaf_np(a, b, c):
+    """Correctly rounded f32 fused multiply-add of f32 arrays (`fmaf`), in
+    numpy: the product is exact in f64, the f64 sum's error is recovered
+    exactly (TwoSum), and it decides the one case the f64 sum cannot: a sum
+    that lands on the midpoint of two f32 values."""
+    a, b, c = (np.asarray(v, np.float32) for v in (a, b, c))
+    p = a.astype(np.float64) * b.astype(np.float64)
+    c64 = c.astype(np.float64)
+    s = p + c64
+    bb = s - p
+    err = (p - (s - bb)) + (c64 - bb)
+    r = s.astype(np.float32)
+    d = s - r.astype(np.float64)
+    nb = np.nextafter(r, np.where(d > 0, np.float32(np.inf),
+                                  np.float32(-np.inf))).astype(np.float32)
+    tie = (d != 0) & (2 * s == r.astype(np.float64) + nb.astype(np.float64))
+    return np.where(tie & (err * d > 0), nb, r)
+
+
+def tap_sums_np(x, idx, taps, split=None):
+    """K8's sums along one axis, exactly, in numpy: x f32[in, m] ->
+    f32[out, m]; output o adds taps [0, s) as one `fmaf` chain from the
+    first product and taps [s, count) as another, then the two (s =
+    `split[o]`, by default the table's own)."""
+    first, count = idx[:, 0], idx[:, 1]
+    split = idx[:, 4] if split is None else split
+
+    def chain(lo, hi):
+        acc = np.zeros((idx.shape[0], x.shape[1]), np.float32)
+        for t in range(taps.shape[1]):
+            start = np.nonzero((t == lo) & (t < hi))[0]
+            acc[start] = (taps[start, t, None].astype(np.float64)
+                          * x[first[start] + t]).astype(np.float32)
+            more = np.nonzero((t > lo) & (t < hi))[0]
+            acc[more] = fmaf_np(taps[more, t, None], x[first[more] + t],
+                                acc[more])
+        return acc
+
+    a = chain(0, split)
+    two = np.nonzero(split < count)[0]
+    a[two] = fmaf_np(np.float32(1.0), a[two], chain(split, count)[two])
+    return a
+
+
+def infer_tap_splits(xs, rs, idx, taps):
+    """Where a GEMM split each output's taps, from probes `xs` (each
+    f32[in, m]) and its results `rs` (f32[out, m]): first, per output, the
+    first split s (no split first, then 1, 2, ...) for which `tap_sums_np`
+    equals the result bit for bit; then, since the GEMM splits its K loop
+    at the same input indices for every output, every output is split at
+    the first of those indices found inside its taps (an output with a
+    near-zero tap agrees with several splits on almost every input), kept
+    where it explains the result too. Returns int32[out] and the count of
+    outputs that nothing explains (they keep one chain)."""
+    x, r = np.concatenate(xs, axis=1), np.concatenate(rs, axis=1)
+    first, count = idx[:, 0], idx[:, 1]
+
+    def explains(rows, split):
+        return (tap_sums_np(x, idx[rows], taps[rows], split)
+                == r[rows]).all(axis=1)
+
+    every = np.arange(idx.shape[0])
+    best = count.copy()
+    found = explains(every, count)
+    for s in range(1, taps.shape[1]):
+        rows = np.nonzero(~found & (s < count))[0]
+        if rows.size:
+            ok = explains(rows, np.full(rows.size, s))
+            best[rows[ok]] = s
+            found[rows[ok]] = True
+    cuts = np.unique((first + best)[found & (best < count)])
+    # each output's first cut past its first tap
+    nxt = np.append(cuts, np.iinfo(np.int32).max)[
+        np.searchsorted(cuts, first + 1)]
+    split = np.where(nxt < first + count, nxt - first, count)
+    ok = found & (split == best)
+    rows = np.nonzero(~ok)[0]
+    ok[rows] = explains(rows, split[rows])
+    split = np.where(ok, split, best)
+    return split.astype(np.int32), int((~(ok | found)).sum())
+
+
+PROBE_COLUMNS = 1024
+
+# outputs whose GEMM sum no single split explained, by (in, out, other,
+# axis, device): they keep one chain, and K8 may differ there in the last
+# bit from the plain version
+SPLIT_MISSES = {}
+
+
+@functools.lru_cache(maxsize=128)
+def gemm_tap_splits(in_size: int, out_size: int, other: int, vertical: bool,
+                    device_str: str) -> np.ndarray:
+    """Where the device's f32 GEMM splits each output's taps in the plain
+    version's product of this shape: `wh.T @ x` with x [in, other]
+    (`vertical`) or `x @ ww` with x [other, in]. Probes of uniform random
+    gray values through the same product, at least two and PROBE_COLUMNS
+    columns in all (a wrong split agrees with the GEMM on a column now and
+    then, on all of thousands almost never), each result explained output
+    by output (`infer_tap_splits`). Once per shape and device."""
+    idx, taps = resize_taps(in_size, out_size)
+    if in_size == out_size:
+        return idx[:, 4].copy()
+    dev = torch.device(device_str)
+    wm = torch.as_tensor(_resize_weights_np(in_size, out_size), device=dev)
+    rng = np.random.default_rng(in_size * 7919 + out_size)
+    xs, rs = [], []
+    for _ in range(max(2, -(-PROBE_COLUMNS // other))):
+        if vertical:
+            x = rng.uniform(0, 255, (in_size, other)).astype(np.float32)
+            r = (wm.T @ torch.as_tensor(x, device=dev)).cpu().numpy()
+        else:
+            x = rng.uniform(0, 255, (other, in_size)).astype(np.float32)
+            r = (torch.as_tensor(x, device=dev) @ wm).cpu().numpy().T
+            x = x.T
+        xs.append(np.ascontiguousarray(x))
+        rs.append(r)
+    split, misses = infer_tap_splits(xs, rs, idx, taps)
+    SPLIT_MISSES[(in_size, out_size, other, vertical, device_str)] = misses
+    return split
+
+
+def _max_span(idx, tile: int) -> int:
+    """Largest input span (hi - lo) of a tile of `tile` outputs."""
+    n = idx.shape[0]
+    o0 = np.arange(0, n, tile)
+    o1 = np.minimum(o0 + tile, n) - 1
+    return int(max((idx[o1, 3] - idx[o0, 2]).max(initial=0), 0))
+
+
+@functools.lru_cache(maxsize=128)
+def _device_taps(in_size: int, out_size: int, other: int, vertical: bool,
+                 device_str: str):
+    """One axis's table on a device; on a CUDA device with the GEMM's
+    splits of this shape."""
+    idx, taps = resize_taps(in_size, out_size)
+    dev = torch.device(device_str)
+    if dev.type == "cuda":
+        idx = idx.copy()
+        idx[:, 4] = gemm_tap_splits(in_size, out_size, other, vertical,
+                                    device_str)
+    return torch.as_tensor(idx, device=dev), torch.as_tensor(taps, device=dev)
+
+
+class PyramidPlan(NamedTuple):
+    shapes: List[Tuple[int, int]]
+    offsets: List[int]     # each level's first float in the buffer (1..n-1)
+    total: int             # floats of the buffer
+    tables: List[torch.Tensor]  # per level 1..n-1: vidx, vtaps, hidx, htaps
+    args: tuple            # the C arrays and the shared memory of a launch
+
+
+@functools.lru_cache(maxsize=32)
+def _pyramid_plan(h: int, w: int, n_levels: int, scale_factor: float,
+                  device_str: str) -> PyramidPlan:
+    """Shapes, the buffer's layout (each level at a 16-byte-aligned offset,
+    for kernel K2's vector loads) and the tap tables of one geometry on one
+    device, uploaded once."""
+    shapes = pyramid_shapes(h, w, n_levels, scale_factor)
+    offsets, total = [], 0
+    for a, b in shapes[1:]:
+        offsets.append(total)
+        total += -(-a * b // 4) * 4
+    tables, spans, smem = [], [], 0
+    ty, tx = PYR_TILE
+    for (ih, iw), (oh, ow) in zip(shapes[:-1], shapes[1:]):
+        if oh < 1 or ow < 1:
+            raise ValueError(f"pyramid: level {ih}x{iw} -> {oh}x{ow}")
+        vidx, vtaps = _device_taps(ih, oh, iw, True, device_str)
+        hidx, htaps = _device_taps(iw, ow, oh, False, device_str)
+        sy = _max_span(resize_taps(ih, oh)[0], ty)
+        sx = _max_span(resize_taps(iw, ow)[0], tx)
+        spans += [sy, sx]
+        smem = max(smem, 4 * (sy + ty) * sx)
+        tables += [vidx, vtaps, hidx, htaps]
+    args = (kernels.int_array([d for s in shapes for d in s]),
+            kernels.int_array(offsets),
+            (ctypes.c_void_p * len(tables))(*[t.data_ptr() for t in tables]),
+            kernels.int_array(spans), smem)
+    return PyramidPlan(shapes, offsets, total, tables, args)
+
+
+def prepare_pyramid(h: int, w: int, n_levels: int, scale_factor: float,
+                    device) -> PyramidPlan:
+    """Build and upload K8's tables of an [h, w] geometry on `device` now
+    (on a CUDA device with the GEMM's splits, ~1.3 s of probes for VGA's 14
+    products), so that no frame pays for them; cached, as `pyramid_levels`
+    finds them."""
+    dev = torch.empty(0, device=device).device  # "cuda" -> "cuda:<index>"
+    return _pyramid_plan(h, w, n_levels, float(scale_factor), str(dev))
+
+
+def pyramid_levels(img, n_levels: int, scale_factor: float):
+    """Kernel K8 on a CUDA f32 [H, W] image: levels 1 to n-1 written into
+    one device buffer in one cooperative launch (a grid barrier between
+    levels); returns `img` and views of the buffer with the shapes of
+    `pyramid_shapes`. The geometry's tables come from `prepare_pyramid`,
+    built here if it was not called. Raises where the kernel does not take
+    the arguments; never falls back."""
+    kernels.require(img, "pyramid level 0", torch.float32)
+    if img.dim() != 2:
+        raise ValueError("pyramid: level 0 must be [h, w]")
+    if not 1 <= n_levels <= kernels.MAX_LEVELS:
+        raise ValueError(f"pyramid: {n_levels} levels, the kernel takes 1 "
+                         f"to {kernels.MAX_LEVELS}")
+    if n_levels == 1:
+        return [img]
+    h, w = img.shape
+    plan = _pyramid_plan(h, w, n_levels, float(scale_factor), str(img.device))
+    buf = torch.empty((plan.total,), dtype=torch.float32, device=img.device)
+    levels = [img] + [buf[o:o + a * b].view(a, b) for o, (a, b) in
+                      zip(plan.offsets, plan.shapes[1:])]
+    fn = kernels.bind("pyramid", "pyramid_levels",
+                      [kernels.CI] + [kernels.VP] * 6 + [kernels.CI]
+                      + [kernels.VP])
+    dims, offsets, tables, spans, smem = plan.args
+    kernels.LAUNCHES["pyramid"] += 1
+    kernels.check(fn(n_levels, kernels.ptr(img), kernels.ptr(buf), dims,
+                     offsets, tables, spans, smem, kernels.stream_of(img)),
+                  "pyramid_levels")
     return levels
 
 

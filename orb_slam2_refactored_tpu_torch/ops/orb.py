@@ -1,12 +1,15 @@
 """Multi-scale ORB feature extraction.
 
-Port of `orb_slam2_refactored_tpu/ops/orb.py`: 8-level pyramid, then one
-call of kernel K2 (`ops/fast.py`: two-threshold FAST, NMS and the per-cell
-rank rounds of every level), the rank-boosted global top-k of each level
-in plain torch (`topk_from_ranks`), and one call of kernel K3 (the fused
-in-window blur + IC angle + steered BRIEF of every level's keypoints,
-`csrc/orb_desc.cu`, wrapper `angles_and_descriptors_levels`). Descriptors
-are int32[K,8], bit-identical to the JAX package's uint32.
+Port of `orb_slam2_refactored_tpu/ops/orb.py`. On the card a frame's
+extraction is four launches: the 8-level pyramid (kernel K8,
+`ops/image.py::build_pyramid`), one call of kernel K2 (`ops/fast.py`:
+two-threshold FAST, NMS and the per-cell rank rounds of every level), the
+rank-boosted global top-k of every level in one launch of kernel K9
+(`csrc/spread_topk.cu`, wrapper `spread_topk_levels`), and one call of
+kernel K3 (the fused in-window blur + IC angle + steered BRIEF of every
+level's keypoints, `csrc/orb_desc.cu`, wrapper
+`angles_and_descriptors_levels`). Descriptors are int32[K,8],
+bit-identical to the JAX package's uint32.
 
 Both BRIEF test tables are ported. The "fresh" pattern fits K3's 31x31
 window; the "learned" table (OpenCV's `bit_pattern_31_`, `orb_pattern_cv.npy`)
@@ -18,6 +21,7 @@ the raw level and the continuously rotated tests, here kernel K7
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import os
 from typing import List, NamedTuple, Tuple
@@ -190,7 +194,7 @@ def _tables(device):
 
 
 # ---------------------------------------------------------------------------
-# Per-level selection: rank-in-cell boosted top-k (stays plain torch)
+# Per-level selection: rank-in-cell boosted top-k (kernel K9)
 # ---------------------------------------------------------------------------
 
 def _topk_lowest_index(key, k: int):
@@ -235,6 +239,116 @@ def select_spread_topk(score, k: int, cell: int = 32, rank_rounds: int = 4):
     h, w = score.shape
     raw, pos = cell_rank_rounds(score, k, cell, rank_rounds)
     return topk_from_ranks(raw, pos, k, h, w, cell, rank_rounds)
+
+
+class SpreadTopk(NamedTuple):
+    """The selected keypoints of every level, concatenated in level order."""
+    ys: torch.Tensor        # i32[K] level row, clamped to the edge margin
+    xs: torch.Tensor        # i32[K] level column, clamped likewise
+    xy: torch.Tensor        # f32[K,2] level-0 coords: (xs, ys) x scale
+    level: torch.Tensor     # i32[K]
+    response: torch.Tensor  # f32[K]
+    valid: torch.Tensor     # bool[K]
+
+
+def _check_spread_args(ranked, ks, shapes, level_ids, scales):
+    n = len(ranked)
+    if not len(ks) == len(shapes) == len(level_ids) == len(scales) == n:
+        raise ValueError(f"spread_topk: {n} levels of rank rounds, "
+                         f"{len(ks)} budgets, {len(shapes)} shapes, "
+                         f"{len(level_ids)} level ids, {len(scales)} scales")
+    for (raw, pos), k in zip(ranked, ks):
+        if raw.shape != pos.shape or raw.dim() != 2:
+            raise ValueError("spread_topk: raw and pos must be [rounds, C] "
+                             "each")
+        if k < 0 or (k > 0 and raw.numel() < k):
+            raise ValueError(f"spread_topk: budget {k} from "
+                             f"{raw.numel()} candidates")
+
+
+def spread_topk_levels_plain(ranked, ks, shapes, level_ids, scales,
+                             cell: int = 32, rank_rounds: int = 4,
+                             margin: int = EDGE_MARGIN) -> SpreadTopk:
+    """Plain PyTorch version of kernel K9 (same signature): for each level
+    its global top-k over the rank rounds (`topk_from_ranks`), the
+    coordinates clamped to the edge margin, the level-0 coordinates and
+    the level id, as the JAX extractor makes them
+    (`orb_slam2_refactored_tpu/ops/orb.py:520-540`)."""
+    _check_spread_args(ranked, ks, shapes, level_ids, scales)
+    parts = []
+    for (raw, pos), k, (h, w), l, s in zip(ranked, ks, shapes, level_ids,
+                                           scales):
+        if k <= 0:
+            continue
+        ys, xs, resp, valid = topk_from_ranks(raw, pos, k, h, w, cell,
+                                              rank_rounds)
+        ys_c = torch.clamp(ys, margin, h - 1 - margin).to(torch.int32)
+        xs_c = torch.clamp(xs, margin, w - 1 - margin).to(torch.int32)
+        xy0 = torch.stack([xs_c.to(torch.float32),
+                           ys_c.to(torch.float32)], -1) * s
+        parts.append((ys_c, xs_c, xy0, torch.full(
+            (k,), l, dtype=torch.int32, device=raw.device), resp, valid))
+    return SpreadTopk(*(torch.cat(f) for f in zip(*parts)))
+
+
+SPREAD_MAX_KEYS = 8192  # rank-round candidates a level (K9's sort buffer)
+
+
+def spread_topk_levels(ranked, ks, shapes, level_ids, scales,
+                       cell: int = 32, rank_rounds: int = 4,
+                       margin: int = EDGE_MARGIN) -> SpreadTopk:
+    """The keypoints of every level from the rank rounds that one K2 call
+    left (`ranked`: per level (raw f32[rounds, C], pos int32[rounds, C])):
+    per level the k = `ks[i]` largest keys, a corner of round r keyed
+    1e6 x max(rank_rounds - r, 0) + raw and a non-corner -1, equal keys
+    lowest flat index first (`jax.lax.top_k`'s order), decoded to (ys, xs)
+    clamped into the level, then to the edge margin; the level-0
+    coordinates (xs, ys) x scales[i], level_ids[i], the response and
+    key > 0 as valid. `shapes` are the levels' [h, w]. One launch of
+    kernel K9 (`csrc/spread_topk.cu`, a block a level) on CUDA tensors,
+    which raises past SPREAD_MAX_KEYS candidates a level; the plain
+    version on CPU tensors."""
+    if not ranked[0][0].is_cuda:
+        return spread_topk_levels_plain(ranked, ks, shapes, level_ids, scales,
+                                        cell, rank_rounds, margin)
+    _check_spread_args(ranked, ks, shapes, level_ids, scales)
+    n = len(ranked)
+    if n > kernels.MAX_LEVELS:
+        raise ValueError(f"spread_topk: {n} levels, the kernel takes at most "
+                         f"{kernels.MAX_LEVELS}")
+    params = []
+    for (raw, pos), k, (h, w), l in zip(ranked, ks, shapes, level_ids):
+        kernels.require(raw, "spread_topk raw", torch.float32)
+        kernels.require(pos, "spread_topk pos", torch.int32)
+        rounds, C = raw.shape
+        if C != -(-h // cell) * -(-w // cell):
+            raise ValueError(f"spread_topk: {C} cells for a {h}x{w} level "
+                             f"of {cell}-px cells")
+        if k > 0 and rounds * C > SPREAD_MAX_KEYS:
+            raise ValueError(f"spread_topk: {rounds * C} candidates on a "
+                             f"level, kernel K9 sorts at most "
+                             f"{SPREAD_MAX_KEYS}")
+        params += [h, w, k, rounds, C, l]
+    dev = ranked[0][0].device
+    K = sum(ks)
+    buf = torch.empty((6 * K + -(-K // 4),), dtype=torch.int32, device=dev)
+    ys, xs, level = buf[:K], buf[K:2 * K], buf[2 * K:3 * K]
+    xy = buf[3 * K:5 * K].view(torch.float32).view(K, 2)
+    resp = buf[5 * K:6 * K].view(torch.float32)
+    valid = buf[6 * K:].view(torch.uint8)[:K].view(torch.bool)
+    fn = kernels.bind("spread_topk", "spread_topk_levels",
+                      [kernels.CI] + [kernels.VP] * 4 + [kernels.CI] * 4
+                      + [kernels.VP] * 7)
+    kernels.LAUNCHES["spread_topk"] += 1
+    kernels.check(fn(n, kernels.ptr_array([r for r, _ in ranked]),
+                     kernels.ptr_array([p for _, p in ranked]),
+                     kernels.int_array(params),
+                     (ctypes.c_float * n)(*[float(s) for s in scales]),
+                     cell, rank_rounds, margin, K, kernels.ptr(ys),
+                     kernels.ptr(xs), kernels.ptr(xy), kernels.ptr(level),
+                     kernels.ptr(resp), kernels.ptr(valid),
+                     kernels.stream_of(ranked[0][0])), "spread_topk_levels")
+    return SpreadTopk(ys, xs, xy, level, resp, valid)
 
 
 # ---------------------------------------------------------------------------
@@ -498,12 +612,14 @@ class OrbFeatures(NamedTuple):
 
 class OrbExtractor:
     """ORB pipeline for a fixed image geometry (reference defaults:
-    scaleFactor=1.2, nlevels=8, iniThFAST=20, minThFAST=7)."""
+    scaleFactor=1.2, nlevels=8, iniThFAST=20, minThFAST=7). Given a CUDA
+    `device`, it builds kernel K8's tables of the geometry there at once
+    (`image_ops.prepare_pyramid`), so that no frame pays for them."""
 
     def __init__(self, height: int, width: int, n_features: int = 1000,
                  scale_factor: float = 1.2, n_levels: int = 8,
                  ini_th_fast: float = 20.0, min_th_fast: float = 7.0,
-                 cell: int = 32, pattern: str = "fresh"):
+                 cell: int = 32, pattern: str = "fresh", device=None):
         self.pattern = pattern
         # an unknown name raises ValueError; the learned table runs on K7
         self.full_image_path = not pattern_fits_window(pattern)
@@ -515,16 +631,20 @@ class OrbExtractor:
         self.cell = cell
         self.budgets = features_per_level(n_features, n_levels, scale_factor)
         self.level_scales = [scale_factor ** l for l in range(n_levels)]
+        if device is not None and torch.device(device).type == "cuda":
+            image_ops.prepare_pyramid(height, width, n_levels, scale_factor,
+                                      device)
 
     def __call__(self, img) -> OrbFeatures:
         return self._extract_impl_pyr(img)[0]
 
     def _extract_impl_pyr(self, img) -> Tuple[OrbFeatures, List]:
-        """Pyramid, one K2 call (FAST, NMS, edge margin and the per-cell
-        rank rounds of every level), the global top-k of each level in
-        plain torch, then one K3 call for every level's keypoints, or one
-        K7 call when the pattern does not fit K3's window (the learned
-        table), as the JAX package branches."""
+        """Pyramid (one K8 launch), one K2 call (FAST, NMS, edge margin and
+        the per-cell rank rounds of every level), one K9 launch (the global
+        top-k of every level, the clamps and the level-0 coordinates), then
+        one K3 call for every level's keypoints, or one K7 call when the
+        pattern does not fit K3's window (the learned table), as the JAX
+        package branches; the plain versions on a CPU image."""
         img = image_ops.to_gray(img)
         levels = image_ops.build_pyramid(img, self.n_levels, self.scale_factor)
         used = [l for l in range(self.n_levels) if self.budgets[l] > 0]
@@ -533,29 +653,15 @@ class OrbExtractor:
         ranked = fast_ops.detect_and_rank(lv, self.ini_th, self.min_th, ks,
                                           margin=EDGE_MARGIN,
                                           rank_cell=self.cell)
-        parts, ys_all, xs_all = [], [], []
-        for l, k, (_, raw, pos) in zip(used, ks, ranked):
-            h, w = levels[l].shape
-            ys, xs, resp, valid = topk_from_ranks(raw, pos, k, h, w,
-                                                  self.cell)
-            ys_c = torch.clamp(ys, EDGE_MARGIN, h - 1 - EDGE_MARGIN).to(
-                torch.int32)
-            xs_c = torch.clamp(xs, EDGE_MARGIN, w - 1 - EDGE_MARGIN).to(
-                torch.int32)
-            s = self.level_scales[l]
-            xy0 = torch.stack([xs_c.to(torch.float32),
-                               ys_c.to(torch.float32)], -1) * s
-            parts.append((xy0, torch.full((k,), l, dtype=torch.int32,
-                                          device=img.device), resp, valid))
-            ys_all.append(ys_c)
-            xs_all.append(xs_c)
+        sel = spread_topk_levels(
+            [(raw, pos) for _, raw, pos in ranked], ks,
+            [tuple(lvl.shape) for lvl in lv], used,
+            [self.level_scales[l] for l in used], self.cell)
         if self.full_image_path:
             ang, desc = angles_and_descriptors_learned_levels(
-                lv, torch.cat(ys_all), torch.cat(xs_all), ks,
-                pattern=self.pattern)
+                lv, sel.ys, sel.xs, ks, pattern=self.pattern)
         else:
-            ang, desc = angles_and_descriptors_levels(
-                lv, torch.cat(ys_all), torch.cat(xs_all), ks)
-        xy, level, resp, valid = (torch.cat(f) for f in zip(*parts))
-        return OrbFeatures(xy=xy, level=level, angle=ang, response=resp,
-                           desc=desc, valid=valid), levels
+            ang, desc = angles_and_descriptors_levels(lv, sel.ys, sel.xs, ks)
+        return OrbFeatures(xy=sel.xy, level=sel.level, angle=ang,
+                           response=sel.response, desc=desc,
+                           valid=sel.valid), levels

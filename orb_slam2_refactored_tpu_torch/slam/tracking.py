@@ -214,7 +214,7 @@ class Tracker:
         self.extractor = OrbExtractor(
             cfg.height, cfg.width, cfg.n_features, cfg.scale_factor,
             cfg.n_levels, cfg.ini_th_fast, cfg.min_th_fast,
-            pattern=cfg.descriptor_pattern)
+            pattern=cfg.descriptor_pattern, device=self.device)
         self.sf, self.sigma2, self.inv_sigma2 = scale_factors(
             cfg.n_levels, cfg.scale_factor, device=self.device)
         # per-stage times of the keyframe path (synchronizes the card at
@@ -316,8 +316,9 @@ class Tracker:
         )
 
     def _prepare_stereo_impl(self, img_l, img_r) -> FrameData:
-        """Left and right extraction (two K2 and two K3 calls) and the
-        stereo association on the extractor's own pyramids (K1 under the
+        """Left and right extraction (two calls each of K8, K2, K9 and K3)
+        and the stereo association on the extractor's own pyramids (K8's
+        levels; K1 under the
         dense stereo gate, then one launch of kernel B9 for the rest). The
         pair is assumed rectified: with distortion coefficients the left
         keypoints are undistorted, and u_right stays in the raw rectified
@@ -338,8 +339,8 @@ class Tracker:
         )
 
     def _prepare_mono_impl(self, img) -> FrameData:
-        """Extract ORB (one K2 and one K3 call); no depth and no right
-        coordinate (-1)."""
+        """Extract ORB (one K8, K2, K9 and K3 call each); no depth and no
+        right coordinate (-1)."""
         feats = self.extractor(img)
         xy_und = (proj.undistort_points(self.cam, self.dist, feats.xy)
                   if self._has_dist else feats.xy)

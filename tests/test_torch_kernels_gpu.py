@@ -1,6 +1,6 @@
 """The CUDA kernels against their plain versions, on the card: K1 (in its
 three gate modes), K2 and K3 (on one level and on a whole pyramid in one
-call), K7 (the learned pattern, given the angles and whole), K4 (pose LM), K5 (BA assembly and cost, both modes), K6 (the fused CG
+call), K8 (the pyramid) and K9 (the per-level spread top-k), K7 (the learned pattern, given the angles and whole), K4 (pose LM), K5 (BA assembly and cost, both modes), K6 (the fused CG
 solve of global BA) and B9 (the stereo SAD
 refinement alone, and the whole stereo association after K1 in one
 launch), and the BoW vocabulary on K1 (quantization, training,
@@ -316,6 +316,175 @@ def test_orb_learned_wrapper_refuses_what_the_kernel_does_not_take():
         orb.angles_and_descriptors_learned_levels(levels, ys.long(), xs, ks)
     with pytest.raises(ValueError):
         orb.angles_and_descriptors_learned_levels(levels, ys, xs, ks[:-1])
+
+
+# K8: (image, h, w, levels) - the bench's VGA frame, random images at the
+# camera sizes, odd sizes down to levels a few pixels wide (9x5: a level
+# keeps its size, one tap of 1.0)
+PYR_CASES = [("rendered", 480, 640, 8), ("random", 480, 640, 8),
+             ("random", 376, 1241, 8), ("random", 480, 752, 8),
+             ("random", 37, 23, 8), ("random", 9, 5, 6),
+             ("random", 1, 97, 4)]
+
+
+@pytest.mark.parametrize("kind,h,w,n_levels", PYR_CASES)
+def test_pyramid_kernel_matches_plain(kind, h, w, n_levels):
+    """K8 against the plain pyramid on the card: every level within 1e-4
+    gray (the bit-equal share printed), and equal bit for bit where the
+    split finder explained every output of the GEMM's shapes; level 0 the
+    image itself, each level 16-byte aligned for K2's vector loads, one
+    launch a call."""
+    dev = _card()
+    if kind == "rendered":
+        img = _vga_pyramid()[0]
+    else:
+        rng = np.random.default_rng(h * w)
+        img = torch.from_numpy(rng.uniform(0, 255, (h, w)).astype(
+            np.float32))
+    img = img.to(dev)
+    ref = image_ops.build_pyramid_plain(img, n_levels, 1.2)
+    before = kernels.counts()["pyramid"]
+    out = image_ops.build_pyramid(img, n_levels, 1.2)
+    torch.cuda.synchronize()
+    assert kernels.counts()["pyramid"] == before + 1
+    assert out[0] is img and len(out) == n_levels
+    shares = []
+    for a, b in zip(out, ref):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        assert a.is_contiguous() and a.data_ptr() % 16 == 0
+        assert float((a - b).abs().max()) <= 1e-4
+        shares.append(int((a == b).sum()) / a.numel())
+    print(f"K8 {kind} {h}x{w}: bit-equal share per level {shares}")
+    if not any(image_ops.SPLIT_MISSES.values()):
+        assert all(torch.equal(a, b) for a, b in zip(out, ref))
+
+
+def test_extractor_builds_pyramid_tables_when_constructed():
+    """An extractor given the card builds K8's tables of its geometry (the
+    GEMM's probes) when it is constructed, so its first frame builds
+    nothing and launches K8 once."""
+    dev = _card()
+    h, w, n_levels = 200, 296, 5  # a geometry no other test builds
+    plans = image_ops._pyramid_plan.cache_info
+    ext = orb.OrbExtractor(h, w, 500, 1.2, n_levels, device=dev)
+    built = plans().misses
+    rng = np.random.default_rng(7)
+    img = torch.from_numpy(rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+    before = kernels.counts()["pyramid"]
+    feats = ext(img.to(dev))
+    torch.cuda.synchronize()
+    assert plans().misses == built
+    assert kernels.counts()["pyramid"] == before + 1
+    assert feats.xy.shape == (500, 2) and bool(feats.valid.any())
+
+
+def test_pyramid_wrapper_refuses_what_the_kernel_does_not_take():
+    dev = _card()
+    img = torch.zeros((48, 64), device=dev)
+    with pytest.raises(ValueError):
+        image_ops.pyramid_levels(img.double(), 4, 1.2)
+    with pytest.raises(ValueError):
+        image_ops.pyramid_levels(img[None], 4, 1.2)
+    with pytest.raises(ValueError):
+        image_ops.pyramid_levels(img, kernels.MAX_LEVELS + 1, 1.2)
+    with pytest.raises(ValueError, match="taps"):
+        image_ops.pyramid_levels(img, 2, 5.0)
+
+
+def _ranked(score, k, rank_rounds=4):
+    """K2's rank rounds of one level (plain, int32 pos), or none (k = 0)."""
+    if k == 0:
+        C = fast.n_cells(*score.shape, 32)
+        return (torch.empty((0, C)), torch.empty((0, C), dtype=torch.int32))
+    raw, pos = fast.cell_rank_rounds(torch.from_numpy(score), k, 32,
+                                     rank_rounds)
+    return raw, pos.to(torch.int32)
+
+
+def _topk_case(name):
+    """(scores, budgets, level ids): the rendered VGA frame's levels as
+    extraction ranks them; all-tie keys; empty levels (no corner, and a
+    budget of 0); k larger than the corners; 16 levels in one launch."""
+    rng = np.random.default_rng(len(name))
+    if name == "rendered":
+        levels = _vga_pyramid()
+        ks = orb.features_per_level(1000, 8, 1.2)
+        ranked = fast.detect_and_rank_plain(levels, 20.0, 7.0, ks, margin=19)
+        return ([s.numpy() for s, _, _ in ranked], ks, list(range(8)))
+    if name == "all_ties":
+        return ([np.full((134, 179), 3.0, np.float32),
+                 np.full((240, 320), 1.0, np.float32)], [60, 217], [0, 1])
+    if name == "empty_levels":
+        return ([np.zeros((96, 128), np.float32),
+                 rng.uniform(1, 9, (64, 96)).astype(np.float32),
+                 np.zeros((40, 60), np.float32)], [40, 0, 25], [0, 1, 2])
+    if name == "k_above_corners":
+        s = np.zeros((134, 179), np.float32)
+        s[rng.integers(0, 134, 7), rng.integers(0, 179, 7)] = 11.0
+        return [s], [60], [5]
+    # sixteen levels of a scale-1.1 pyramid's sizes, integer responses
+    shapes = [(int(round(300 / 1.1 ** l)), int(round(400 / 1.1 ** l)))
+              for l in range(16)]
+    return ([(rng.integers(0, 5, sh) * (rng.uniform(size=sh) < 0.1)).astype(
+        np.float32) for sh in shapes], [30 + 3 * l for l in range(16)],
+        list(range(16)))
+
+
+@pytest.mark.parametrize("name", ["rendered", "all_ties", "empty_levels",
+                                  "k_above_corners", "sixteen_levels"])
+def test_spread_topk_kernel_equals_plain(name):
+    """K9 against `spread_topk_levels_plain`, every output bit for bit, in
+    one launch a call."""
+    dev = _card()
+    scores, ks, ids = _topk_case(name)
+    ranked = [_ranked(s, k) for s, k in zip(scores, ks)]
+    shapes = [s.shape for s in scores]
+    scales = [1.2 ** l for l in ids]
+    ref = orb.spread_topk_levels_plain(ranked, ks, shapes, ids, scales)
+    before = kernels.counts()["spread_topk"]
+    out = orb.spread_topk_levels([(r.to(dev), p.to(dev)) for r, p in ranked],
+                                 ks, shapes, ids, scales)
+    torch.cuda.synchronize()
+    assert kernels.counts()["spread_topk"] == before + 1
+    for a, b in zip(out, ref):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a.cpu(), b)
+    if name == "k_above_corners":
+        assert int(out.valid.sum()) == 7
+
+
+def test_spread_topk_refuses_past_its_key_limit():
+    """Past 8,192 candidates on a level K9 raises and names the limit; it
+    never falls back to the plain version."""
+    dev = _card()
+    raw = torch.ones((28, 300), device=dev)
+    pos = torch.zeros((28, 300), dtype=torch.int32, device=dev)
+    before = kernels.counts()["spread_topk"]
+    with pytest.raises(ValueError, match=str(orb.SPREAD_MAX_KEYS)):
+        orb.spread_topk_levels([(raw, pos)], [1400], [(480, 640)], [0],
+                               [1.0])
+    with pytest.raises(ValueError):
+        orb.spread_topk_levels([(raw, pos.long())], [100], [(480, 640)], [0],
+                               [1.0])
+    assert kernels.counts()["spread_topk"] == before
+
+
+def test_extractor_is_four_launches():
+    """A VGA extraction on the card is one launch each of K8, K2, K9 and
+    K3, and gives the plain extraction's features (the same pyramid bits
+    where K8 equals the plain product, checked above)."""
+    dev = _card()
+    scene = SyntheticScene(width=640, height=480, fx=520.0, fy=520.0)
+    img, _ = scene.render(orbit_trajectory(4)[2])
+    img = torch.from_numpy(np.clip(img, 0, 255).astype(np.uint8)).to(dev)
+    before = kernels.counts()
+    feats, levels = orb.OrbExtractor(480, 640)._extract_impl_pyr(img)
+    torch.cuda.synchronize()
+    after = kernels.counts()
+    for k in ("pyramid", "fast", "spread_topk", "orb_desc"):
+        assert after[k] == before[k] + 1, k
+    assert feats.xy.shape == (1000, 2) and bool(feats.valid.any())
+    assert len(levels) == 8
 
 
 CAM = proj.CameraIntrinsics.create(520.0, 520.0, 320.0, 240.0, 41.6)

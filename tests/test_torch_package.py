@@ -61,7 +61,8 @@ def test_every_kernel_source_exists():
                                      "pose_lm", "ba_point_index",
                                      "ba_assemble", "ba_cost", "stereo_sad",
                                      "ba_assemble_w_obs", "ba_schur_cg",
-                                     "orb_desc_learned"}
+                                     "orb_desc_learned", "pyramid",
+                                     "spread_topk"}
 
 
 def test_empty_frame_and_scale_tables_match_jax():
