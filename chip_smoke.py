@@ -2,6 +2,7 @@
 loop closing, and its system facade and CLI drivers, on one CUDA card.
 
     python3 chip_smoke.py [--profile] [--parent DIR]
+    python3 chip_smoke.py --c13
 
 Phases (any failure raises and the script exits non-zero):
  1. print the card, its power limit and the toolchain; build every CUDA
@@ -15,12 +16,14 @@ Phases (any failure raises and the script exits non-zero):
     rounds of every level in one call, and each level alone), K9 (the
     spread top-k of every level in one launch) bit for bit, and K3, on
     the first frame's 8 levels and 1000 keypoints; time each with CUDA
-    events (and the library's antialiased `F.interpolate` level by
-    level); drive the step's
+    events, with the library calls that compute K8's and K9's functions
+    (the plain version's 14 GEMMs with the weights on the card, bit-equal
+    to K8; one stable `torch.sort` over the padded keys, the plain
+    version's selection); drive the step's
     reference-keyframe fallback branch (local BA off);
  3. the main paths, each with every launch counter set to 0 just before
-    and read just after, and no frame of any of them building K8's tables
-    (a tracker builds them when it is constructed):
+    and read just after, and no frame of any of them building K8's or
+    K9's tables (a tracker builds them when it is constructed):
     a. local BA off (the path of the first slice): the first 60 frames of
        the bench's VGA box-room orbit (1000 features, 8 levels, 32768 map
        points) through `Tracker.track_rgbd` on cuda:0;
@@ -124,7 +127,7 @@ Phases (any failure raises and the script exits non-zero):
     with one pair swapped that must fail the same hold.
  5. torch.profiler windows, after every agreement check: K2's and K3's
     device time on frame 0 (and K7's), K8's, K9's, the plain pyramid's
-    and top-k's and the library's resize, each with its device
+    and top-k's and their library calls', each with its device
     operations, K1's and K4's on the recorded tracked frame's calls, K5's
     on the recorded window BA, B9's (and its wrapper's host time), the
     whole association's (no copy to or from the host in it) and
@@ -144,16 +147,22 @@ Phases (any failure raises and the script exits non-zero):
     rounds, the rank rounds in K2 (both with the plain pyramid and
     top-k), and K8, K2, K9 and K3 (at most 10 device operations and no
     upload a frame); with --profile, a
-    frame's time broken down; with --parent DIR, K1, K4, K5, B9 and K6
-    against the kernels of the checkout in DIR on the same recorded
+    frame's time broken down; with --parent DIR, K1, K4, K5, B9, K6, K8
+    and K9 against the kernels of the checkout in DIR on the same recorded
     arguments (outputs, then device times and CUDA-event times in turns:
     parent, change, change, parent; K4's iteration on no observation; for
     B9 the parent's torch chain after K1 around its launch against the one
     launch, and for K6 the parent's whole CG step against the one launch;
-    cell F's whole global BA, parent against change, in device time,
-    operations and host time).
+    K8 on frame 0's and a tracked frame's images, K9 on their rank rounds
+    as K2 left them; cell F's whole global BA, parent against change, in
+    device time, operations and host time).
 The line before the last is a JSON object with one entry per kernel; the
 last line is `{"ok": true, "device": {...}}`.
+
+With --c13 the script runs only cells E and F, loop closing off and on,
+under three orders of K8's partial sums (the card's GEMM's, one chain an
+output, splits at 8-wide input blocks), and prints each run's ATE and
+whether the cells' gates hold, holding none (`run_c13`).
 """
 
 from __future__ import annotations
@@ -524,20 +533,27 @@ def pyramid_work(shapes):
     return nbytes, {"f32": fma}
 
 
-def interpolate_pyramid(gray, n_levels, scale_factor):
-    """The library's antialiased bilinear resize, level by level from the
-    previous level: `F.interpolate(mode="bilinear", antialias=True)`."""
-    import torch.nn.functional as F
-
+def resident_gemm_pyramid(shape, n_levels, scale_factor, device):
+    """K8's library call: the plain version's products (`resize_bilinear`:
+    `wh.T @ x`, then `@ ww`, a product skipped where an axis keeps its
+    size) with the dense weights already on the card, so no upload; a
+    callable on an f32 image of `shape`."""
     from orb_slam2_refactored_tpu_torch.ops import image as image_ops
 
-    shapes = image_ops.pyramid_shapes(*gray.shape, n_levels, scale_factor)
-    levels = [gray]
-    for sh in shapes[1:]:
-        levels.append(F.interpolate(levels[-1][None, None], size=sh,
-                                    mode="bilinear", align_corners=False,
-                                    antialias=True)[0, 0])
-    return levels
+    shapes = image_ops.pyramid_shapes(*shape, n_levels, scale_factor)
+    weights = [tuple(None if a == b else torch.as_tensor(
+        image_ops._resize_weights_np(a, b), device=device) for a, b in
+        ((ih, oh), (iw, ow))) for (ih, iw), (oh, ow) in zip(shapes[:-1],
+                                                           shapes[1:])]
+
+    def call(gray):
+        levels = [gray]
+        for wh, ww in weights:
+            x = levels[-1] if wh is None else wh.T @ levels[-1]
+            levels.append(x if ww is None else x @ ww)
+        return levels
+
+    return call
 
 
 def pyramid_agreement(a, b):
@@ -574,7 +590,7 @@ def unsplit_shares(gray, n_levels, scale_factor):
     from orb_slam2_refactored_tpu_torch.ops import image as image_ops
 
     found = image_ops.gemm_tap_splits
-    caches = (image_ops._device_taps, image_ops._pyramid_plan)
+    caches = (image_ops._tap_records, image_ops._pyramid_plan)
     image_ops.gemm_tap_splits = lambda n_in, n_out, *a: image_ops.resize_taps(
         n_in, n_out)[0][:, 4]
     try:
@@ -595,12 +611,12 @@ def check_pyramid(gray, frames, n_levels, scale_factor, t_plan):
     1e-4 gray, the bit-equal share of each level printed; then every frame
     of cell A's (`frames`, uint8), each level's largest difference and
     bit-equal share over them and the frames bit-equal on every level.
-    CUDA events time K8 and the plain version; the library's antialiased
-    resize is timed and held against the plain version (the same function
-    only within 1e-4 gray). `t_plan` is the seconds the extractor's
-    construction took to build K8's tables. Returns K8's row (error, card
-    ms, plain ms, bytes, ops), the library's ms and its largest
-    difference."""
+    CUDA events time K8, the plain version and the library call (the
+    plain version's GEMMs with the weights on the card,
+    `resident_gemm_pyramid`), which must equal K8 bit for bit. `t_plan`
+    is the seconds the extractor's construction took to build K8's
+    tables. Returns K8's row (error, card ms, plain ms, bytes, ops), the
+    library's ms and the library callable."""
     from orb_slam2_refactored_tpu_torch.ops import image as image_ops
 
     def call():
@@ -609,8 +625,11 @@ def check_pyramid(gray, frames, n_levels, scale_factor, t_plan):
     def plain():
         return image_ops.build_pyramid_plain(gray, n_levels, scale_factor)
 
+    gemms = resident_gemm_pyramid(tuple(gray.shape), n_levels, scale_factor,
+                                  gray.device)
+
     def library():
-        return interpolate_pyramid(gray, n_levels, scale_factor)
+        return gemms(gray)
 
     out, ref = call(), plain()
     torch.cuda.synchronize()
@@ -643,38 +662,50 @@ def check_pyramid(gray, frames, n_levels, scale_factor, t_plan):
           f"bit-equal share per level min {low} mean {mean}, frames "
           f"bit-equal on every level {whole}")
     assert max(worst) <= 1e-4, f"K8 differs from its plain version: {worst}"
-    lib_err = max(pyramid_agreement(library(), ref)[0])
+    lib = library()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(lib, out)), \
+        "the resident GEMMs differ from K8"
     nbytes, ops = pyramid_work(shapes)
     r = (max(err), cuda_time_ms(call, 50), cuda_time_ms(plain, 20), nbytes,
          ops)
     lib_ms = cuda_time_ms(library, 50)
     b_ms, b_by = bound_ms(nbytes, ops)
     print(f"  K8: card {r[1]:.5f} ms, plain {r[2]:.5f} ms, bound "
-          f"{b_ms:.6f} ms ({b_by}); F.interpolate(bilinear, antialias) "
-          f"{lib_ms:.5f} ms, max_abs_err from the plain version {lib_err}")
-    return r, lib_ms, lib_err
+          f"{b_ms:.6f} ms ({b_by}); the library call (the plain version's "
+          f"{2 * (n_levels - 1)} GEMMs, weights on the card, bit-equal to "
+          f"K8) {lib_ms:.5f} ms")
+    return r, lib_ms, library
 
 
 @contextlib.contextmanager
 def counting_plan_builds(builds):
-    """Inside the block, every K8 call that had to build its geometry's
-    tables (the GEMM's probes and the uploads) instead of finding them
-    built by the extractor's construction adds one to builds[0]."""
+    """Inside the block, every K8 or K9 call that had to build its
+    geometry's tables (K8's GEMM probes and uploads, K9's launch table)
+    instead of finding them built by the extractor's construction adds one
+    to builds[0]."""
     from orb_slam2_refactored_tpu_torch.ops import image as image_ops
+    from orb_slam2_refactored_tpu_torch.ops import orb
 
-    real = image_ops.pyramid_levels
+    wrapped = ((image_ops, "pyramid_levels", image_ops._pyramid_plan),
+               (orb, "spread_topk_levels", orb._spread_plan))
+    reals = [getattr(mod, name) for mod, name, _ in wrapped]
 
-    def call(*args, **kwargs):
-        before = image_ops._pyramid_plan.cache_info().misses
-        out = real(*args, **kwargs)
-        builds[0] += image_ops._pyramid_plan.cache_info().misses - before
-        return out
+    def counted(real, cache):
+        def call(*args, **kwargs):
+            before = cache.cache_info().misses
+            out = real(*args, **kwargs)
+            builds[0] += cache.cache_info().misses - before
+            return out
+        return call
 
-    image_ops.pyramid_levels = call
+    for (mod, name, cache), real in zip(wrapped, reals):
+        setattr(mod, name, counted(real, cache))
     try:
         yield builds
     finally:
-        image_ops.pyramid_levels = real
+        for (mod, name, _), real in zip(wrapped, reals):
+            setattr(mod, name, real)
 
 
 def topk_work(ranked, ks):
@@ -694,19 +725,50 @@ def topk_work(ranked, ks):
     return nbytes, {"f32": f32, "int32": i32}
 
 
+def sort_topk(ranked, ks, rank_rounds=4):
+    """K9's library call: one batched `torch.sort(keys, dim=-1,
+    descending=True, stable=True)` over every level's keys (padded to the
+    longest level with -inf, below every key), then the first k of each
+    level: (values, flat indices) a level with a budget. The keys are
+    built before, as the plain version builds them."""
+    from orb_slam2_refactored_tpu_torch.ops import orb
+
+    used = [(raw, k) for (raw, _), k in zip(ranked, ks) if k > 0]
+    n = max(raw.numel() for raw, _ in used)
+    keys = torch.full((len(used), n), -math.inf, dtype=torch.float32,
+                      device=used[0][0].device)
+    for row, (raw, _) in zip(keys, used):
+        boost = orb._round_boost(raw.shape[0], rank_rounds, str(raw.device))
+        row[:raw.numel()] = torch.where(raw > 0, boost + raw,
+                                        torch.full_like(raw, -1.0)).reshape(-1)
+
+    def call():
+        v, i = torch.sort(keys, dim=-1, descending=True, stable=True)
+        return [(v[l, :k], i[l, :k]) for l, (_, k) in enumerate(used)]
+
+    def plain():
+        return [orb._topk_lowest_index(row[:raw.numel()], k)
+                for row, (raw, k) in zip(keys, used)]
+
+    return call, plain
+
+
 def check_topk(levels, ks, scales, tag, timed=False):
     """K9 against its plain version on the card, on the rank rounds of one
     K2 call over `levels`, as extraction makes it: every output bit for
-    bit. With `timed`, CUDA events time both and the bound is counted."""
+    bit. With `timed`, CUDA events time both and the library call
+    (`sort_topk`, whose selection must equal the plain version's), and the
+    bound is counted; returns K9's row, the library's ms and the library
+    callable."""
     from orb_slam2_refactored_tpu_torch.ops import fast, orb
 
-    ranked = [(r, p) for _, r, p in fast.detect_and_rank(
-        levels, 20.0, 7.0, ks, margin=orb.EDGE_MARGIN)]
+    k2 = fast.detect_and_rank(levels, 20.0, 7.0, ks, margin=orb.EDGE_MARGIN)
+    ranked = [(r, p) for _, r, p in k2]
     args = (ranked, ks, [tuple(x.shape) for x in levels],
             list(range(len(levels))), scales)
 
-    def call():
-        return orb.spread_topk_levels(*args)
+    def call():  # as extraction calls it, on K2's own buffers
+        return orb.spread_topk_levels(*args, buffers=k2.buffers)
 
     def plain():
         return orb.spread_topk_levels_plain(*args)
@@ -721,8 +783,16 @@ def check_topk(levels, ks, scales, tag, timed=False):
     assert all(same.values()), f"K9 differs from its plain version: {same}"
     if not timed:
         return 0.0
+    library, lib_plain = sort_topk(ranked, ks)
+    lib_same = all(torch.equal(a, c) and torch.equal(b, d) for (a, b), (c, d)
+                   in zip(library(), lib_plain()))
+    print(f"  K9's library call (one stable torch.sort over the padded "
+          f"[{len(ranked)}, {max(r.numel() for r, _ in ranked)}] keys): "
+          f"the plain version's selection {lib_same}")
+    assert lib_same, "the stable sort selects otherwise"
     nbytes, ops = topk_work(ranked, ks)
-    return 0.0, cuda_time_ms(call, 50), cuda_time_ms(plain, 20), nbytes, ops
+    r = (0.0, cuda_time_ms(call, 50), cuda_time_ms(plain, 20), nbytes, ops)
+    return r, cuda_time_ms(library, 50), library
 
 
 def _clone(v):
@@ -1446,20 +1516,21 @@ def check_fallback(imgs, depths, gt, device, n=12):
 
 
 def record_tracked_frame(tracker, imgs, depths):
-    """The K1, K2, K3 and K4 calls of one more frame tracked after the main
-    path (frame 0 again: the orbit closes), with the arguments they were
-    given."""
+    """The K1, K2, K3, K4 and K9 calls of one more frame tracked after the
+    main path (frame 0 again: the orbit closes), with the arguments they
+    were given (K9's rank rounds the views of K2's buffers themselves)."""
     from orb_slam2_refactored_tpu_torch.ops import fast, orb
 
-    k1, k2, k3, k4 = [], [], [], []
+    k1, k2, k3, k4, k9 = [], [], [], [], []
     with recording_k1(k1), recording_k4(k4), \
             recording(k2, (fast, "detect_and_rank")), \
-            recording(k3, (orb, "angles_and_descriptors_levels")):
+            recording(k3, (orb, "angles_and_descriptors_levels")), \
+            recording(k9, (orb, "spread_topk_levels")):
         tracker.track_rgbd(imgs[0], depths[0].astype(np.float32))
     info = tracker.track_info[-1]
     assert not info.get("lost") and not info.get("ref_fallback"), info
-    assert len(k2) == len(k3) == 1, (len(k2), len(k3))
-    return k1, k2[0], k3[0], k4
+    assert len(k2) == len(k3) == len(k9) == 1, (len(k2), len(k3), len(k9))
+    return k1, k2[0], k3[0], k4, k9[0]
 
 
 def record_tracked_stereo_frame(tracker, left, right):
@@ -1929,8 +2000,9 @@ def compare_extraction(imgs, device, n=20):
                       rank_cell=32, rank_rounds=4):
         outs = fused(levels, ini_th, min_th, [0] * len(levels), cell, margin,
                      rank_cell, rank_rounds)
-        return [(s,) + fast.cell_rank_rounds(s, k, rank_cell, rank_rounds)
-                for (s, _, _), k in zip(outs, ks)]
+        return fast.RankRounds(
+            [(s,) + fast.cell_rank_rounds(s, k, rank_cell, rank_rounds)
+             for (s, _, _), k in zip(outs, ks)])
 
     def run(variant):
         fast.detect_and_rank = plain_ranking if variant == "plain" else fused
@@ -2098,23 +2170,22 @@ def device_times_k5(asm_call, index_r, asm_r, cost_r, reps=20):
 
 
 # ---------------------------------------------------------------------------
-# --parent: K1, K4, K5, B9 and K6 against the parent commit's kernels
+# --parent: K1, K4, K5, B9, K6, K8 and K9 against the parent's kernels
 # ---------------------------------------------------------------------------
 
 def build_parent(parent):
     """The port package of another checkout (`parent`), imported from it as
     the package `parent_port` with its kernels built from its own sources
     (all at once, into its own `build/torch_kernels/`); its wrappers bind
-    each kernel with its own C signature. Returns its K1, K4 and K5
-    entries, its B9 chain after K1 with `associate_from_best2`'s
-    signature: `stereo_match`'s torch tail (unchanged since), then the
-    parent's `refine_subpixel_pyramid`; and its `optim/ba.py` (its CG step
-    `_cg_step` around its two-launch K6, its `ba_solve`)."""
+    each kernel with its own C signature. Returns its entries by job
+    (`SIDE_JOBS`): K1, K4, K5 (assembly, cost), B9
+    (`associate_from_best2`), K6 (`ba_schur_cg`, with `cg_args` to hand it
+    a recorded call: W_obs in the parent's own `LiveRows` type), the
+    global BA (`ba_solve`), K8 (`build_pyramid`) and K9
+    (`spread_topk_levels`)."""
     import importlib
     import importlib.util
     import os
-
-    from orb_slam2_refactored_tpu_torch.ops import hamming, stereo
 
     pkg = os.path.join(parent, "orb_slam2_refactored_tpu_torch")
     spec = importlib.util.spec_from_file_location(
@@ -2129,15 +2200,20 @@ def build_parent(parent):
     old_pose = importlib.import_module("parent_port.optim.pose_opt")
     old_ba = importlib.import_module("parent_port.optim.ba")
     old_stereo = importlib.import_module("parent_port.ops.stereo")
+    old_image = importlib.import_module("parent_port.ops.image")
+    old_orb = importlib.import_module("parent_port.ops.orb")
 
-    def parent_b9(levels_l, levels_r, l_xy, l_level, r_xy, idx, best,
-                  scale_factors, bf, max_dist=hamming.TH_HIGH):
-        u, _, ok = stereo._match_tail(l_xy, r_xy, idx, best, bf, max_dist)
-        return old_stereo.refine_subpixel_pyramid(
-            levels_l, levels_r, l_xy, l_level, u, ok, bf, scale_factors)
+    def cg_args(c):
+        live = c["W_obs"]
+        return {**c, "W_obs": old_ba.LiveRows(
+            live.rows, old_ba.PointIndex(*live.index))}
 
-    return (old_hamming.masked_best2_gated, old_pose.pose_optimize,
-            old_ba.ba_assemble, old_ba.ba_cost, parent_b9, old_ba)
+    return {"k1": old_hamming.masked_best2_gated,
+            "k4": old_pose.pose_optimize, "asm": old_ba.ba_assemble,
+            "cost": old_ba.ba_cost, "b9": old_stereo.associate_from_best2,
+            "cg": old_ba.ba_schur_cg, "cg_args": cg_args,
+            "solve": old_ba.ba_solve, "k8": old_image.build_pyramid,
+            "k9": old_orb.spread_topk_levels}
 
 
 def in_turns(label, calls, fns, reps=20):
@@ -2154,38 +2230,22 @@ def in_turns(label, calls, fns, reps=20):
     return ms
 
 
-def parent_cg_args(old_ba, c):
-    """The parent's CG step's (`_cg_step`) arguments for a recorded
-    `ba_schur_cg` call `c`: W_obs in the slot layout and the index's first
-    two fields."""
-    import types
-
-    from orb_slam2_refactored_tpu_torch.optim import ba
-
-    live = c["W_obs"]
-    return dict(p=types.SimpleNamespace(obs_pt=c["obs_pt"]), Hpp_d=c["Hpp_d"],
-                g_p=c["g_p"], g_l=c["g_l"], G=c["G"],
-                W_obs=ba.w_obs_slot_rows(live), obs_ok0=c["obs_ok"],
-                free=c["free"], index=old_ba.PointIndex(live.index.offsets,
-                                                        live.index.slots),
-                cg_iters=c["cg_iters"])
-
-
 # what `time_side` times: job -> (the entry's name in `side_entries`,
 # one-call windows)
 SIDE_JOBS = {"k1_frame": ("k1", False), "k1_dense": ("k1", False),
              "k4_frame": ("k4", False), "k5_ba_assemble": ("asm", False),
              "k5_ba_cost": ("cost", False), "b9": ("b9", False),
-             "k6": ("cg", True), "gba": ("solve", True)}
+             "k6": ("cg", True), "gba": ("solve", True), "k8": ("k8", False),
+             "k9": ("k9", False)}
 
 
 def side_entries(side, parent):
     """One side's entries (`--parent`): this checkout's, or the parent's
     (`build_parent`); every kernel library of that side loaded. For K6,
-    a recorded `ba_schur_cg` call's arguments and the entry that takes
-    them."""
+    `cg_args` turns a recorded `ba_schur_cg` call into the side's."""
     from orb_slam2_refactored_tpu_torch import kernels
-    from orb_slam2_refactored_tpu_torch.ops import hamming, stereo
+    from orb_slam2_refactored_tpu_torch.ops import hamming, orb, stereo
+    from orb_slam2_refactored_tpu_torch.ops import image as image_ops
     from orb_slam2_refactored_tpu_torch.optim import ba, pose_opt
 
     if side == "change":
@@ -2194,15 +2254,13 @@ def side_entries(side, parent):
         return {"k1": hamming.masked_best2_gated, "k4": pose_opt.pose_optimize,
                 "asm": ba.ba_assemble, "cost": ba.ba_cost,
                 "b9": stereo.associate_from_best2, "cg": ba.ba_schur_cg,
-                "cg_args": lambda c: c, "solve": ba.ba_solve}
-    old_k1, old_k4, old_asm, old_cost, old_b9, old_ba = build_parent(parent)
+                "cg_args": lambda c: c, "solve": ba.ba_solve,
+                "k8": image_ops.build_pyramid, "k9": orb.spread_topk_levels}
+    entries = build_parent(parent)
     old_kernels = sys.modules["parent_port.kernels"]
     for name in old_kernels.SOURCES:
         old_kernels.load(name)
-    return {"k1": old_k1, "k4": old_k4, "asm": old_asm, "cost": old_cost,
-            "b9": old_b9, "cg": old_ba._cg_step,
-            "cg_args": lambda c: parent_cg_args(old_ba, c),
-            "solve": old_ba.ba_solve}
+    return entries
 
 
 def time_side(side, parent, jobs_path):
@@ -2284,37 +2342,51 @@ def device_times_in_turns(parent, jobs):
 
 
 def compare_with_parent(parent, frame_k1, dense_k1, frame_k4, fb_k4,
-                        asm_call, st_tail, k6_calls, gba_call):
-    """K1, K4, K5, B9 and K6 against the parent checkout's on the same
-    recorded arguments: outputs (K1 and B9 exactly; K4 bit for bit,
-    reported; K5's largest difference, reported; K6 under the f64
-    yardstick), CUDA-event times in turns in this process, then
-    (`device_times_in_turns`) device times and operations, K4's iteration
-    on no observation and cell F's whole global BA (device time,
-    operations, host time), each side in a process of its own: for B9 the
-    parent's chain after K1 (its torch tail around its launch) against
-    the one launch, for K6 the parent's whole CG step against the one
-    launch."""
-    from orb_slam2_refactored_tpu_torch.ops import hamming, stereo
+                        asm_call, st_tail, k6_calls, gba_call, k8_calls,
+                        k9_calls):
+    """K1, K4, K5, B9, K6, K8 and K9 against the parent checkout's own
+    entries (`build_parent`) on the same recorded arguments: outputs (K1,
+    B9, K8 and K9 exactly; K4 bit for bit, reported; K5's largest
+    difference, reported; K6 under the f64 yardstick), CUDA-event times in
+    turns in this process, then (`device_times_in_turns`) device times and
+    operations, K4's iteration on no observation and cell F's whole global
+    BA (device time, operations, host time), each side in a process of its
+    own."""
+    from orb_slam2_refactored_tpu_torch.ops import hamming, orb, stereo
+    from orb_slam2_refactored_tpu_torch.ops import image as image_ops
     from orb_slam2_refactored_tpu_torch.optim import ba, pose_opt
 
-    old_k1, old_k4, old_asm, old_cost, old_b9, old_ba = build_parent(parent)
+    old = build_parent(parent)
+    for label, new_fn, old_fn, calls in (
+            ("K8", image_ops.build_pyramid, old["k8"], k8_calls),
+            ("K9", orb.spread_topk_levels, old["k9"], k9_calls)):
+        for name, a in calls.items():
+            same = [bool(torch.equal(x, y)) for x, y in zip(new_fn(**a),
+                                                            old_fn(**a))]
+            print(f"  {label} {name}: equal to the parent's {label} {same}")
+            assert all(same), (label, name, same)
     for name, a in {**frame_k1, **dense_k1}.items():
         same = all(torch.equal(x, y) for x, y in zip(
-            hamming.masked_best2_gated(**a), old_k1(**a)))
+            hamming.masked_best2_gated(**a), old["k1"](**a)))
         print(f"  K1 {name}: equal to the parent's K1 {same}")
         assert same, name
     n_bits = 0
     k4_calls = {**frame_k4, **fb_k4}
     for name, a in k4_calls.items():
-        k, o = pose_opt.pose_optimize(**a), old_k4(**a)
+        k, o = pose_opt.pose_optimize(**a), old["k4"](**a)
         same = [bool(torch.equal(x, y)) for x, y in zip(k, o)]
         n_bits += all(same)
         print(f"  K4 {name}: (pose, inliers, count, cost) bit-equal to the "
               f"parent's K4 {same}; cost {float(k.final_cost)!r} vs "
               f"{float(o.final_cost)!r}")
     res = {"k4_bit_equal_calls": f"{n_bits} of {len(k4_calls)}"}
-    k1_fns = {"parent": old_k1, "change": hamming.masked_best2_gated}
+    res["k8_card_ms"] = in_turns(
+        "K8 on frame 0's and a tracked frame's images, CUDA events",
+        k8_calls, {"parent": old["k8"], "change": image_ops.build_pyramid})
+    res["k9_card_ms"] = in_turns(
+        "K9 on frame 0's and a tracked frame's rank rounds, CUDA events",
+        k9_calls, {"parent": old["k9"], "change": orb.spread_topk_levels})
+    k1_fns = {"parent": old["k1"], "change": hamming.masked_best2_gated}
     res["k1_frame_card_ms"] = in_turns(
         "K1 on the tracked frame's calls, CUDA events", frame_k1, k1_fns)
     res["k1_dense_card_ms"] = in_turns(
@@ -2322,12 +2394,12 @@ def compare_with_parent(parent, frame_k1, dense_k1, frame_k4, fb_k4,
         dense_k1, k1_fns)
     res["k4_frame_card_ms"] = in_turns(
         "K4 on the tracked frame's calls, CUDA events", frame_k4,
-        {"parent": old_k4, "change": pose_opt.pose_optimize})
+        {"parent": old["k4"], "change": pose_opt.pose_optimize})
     cost_call = {n: v for n, v in asm_call.items()
                  if n not in ("index", "w_obs")}
     for name, new_fn, old_fn, a in (
-            ("ba_assemble", ba.ba_assemble, old_asm, asm_call),
-            ("ba_cost", ba.ba_cost, old_cost, cost_call)):
+            ("ba_assemble", ba.ba_assemble, old["asm"], asm_call),
+            ("ba_cost", ba.ba_cost, old["cost"], cost_call)):
         rel = [_rel_err(x, y) for x, y in zip(new_fn(**a), old_fn(**a))]
         print(f"  K5 {name}: largest difference from the parent's, relative "
               f"to each array's largest magnitude: {rel}")
@@ -2335,20 +2407,19 @@ def compare_with_parent(parent, frame_k1, dense_k1, frame_k4, fb_k4,
             f"K5 {name} on the recorded window BA's first LM iteration, "
             "CUDA events", {name: a}, {"parent": old_fn, "change": new_fn})
     same = [bool(torch.equal(x, y)) for x, y in zip(
-        stereo.associate_from_best2(**st_tail), old_b9(**st_tail))]
-    print(f"  B9: (u_right, depth, ok) equal to the parent's chain after K1 "
-          f"{same}")
+        stereo.associate_from_best2(**st_tail), old["b9"](**st_tail))]
+    print(f"  B9: (u_right, depth, ok) equal to the parent's {same}")
     assert all(same), same
     res["b9_card_ms"] = in_turns(
         "B9, the stereo association after K1 on the recorded stereo frame, "
         "CUDA events", {"b9": st_tail},
-        {"parent": old_b9, "change": stereo.associate_from_best2})
+        {"parent": old["b9"], "change": stereo.associate_from_best2})
     par = {}
     for i, c in enumerate(k6_calls):
-        pa = parent_cg_args(old_ba, c)
-        yard, _, _ = cg_yardstick({"change": ba.ba_schur_cg(**c),
-                                   "parent": old_ba._cg_step(**pa)},
-                                  {**c, "W_obs": pa["W_obs"]})
+        yard, _, _ = cg_yardstick(
+            {"change": ba.ba_schur_cg(**c),
+             "parent": old["cg"](**old["cg_args"](c))},
+            {**c, "W_obs": ba.w_obs_slot_rows(c["W_obs"])})
         par[i] = {n: (e_k / scale, e_p / scale)
                   for n, (e_k, e_p, scale) in yard.items()}
     print("  K6: each CG solve's largest difference from the plain solve in "
@@ -2357,13 +2428,14 @@ def compare_with_parent(parent, frame_k1, dense_k1, frame_k4, fb_k4,
     c0 = k6_calls[0]
     res["k6_card_ms"] = in_turns(
         "K6, an LM iteration's CG solve of cell F's first global BA, CUDA "
-        "events", {"k6": {"pa": parent_cg_args(old_ba, c0), "c": c0}},
-        {"parent": lambda **a: old_ba._cg_step(**a["pa"]),
+        "events", {"k6": {"pa": old["cg_args"](c0), "c": c0}},
+        {"parent": lambda **a: old["cg"](**a["pa"]),
          "change": lambda **a: ba.ba_schur_cg(**a["c"])})
     res["device"] = device_times_in_turns(parent, {
         "k1_frame": frame_k1, "k1_dense": dense_k1, "k4_frame": frame_k4,
         "k5_ba_assemble": {"a": asm_call}, "k5_ba_cost": {"a": cost_call},
-        "b9": {"b9": st_tail}, "k6": {"k6": c0}, "gba": {"gba": gba_call}})
+        "b9": {"b9": st_tail}, "k6": {"k6": c0}, "gba": {"gba": gba_call},
+        "k8": k8_calls, "k9": k9_calls})
     print("against the parent " + json.dumps(res))
     return res
 
@@ -2446,13 +2518,15 @@ def circuit_config(cell, loop):
                                kf_max_interval=8, enable_loop_closing=loop)
 
 
-def run_circuit(cell, loop, frames, gt, device, record=None):
+def run_circuit(cell, loop, frames, gt, device, record=None, gated=True):
     """One run of a loop cell through `Tracker.track_rgbd`, every launch
     counter set to 0 just before and read just after; the ATE of the
     corrected trajectory (`corrected_frame_poses`), the loops closed and
     the host times of `_close_loop` and `kf.gba_merge`. With `record` (a
     dict), the arguments of the run's global-BA calls (`compact_points`,
-    `ba_solve`) and pose-graph solves are recorded into it."""
+    `ba_solve`) and pose-graph solves are recorded into it. Unless
+    `gated` is false (`--c13`, which records and gates nothing), tracking
+    must end OK and every kernel of the path must launch."""
     from orb_slam2_refactored_tpu_torch import kernels
     from orb_slam2_refactored_tpu_torch.io.evaluation import ate_rmse
     from orb_slam2_refactored_tpu_torch.slam import loop_closing
@@ -2504,6 +2578,8 @@ def run_circuit(cell, loop, frames, gt, device, record=None):
         "wall_s": wall, "launches": launches}
     print(f"cell {cell} (loop closing {'on' if loop else 'off'}) "
           + json.dumps(stats))
+    if not gated:
+        return stats, tracker
     assert stats["state"] == 1, tracker.track_info[-3:]
     for k, v in launches.items():
         if k in ("stereo_sad", LEARNED_KERNEL):
@@ -2528,6 +2604,70 @@ def gate_loop_cell(on, off):
     assert on["loops_closed"] >= 1, f"cell {cell}: no loop closed"
     assert on["ate_m"] < off["ate_m"], (cell, on["ate_m"], off["ate_m"])
     assert on["ate_m"] < LOOP_ATE_M, (cell, on["ate_m"])
+
+
+def block_splits(n_in, n_out, block=8):
+    """Each output's taps split at the first multiple of `block` of the
+    input index inside them, one chain where none falls inside: the
+    partial sums of an FFMA GEMM's 8-wide K blocks and nothing else."""
+    from orb_slam2_refactored_tpu_torch.ops import image as image_ops
+
+    idx, _ = image_ops.resize_taps(n_in, n_out)
+    first, count = idx[:, 0], idx[:, 1]
+    cut = (first // block + 1) * block
+    return np.where(cut < first + count, cut - first, count).astype(np.int32)
+
+
+def run_c13(device):
+    """`--c13`: cells E and F, loop closing off and on, with K8 fed three
+    split tables through its plan (`gemm_tap_splits` replaced, the plan
+    caches cleared): the card's GEMM's (the tracker's own), one `fmaf`
+    chain an output, and splits at 8-wide input blocks only. Each run's
+    ATE pair and whether the cells' gates hold (F: loops beat no loops; E:
+    also under 6 cm) are recorded, not gated: hazard C13's margin under a
+    last-bit change of the pyramid. Returns the table."""
+    from orb_slam2_refactored_tpu_torch.ops import image as image_ops
+
+    found = image_ops.gemm_tap_splits
+    orders = {
+        "gemm": found,
+        "chain": lambda n_in, n_out, *a: image_ops.resize_taps(
+            n_in, n_out)[0][:, 4].copy(),
+        "block8": lambda n_in, n_out, *a: block_splits(n_in, n_out)}
+    caches = (image_ops._tap_records, image_ops._pyramid_plan)
+    cells = {}
+    for cell in ("E", "F"):
+        t0 = time.perf_counter()
+        cells[cell] = circuit_frames(cell)
+        print(f"cell {cell}: {len(cells[cell][0])} frames rendered in "
+              f"{time.perf_counter() - t0:.1f} s")
+    table = {}
+    try:
+        for order, splits in orders.items():
+            image_ops.gemm_tap_splits = splits
+            for c in caches:
+                c.cache_clear()
+            for cell, (frames, cgt) in cells.items():
+                t0 = time.perf_counter()
+                off, _ = run_circuit(cell, False, frames, cgt, device,
+                                     gated=False)
+                on, _ = run_circuit(cell, True, frames, cgt, device,
+                                    gated=False)
+                row = {"ate_off_m": off["ate_m"], "ate_on_m": on["ate_m"],
+                       "loops_closed": on["loops_closed"],
+                       "loops_beat_no_loops": on["ate_m"] < off["ate_m"],
+                       "on_under_6cm": on["ate_m"] < LOOP_ATE_M,
+                       "state_ok": [off["state"] == 1, on["state"] == 1],
+                       "lost_frames": [off["lost_frames"],
+                                       on["lost_frames"]],
+                       "wall_s": time.perf_counter() - t0}
+                table.setdefault(order, {})[cell] = row
+                print(f"c13 {order} cell {cell}: " + json.dumps(row))
+    finally:
+        image_ops.gemm_tap_splits = found
+        for c in caches:
+            c.cache_clear()
+    return table
 
 
 # the fused CG's yardstick: the plain solve in f64; the kernel may lie at
@@ -3953,20 +4093,35 @@ def main():
                     help="after the main paths, break a frame's time down "
                     "(cell A's, and a stereo frame's of cell C)")
     ap.add_argument("--parent", metavar="DIR",
-                    help="also hold K1, K4, K5, B9 and K6 (and cell F's "
-                    "global BA) against the kernels of the checkout in DIR "
-                    "(outputs, device and CUDA-event time, in turns)")
+                    help="also hold K1, K4, K5, B9, K6, K8 and K9 (and cell "
+                    "F's global BA) against the kernels of the checkout in "
+                    "DIR (outputs, device and CUDA-event time, in turns)")
     ap.add_argument("--time-side", choices=("parent", "change"),
                     help="with --parent and --jobs: only time the recorded "
                     "jobs through one side's kernels (a process of its own, "
                     "started by --parent)")
     ap.add_argument("--jobs", metavar="FILE", help=argparse.SUPPRESS)
+    ap.add_argument("--c13", action="store_true",
+                    help="only run cells E and F, loop closing off and on, "
+                    "under three orders of K8's partial sums (the GEMM's, "
+                    "one chain, 8-wide blocks), recording the ATE and the "
+                    "gates without holding them")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(1)
     if args.time_side:
         time_side(args.time_side, args.parent, args.jobs)
+        return
+    if args.c13:
+        from orb_slam2_refactored_tpu_torch import kernels
+
+        card = card_line()
+        print(card)
+        kernels.build_all()
+        table = run_c13(torch.device("cuda:0"))
+        print(card)
+        print(json.dumps({"c13": table}))
         return
 
     from orb_slam2_refactored_tpu_torch import kernels
@@ -4009,24 +4164,25 @@ def main():
     cfg = bench_config(True)
     t0 = time.perf_counter()
     ext = OrbExtractor(480, 640, cfg.n_features, cfg.scale_factor,
-                       cfg.n_levels, device=device)  # builds K8's tables
+                       cfg.n_levels, device=device)  # K8's, K9's tables
     torch.cuda.synchronize()
     t_plan = time.perf_counter() - t0
     img0 = torch.as_tensor(imgs[0], device=device)
     gray0 = image_ops.to_gray(img0)
-    pyr_r, pyr_lib_ms, pyr_lib_err = check_pyramid(
+    pyr_r, pyr_lib_ms, pyr_lib = check_pyramid(
         gray0, imgs, cfg.n_levels, cfg.scale_factor, t_plan)
     levels = image_ops.build_pyramid(gray0, cfg.n_levels, cfg.scale_factor)
     fast_r = check_fast(levels, ext.budgets, "frame 0", timed=True)
-    topk_r = check_topk(levels, ext.budgets, ext.level_scales, "frame 0",
-                        timed=True)
+    topk_r, topk_lib_ms, topk_lib = check_topk(
+        levels, ext.budgets, ext.level_scales, "frame 0", timed=True)
     kp0 = level_keypoints(levels, ext.budgets)
     orb_r = check_orb(levels, *kp0, ext.budgets, "frame 0", timed=True)
     fb_k1, fb_k4 = check_fallback(imgs, depths, gt, device)
 
     mark("2_k8_k2_k9_k3_fallback")
     # ---- phase 3: the main paths ----
-    # no frame builds K8's tables: each tracker built them when constructed
+    # no frame builds K8's or K9's tables: each tracker built them when
+    # constructed
     main_paths = contextlib.ExitStack()
     plan_builds = main_paths.enter_context(counting_plan_builds([0]))
     n = N_FRAMES_NO_BA
@@ -4077,9 +4233,9 @@ def main():
     mark("3_cell_I")
     drivers_3j = run_driver_cells(tmp)
     main_paths.close()
-    print(f"phase 3: K8 calls that built their tables on a frame "
+    print(f"phase 3: K8 and K9 calls that built their tables on a frame "
           f"{plan_builds[0]}")
-    assert plan_builds[0] == 0, "a frame built K8's tables"
+    assert plan_builds[0] == 0, "a frame built K8's or K9's tables"
     mark("3_j_drivers")
 
     # ---- phase 4: every kernel on the arguments the main path gave it ----
@@ -4087,8 +4243,8 @@ def main():
 
     sbp = []
     with recording(sbp, (matching, "search_by_projection_with_vis")):
-        frame_k1, frame_k2, frame_k3, frame_k4 = record_tracked_frame(
-            tracker, imgs, depths)
+        (frame_k1, frame_k2, frame_k3, frame_k4,
+         frame_k9) = record_tracked_frame(tracker, imgs, depths)
     check_fast(frame_k2["levels"], frame_k2["ks"], "tracked frame")
     check_topk(frame_k2["levels"], frame_k2["ks"], ext.level_scales,
                "tracked frame")
@@ -4181,11 +4337,11 @@ def main():
                 gray0, cfg.n_levels, cfg.scale_factor)),
             ("plain pyramid", lambda: image_ops.build_pyramid_plain(
                 gray0, cfg.n_levels, cfg.scale_factor)),
-            ("F.interpolate pyramid", lambda: interpolate_pyramid(
-                gray0, cfg.n_levels, cfg.scale_factor)),
+            ("K8's library call (resident GEMMs)", lambda: pyr_lib()),
             ("K9", lambda: orb.spread_topk_levels(*topk_args)),
             ("plain top-k", lambda: orb.spread_topk_levels_plain(
-                *topk_args))):
+                *topk_args)),
+            ("K9's library call (stable sort)", topk_lib)):
         n_ops = []
         ms, rows = profiled_ms(fn, 20, n_ops)
         ext_t[name] = {"device_ms": ms, "device_ops": n_ops[0]}
@@ -4197,8 +4353,8 @@ def main():
         b_ms, b_by = bound_ms(r[3], r[4])
         ext_t[name].update(card_ms=r[1], plain_card_ms=r[2], bound_ms=b_ms,
                            bound_by=b_by)
-    ext_t["F.interpolate pyramid"].update(card_ms=pyr_lib_ms,
-                                          max_abs_err=pyr_lib_err)
+    ext_t["K8's library call (resident GEMMs)"]["card_ms"] = pyr_lib_ms
+    ext_t["K9's library call (stable sort)"]["card_ms"] = topk_lib_ms
     print("K8 and K9 on frame 0: " + json.dumps(ext_t))
     k3_ms, k3_rows = profiled_ms(lambda: orb.angles_and_descriptors_levels(
         levels, *kp0, ext.budgets), 20)
@@ -4286,9 +4442,19 @@ def main():
                                       **name_k1_calls("triangulation",
                                                       tri_k1)}.items()
                     if "uv" not in a}
+        pyr_args = {"n_levels": cfg.n_levels,
+                    "scale_factor": cfg.scale_factor}
         compare_with_parent(args.parent, frame_k1, dense_k1, frame_k4,
                             {f"fallback{i}": a for i, a in enumerate(fb_k4)},
-                            asm_call, st_tail, k6_calls, gba_call)
+                            asm_call, st_tail, k6_calls, gba_call,
+                            {"frame0": {"img": gray0, **pyr_args},
+                             "tracked": {"img": frame_k2["levels"][0],
+                                         **pyr_args}},
+                            {"frame0": dict(zip(
+                                ("ranked", "ks", "shapes", "level_ids",
+                                 "scales"), topk_args)),
+                             "tracked": {k: v for k, v in frame_k9.items()
+                                         if k != "buffers"}})
     compare_extraction(imgs, device)
     _profile_window(tracker_g, lambda k: tracker_g.track_mono(
         imgs[k % N_FRAMES]), range(1, 21), "mono tracked frames (cell G)")
@@ -4331,10 +4497,10 @@ def main():
                    ref + "ops/orb.py:532",
                    stats_i["launches"][LEARNED_KERNEL], k7_r),
         kernel_row("pyramid", pkg + "pyramid.cu", ref + "ops/image.py:42",
-                   L["pyramid"], pyr_r,
-                   pyr_lib_ms if pyr_lib_err <= 1e-4 else None),
+                   L["pyramid"], pyr_r, pyr_lib_ms),
         kernel_row("spread_topk", pkg + "spread_topk.cu",
-                   ref + "ops/orb.py:203", L["spread_topk"], topk_r),
+                   ref + "ops/orb.py:203", L["spread_topk"], topk_r,
+                   topk_lib_ms),
     ]
     rows[3]["max_abs_err"] = max(rows[3]["max_abs_err"], reloc_k4_err)
     for row in rows:
@@ -4357,10 +4523,12 @@ def main():
           "iteration); orb_desc_learned = one launch over all 8 levels of "
           "frame 0 with the learned table, its launches from cell I "
           "(rgbd_tum through the CLI); pyramid (K8) = one launch for "
-          "levels 1-7 of frame 0, library_ms F.interpolate(bilinear, "
-          "antialias) level by level where within 1e-4 gray of the plain "
-          "version; spread_topk (K9) = one launch for the 8 levels' top-k "
-          "of frame 0; launches_cell_g / _h / _i: those cells' own runs")
+          "levels 1-7 of frame 0, library_ms the plain version's 14 "
+          "GEMMs with the weights on the card (bit-equal to K8); "
+          "spread_topk (K9) = one launch for the 8 levels' top-k of frame "
+          "0, library_ms one stable torch.sort over the padded keys (the "
+          "same selection); launches_cell_g / _h / _i: those cells' own "
+          "runs")
     print("phase 3j: " + json.dumps(
         {k: {kk: vv for kk, vv in v.items() if kk != "launches"}
          for k, v in drivers_3j.items()}))

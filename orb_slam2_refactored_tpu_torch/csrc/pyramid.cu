@@ -7,8 +7,7 @@
 //     a level with dense [in, out] weight matrices.
 // The plain PyTorch version (`ops/image.py::build_pyramid_plain`) does the
 // same with two dense f32 GEMMs a level, each of whose outputs has 2-3
-// nonzero taps at the scale factor 1.2, and uploads the weight matrices
-// on every call.
+// nonzero taps at the scale factor 1.2.
 //
 // What it computes. Level l is resized from level l-1: first the vertical
 // pass (`wh.T @ img`), rounded to f32, then the horizontal pass (`@ ww`).
@@ -19,80 +18,72 @@
 // of 8-wide K blocks, or of split-K slices, are added at the end, as
 // cuBLAS chooses for the shape; `ops/image.py::gemm_tap_splits` finds the
 // split of each output once per shape by a probe of the GEMM, so the
-// kernel equals the plain version on the card bit for bit (a single chain,
-// split = count, measured 79-93 % of the upper levels' pixels bit-equal on
-// the H100). The taps are `_resize_weights_np`'s own f32 weights, read
-// from a table (per output: first input index, tap count, the bounds of a
-// tile's input span, the split; then the taps) uploaded once per shape
-// and device (`ops/image.py::resize_taps`).
+// kernel equals the plain version on the card bit for bit. The taps are
+// `_resize_weights_np`'s own f32 weights, read from a record per output
+// (first input index, tap count, split, then the taps: three 16-byte
+// loads) uploaded once per shape and device (`ops/image.py::_tap_records`).
 //
 // What bounds it on the H100. The function reads level 0 once and writes
 // levels 1 to n-1 once: at VGA 1.23 MB in and 2.6 MB out, ~1.1 us at 3.35
 // TB/s; it does ~2.5 FMAs a vertical and a horizontal output, a few
 // million f32 operations, well under a microsecond. So bytes bound it,
-// and in practice the dependency between levels: level l cannot start
-// before level l-1 is written. Design:
-//   - one cooperative launch (`cudaLaunchCooperativeKernel`), as many
-//     blocks as fit at once up to the largest level's tile count, a grid
-//     barrier (`this_grid().sync()`) between levels: n-2 barriers, no
-//     float atomics, no host work between levels;
-//   - a block a 16 x 64 output tile: it stages the tile's taps and its
-//     input span (the rows and columns its taps reach) in shared memory,
-//     computes the vertical sums of the span's columns into shared memory
-//     (rounded to f32, as the GEMM's intermediate is), then the
-//     horizontal sums, and writes the tile with coalesced stores;
-//   - the previous level is read with `ld.global.cg` (L2, not the SM's
-//     L1): it was written by other blocks in the same launch.
-// One ordinary launch a level, with no barrier, measured 13-36 % slower in
-// CUDA-event time on the H100 (PERF.md), so the one launch is kept.
+// and in practice the dependency between levels: level l needs level l-1.
+// Design: no block waits on another. The deepest level is cut into a grid
+// of gy x gx parts (`ops/image.py::pyramid_schedule`, ~one block an SM),
+// and block (by, bx) computes, level after level from level 0, the region
+// of each level that its part needs (`axis_parts`: the rows and columns
+// whose taps its next level's region reads, hulled with what it owns);
+// a region lives in shared memory and is the next level's input, so only
+// level 0 is read from device memory. Neighbouring blocks compute their
+// shared margins twice (~1.5x the outputs in all at VGA); each writes only
+// the outputs it owns, and the owned outputs of the blocks cover every
+// level once. No grid barrier, no cooperative launch, no float atomics:
+// a level's latency is two `__syncthreads`. Every output is computed with
+// the same record and the same rounding wherever it is computed, so a
+// block's margin equals its neighbour's owned output bit for bit.
 // Levels start at 16-byte-aligned offsets of one buffer (the caller lays
 // it out), where kernel K2 uses vector loads.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kMaxLevels = 16;
-constexpr int kMaxTaps = 8;   // `PYR_MAX_TAPS` in ops/image.py
-constexpr int TY = 16;        // a tile: 16 output rows x 64 columns
-constexpr int TX = 64;        // (`PYR_TILE` in ops/image.py)
-constexpr int kThreads = 256;
+constexpr int kMaxTaps = 8;  // `PYR_MAX_TAPS` in ops/image.py
+constexpr int kRec = 1 + kMaxTaps / 4;  // int4 a record: first, count,
+                                        // split, a pad, then the taps
+constexpr int kThreads = 1024;
+constexpr int kMaxSmem = 232448;  // `PYR_SMEM` in ops/image.py
 
-constexpr int kIdx = 5;  // first, count, span lo, span hi, split
-
-struct Axis {
-  const int* idx;     // [out, kIdx]
-  const float* taps;  // [out, kMaxTaps]
-};
-
-struct Phase {        // level l from level l-1
-  const float* src;
-  float* dst;
-  int iw, oh, ow;
-  int tiles_x, tiles;
-  Axis v, h;
+struct Level {        // level l from level l-1
+  float* dst;         // level l in the buffer
+  int w;              // its width
+  const int4* v;      // vertical records, kRec int4 an output row
+  const int4* h;      // horizontal records, kRec int4 an output column
 };
 
 struct PyrArgs {
-  Phase ph[kMaxLevels];
-  int n;              // levels: phases 1 to n-1
+  Level lv[kMaxLevels];
+  const float* img;   // level 0
+  int w0, n, gx;
+  const int4* rows;   // [gy][n]: need lo, need hi, own lo, own hi
+  const int4* cols;   // [gx][n]
+  int records;        // records a block stages, at most
+  int region;         // floats of a region buffer (two of them)
 };
 
-struct TileTaps {
-  int vf[TY], vc[TY], vs[TY], hf[TX], hc[TX], hs[TX];
-  float vw[TY][kMaxTaps], hw[TX][kMaxTaps];
-};
-
-// taps [0, split) of x[0], x[stride], ... as one fmaf chain from the first
-// product, taps [split, count) as another, then their sum (count >= 1,
-// 1 <= split <= count)
+// The output of record `rec` over x[first - origin], x[first - origin +
+// stride], ...: taps [0, split) as one fmaf chain from the first product,
+// taps [split, count) as another, then their sum (1 <= split <= count);
+// 0 for an output with no tap.
 __device__ __forceinline__ float tap_sum(const float* x, int stride,
-                                         const float* w, int count,
-                                         int split) {
+                                         int origin, const int4* rec) {
+  const int4 hd = rec[0];
+  const int count = hd.y, split = hd.z;
+  if (count <= 0) return 0.f;
+  const float* w = reinterpret_cast<const float*>(rec + 1);
+  x += (hd.x - origin) * stride;
   float a = __fmul_rn(w[0], x[0]);
   for (int k = 1; k < split; ++k) a = __fmaf_rn(w[k], x[k * stride], a);
   if (split >= count) return a;
@@ -102,141 +93,152 @@ __device__ __forceinline__ float tap_sum(const float* x, int stride,
   return __fadd_rn(a, b);
 }
 
-__device__ void resize_tile(const Phase& p, int t, float* smem,
-                            TileTaps& s) {
-  const int tid = threadIdx.x;
-  const int oy0 = (t / p.tiles_x) * TY, ox0 = (t % p.tiles_x) * TX;
-  const int my = min(TY, p.oh - oy0), mx = min(TX, p.ow - ox0);
-  const int ry0 = __ldg(p.v.idx + kIdx * oy0 + 2);
-  const int ry1 = __ldg(p.v.idx + kIdx * (oy0 + my - 1) + 3);
-  const int rx0 = __ldg(p.h.idx + kIdx * ox0 + 2);
-  const int rx1 = __ldg(p.h.idx + kIdx * (ox0 + mx - 1) + 3);
-  const int ny = max(ry1 - ry0, 0), nx = max(rx1 - rx0, 0);
-  float* s_in = smem;            // [ny][nx]: the input span
-  float* s_tmp = smem + ny * nx;  // [my][nx]: the vertical sums
-  if (tid < my) {
-    const int* e = p.v.idx + kIdx * (oy0 + tid);
-    s.vf[tid] = __ldg(e) - ry0;
-    s.vc[tid] = __ldg(e + 1);
-    s.vs[tid] = __ldg(e + 4);
-  } else if (tid >= TY && tid < TY + mx) {
-    const int q = tid - TY;
-    const int* e = p.h.idx + kIdx * (ox0 + q);
-    s.hf[q] = __ldg(e) - rx0;
-    s.hc[q] = __ldg(e + 1);
-    s.hs[q] = __ldg(e + 4);
+// a thread's walk over a row-major region of width `width`: element i =
+// y width + x, from `start`, kThreads at a time (no division a pixel)
+struct Walk {
+  int i, y, x;
+  const int width, dy, dx;
+  __device__ Walk(int start, int width_)
+      : i(start),
+        y(width_ > 0 ? start / width_ : 0),
+        x(start - y * width_),
+        width(width_),
+        dy(width_ > 0 ? kThreads / width_ : 0),
+        dx(kThreads - dy * width_) {}
+  __device__ void next() {
+    i += kThreads;
+    y += dy;
+    x += dx;
+    if (x >= width) {
+      x -= width;
+      ++y;
+    }
   }
-  for (int i = tid; i < my * kMaxTaps; i += kThreads)
-    s.vw[i / kMaxTaps][i % kMaxTaps] = __ldg(p.v.taps + oy0 * kMaxTaps + i);
-  for (int i = tid; i < mx * kMaxTaps; i += kThreads)
-    s.hw[i / kMaxTaps][i % kMaxTaps] = __ldg(p.h.taps + ox0 * kMaxTaps + i);
-  for (int i = tid; i < ny * nx; i += kThreads)
-    s_in[i] = __ldcg(p.src + (size_t)(ry0 + i / nx) * p.iw + rx0 + i % nx);
-  __syncthreads();
-  // vertical: tmp[r][j] = sum over the taps of output row oy0 + r
-  for (int i = tid; i < my * nx; i += kThreads) {
-    const int r = i / nx, j = i % nx, c = s.vc[r];
-    s_tmp[i] = c > 0 ? tap_sum(s_in + s.vf[r] * nx + j, nx, s.vw[r], c,
-                               s.vs[r])
-                     : 0.f;
-  }
-  __syncthreads();
-  // horizontal: out[r][q] = sum over the taps of output column ox0 + q
-  for (int i = tid; i < my * mx; i += kThreads) {
-    const int r = i / mx, q = i % mx, c = s.hc[q];
-    p.dst[(size_t)(oy0 + r) * p.ow + ox0 + q] =
-        c > 0 ? tap_sum(s_tmp + r * nx + s.hf[q], 1, s.hw[q], c, s.hs[q])
-              : 0.f;
-  }
-  __syncthreads();  // the shared memory is reused by the next tile
-}
+};
 
 __global__ void __launch_bounds__(kThreads)
 pyramid_kernel(const __grid_constant__ PyrArgs a) {
-  extern __shared__ float smem[];
-  __shared__ TileTaps s;
-  for (int l = 1; l < a.n; ++l) {
-    // the barrier orders level l-1's stores before level l's loads
-    if (l > 1) cg::this_grid().sync();
-    const Phase& p = a.ph[l];
-    for (int t = blockIdx.x; t < p.tiles; t += gridDim.x)
-      resize_tile(p, t, smem, s);
+  // the block's records (kRec int4 an output: its needed rows of every
+  // level, then its needed columns), then two region buffers and the
+  // vertical sums
+  extern __shared__ int4 s_rec[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int4* R = a.rows + (blockIdx.x / a.gx) * a.n;
+  const int4* C = a.cols + (blockIdx.x % a.gx) * a.n;
+  float* src = reinterpret_cast<float*>(s_rec + kRec * a.records);
+  float* dst = src + a.region;       // level l's region
+  float* tmp = src + 2 * a.region;   // level l's vertical sums
+  // stage every level's records, a warp a (level, axis) segment, and level
+  // 0's region: all of it read once from device memory, the loads of a
+  // thread unrolled so that they are in flight together
+  int at = 0;
+  for (int seg = 0; seg < 2 * (a.n - 1); ++seg) {
+    const int l = seg % (a.n - 1) + 1;
+    const int4 e = __ldg((seg < a.n - 1 ? R : C) + l);
+    const int count = kRec * (e.y - e.x);
+    if (seg % (kThreads / 32) == warp) {
+      const int4* from = (seg < a.n - 1 ? a.lv[l].v : a.lv[l].h) + kRec * e.x;
+#pragma unroll 4
+      for (int k = lane; k < count; k += 32) s_rec[at + k] = __ldg(from + k);
+    }
+    at += count;
   }
-}
-
-// blocks of a cooperative launch that fit on the card at once, cached by
-// device and shared memory (a negative CUDA error code if a query fails)
-int resident_blocks(int smem) {
-  static int cached_dev = -1, cached_smem = -1, cached = 0;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return -(int)e;
-  if (dev == cached_dev && smem == cached_smem) return cached;
-  int sms = 0, per_sm = 0;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  // above 48 KB of dynamic shared memory only after opting in
-  if (e == cudaSuccess && smem > 48 * 1024)
-    e = cudaFuncSetAttribute(pyramid_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pyramid_kernel,
-                                                      kThreads, smem);
-  if (e != cudaSuccess) return -(int)e;
-  cached_dev = dev;
-  cached_smem = smem;
-  cached = per_sm * sms;
-  return cached;
+  int4 r = __ldg(R), c = __ldg(C);
+  int sy0 = r.x, sx0 = c.x, snx = c.y - c.x;
+#pragma unroll 4
+  for (Walk w(tid, snx); w.i < (r.y - r.x) * snx; w.next())
+    src[w.i] = __ldg(a.img + (size_t)(sy0 + w.y) * a.w0 + sx0 + w.x);
+  __syncthreads();
+  const int4* vrec = s_rec;  // level l's rows from its first needed row
+  const int4* hrec = s_rec;  // its columns likewise
+  for (int l = 1; l < a.n; ++l)
+    hrec += kRec * (__ldg(R + l).y - __ldg(R + l).x);
+  for (int l = 1; l < a.n; ++l) {
+    const Level& L = a.lv[l];
+    r = __ldg(R + l);
+    c = __ldg(C + l);
+    const int ny = r.y - r.x, nx = c.y - c.x;
+    // vertical: tmp[y][x] = the taps of output row r.x + y over src
+    // column x
+    for (Walk w(tid, snx); w.i < ny * snx; w.next())
+      tmp[w.i] = tap_sum(src + w.x, snx, sy0, vrec + kRec * w.y);
+    __syncthreads();
+    // horizontal: the region's outputs; the owned ones also to the level
+    for (Walk w(tid, nx); w.i < ny * nx; w.next()) {
+      const float v = tap_sum(tmp + w.y * snx, 1, sx0, hrec + kRec * w.x);
+      dst[w.i] = v;
+      const int oy = r.x + w.y, ox = c.x + w.x;
+      if (oy >= r.z && oy < r.w && ox >= c.z && ox < c.w)
+        L.dst[(size_t)oy * L.w + ox] = v;
+    }
+    __syncthreads();  // dst is read and src rewritten by the next level
+    float* t = src;
+    src = dst;
+    dst = t;
+    sy0 = r.x;
+    sx0 = c.x;
+    snx = nx;
+    vrec += kRec * ny;
+    hrec += kRec * nx;
+  }
 }
 
 }  // namespace
 
 // Levels 1 to n-1 of an f32 [h, w] image (`img`, level 0) into `buf`,
 // level l at float offset offsets[l-1]. dims: (h, w) of the n levels;
-// tables: per level l >= 1, the vertical (h[l-1] -> h[l]) index and taps,
-// then the horizontal ones; spans: per level l >= 1 the largest input rows
-// and columns a tile reaches; smem: bytes of the largest tile's span and
-// vertical sums.
+// recs: per level l >= 1 its vertical (h[l-1] -> h[l]) and horizontal
+// records; rows, cols: the schedule, int32 [gy, n, 4] and [gx, n, 4]
+// (`ops/image.py::axis_parts`); records, region, sums: the most records
+// (rows and columns of every level), the largest region and the largest
+// vertical sums a block holds (`pyramid_schedule`).
 extern "C" int pyramid_levels(int n, const void* img, void* buf,
                               const int* dims, const int* offsets,
-                              const void* const* tables, const int* spans,
-                              int smem, void* stream) {
-  if (n < 2 || n > kMaxLevels || smem <= 0)
+                              const void* const* recs, const void* rows,
+                              const void* cols, int gy, int gx, int records,
+                              int region, int sums, void* stream) {
+  if (n < 2 || n > kMaxLevels || gy < 1 || gx < 1 || records < 0 ||
+      region < 0 || sums < 0)
     return (int)cudaErrorInvalidValue;
+  const long long smem =
+      16LL * kRec * records + 4LL * (2LL * region + sums);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   PyrArgs a;
+  a.img = (const float*)img;
+  a.w0 = dims[1];
   a.n = n;
-  int max_tiles = 0;
+  a.gx = gx;
+  a.rows = (const int4*)rows;
+  a.cols = (const int4*)cols;
+  a.records = records;
+  a.region = region;
+  for (int l = 0; l < n; ++l)
+    if (dims[2 * l] < 1 || dims[2 * l + 1] < 1)
+      return (int)cudaErrorInvalidValue;
   for (int l = 1; l < n; ++l) {
-    Phase& p = a.ph[l];
-    const int ih = dims[2 * (l - 1)], iw = dims[2 * (l - 1) + 1];
-    p.oh = dims[2 * l];
-    p.ow = dims[2 * l + 1];
-    if (ih < 1 || iw < 1 || p.oh < 1 || p.ow < 1)
-      return (int)cudaErrorInvalidValue;
-    const int sy = spans[2 * (l - 1)], sx = spans[2 * (l - 1) + 1];
-    if ((size_t)4 * (sy + TY) * sx > (size_t)smem)
-      return (int)cudaErrorInvalidValue;
-    p.src = l == 1 ? (const float*)img : (const float*)buf + offsets[l - 2];
-    p.dst = (float*)buf + offsets[l - 1];
-    p.iw = iw;
-    p.tiles_x = (p.ow + TX - 1) / TX;
-    p.tiles = p.tiles_x * ((p.oh + TY - 1) / TY);
-    const void* const* t = tables + 4 * (l - 1);
-    p.v = Axis{(const int*)t[0], (const float*)t[1]};
-    p.h = Axis{(const int*)t[2], (const float*)t[3]};
-    if (p.tiles > max_tiles) max_tiles = p.tiles;
+    Level& L = a.lv[l];
+    L.dst = (float*)buf + offsets[l - 1];
+    L.w = dims[2 * l + 1];
+    L.v = (const int4*)recs[2 * (l - 1)];
+    L.h = (const int4*)recs[2 * (l - 1) + 1];
   }
-  const int fit = resident_blocks(smem);
-  if (fit < 0) return -fit;
-  if (fit == 0) return (int)cudaErrorInvalidConfiguration;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int blocks = max_tiles < fit ? max_tiles : fit;
-  void* args[] = {&a};
-  // refused (never dropped to another path) when the grid cannot be
-  // resident at once: cudaErrorCooperativeLaunchTooLarge
-  const cudaError_t e = cudaLaunchCooperativeKernel(
-      (const void*)pyramid_kernel, dim3(blocks), dim3(kThreads), args,
-      (size_t)smem, st);
-  if (e != cudaSuccess) return (int)e;
+  // above 48 KB of dynamic shared memory only after opting in (once a
+  // device for the largest size asked so far)
+  static int opted_dev = -1;
+  static long long opted = 0;
+  if (smem > 48 * 1024) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return (int)e;
+    if (dev != opted_dev || smem > opted) {
+      e = cudaFuncSetAttribute(pyramid_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+      if (e != cudaSuccess) return (int)e;
+      opted_dev = dev;
+      opted = smem;
+    }
+  }
+  pyramid_kernel<<<gy * gx, kThreads, (size_t)smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -155,6 +155,18 @@ def detect_and_rank_plain(levels, ini_th: float, min_th: float, ks,
     return outs
 
 
+class RankRounds(list):
+    """`detect_and_rank`'s result: per level (score, raw, pos). On the card
+    `buffers` holds the two flat buffers that every level's raw and pos
+    are views of (level l at the same offset in both, the levels in
+    order), which kernel K9 reads as they are
+    (`ops/orb.py::spread_topk_levels`); None off the card."""
+
+    def __init__(self, levels, buffers=None):
+        super().__init__(levels)
+        self.buffers = buffers
+
+
 def detect_and_rank(levels, ini_th: float, min_th: float, ks,
                     cell: int = 30, margin: int = 0,
                     rank_cell: int = RANK_CELL, rank_rounds: int = 4):
@@ -162,12 +174,12 @@ def detect_and_rank(levels, ini_th: float, min_th: float, ks,
     margin (`DetectFAST` semantics) on every level of `levels`, then the
     per-cell rank rounds of `select_spread_topk` for a level whose budget
     in `ks` is above 0. Returns, per level, (score f32[h,w], raw
-    f32[rounds, C], pos int32[rounds, C]). One call of kernel `csrc/fast.cu`
-    for all the levels on CUDA tensors (which the caller holds until it has
-    run); the plain version on CPU tensors."""
+    f32[rounds, C], pos int32[rounds, C]), as a `RankRounds`. One call of
+    kernel `csrc/fast.cu` for all the levels on CUDA tensors (which the
+    caller holds until it has run); the plain version on CPU tensors."""
     if not levels[0].is_cuda:
-        return detect_and_rank_plain(levels, ini_th, min_th, ks, cell, margin,
-                                     rank_cell, rank_rounds)
+        return RankRounds(detect_and_rank_plain(
+            levels, ini_th, min_th, ks, cell, margin, rank_cell, rank_rounds))
     n = len(levels)
     if len(ks) != n:
         raise ValueError(f"fast: {len(ks)} budgets for {n} levels")
@@ -203,11 +215,12 @@ def detect_and_rank(levels, ini_th: float, min_th: float, ks,
                      cell, margin, float(ini_th), float(min_th),
                      kernels.stream_of(levels[0])), "fast_rank_levels")
     scores = planes[sum(npx):].split(npx)
-    raws = raw.split(nrank)
-    poss = ints[nflags:].split(nrank)
-    return [(s.view(h, w), r.view(nr, c), p.view(nr, c))
-            for s, r, p, (h, w), nr, c in zip(scores, raws, poss, shapes,
-                                              rounds, cells)]
+    pos = ints[nflags:]
+    return RankRounds(
+        [(s.view(h, w), r.view(nr, c), p.view(nr, c))
+         for s, r, p, (h, w), nr, c in zip(scores, raw.split(nrank),
+                                           pos.split(nrank), shapes, rounds,
+                                           cells)], (raw, pos))
 
 
 def detect_two_threshold(img, ini_th: float, min_th: float, cell: int = 30,

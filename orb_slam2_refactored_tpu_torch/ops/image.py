@@ -23,7 +23,9 @@ and K8 adds the two partial chains there: its levels then equal the plain
 version's bit for bit. The probes run on the card, so a geometry's tables
 are built once, before its first frame: `prepare_pyramid`, which
 `OrbExtractor` calls when it is given a CUDA device (the tracker gives it
-its own).
+its own). The same plan holds K8's work split (`pyramid_schedule`): a
+block a part of the deepest level, which computes from level 0 the region
+of every level its part needs, so no block waits on another.
 """
 
 from __future__ import annotations
@@ -120,7 +122,6 @@ def build_pyramid(img, n_levels: int, scale_factor: float):
 # ---------------------------------------------------------------------------
 
 PYR_MAX_TAPS = 8  # taps an output may have (`kMaxTaps` in csrc/pyramid.cu)
-PYR_TILE = (16, 64)  # output rows x columns of a tile (`TY`, `TX` there)
 
 
 @functools.lru_cache(maxsize=64)
@@ -129,11 +130,11 @@ def resize_taps(in_size: int, out_size: int):
     per output index o its first input index, its tap count (from its
     first to its last nonzero weight of `_resize_weights_np`, zeros between
     kept), the least first index of the outputs from o on and the largest
-    end (first + count) of the outputs up to o, which bound a tile's input
-    span, and the count of taps in its first partial chain (here all of
-    them: one chain); then the taps. An axis the resize keeps (in == out;
-    the plain version skips its product) is one tap of 1.0 an output, an
-    exact copy."""
+    end (first + count) of the outputs up to o, which bound the inputs a
+    run of outputs reads (`axis_parts`), and the count of taps in its
+    first partial chain (here all of them: one chain); then the taps. An
+    axis the resize keeps (in == out; the plain version skips its product)
+    is one tap of 1.0 an output, an exact copy."""
     if in_size == out_size:
         wm = np.eye(in_size, dtype=np.float32)
     else:
@@ -279,64 +280,154 @@ def gemm_tap_splits(in_size: int, out_size: int, other: int, vertical: bool,
     return split
 
 
-def _max_span(idx, tile: int) -> int:
-    """Largest input span (hi - lo) of a tile of `tile` outputs."""
-    n = idx.shape[0]
-    o0 = np.arange(0, n, tile)
-    o1 = np.minimum(o0 + tile, n) - 1
-    return int(max((idx[o1, 3] - idx[o0, 2]).max(initial=0), 0))
+PYR_SMS = 132  # SMs of the H100: the schedule of a plan built off the card
+PYR_SMEM = 232448  # bytes of shared memory a block may use on the H100
 
 
 @functools.lru_cache(maxsize=128)
-def _device_taps(in_size: int, out_size: int, other: int, vertical: bool,
-                 device_str: str):
-    """One axis's table on a device; on a CUDA device with the GEMM's
-    splits of this shape."""
+def _tap_records(in_size: int, out_size: int, other: int, vertical: bool,
+                 device_str: str) -> torch.Tensor:
+    """One axis's table in K8's layout on a device, int32[out, 12]: per
+    output its first input index, its tap count, its split (on a CUDA
+    device the GEMM's of this shape, `gemm_tap_splits`; elsewhere one
+    chain) and a pad, then its PYR_MAX_TAPS taps as f32 bits: three
+    16-byte loads an output."""
     idx, taps = resize_taps(in_size, out_size)
-    dev = torch.device(device_str)
-    if dev.type == "cuda":
-        idx = idx.copy()
-        idx[:, 4] = gemm_tap_splits(in_size, out_size, other, vertical,
-                                    device_str)
-    return torch.as_tensor(idx, device=dev), torch.as_tensor(taps, device=dev)
+    split = idx[:, 4]
+    if torch.device(device_str).type == "cuda":
+        split = gemm_tap_splits(in_size, out_size, other, vertical,
+                                device_str)
+    rec = np.zeros((out_size, 4 + PYR_MAX_TAPS), np.int32)
+    rec[:, 0], rec[:, 1], rec[:, 2] = idx[:, 0], idx[:, 1], split
+    rec[:, 4:] = taps.view(np.int32)
+    return torch.as_tensor(rec, device=torch.device(device_str))
+
+
+def axis_parts(sizes, idxs, g: int) -> np.ndarray:
+    """One axis of K8's schedule: the deepest level's `sizes[-1]` outputs
+    cut into g parts, each followed up to level 0. int64[g, levels, 4]: per
+    part and level the outputs the part computes, [need lo, need hi), and
+    those it writes, [own lo, own hi). `idxs[l]` is `resize_taps`'s index
+    of the resize from level l to l + 1. A part owns at level l the outputs
+    from the least first tap of its first owned output at level l + 1 on,
+    so the parts' owned outputs cover every level once; it needs its owned
+    outputs and every input its needed outputs at level l + 1 read (the
+    hull of the two). Level 0 is read, never written: it owns nothing
+    there."""
+    n = len(sizes)
+    out = np.zeros((g, n, 4), np.int64)
+    bounds = np.arange(g + 1, dtype=np.int64) * sizes[-1] // g
+    out[:, -1] = np.stack([bounds[:-1], bounds[1:]] * 2, axis=1)
+    for l in range(n - 2, -1, -1):
+        idx = idxs[l]
+        if l > 0:
+            inner = bounds[1:-1]
+            bounds = np.concatenate([[0], np.where(
+                inner < sizes[l + 1],
+                idx[np.minimum(inner, sizes[l + 1] - 1), 2], sizes[l]),
+                [sizes[l]]]).astype(np.int64)
+            own_lo, own_hi = bounds[:-1], bounds[1:]
+        else:
+            own_lo = own_hi = np.zeros(g, np.int64)
+        a, c = out[:, l + 1, 0], out[:, l + 1, 1]
+        some = c > a
+        lo = np.where(some, idx[np.minimum(a, sizes[l + 1] - 1), 2], 0)
+        hi = np.where(some, idx[np.maximum(c - 1, 0), 3], 0)
+        span = hi > lo
+        own = own_hi > own_lo
+        need_lo = np.where(span & own, np.minimum(lo, own_lo),
+                           np.where(span, lo, own_lo))
+        need_hi = np.where(span & own, np.maximum(hi, own_hi),
+                           np.where(span, hi, own_hi))
+        out[:, l] = np.stack([need_lo, np.maximum(need_hi, need_lo), own_lo,
+                              own_hi], axis=1)
+    return out
+
+
+def pyramid_schedule(shapes, n_sm: int = PYR_SMS):
+    """K8's work split for a pyramid of `shapes`: a grid of gy x gx blocks
+    over the deepest level, block (by, bx) taking row part by and column
+    part bx of `axis_parts` at every level. Of the grids whose shared
+    memory fits a block (the tap records of its needed rows and columns of
+    every level, two buffers of the largest needed region and one of the
+    largest vertical sums), the one whose slowest block computes the
+    fewest outputs (a level's vertical sums and outputs, level 0's staged
+    pixels), times the waves of n_sm blocks it takes. Returns (rows
+    [gy, levels, 4], cols [gx, levels, 4], records, region floats, sums
+    floats)."""
+    rows = [s[0] for s in shapes]
+    cols = [s[1] for s in shapes]
+    ridx = [resize_taps(a, b)[0] for a, b in zip(rows[:-1], rows[1:])]
+    cidx = [resize_taps(a, b)[0] for a, b in zip(cols[:-1], cols[1:])]
+    most = 4 * n_sm
+    r_parts = {g: axis_parts(rows, ridx, g)
+               for g in range(1, min(rows[-1], most) + 1)}
+    c_parts = {g: axis_parts(cols, cidx, g)
+               for g in range(1, min(cols[-1], most) + 1)}
+    best = None
+    for gy, rp in r_parts.items():
+        ny = rp[:, :, 1] - rp[:, :, 0]
+        for gx in range(1, min(cols[-1], most // gy) + 1):
+            cp = c_parts[gx]
+            nx = cp[:, :, 1] - cp[:, :, 0]
+            records = int(ny[:, 1:].sum(1).max() + nx[:, 1:].sum(1).max())
+            region = int((ny.max(0) * nx.max(0)).max())
+            sums = int((ny.max(0)[1:] * nx.max(0)[:-1]).max(initial=0))
+            if 48 * records + 4 * (2 * region + sums) > PYR_SMEM:
+                continue
+            work = (ny[:, :1] * nx[:, :1].T + ny[:, 1:] @ (
+                nx[:, :-1] + nx[:, 1:]).T)
+            score = (-(-gy * gx // n_sm) * int(work.max()), gy * gx)
+            if best is None or score < best[0]:
+                best = (score, rp, cp, records, region, sums)
+    if best is None:
+        raise ValueError(f"pyramid: no work split of {shapes} fits a block's "
+                         f"shared memory")
+    return best[1:]
 
 
 class PyramidPlan(NamedTuple):
     shapes: List[Tuple[int, int]]
     offsets: List[int]     # each level's first float in the buffer (1..n-1)
     total: int             # floats of the buffer
-    tables: List[torch.Tensor]  # per level 1..n-1: vidx, vtaps, hidx, htaps
-    args: tuple            # the C arrays and the shared memory of a launch
+    rows: np.ndarray       # the schedule (`pyramid_schedule`)
+    cols: np.ndarray
+    tables: List[torch.Tensor]  # on the device: per level 1..n-1 the
+    # vertical and horizontal records, then the rows and cols schedule
+    args: tuple            # the C arrays and sizes of a launch
 
 
 @functools.lru_cache(maxsize=32)
 def _pyramid_plan(h: int, w: int, n_levels: int, scale_factor: float,
                   device_str: str) -> PyramidPlan:
     """Shapes, the buffer's layout (each level at a 16-byte-aligned offset,
-    for kernel K2's vector loads) and the tap tables of one geometry on one
-    device, uploaded once."""
+    for kernel K2's vector loads), the tap records and the work split of
+    one geometry on one device, uploaded once."""
     shapes = pyramid_shapes(h, w, n_levels, scale_factor)
     offsets, total = [], 0
     for a, b in shapes[1:]:
         offsets.append(total)
         total += -(-a * b // 4) * 4
-    tables, spans, smem = [], [], 0
-    ty, tx = PYR_TILE
+    tables = []
     for (ih, iw), (oh, ow) in zip(shapes[:-1], shapes[1:]):
         if oh < 1 or ow < 1:
             raise ValueError(f"pyramid: level {ih}x{iw} -> {oh}x{ow}")
-        vidx, vtaps = _device_taps(ih, oh, iw, True, device_str)
-        hidx, htaps = _device_taps(iw, ow, oh, False, device_str)
-        sy = _max_span(resize_taps(ih, oh)[0], ty)
-        sx = _max_span(resize_taps(iw, ow)[0], tx)
-        spans += [sy, sx]
-        smem = max(smem, 4 * (sy + ty) * sx)
-        tables += [vidx, vtaps, hidx, htaps]
+        tables += [_tap_records(ih, oh, iw, True, device_str),
+                   _tap_records(iw, ow, oh, False, device_str)]
+    dev = torch.device(device_str)
+    n_sm = (torch.cuda.get_device_properties(dev).multi_processor_count
+            if dev.type == "cuda" else PYR_SMS)
+    rows, cols, records, region, sums = pyramid_schedule(shapes, n_sm)
+    tables += [torch.as_tensor(rows.astype(np.int32), device=dev),
+               torch.as_tensor(cols.astype(np.int32), device=dev)]
     args = (kernels.int_array([d for s in shapes for d in s]),
             kernels.int_array(offsets),
-            (ctypes.c_void_p * len(tables))(*[t.data_ptr() for t in tables]),
-            kernels.int_array(spans), smem)
-    return PyramidPlan(shapes, offsets, total, tables, args)
+            (ctypes.c_void_p * (len(tables) - 2))(
+                *[t.data_ptr() for t in tables[:-2]]),
+            ctypes.c_void_p(tables[-2].data_ptr()),
+            ctypes.c_void_p(tables[-1].data_ptr()), rows.shape[0],
+            cols.shape[0], records, region, sums)
+    return PyramidPlan(shapes, offsets, total, rows, cols, tables, args)
 
 
 def prepare_pyramid(h: int, w: int, n_levels: int, scale_factor: float,
@@ -351,11 +442,12 @@ def prepare_pyramid(h: int, w: int, n_levels: int, scale_factor: float,
 
 def pyramid_levels(img, n_levels: int, scale_factor: float):
     """Kernel K8 on a CUDA f32 [H, W] image: levels 1 to n-1 written into
-    one device buffer in one cooperative launch (a grid barrier between
-    levels); returns `img` and views of the buffer with the shapes of
-    `pyramid_shapes`. The geometry's tables come from `prepare_pyramid`,
-    built here if it was not called. Raises where the kernel does not take
-    the arguments; never falls back."""
+    one device buffer in one launch, no block waiting on another (each
+    computes from level 0 the regions its outputs need); returns `img` and
+    views of the buffer with the shapes of `pyramid_shapes`. The geometry's
+    tables come from `prepare_pyramid`, built here if it was not called.
+    Raises where the kernel does not take the arguments; never falls
+    back."""
     kernels.require(img, "pyramid level 0", torch.float32)
     if img.dim() != 2:
         raise ValueError("pyramid: level 0 must be [h, w]")
@@ -367,16 +459,14 @@ def pyramid_levels(img, n_levels: int, scale_factor: float):
     h, w = img.shape
     plan = _pyramid_plan(h, w, n_levels, float(scale_factor), str(img.device))
     buf = torch.empty((plan.total,), dtype=torch.float32, device=img.device)
-    levels = [img] + [buf[o:o + a * b].view(a, b) for o, (a, b) in
+    levels = [img] + [buf.as_strided((a, b), (b, 1), o) for o, (a, b) in
                       zip(plan.offsets, plan.shapes[1:])]
     fn = kernels.bind("pyramid", "pyramid_levels",
-                      [kernels.CI] + [kernels.VP] * 6 + [kernels.CI]
+                      [kernels.CI] + [kernels.VP] * 7 + [kernels.CI] * 5
                       + [kernels.VP])
-    dims, offsets, tables, spans, smem = plan.args
     kernels.LAUNCHES["pyramid"] += 1
-    kernels.check(fn(n_levels, kernels.ptr(img), kernels.ptr(buf), dims,
-                     offsets, tables, spans, smem, kernels.stream_of(img)),
-                  "pyramid_levels")
+    kernels.check(fn(n_levels, kernels.ptr(img), kernels.ptr(buf), *plan.args,
+                     kernels.stream_of(img)), "pyramid_levels")
     return levels
 
 

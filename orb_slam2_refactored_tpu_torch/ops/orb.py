@@ -21,7 +21,6 @@ the raw level and the continuously rotated tests, here kernel K7
 
 from __future__ import annotations
 
-import ctypes
 import functools
 import os
 from typing import List, NamedTuple, Tuple
@@ -268,12 +267,13 @@ def _check_spread_args(ranked, ks, shapes, level_ids, scales):
 
 def spread_topk_levels_plain(ranked, ks, shapes, level_ids, scales,
                              cell: int = 32, rank_rounds: int = 4,
-                             margin: int = EDGE_MARGIN) -> SpreadTopk:
-    """Plain PyTorch version of kernel K9 (same signature): for each level
-    its global top-k over the rank rounds (`topk_from_ranks`), the
-    coordinates clamped to the edge margin, the level-0 coordinates and
-    the level id, as the JAX extractor makes them
-    (`orb_slam2_refactored_tpu/ops/orb.py:520-540`)."""
+                             margin: int = EDGE_MARGIN,
+                             buffers=None) -> SpreadTopk:
+    """Plain PyTorch version of kernel K9 (same signature; it reads
+    `ranked` and ignores `buffers`): for each level its global top-k over
+    the rank rounds (`topk_from_ranks`), the coordinates clamped to the
+    edge margin, the level-0 coordinates and the level id, as the JAX
+    extractor makes them (`orb_slam2_refactored_tpu/ops/orb.py:520-540`)."""
     _check_spread_args(ranked, ks, shapes, level_ids, scales)
     parts = []
     for (raw, pos), k, (h, w), l, s in zip(ranked, ks, shapes, level_ids,
@@ -291,12 +291,102 @@ def spread_topk_levels_plain(ranked, ks, shapes, level_ids, scales,
     return SpreadTopk(*(torch.cat(f) for f in zip(*parts)))
 
 
-SPREAD_MAX_KEYS = 8192  # rank-round candidates a level (K9's sort buffer)
+SPREAD_MAX_KEYS = 8192  # rank-round candidates a level (`kMaxKeys` in K9)
+SPREAD_RANK_MAX = 1024  # selected a level K9 ranks by counting (`kRankMax`)
+SPREAD_PARAMS = 8  # ints a level in K9's table (`kParams`)
+
+
+class SpreadPlan(NamedTuple):
+    """Kernel K9's launch table of one extraction geometry: each level's
+    rank rounds [rounds, C] at `offsets` of one raw and one pos buffer, as
+    kernel K2 lays them out (`ops/fast.py::detect_and_rank`)."""
+    shapes: Tuple[Tuple[int, int], ...]  # per level (rounds, C)
+    offsets: Tuple[int, ...]  # per level its first element in the buffers
+    total: int             # elements of each buffer
+    K: int                 # the sum of the budgets
+    smem: int              # bytes of the largest level's selected words
+    params: object         # the C table: SPREAD_PARAMS ints a level
+
+
+@functools.lru_cache(maxsize=64)
+def _spread_plan(shapes, ks, level_ids, scales, rounds, cell: int
+                 ) -> SpreadPlan:
+    """K9's table for levels of `shapes` [h, w] with budgets `ks`, ids
+    `level_ids`, level-0 scales `scales` and `rounds` rank rounds each;
+    raises where the kernel does not take them. Built once a geometry."""
+    n = len(shapes)
+    if not len(ks) == len(level_ids) == len(scales) == len(rounds) == n:
+        raise ValueError(f"spread_topk: {n} shapes, {len(ks)} budgets, "
+                         f"{len(level_ids)} level ids, {len(scales)} scales, "
+                         f"{len(rounds)} levels of rank rounds")
+    if n > kernels.MAX_LEVELS:
+        raise ValueError(f"spread_topk: {n} levels, the kernel takes at most "
+                         f"{kernels.MAX_LEVELS}")
+    rc, offsets, params, off, smem = [], [], [], 0, 0
+    for (h, w), k, l, sc, r in zip(shapes, ks, level_ids, scales, rounds):
+        C = fast_ops.n_cells(h, w, cell)
+        if k < 0 or (k > 0 and r * C < k):
+            raise ValueError(f"spread_topk: budget {k} from {r * C} "
+                             f"candidates")
+        if k > 0 and r * C > SPREAD_MAX_KEYS:
+            raise ValueError(f"spread_topk: {r * C} candidates on a level, "
+                             f"kernel K9 takes at most {SPREAD_MAX_KEYS}")
+        rc.append((r, C))
+        offsets.append(off)
+        params += [off, h, w, k, r, C, l,
+                   int(np.float32(sc).view(np.int32))]
+        off += r * C
+        smem = max(smem, 8 * (k if k <= SPREAD_RANK_MAX
+                              else 1 << (k - 1).bit_length()))
+    return SpreadPlan(tuple(rc), tuple(offsets), off, sum(ks), smem,
+                      kernels.int_array(params))
+
+
+def prepare_spread_topk(height: int, width: int, n_features: int,
+                        scale_factor: float, n_levels: int, cell: int = 32,
+                        rank_rounds: int = 4) -> SpreadPlan:
+    """Build K9's table of an extractor's geometry now, as
+    `spread_topk_levels` finds it on the extractor's frames (the levels
+    with a budget, K2's rank rounds), so that no frame builds it."""
+    budgets = features_per_level(n_features, n_levels, scale_factor)
+    shapes = image_ops.pyramid_shapes(height, width, n_levels, scale_factor)
+    used = [l for l in range(n_levels) if budgets[l] > 0]
+    return _spread_plan(
+        tuple(shapes[l] for l in used), tuple(budgets[l] for l in used),
+        tuple(used), tuple(float(scale_factor ** l) for l in used),
+        tuple(fast_ops.n_rank_rounds(*shapes[l], budgets[l], cell,
+                                     rank_rounds) for l in used), cell)
+
+
+def _rank_buffers(ranked, plan: SpreadPlan):
+    """The two flat buffers (raw f32, pos int32) holding every level's rank
+    rounds at the plan's offsets: those the levels are views of where they
+    lie as kernel K2 lays them out, else copies packed so. Raises where a
+    level is not CUDA rank rounds of the plan's shape."""
+    raw0, pos0 = ranked[0]
+    raw_p, pos_p = raw0.data_ptr(), pos0.data_ptr()
+    laid = True
+    for (raw, pos), shape, off in zip(ranked, plan.shapes, plan.offsets):
+        if not (raw.shape == pos.shape == shape and raw.is_cuda
+                and pos.is_cuda and raw.dtype == torch.float32
+                and pos.dtype == torch.int32 and raw.is_contiguous()
+                and pos.is_contiguous()):
+            raise ValueError(f"spread_topk: expected CUDA rank rounds f32 and "
+                             f"int32 {shape}, got {raw.dtype} and "
+                             f"{pos.dtype} {tuple(raw.shape)}, "
+                             f"{tuple(pos.shape)}")
+        laid = (laid and raw.data_ptr() == raw_p + 4 * off
+                and pos.data_ptr() == pos_p + 4 * off)
+    if laid:
+        return raw0, pos0
+    return (torch.cat([r.reshape(-1) for r, _ in ranked]),
+            torch.cat([p.reshape(-1) for _, p in ranked]))
 
 
 def spread_topk_levels(ranked, ks, shapes, level_ids, scales,
                        cell: int = 32, rank_rounds: int = 4,
-                       margin: int = EDGE_MARGIN) -> SpreadTopk:
+                       margin: int = EDGE_MARGIN,
+                       buffers=None) -> SpreadTopk:
     """The keypoints of every level from the rank rounds that one K2 call
     left (`ranked`: per level (raw f32[rounds, C], pos int32[rounds, C])):
     per level the k = `ks[i]` largest keys, a corner of round r keyed
@@ -307,48 +397,41 @@ def spread_topk_levels(ranked, ks, shapes, level_ids, scales,
     key > 0 as valid. `shapes` are the levels' [h, w]. One launch of
     kernel K9 (`csrc/spread_topk.cu`, a block a level) on CUDA tensors,
     which raises past SPREAD_MAX_KEYS candidates a level; the plain
-    version on CPU tensors."""
-    if not ranked[0][0].is_cuda:
+    version on CPU tensors. K9 reads two flat buffers through the launch
+    table `_spread_plan` caches per geometry: `buffers`, K2's own
+    (`ops/fast.py::RankRounds.buffers`, of which `ranked` are the views),
+    or else those `_rank_buffers` finds or packs."""
+    raw0 = ranked[0][0]
+    if not raw0.is_cuda:
         return spread_topk_levels_plain(ranked, ks, shapes, level_ids, scales,
                                         cell, rank_rounds, margin)
-    _check_spread_args(ranked, ks, shapes, level_ids, scales)
-    n = len(ranked)
-    if n > kernels.MAX_LEVELS:
-        raise ValueError(f"spread_topk: {n} levels, the kernel takes at most "
-                         f"{kernels.MAX_LEVELS}")
-    params = []
-    for (raw, pos), k, (h, w), l in zip(ranked, ks, shapes, level_ids):
-        kernels.require(raw, "spread_topk raw", torch.float32)
-        kernels.require(pos, "spread_topk pos", torch.int32)
-        rounds, C = raw.shape
-        if C != -(-h // cell) * -(-w // cell):
-            raise ValueError(f"spread_topk: {C} cells for a {h}x{w} level "
-                             f"of {cell}-px cells")
-        if k > 0 and rounds * C > SPREAD_MAX_KEYS:
-            raise ValueError(f"spread_topk: {rounds * C} candidates on a "
-                             f"level, kernel K9 sorts at most "
-                             f"{SPREAD_MAX_KEYS}")
-        params += [h, w, k, rounds, C, l]
-    dev = ranked[0][0].device
-    K = sum(ks)
-    buf = torch.empty((6 * K + -(-K // 4),), dtype=torch.int32, device=dev)
-    ys, xs, level = buf[:K], buf[K:2 * K], buf[2 * K:3 * K]
-    xy = buf[3 * K:5 * K].view(torch.float32).view(K, 2)
-    resp = buf[5 * K:6 * K].view(torch.float32)
-    valid = buf[6 * K:].view(torch.uint8)[:K].view(torch.bool)
+    plan = _spread_plan(tuple(map(tuple, shapes)), tuple(ks),
+                        tuple(level_ids), tuple(map(float, scales)),
+                        tuple([r.shape[0] for r, _ in ranked]), cell)
+    if buffers is None:
+        raw, pos = _rank_buffers(ranked, plan)
+    else:
+        raw, pos = buffers
+        kernels.require(raw, "spread_topk raw", torch.float32,
+                        (plan.total,))
+        kernels.require(pos, "spread_topk pos", torch.int32, (plan.total,))
+    # the outputs are views of one allocation (ys, xs, level ids, xy,
+    # responses, valid bytes): six allocations took 13 us more host time
+    # a call on the H100's host (`extract_probe.py`)
+    K = plan.K
+    buf = torch.empty((6 * K + -(-K // 4),), dtype=torch.int32,
+                      device=raw0.device)
+    ys, xs, level, xy, resp, valid = buf.split(
+        [K, K, K, 2 * K, K, -(-K // 4)])
     fn = kernels.bind("spread_topk", "spread_topk_levels",
-                      [kernels.CI] + [kernels.VP] * 4 + [kernels.CI] * 4
-                      + [kernels.VP] * 7)
+                      [kernels.CI] + [kernels.VP] * 3 + [kernels.CI] * 4
+                      + [kernels.VP, kernels.CI, kernels.VP])
     kernels.LAUNCHES["spread_topk"] += 1
-    kernels.check(fn(n, kernels.ptr_array([r for r, _ in ranked]),
-                     kernels.ptr_array([p for _, p in ranked]),
-                     kernels.int_array(params),
-                     (ctypes.c_float * n)(*[float(s) for s in scales]),
-                     cell, rank_rounds, margin, K, kernels.ptr(ys),
-                     kernels.ptr(xs), kernels.ptr(xy), kernels.ptr(level),
-                     kernels.ptr(resp), kernels.ptr(valid),
-                     kernels.stream_of(ranked[0][0])), "spread_topk_levels")
-    return SpreadTopk(ys, xs, xy, level, resp, valid)
+    kernels.check(fn(len(ranked), raw.data_ptr(), pos.data_ptr(), plan.params,
+                     cell, rank_rounds, margin, K, buf.data_ptr(), plan.smem,
+                     kernels.stream_of(raw0)), "spread_topk_levels")
+    return SpreadTopk(ys, xs, xy.view(torch.float32).view(K, 2), level,
+                      resp.view(torch.float32), valid.view(torch.bool)[:K])
 
 
 # ---------------------------------------------------------------------------
@@ -634,6 +717,8 @@ class OrbExtractor:
         if device is not None and torch.device(device).type == "cuda":
             image_ops.prepare_pyramid(height, width, n_levels, scale_factor,
                                       device)
+            prepare_spread_topk(height, width, n_features, scale_factor,
+                                n_levels, cell)
 
     def __call__(self, img) -> OrbFeatures:
         return self._extract_impl_pyr(img)[0]
@@ -656,7 +741,8 @@ class OrbExtractor:
         sel = spread_topk_levels(
             [(raw, pos) for _, raw, pos in ranked], ks,
             [tuple(lvl.shape) for lvl in lv], used,
-            [self.level_scales[l] for l in used], self.cell)
+            [self.level_scales[l] for l in used], self.cell,
+            buffers=ranked.buffers)
         if self.full_image_path:
             ang, desc = angles_and_descriptors_learned_levels(
                 lv, sel.ys, sel.xs, ks, pattern=self.pattern)

@@ -5,14 +5,15 @@
 - K8's tap tables (`ops/image.py::resize_taps`) rebuild the dense weight
   matrices of `_resize_weights_np` exactly, at every level pair of four
   camera sizes; the most taps an output has fits the kernel's
-  compile-time limit, and every tile's input span fits the shared memory
-  the launch asks for.
-- K8's arithmetic: a numpy emulation of the kernel, tile by tile (the
-  span staged as the kernel stages it, each `fmaf` an f64 product plus the
-  sum, rounded to f32), stays within 1e-4 gray of the plain
-  `build_pyramid_plain` (a dense f32 product a pass, summed in the BLAS's
-  order) on a bench frame, and within 1e-3 of JAX's jitted `build_pyramid`
-  (`test_pyramid_within_c2_tolerance`'s tolerance, hazard C2).
+  compile-time limit; the work split writes every output once and every
+  block's regions fit the shared memory the launch asks for.
+- K8's arithmetic: a numpy emulation of the kernel, block by block over
+  its work split (each region staged from the previous one, the taps
+  summed by `tap_sums_np` where this machine's f32 GEMM splits them),
+  equals the plain `build_pyramid_plain` (a dense f32 product a pass) on a
+  bench frame bit for bit, and stays within 1e-3 of JAX's jitted
+  `build_pyramid` (`test_pyramid_within_c2_tolerance`'s tolerance, hazard
+  C2).
 - The split finder: `fmaf_np` is the correctly rounded fused multiply-add
   (held against exact rational arithmetic, ties included), and
   `infer_tap_splits` recovers the sums of a GEMM that splits outputs'
@@ -64,13 +65,17 @@ def _pairs(h, w, n_levels=8, scale=1.2):
 @pytest.mark.parametrize("h,w", SIZES)
 def test_tap_tables_rebuild_the_weight_matrices(h, w):
     assert timage.PYR_MAX_TAPS == _constant("kMaxTaps")
-    assert timage.PYR_TILE == (_constant("TY"), _constant("TX"))
+    assert timage.PYR_SMEM == _constant("kMaxSmem")
     most = 0
     for n_in, n_out in _pairs(h, w):
         idx, taps = timage.resize_taps(n_in, n_out)
         assert idx.dtype == np.int32 and taps.dtype == np.float32
-        assert idx.shape == (n_out, _constant("kIdx"))
+        assert idx.shape == (n_out, 5)
         np.testing.assert_array_equal(idx[:, 4], idx[:, 1])  # one chain
+        # the kernel's records: first, count, split, a pad, the taps' bits
+        rec = timage._tap_records(n_in, n_out, 1, True, "cpu").numpy()
+        np.testing.assert_array_equal(rec[:, :3], idx[:, [0, 1, 4]])
+        np.testing.assert_array_equal(rec[:, 4:].view(np.float32), taps)
         dense = np.zeros((n_in, n_out), np.float32)
         for o in range(n_out):
             f, c = idx[o, 0], idx[o, 1]
@@ -82,26 +87,35 @@ def test_tap_tables_rebuild_the_weight_matrices(h, w):
     assert 2 <= most <= timage.PYR_MAX_TAPS
 
 
-def _tile_spans_hold(idx, tile, span):
-    """Every tile's outputs read inside [lo of its first, hi of its last),
-    and that span fits `span`."""
-    n = idx.shape[0]
-    for o0 in range(0, n, tile):
-        o1 = min(o0 + tile, n) - 1
-        lo, hi = idx[o0, 2], idx[o1, 3]
-        assert hi - lo <= span
-        f, c = idx[o0:o1 + 1, 0], idx[o0:o1 + 1, 1]
-        assert (f[c > 0] >= lo).all() and (f + c)[c > 0].max() <= hi
+def _parts_hold(parts, sizes, idxs):
+    """One axis of K8's schedule: at every level from 1 the parts' owned
+    outputs are consecutive and cover the level once, each inside what the
+    part computes; at every level the part computes every input its next
+    level's outputs' taps read."""
+    for l in range(1, len(sizes)):
+        own = parts[:, l, 2:]
+        assert own[0, 0] == 0 and own[-1, 1] == sizes[l]
+        np.testing.assert_array_equal(own[1:, 0], own[:-1, 1])
+        assert (parts[:, l, 0] <= own[:, 0]).all()
+        assert (own[:, 1] <= parts[:, l, 1]).all()
+    for l in range(len(sizes) - 1):
+        idx = idxs[l]
+        for (lo, hi), (a, c) in zip(parts[:, l, :2], parts[:, l + 1, :2]):
+            f, n = idx[a:c, 0], idx[a:c, 1]
+            assert 0 <= lo <= hi <= sizes[l]
+            assert (f[n > 0] >= lo).all() and ((f + n)[n > 0] <= hi).all()
 
 
 @pytest.mark.parametrize("h,w,n_levels", [(480, 640, 8), (376, 1241, 8),
                                           (37, 23, 8), (9, 5, 6)])
 def test_pyramid_plan_layout_and_spans(h, w, n_levels):
     """The buffer's levels start 16 bytes apart at least and do not
-    overlap; every tile's taps lie inside its staged span, and the launch's
-    shared memory holds the largest span and its vertical sums. Down to
-    levels a few pixels wide, where a level keeps a size (one tap of 1.0,
-    an exact copy, as the plain version skips the product)."""
+    overlap; the plan's work split (`pyramid_schedule`) writes every output
+    of every level once and computes every input a block's outputs read,
+    and the launch's shared memory holds a block's tap records, the
+    largest region twice and its vertical sums. Down to levels a few
+    pixels wide, where a level keeps a size (one tap of 1.0, an exact
+    copy, as the plain version skips the product)."""
     plan = timage._pyramid_plan(h, w, n_levels, 1.2, "cpu")
     shapes = timage.pyramid_shapes(h, w, n_levels, 1.2)
     assert plan.shapes == shapes
@@ -109,15 +123,19 @@ def test_pyramid_plan_layout_and_spans(h, w, n_levels):
     assert all(o % 4 == 0 for o in plan.offsets)
     assert all(e <= o for e, o in zip(ends[:-1], plan.offsets[1:]))
     assert ends[-1] <= plan.total
-    ty, tx = timage.PYR_TILE
-    spans = list(plan.args[3])
-    smem = plan.args[4]
-    for l, ((ih, iw), (oh, ow)) in enumerate(zip(shapes[:-1], shapes[1:])):
-        vi, _ = timage.resize_taps(ih, oh)
-        hi, _ = timage.resize_taps(iw, ow)
-        _tile_spans_hold(vi, ty, spans[2 * l])
-        _tile_spans_hold(hi, tx, spans[2 * l + 1])
-        assert 4 * (spans[2 * l] + ty) * spans[2 * l + 1] <= smem
+    rows = [s[0] for s in shapes]
+    cols = [s[1] for s in shapes]
+    _parts_hold(plan.rows, rows, [timage.resize_taps(a, b)[0] for a, b in
+                                  zip(rows[:-1], rows[1:])])
+    _parts_hold(plan.cols, cols, [timage.resize_taps(a, b)[0] for a, b in
+                                  zip(cols[:-1], cols[1:])])
+    ny = plan.rows[:, :, 1] - plan.rows[:, :, 0]
+    nx = plan.cols[:, :, 1] - plan.cols[:, :, 0]
+    records, region, sums = plan.args[-3:]
+    assert ny[:, 1:].sum(1).max() + nx[:, 1:].sum(1).max() <= records
+    assert (ny.max(0) * nx.max(0)).max() <= region
+    assert (ny.max(0)[1:] * nx.max(0)[:-1]).max(initial=0) <= sums
+    assert 48 * records + 4 * (2 * region + sums) <= timage.PYR_SMEM
     if (h, w) == (9, 5):
         assert any(a == b for a, b in zip(shapes[:-1], shapes[1:]))
 
@@ -137,43 +155,54 @@ def test_extractor_builds_pyramid_tables_only_for_a_card():
     assert plans().misses == built
 
 
-def _chain(src, idx, taps):
-    """One `fmaf` chain an output over the staged values `src` [taps, m]:
-    the first product rounded, then each tap an f64 product plus the sum,
-    rounded to f32."""
-    acc = None
-    for t in range(idx[1]):
-        prod = np.float64(taps[t]) * src[t].astype(np.float64)
-        acc = (prod if acc is None else prod + acc.astype(np.float64)).astype(
-            np.float32)
-    return np.zeros(src.shape[1:], np.float32) if acc is None else acc
+def _cpu_splits(n_in, n_out, other, vertical):
+    return timage.gemm_tap_splits(n_in, n_out, other, vertical, "cpu")
 
 
-def _emulate_k8(img, n_levels, scale):
-    """Kernel K8 in numpy, tile by tile as `resize_tile` runs it."""
-    ty, tx = timage.PYR_TILE
-    levels = [img]
+def _emulate_k8(img, n_levels, scale, splits=_cpu_splits):
+    """Kernel K8 in numpy, block by block as `pyramid_kernel` runs it: each
+    block stages its level-0 region, then per level its vertical sums and
+    its region, from its previous region only, and writes the outputs it
+    owns; each output's taps summed as the `splits` of its shape say (by
+    default where this machine's f32 GEMM splits them). Returns the levels
+    and, per level, how many blocks wrote each output."""
     shapes = timage.pyramid_shapes(*img.shape, n_levels, scale)
-    for oh, ow in shapes[1:]:
-        src = levels[-1]
-        vi, vt = timage.resize_taps(src.shape[0], oh)
-        hi, ht = timage.resize_taps(src.shape[1], ow)
-        out = np.empty((oh, ow), np.float32)
-        for oy0 in range(0, oh, ty):
-            my = min(ty, oh - oy0)
-            ry0, ry1 = vi[oy0, 2], vi[oy0 + my - 1, 3]
-            for ox0 in range(0, ow, tx):
-                mx = min(tx, ow - ox0)
-                rx0, rx1 = hi[ox0, 2], hi[ox0 + mx - 1, 3]
-                s_in = src[ry0:ry1, rx0:rx1]
-                s_tmp = np.stack([
-                    _chain(s_in[vi[oy0 + r, 0] - ry0:], vi[oy0 + r],
-                           vt[oy0 + r]) for r in range(my)])
-                out[oy0:oy0 + my, ox0:ox0 + mx] = np.stack([
-                    _chain(s_tmp.T[hi[ox0 + q, 0] - rx0:], hi[ox0 + q],
-                           ht[ox0 + q]) for q in range(mx)], axis=1)
-        levels.append(out)
-    return levels
+    rows, cols, records, region, sums = timage.pyramid_schedule(shapes)
+    levels = [img] + [np.full(s, np.nan, np.float32) for s in shapes[1:]]
+    writes = [None] + [np.zeros(s, np.int32) for s in shapes[1:]]
+    for rp in rows:
+        for cp in cols:
+            (y0, y1), (x0, x1) = rp[0, :2], cp[0, :2]
+            src = img[y0:y1, x0:x1]
+            assert src.size <= region
+            for l in range(1, n_levels):
+                (ih, iw), (oh, ow) = shapes[l - 1], shapes[l]
+                ry0, ry1, oy0, oy1 = rp[l]
+                rx0, rx1, ox0, ox1 = cp[l]
+                assert ry0 <= oy0 <= oy1 <= ry1 and rx0 <= ox0 <= ox1 <= rx1
+                vi, vt = timage.resize_taps(ih, oh)
+                hi, ht = timage.resize_taps(iw, ow)
+                v = vi[ry0:ry1].copy()
+                h = hi[rx0:rx1].copy()
+                v[:, 0] -= y0
+                h[:, 0] -= x0
+                # the region's outputs read inside the previous region
+                for t, n_src in ((v, src.shape[0]), (h, src.shape[1])):
+                    tapped = t[:, 1] > 0
+                    assert (t[tapped, 0] >= 0).all()
+                    assert (t[tapped, 0] + t[tapped, 1] <= n_src).all()
+                tmp = timage.tap_sums_np(src, v, vt[ry0:ry1],
+                                         splits(ih, oh, iw, True)[ry0:ry1])
+                assert tmp.size <= sums
+                dst = timage.tap_sums_np(
+                    np.ascontiguousarray(tmp.T), h, ht[rx0:rx1],
+                    splits(iw, ow, oh, False)[rx0:rx1]).T
+                assert dst.size <= region
+                levels[l][oy0:oy1, ox0:ox1] = dst[oy0 - ry0:oy1 - ry0,
+                                                  ox0 - rx0:ox1 - rx0]
+                writes[l][oy0:oy1, ox0:ox1] += 1
+                src, y0, x0 = dst, ry0, rx0
+    return levels, writes
 
 
 @pytest.fixture(scope="module")
@@ -188,14 +217,15 @@ def bench_frame():
 
 def test_k8_order_within_plain_and_jax(bench_frame):
     img = bench_frame.astype(np.float32)
-    emu = _emulate_k8(img, 8, 1.2)
+    emu, writes = _emulate_k8(img, 8, 1.2)
+    assert all((x == 1).all() for x in writes[1:])
     plain = timage.build_pyramid_plain(torch.from_numpy(img), 8, 1.2)
     via = timage.build_pyramid(torch.from_numpy(img), 8, 1.2)  # CPU: plain
     lj = jax.jit(lambda x: jimage.build_pyramid(x, 8, 1.2))(jnp.asarray(img))
     for e, p, v, j in zip(emu, plain, via, lj):
         assert e.shape == tuple(p.shape) == np.asarray(j).shape
         assert torch.equal(v, p)
-        assert np.abs(e - p.numpy()).max() <= 1e-4
+        np.testing.assert_array_equal(e, p.numpy())
         assert np.abs(e - np.asarray(j)).max() < 1e-3
     np.testing.assert_array_equal(emu[0], img)
 

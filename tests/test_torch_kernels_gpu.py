@@ -378,6 +378,26 @@ def test_extractor_builds_pyramid_tables_when_constructed():
     assert feats.xy.shape == (500, 2) and bool(feats.valid.any())
 
 
+def test_extractor_builds_spread_plan_when_constructed():
+    """An extractor given the card builds K9's launch table of its
+    geometry when it is constructed, so its frames build none and launch
+    K9 once each."""
+    dev = _card()
+    plans = orb._spread_plan.cache_info
+    ext = orb.OrbExtractor(208, 304, 500, 1.2, 5, device=dev)
+    built = plans().misses
+    rng = np.random.default_rng(8)
+    before = kernels.counts()["spread_topk"]
+    for _ in range(2):
+        img = torch.from_numpy(rng.integers(0, 256, (208, 304),
+                                            dtype=np.uint8))
+        feats = ext(img.to(dev))
+    torch.cuda.synchronize()
+    assert plans().misses == built
+    assert kernels.counts()["spread_topk"] == before + 2
+    assert feats.xy.shape == (500, 2) and bool(feats.valid.any())
+
+
 def test_pyramid_wrapper_refuses_what_the_kernel_does_not_take():
     dev = _card()
     img = torch.zeros((48, 64), device=dev)
@@ -402,43 +422,73 @@ def _ranked(score, k, rank_rounds=4):
 
 
 def _topk_case(name):
-    """(scores, budgets, level ids): the rendered VGA frame's levels as
-    extraction ranks them; all-tie keys; empty levels (no corner, and a
-    budget of 0); k larger than the corners; 16 levels in one launch."""
+    """(ranked, budgets, level ids, shapes): the rendered VGA frame's
+    levels as extraction ranks them; all-tie keys; empty levels (no
+    corner, and a budget of 0); k larger than the corners; 16 levels in one
+    launch; k = 1 on tie-heavy levels; k equal to a level's candidates (a
+    whole round of ties); a level of exactly SPREAD_MAX_KEYS candidates
+    with k past SPREAD_RANK_MAX (the sorted branch); k at SPREAD_RANK_MAX
+    and one past it."""
     rng = np.random.default_rng(len(name))
+
+    def ties(h, w, p=0.2):
+        return (rng.integers(1, 4, (h, w)) * (rng.uniform(size=(h, w)) < p)
+                ).astype(np.float32)
+
     if name == "rendered":
         levels = _vga_pyramid()
         ks = orb.features_per_level(1000, 8, 1.2)
         ranked = fast.detect_and_rank_plain(levels, 20.0, 7.0, ks, margin=19)
-        return ([s.numpy() for s, _, _ in ranked], ks, list(range(8)))
-    if name == "all_ties":
-        return ([np.full((134, 179), 3.0, np.float32),
-                 np.full((240, 320), 1.0, np.float32)], [60, 217], [0, 1])
-    if name == "empty_levels":
-        return ([np.zeros((96, 128), np.float32),
-                 rng.uniform(1, 9, (64, 96)).astype(np.float32),
-                 np.zeros((40, 60), np.float32)], [40, 0, 25], [0, 1, 2])
-    if name == "k_above_corners":
+        scores, ids = [s.numpy() for s, _, _ in ranked], list(range(8))
+    elif name == "all_ties":
+        scores, ks, ids = [np.full((134, 179), 3.0, np.float32),
+                           np.full((240, 320), 1.0, np.float32)], [60, 217], \
+            [0, 1]
+    elif name == "empty_levels":
+        scores, ks, ids = [np.zeros((96, 128), np.float32),
+                           rng.uniform(1, 9, (64, 96)).astype(np.float32),
+                           np.zeros((40, 60), np.float32)], [40, 0, 25], \
+            [0, 1, 2]
+    elif name == "k_above_corners":
         s = np.zeros((134, 179), np.float32)
         s[rng.integers(0, 134, 7), rng.integers(0, 179, 7)] = 11.0
-        return [s], [60], [5]
-    # sixteen levels of a scale-1.1 pyramid's sizes, integer responses
-    shapes = [(int(round(300 / 1.1 ** l)), int(round(400 / 1.1 ** l)))
-              for l in range(16)]
-    return ([(rng.integers(0, 5, sh) * (rng.uniform(size=sh) < 0.1)).astype(
-        np.float32) for sh in shapes], [30 + 3 * l for l in range(16)],
-        list(range(16)))
+        scores, ks, ids = [s], [60], [5]
+    elif name == "sixteen_levels":  # a scale-1.1 pyramid's sizes
+        shapes = [(int(round(300 / 1.1 ** l)), int(round(400 / 1.1 ** l)))
+                  for l in range(16)]
+        scores = [(rng.integers(0, 5, sh) * (rng.uniform(size=sh) < 0.1))
+                  .astype(np.float32) for sh in shapes]
+        ks, ids = [30 + 3 * l for l in range(16)], list(range(16))
+    elif name == "k_one":
+        scores, ks, ids = [ties(134, 179), np.full((64, 96), 2.0, np.float32)
+                           ], [1, 1], [2, 3]
+    elif name == "k_all":  # rank rounds as they are, k = rounds x C
+        C = fast.n_cells(64, 96, 32)
+        raw = (rng.integers(0, 3, (4, C)) * 5.0).astype(np.float32)
+        raw[1] = 5.0
+        pos = rng.integers(0, 1024, (4, C)).astype(np.int32)
+        return ([(torch.from_numpy(raw), torch.from_numpy(pos))], [4 * C],
+                [4], [(64, 96)])
+    elif name == "max_keys":  # 32 rounds x 256 cells
+        scores, ks, ids = [ties(512, 512, 0.3)], [1400], [0]
+    else:  # "rank_max": k at the counting branch's limit and one past it
+        scores = [ties(480, 640, 0.3), ties(480, 640, 0.3)]
+        ks, ids = [orb.SPREAD_RANK_MAX, orb.SPREAD_RANK_MAX + 1], [0, 1]
+    return ([_ranked(s, k) for s, k in zip(scores, ks)], ks, ids,
+            [s.shape for s in scores])
 
 
 @pytest.mark.parametrize("name", ["rendered", "all_ties", "empty_levels",
-                                  "k_above_corners", "sixteen_levels"])
+                                  "k_above_corners", "sixteen_levels",
+                                  "k_one", "k_all", "max_keys", "rank_max"])
 def test_spread_topk_kernel_equals_plain(name):
     """K9 against `spread_topk_levels_plain`, every output bit for bit, in
-    one launch a call."""
+    one launch a call (the rank rounds packed into two buffers first: they
+    do not lie in K2's)."""
     dev = _card()
-    scores, ks, ids = _topk_case(name)
-    ranked = [_ranked(s, k) for s, k in zip(scores, ks)]
-    shapes = [s.shape for s in scores]
+    ranked, ks, ids, shapes = _topk_case(name)
+    if name == "max_keys":
+        assert ranked[0][0].numel() == orb.SPREAD_MAX_KEYS
     scales = [1.2 ** l for l in ids]
     ref = orb.spread_topk_levels_plain(ranked, ks, shapes, ids, scales)
     before = kernels.counts()["spread_topk"]
@@ -451,6 +501,25 @@ def test_spread_topk_kernel_equals_plain(name):
         assert torch.equal(a.cpu(), b)
     if name == "k_above_corners":
         assert int(out.valid.sum()) == 7
+
+
+def test_spread_topk_kernel_reads_k2_buffers():
+    """On the rank rounds of one K2 call (each level a view of K2's two
+    buffers, which K9 reads as they are) K9 equals its plain version bit
+    for bit."""
+    dev = _card()
+    levels = [lvl.to(dev) for lvl in _vga_pyramid()]
+    ks = orb.features_per_level(1000, 8, 1.2)
+    ranked = [(r, p) for _, r, p in fast.detect_and_rank(levels, 20.0, 7.0,
+                                                          ks, margin=19)]
+    assert all(r._base is ranked[0][0]._base for r, _ in ranked)
+    args = (ranked, ks, [tuple(x.shape) for x in levels], list(range(8)),
+            [1.2 ** l for l in range(8)])
+    out = orb.spread_topk_levels(*args)
+    ref = orb.spread_topk_levels_plain(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
 
 
 def test_spread_topk_refuses_past_its_key_limit():
