@@ -22,8 +22,8 @@ Phases (any failure raises and the script exits non-zero):
     version's selection); drive the step's
     reference-keyframe fallback branch (local BA off);
  3. the main paths, each with every launch counter set to 0 just before
-    and read just after, and no frame of any of them building K8's or
-    K9's tables (a tracker builds them when it is constructed):
+    and read just after, and no frame of any of them building K8's, K9's
+    or K7's tables (a tracker builds them when it is constructed):
     a. local BA off (the path of the first slice): the first 60 frames of
        the bench's VGA box-room orbit (1000 features, 8 levels, 32768 map
        points) through `Tracker.track_rgbd` on cuda:0;
@@ -143,19 +143,23 @@ Phases (any failure raises and the script exits non-zero):
     K4's time split into passes
     and LM iterations (the same calls without iterations) and one
     iteration on no observation;
-    extraction in three variants on the same 20 frames: the plain rank
+    extraction in four variants on the same 20 frames: the plain rank
     rounds, the rank rounds in K2 (both with the plain pyramid and
-    top-k), and K8, K2, K9 and K3 (at most 10 device operations and no
-    upload a frame); with --profile, a
-    frame's time broken down; with --parent DIR, K1, K4, K5, B9, K6, K8
-    and K9 against the kernels of the checkout in DIR on the same recorded
-    arguments (outputs, then device times and CUDA-event times in turns:
-    parent, change, change, parent; K4's iteration on no observation; for
-    B9 the parent's torch chain after K1 around its launch against the one
-    launch, and for K6 the parent's whole CG step against the one launch;
-    K8 on frame 0's and a tracked frame's images, K9 on their rank rounds
-    as K2 left them; cell F's whole global BA, parent against change, in
-    device time, operations and host time).
+    top-k), K8, K2, K9 and K3, and the learned pattern's K8, K2, K9 and
+    K7 (both at most 10 device operations and no upload a frame, and no
+    table built on a frame); with --profile, a
+    frame's time broken down; with --parent DIR, K1, K4, K5, B9, K6, K8,
+    K9 and K7 against the kernels of the checkout in DIR on the same
+    recorded arguments (outputs, then device times and CUDA-event times in
+    turns: parent, change, change, parent; K4's iteration on no
+    observation; for B9 the parent's torch chain after K1 around its
+    launch against the one launch, and for K6 the parent's whole CG step
+    against the one launch; K8 on frame 0's and a tracked frame's images,
+    K9 on their rank rounds as K2 left them, K7 on frame 0's keypoints
+    and on cell I's tracked frame's call, its levels laid out as K8 writes
+    them, outputs equal also given the plain version's angles; cell F's
+    whole global BA, parent against change, in device time, operations and
+    host time).
 The line before the last is a JSON object with one entry per kernel; the
 last line is `{"ok": true, "device": {...}}`.
 
@@ -680,15 +684,23 @@ def check_pyramid(gray, frames, n_levels, scale_factor, t_plan):
 
 @contextlib.contextmanager
 def counting_plan_builds(builds):
-    """Inside the block, every K8 or K9 call that had to build its
-    geometry's tables (K8's GEMM probes and uploads, K9's launch table)
-    instead of finding them built by the extractor's construction adds one
-    to builds[0]."""
+    """Inside the block, every K8, K9 or K7 call that had to build its
+    geometry's tables (K8's GEMM probes and uploads, K9's launch table,
+    K7's launch table, or K7's table of level addresses for levels laid out
+    otherwise than K8 writes them) instead of finding them built by the
+    extractor's construction adds one to builds[0]."""
     from orb_slam2_refactored_tpu_torch.ops import image as image_ops
     from orb_slam2_refactored_tpu_torch.ops import orb
 
     wrapped = ((image_ops, "pyramid_levels", image_ops._pyramid_plan),
-               (orb, "spread_topk_levels", orb._spread_plan))
+               (orb, "spread_topk_levels", orb._spread_plan),
+               (orb, "angles_and_descriptors_learned_levels",
+                orb._learned_plan))
+    call_table = orb._learned_call_table
+
+    def on_the_call(*args):
+        builds[0] += 1
+        return call_table(*args)
     reals = [getattr(mod, name) for mod, name, _ in wrapped]
 
     def counted(real, cache):
@@ -701,11 +713,13 @@ def counting_plan_builds(builds):
 
     for (mod, name, cache), real in zip(wrapped, reals):
         setattr(mod, name, counted(real, cache))
+    orb._learned_call_table = on_the_call
     try:
         yield builds
     finally:
         for (mod, name, _), real in zip(wrapped, reals):
             setattr(mod, name, real)
+        orb._learned_call_table = call_table
 
 
 def topk_work(ranked, ks):
@@ -1974,23 +1988,28 @@ def profile_steps(tracker, imgs, depths, n_split=10, n_prof=20, n_kf=3):
 
 
 def compare_extraction(imgs, device, n=20):
-    """Extraction in three variants on the same `n` frames: "plain" (the
+    """Extraction in four variants on the same `n` frames: "plain" (the
     rank rounds through the plain `cell_rank_rounds` on the card, K2 then
     giving the score planes only, with the plain pyramid and top-k),
     "fused" (the rank rounds in K2, the plain pyramid and top-k: the
-    extraction before K8 and K9) and "kernels" (K8, K2, K9 and K3: four
-    launches). Host clock around synchronized frames in turns (plain,
-    fused, kernels, kernels, fused, plain), then one torch.profiler window
-    of each for the device time, the device operations and the pageable
-    uploads a frame. "plain" and "fused" must select the same features;
-    "kernels" must too on every frame whose K8 pyramid equals the plain
-    one bit for bit (the others are counted)."""
+    extraction before K8 and K9), "kernels" (K8, K2, K9 and K3: four
+    launches) and "learned" (the learned pattern's path: K8, K2, K9 and
+    K7, an extractor of its own). Host clock around synchronized frames in
+    turns (each variant, then each again in reverse order), then one
+    torch.profiler window of each for the device time, the device
+    operations and the pageable uploads a frame. "plain" and "fused" must
+    select the same features; "kernels" must too on every frame whose K8
+    pyramid equals the plain one bit for bit (the others are counted);
+    "learned" must select the features "kernels" selects, and build no
+    K7 table on a frame."""
     from torch.profiler import ProfilerActivity, profile
 
     from orb_slam2_refactored_tpu_torch.ops import fast, orb
     from orb_slam2_refactored_tpu_torch.ops import image as image_ops
 
     ext = orb.OrbExtractor(480, 640, 1000, 1.2, 8, device=device)
+    ext_learned = orb.OrbExtractor(480, 640, 1000, 1.2, 8, pattern="learned",
+                                   device=device)
     frames = [torch.as_tensor(imgs[i], device=device) for i in range(n)]
     fused = fast.detect_and_rank
     kernels_path = (image_ops.build_pyramid, orb.spread_topk_levels)
@@ -2007,17 +2026,25 @@ def compare_extraction(imgs, device, n=20):
     def run(variant):
         fast.detect_and_rank = plain_ranking if variant == "plain" else fused
         image_ops.build_pyramid, orb.spread_topk_levels = (
-            kernels_path if variant == "kernels" else plain_path)
+            kernels_path if variant in ("kernels", "learned") else plain_path)
+        e = ext_learned if variant == "learned" else ext
         try:
-            out = [ext(f) for f in frames]
+            out = [e(f) for f in frames]
             torch.cuda.synchronize()
         finally:
             fast.detect_and_rank = fused
             image_ops.build_pyramid, orb.spread_topk_levels = kernels_path
         return out
 
-    variants = ("plain", "fused", "kernels")
-    feats = {v: run(v) for v in variants}  # warm-up
+    variants = ("plain", "fused", "kernels", "learned")
+    builds = [0]
+    with counting_plan_builds(builds):
+        feats = {v: run(v) for v in variants}  # warm-up
+    assert builds[0] == 0, "an extractor built a table on a frame"
+    for a, b in zip(feats["learned"], feats["kernels"]):
+        assert all(torch.equal(getattr(a, f), getattr(b, f)) for f in
+                   ("xy", "level", "response", "valid")), \
+            "the learned path selects other features"
     for a, b in zip(feats["plain"], feats["fused"]):
         assert all(torch.equal(x, y) for x, y in zip(a, b)), \
             "the fused ranking selects other features"
@@ -2041,9 +2068,11 @@ def compare_extraction(imgs, device, n=20):
     for v in variants:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            time.sleep(GUARD_S)  # `profiled_ms`: margins keep every launch
             t0 = time.perf_counter()
             run(v)
             prof_wall = time.perf_counter() - t0
+            time.sleep(GUARD_S)
         rows = [e for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA
                 and e.self_device_time_total > 0]
@@ -2061,9 +2090,10 @@ def compare_extraction(imgs, device, n=20):
             print(f"    {e.self_device_time_total / 1e3 / n:8.4f} ms "
                   f"{e.count / n:6.1f} calls  {e.key[:70]}")
     print("extraction " + json.dumps(res))
-    k = res["kernels"]
-    assert k["device_ops_per_frame"] <= 10, k
-    assert k["uploads_per_frame"] == 0, k
+    for v in ("kernels", "learned"):
+        k = res[v]
+        assert k["device_ops_per_frame"] <= 10, (v, k)
+        assert k["uploads_per_frame"] == 0, (v, k)
     return res
 
 
@@ -2170,7 +2200,7 @@ def device_times_k5(asm_call, index_r, asm_r, cost_r, reps=20):
 
 
 # ---------------------------------------------------------------------------
-# --parent: K1, K4, K5, B9, K6, K8 and K9 against the parent's kernels
+# --parent: K1, K4, K5, B9, K6, K8, K9 and K7 against the parent's kernels
 # ---------------------------------------------------------------------------
 
 def build_parent(parent):
@@ -2181,8 +2211,9 @@ def build_parent(parent):
     (`SIDE_JOBS`): K1, K4, K5 (assembly, cost), B9
     (`associate_from_best2`), K6 (`ba_schur_cg`, with `cg_args` to hand it
     a recorded call: W_obs in the parent's own `LiveRows` type), the
-    global BA (`ba_solve`), K8 (`build_pyramid`) and K9
-    (`spread_topk_levels`)."""
+    global BA (`ba_solve`), K8 (`build_pyramid`), K9
+    (`spread_topk_levels`) and K7 (`angles_and_descriptors_learned_levels`,
+    which builds its C arguments its own way)."""
     import importlib
     import importlib.util
     import os
@@ -2213,7 +2244,8 @@ def build_parent(parent):
             "cost": old_ba.ba_cost, "b9": old_stereo.associate_from_best2,
             "cg": old_ba.ba_schur_cg, "cg_args": cg_args,
             "solve": old_ba.ba_solve, "k8": old_image.build_pyramid,
-            "k9": old_orb.spread_topk_levels}
+            "k9": old_orb.spread_topk_levels,
+            "k7": old_orb.angles_and_descriptors_learned_levels}
 
 
 def in_turns(label, calls, fns, reps=20):
@@ -2236,7 +2268,7 @@ SIDE_JOBS = {"k1_frame": ("k1", False), "k1_dense": ("k1", False),
              "k4_frame": ("k4", False), "k5_ba_assemble": ("asm", False),
              "k5_ba_cost": ("cost", False), "b9": ("b9", False),
              "k6": ("cg", True), "gba": ("solve", True), "k8": ("k8", False),
-             "k9": ("k9", False)}
+             "k9": ("k9", False), "k7": ("k7", False)}
 
 
 def side_entries(side, parent):
@@ -2255,7 +2287,8 @@ def side_entries(side, parent):
                 "asm": ba.ba_assemble, "cost": ba.ba_cost,
                 "b9": stereo.associate_from_best2, "cg": ba.ba_schur_cg,
                 "cg_args": lambda c: c, "solve": ba.ba_solve,
-                "k8": image_ops.build_pyramid, "k9": orb.spread_topk_levels}
+                "k8": image_ops.build_pyramid, "k9": orb.spread_topk_levels,
+                "k7": orb.angles_and_descriptors_learned_levels}
     entries = build_parent(parent)
     old_kernels = sys.modules["parent_port.kernels"]
     for name in old_kernels.SOURCES:
@@ -2343,23 +2376,29 @@ def device_times_in_turns(parent, jobs):
 
 def compare_with_parent(parent, frame_k1, dense_k1, frame_k4, fb_k4,
                         asm_call, st_tail, k6_calls, gba_call, k8_calls,
-                        k9_calls):
-    """K1, K4, K5, B9, K6, K8 and K9 against the parent checkout's own
+                        k9_calls, k7_calls):
+    """K1, K4, K5, B9, K6, K8, K9 and K7 against the parent checkout's own
     entries (`build_parent`) on the same recorded arguments: outputs (K1,
-    B9, K8 and K9 exactly; K4 bit for bit, reported; K5's largest
-    difference, reported; K6 under the f64 yardstick), CUDA-event times in
-    turns in this process, then (`device_times_in_turns`) device times and
-    operations, K4's iteration on no observation and cell F's whole global
-    BA (device time, operations, host time), each side in a process of its
-    own."""
+    B9, K8, K9 and K7 exactly, K7 also given the plain version's angles;
+    K4 bit for bit, reported; K5's largest difference, reported; K6 under
+    the f64 yardstick), CUDA-event times in turns in this process, then
+    (`device_times_in_turns`) device times and operations, K4's iteration
+    on no observation and cell F's whole global BA (device time,
+    operations, host time), each side in a process of its own."""
     from orb_slam2_refactored_tpu_torch.ops import hamming, orb, stereo
     from orb_slam2_refactored_tpu_torch.ops import image as image_ops
     from orb_slam2_refactored_tpu_torch.optim import ba, pose_opt
 
     old = build_parent(parent)
+    given = {f"{n} given the plain angles": {
+        **a, "angles": orb.angles_and_descriptors_learned_plain(
+            a["levels"], a["ys"], a["xs"], a["counts"])[0]}
+        for n, a in k7_calls.items()}
     for label, new_fn, old_fn, calls in (
             ("K8", image_ops.build_pyramid, old["k8"], k8_calls),
-            ("K9", orb.spread_topk_levels, old["k9"], k9_calls)):
+            ("K9", orb.spread_topk_levels, old["k9"], k9_calls),
+            ("K7", orb.angles_and_descriptors_learned_levels, old["k7"],
+             {**k7_calls, **given})):
         for name, a in calls.items():
             same = [bool(torch.equal(x, y)) for x, y in zip(new_fn(**a),
                                                             old_fn(**a))]
@@ -2386,6 +2425,11 @@ def compare_with_parent(parent, frame_k1, dense_k1, frame_k4, fb_k4,
     res["k9_card_ms"] = in_turns(
         "K9 on frame 0's and a tracked frame's rank rounds, CUDA events",
         k9_calls, {"parent": old["k9"], "change": orb.spread_topk_levels})
+    res["k7_card_ms"] = in_turns(
+        "K7 on frame 0's and cell I's tracked frame's keypoints (levels in "
+        "K8's buffer), CUDA events", k7_calls,
+        {"parent": old["k7"],
+         "change": orb.angles_and_descriptors_learned_levels})
     k1_fns = {"parent": old["k1"], "change": hamming.masked_best2_gated}
     res["k1_frame_card_ms"] = in_turns(
         "K1 on the tracked frame's calls, CUDA events", frame_k1, k1_fns)
@@ -2435,7 +2479,7 @@ def compare_with_parent(parent, frame_k1, dense_k1, frame_k4, fb_k4,
         "k1_frame": frame_k1, "k1_dense": dense_k1, "k4_frame": frame_k4,
         "k5_ba_assemble": {"a": asm_call}, "k5_ba_cost": {"a": cost_call},
         "b9": {"b9": st_tail}, "k6": {"k6": c0}, "gba": {"gba": gba_call},
-        "k8": k8_calls, "k9": k9_calls})
+        "k8": k8_calls, "k9": k9_calls, "k7": k7_calls})
     print("against the parent " + json.dumps(res))
     return res
 
@@ -3892,6 +3936,24 @@ def run_cell_i(imgs, depths, gt, tmp):
     return stats, system, seq
 
 
+def k8_layout(levels):
+    """Copies of pyramid `levels` laid out as kernel K8 writes them, so
+    that K7 takes its launch table as on the main path: level 0 alone,
+    levels 1.. views of one buffer at `image_ops.buffer_offsets`."""
+    from orb_slam2_refactored_tpu_torch.ops import image as image_ops
+
+    offsets, total = image_ops.buffer_offsets([tuple(l.shape)
+                                               for l in levels[1:]])
+    buf = torch.empty((total,), dtype=torch.float32,
+                      device=levels[0].device)
+    out = [levels[0].clone()]
+    for lvl, o in zip(levels[1:], offsets):
+        v = buf.as_strided(tuple(lvl.shape), (lvl.shape[1], 1), o)
+        v.copy_(lvl)
+        out.append(v)
+    return out
+
+
 def record_tracked_frame_i(system, seq):
     """The K7 call of one more frame that cell I's system tracks (the
     sequence's frame 0 again, read by the port's reader: the orbit
@@ -4093,9 +4155,9 @@ def main():
                     help="after the main paths, break a frame's time down "
                     "(cell A's, and a stereo frame's of cell C)")
     ap.add_argument("--parent", metavar="DIR",
-                    help="also hold K1, K4, K5, B9, K6, K8 and K9 (and cell "
-                    "F's global BA) against the kernels of the checkout in "
-                    "DIR (outputs, device and CUDA-event time, in turns)")
+                    help="also hold K1, K4, K5, B9, K6, K8, K9 and K7 (and "
+                    "cell F's global BA) against the kernels of the checkout "
+                    "in DIR (outputs, device and CUDA-event time, in turns)")
     ap.add_argument("--time-side", choices=("parent", "change"),
                     help="with --parent and --jobs: only time the recorded "
                     "jobs through one side's kernels (a process of its own, "
@@ -4181,7 +4243,7 @@ def main():
 
     mark("2_k8_k2_k9_k3_fallback")
     # ---- phase 3: the main paths ----
-    # no frame builds K8's or K9's tables: each tracker built them when
+    # no frame builds K8's, K9's or K7's tables: each tracker built them when
     # constructed
     main_paths = contextlib.ExitStack()
     plan_builds = main_paths.enter_context(counting_plan_builds([0]))
@@ -4233,9 +4295,9 @@ def main():
     mark("3_cell_I")
     drivers_3j = run_driver_cells(tmp)
     main_paths.close()
-    print(f"phase 3: K8 and K9 calls that built their tables on a frame "
+    print(f"phase 3: K8, K9 and K7 calls that built their tables on a frame "
           f"{plan_builds[0]}")
-    assert plan_builds[0] == 0, "a frame built K8's or K9's tables"
+    assert plan_builds[0] == 0, "a frame built K8's, K9's or K7's tables"
     mark("3_j_drivers")
 
     # ---- phase 4: every kernel on the arguments the main path gave it ----
@@ -4454,7 +4516,13 @@ def main():
                                 ("ranked", "ks", "shapes", "level_ids",
                                  "scales"), topk_args)),
                              "tracked": {k: v for k, v in frame_k9.items()
-                                         if k != "buffers"}})
+                                         if k != "buffers"}},
+                            {"frame0": {"levels": levels, "ys": kp0[0],
+                                        "xs": kp0[1],
+                                        "counts": ext.budgets},
+                             "cell_i_tracked": {
+                                 **frame_k7,
+                                 "levels": k8_layout(frame_k7["levels"])}})
     compare_extraction(imgs, device)
     _profile_window(tracker_g, lambda k: tracker_g.track_mono(
         imgs[k % N_FRAMES]), range(1, 21), "mono tracked frames (cell G)")

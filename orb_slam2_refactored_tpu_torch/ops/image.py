@@ -397,6 +397,17 @@ class PyramidPlan(NamedTuple):
     args: tuple            # the C arrays and sizes of a launch
 
 
+def buffer_offsets(shapes) -> Tuple[List[int], int]:
+    """Each [h, w] level's first float in kernel K8's one buffer of levels
+    1 to n-1 (`shapes` from level 1 on), every level at a 16-byte-aligned
+    offset for kernel K2's vector loads, and the buffer's floats."""
+    offsets, total = [], 0
+    for a, b in shapes:
+        offsets.append(total)
+        total += -(-a * b // 4) * 4
+    return offsets, total
+
+
 @functools.lru_cache(maxsize=32)
 def _pyramid_plan(h: int, w: int, n_levels: int, scale_factor: float,
                   device_str: str) -> PyramidPlan:
@@ -404,10 +415,7 @@ def _pyramid_plan(h: int, w: int, n_levels: int, scale_factor: float,
     for kernel K2's vector loads), the tap records and the work split of
     one geometry on one device, uploaded once."""
     shapes = pyramid_shapes(h, w, n_levels, scale_factor)
-    offsets, total = [], 0
-    for a, b in shapes[1:]:
-        offsets.append(total)
-        total += -(-a * b // 4) * 4
+    offsets, total = buffer_offsets(shapes[1:])
     tables = []
     for (ih, iw), (oh, ow) in zip(shapes[:-1], shapes[1:]):
         if oh < 1 or ow < 1:

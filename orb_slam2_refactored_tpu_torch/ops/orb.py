@@ -21,6 +21,7 @@ the raw level and the continuously rotated tests, here kernel K7
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import os
 from typing import List, NamedTuple, Tuple
@@ -184,7 +185,6 @@ def _device_tables(device_str: str):
         "pairs": torch.as_tensor(steered_pairs(), device=dev),
         "blur": torch.as_tensor(_blur31_matrix(), device=dev),
         "shifts": torch.arange(32, dtype=torch.int64, device=dev),
-        "learned": _pattern_table("learned", dev),
     }
 
 
@@ -530,6 +530,7 @@ def angles_and_descriptors_raw(lvl, ys, xs):
 # ---------------------------------------------------------------------------
 
 LEARNED_REACH = 18  # |rotated, rounded offset| of a point within radius 18.5
+LEARNED_ARGS = [kernels.VP] * 5 + [kernels.CI] + [kernels.VP] * 4
 
 
 def _pattern_table(pattern, device) -> torch.Tensor:
@@ -625,6 +626,120 @@ def learned_tie_gate(levels, ys, xs, counts, angles, pattern="learned",
     return torch.cat(out)
 
 
+class _K7Table(ctypes.Structure):
+    """Kernel K7's launch table (`K7Table` in `csrc/orb_desc_learned.cu`):
+    level l's image is the launch's `img0` + off[l] bytes where
+    from_base[l] is 0, else its `base` + off[l] bytes."""
+    _fields_ = [("n", ctypes.c_int), ("K", ctypes.c_int),
+                ("h", ctypes.c_int * kernels.MAX_LEVELS),
+                ("w", ctypes.c_int * kernels.MAX_LEVELS),
+                ("k0", ctypes.c_int * kernels.MAX_LEVELS),
+                ("from_base", ctypes.c_int * kernels.MAX_LEVELS),
+                ("off", ctypes.c_longlong * kernels.MAX_LEVELS),
+                ("gk", ctypes.c_void_p), ("mom", ctypes.c_void_p),
+                ("pattern", ctypes.c_void_p)]
+
+
+class LearnedPlan(NamedTuple):
+    """Kernel K7's launch table of one geometry, device and pattern."""
+    K: int
+    offsets: Tuple[int, ...]  # levels 1.. in K8's buffer: bytes from level 1
+    pattern: torch.Tensor     # int8[256, 4] on the device
+    table: _K7Table           # level 0 the image, the others at `offsets`
+    address: int              # of `table`
+
+
+def _pattern_key(pattern):
+    """A pattern name as it is; a [256, 2, 2] table as its int32 bytes."""
+    if isinstance(pattern, str):
+        return pattern
+    return np.ascontiguousarray(pattern, np.int32).tobytes()
+
+
+@functools.lru_cache(maxsize=64)
+def _learned_plan(shapes, counts, device_index: int, pattern) -> LearnedPlan:
+    """K7's table for levels of `shapes` [h, w] holding `counts` keypoints
+    each, on the CUDA device `device_index` (the CPU for -1), with the
+    pattern `_pattern_key` names; raises where the kernel does not take
+    them. Built once a geometry: the pattern is uploaded and its radius
+    checked here, and the levels are placed as kernel K8 lays them out
+    (level 0 the frame, the others in one buffer,
+    `image_ops.buffer_offsets`)."""
+    n = len(shapes)
+    if len(counts) != n:
+        raise ValueError(f"orb: counts {list(counts)} do not split the "
+                         f"keypoints over {n} levels")
+    if not 1 <= n <= kernels.MAX_LEVELS:
+        raise ValueError(f"orb: {n} levels, the kernel takes 1 to "
+                         f"{kernels.MAX_LEVELS}")
+    for (h, w), k in zip(shapes, counts):
+        if k < 0 or (k > 0 and min(h, w) < 2 * EDGE_MARGIN + 1):
+            raise ValueError(f"orb: {k} keypoints on a {h}x{w} level; the "
+                             f"kernel takes levels of {2 * EDGE_MARGIN + 1} "
+                             f"px and more")
+    pat_np = (get_pattern(pattern) if isinstance(pattern, str) else
+              np.frombuffer(pattern, np.int32).reshape(256, 2, 2).copy())
+    radius = float(np.sqrt((pat_np.astype(np.float64) ** 2).sum(-1)).max())
+    if radius >= LEARNED_REACH + 0.5:
+        raise ValueError(f"orb: a test point at radius {radius:.2f} leaves "
+                         f"the kernel's {LEARNED_REACH}-px window")
+    dev = (torch.device("cpu") if device_index < 0
+           else torch.device("cuda", device_index))
+    pat = torch.as_tensor(pat_np.reshape(256, 4).astype(np.int8),
+                          device=dev)
+    offsets = tuple(4 * o for o in image_ops.buffer_offsets(shapes[1:])[0])
+    t = _K7Table(n=n, K=sum(counts))
+    k0 = 0
+    for l, ((h, w), k) in enumerate(zip(shapes, counts)):
+        t.h[l], t.w[l], t.k0[l] = h, w, k0
+        t.from_base[l] = int(l > 0)
+        t.off[l] = offsets[l - 1] if l > 0 else 0
+        k0 += k
+    tb = _tables(dev)
+    t.gk, t.mom = tb["gk"].data_ptr(), tb["mom"].data_ptr()
+    t.pattern = pat.data_ptr()
+    return LearnedPlan(t.K, offsets, pat, t, ctypes.addressof(t))
+
+
+def prepare_learned(height: int, width: int, n_features: int,
+                    scale_factor: float, n_levels: int, pattern, device
+                    ) -> LearnedPlan:
+    """Build K7's table of an extractor's geometry now, as
+    `angles_and_descriptors_learned_levels` finds it on the extractor's
+    frames (the levels with a budget), so that no frame builds it."""
+    budgets = features_per_level(n_features, n_levels, scale_factor)
+    shapes = image_ops.pyramid_shapes(height, width, n_levels, scale_factor)
+    used = [l for l in range(n_levels) if budgets[l] > 0]
+    dev = torch.empty(0, device=device).device
+    return _learned_plan(tuple(shapes[l] for l in used),
+                         tuple(budgets[l] for l in used),
+                         -1 if dev.index is None else dev.index,
+                         _pattern_key(pattern))
+
+
+def _learned_call_table(plan: LearnedPlan, ptrs) -> _K7Table:
+    """A table of `plan` for levels at the addresses `ptrs`, laid out
+    otherwise than kernel K8 lays them: built on the call."""
+    t = _K7Table.from_buffer_copy(plan.table)
+    for l, p in enumerate(ptrs):
+        t.from_base[l], t.off[l] = 1, p
+    return t
+
+
+def learned_sources(levels, plan: LearnedPlan):
+    """(img0, base, table address, table) of a K7 launch over `levels`:
+    the plan's own table where levels 1.. lie at its offsets of one
+    buffer, as kernel K8 writes them (`image_ops.pyramid_levels`), else a
+    table of their addresses built on this call (`_learned_call_table`),
+    which the caller holds until the launch."""
+    ptrs = [lvl.data_ptr() for lvl in levels]
+    base = ptrs[1] if len(ptrs) > 1 else 0
+    if all(p == base + o for p, o in zip(ptrs[1:], plan.offsets)):
+        return ptrs[0], base, plan.address, plan.table
+    t = _learned_call_table(plan, ptrs)
+    return 0, 0, ctypes.addressof(t), t
+
+
 def angles_and_descriptors_learned_levels(levels, ys, xs, counts,
                                           angles=None, pattern="learned"):
     """IC angle f32[K] and steered-BRIEF int32[K,8] with a test table that
@@ -633,50 +748,38 @@ def angles_and_descriptors_learned_levels(levels, ys, xs, counts,
     `angles_and_descriptors_levels`. With `angles` given, the descriptors
     are steered by them and they are returned as they are. `pattern` is a
     name or a numpy [256, 2, 2] table whose points lie within radius 18.5
-    (a swapped pair makes a control that must disagree). One
-    launch of kernel `csrc/orb_desc_learned.cu` for every level on CUDA
-    tensors; the plain version on CPU tensors."""
-    if not levels[0].is_cuda:
+    (a swapped pair makes a control that must disagree). One launch of
+    kernel `csrc/orb_desc_learned.cu` for every level on CUDA tensors,
+    through the launch table `_learned_plan` caches per geometry, device
+    and pattern (built with the extractor: `prepare_learned`); the plain
+    version on CPU tensors."""
+    lvl0 = levels[0]
+    if not lvl0.is_cuda:
         return angles_and_descriptors_learned_plain(levels, ys, xs, counts,
                                                     angles, pattern)
-    K = ys.shape[0]
-    n = len(levels)
-    if len(counts) != n or sum(counts) != K:
-        raise ValueError(f"orb: counts {list(counts)} do not split {K} "
-                         f"keypoints over {n} levels")
-    if n > kernels.MAX_LEVELS:
-        raise ValueError(f"orb: {n} levels, the kernel takes at most "
-                         f"{kernels.MAX_LEVELS}")
+    plan = _learned_plan(tuple([tuple(lvl.shape) for lvl in levels]),
+                         tuple(counts), lvl0.get_device(),
+                         _pattern_key(pattern))
+    K = plan.K
     for lvl in levels:
         kernels.require(lvl, "orb level", torch.float32)
     kernels.require(ys, "orb ys", torch.int32, (K,))
     kernels.require(xs, "orb xs", torch.int32, (K,))
     if angles is not None:
         kernels.require(angles, "orb angles", torch.float32, (K,))
-    dev = levels[0].device
-    tb = _tables(dev)
-    pat_np = get_pattern(pattern) if isinstance(pattern, str) else pattern
-    radius = float(np.sqrt((np.asarray(pat_np, np.float64) ** 2).sum(-1)).max())
-    pat = (tb["learned"] if isinstance(pattern, str) and pattern == "learned"
-           else _pattern_table(pattern, dev))
-    if radius >= LEARNED_REACH + 0.5:
-        raise ValueError(f"orb: a test point at radius {radius:.2f} leaves "
-                         f"the kernel's {LEARNED_REACH}-px window")
-    ang = torch.empty((K,), dtype=torch.float32, device=dev)
-    desc = torch.empty((K, 8), dtype=torch.int32, device=dev)
-    fn = kernels.bind("orb_desc_learned", "orb_learned_levels",
-                      [kernels.CI, kernels.VP, kernels.VP, kernels.VP,
-                       kernels.VP, kernels.CI] + [kernels.VP] * 8)
+    # `new_empty`: the cheapest allocation on the H100's host
+    # (`extract_probe.py`)
+    ang, desc = lvl0.new_empty((K,)), ys.new_empty((K, 8))
+    if K == 0:
+        return ang, desc
+    img0, base, table, held = learned_sources(levels, plan)
+    fn = kernels.bind("orb_desc_learned", "orb_learned_levels", LEARNED_ARGS)
     kernels.LAUNCHES["orb_desc_learned"] += 1
-    kernels.check(fn(n, kernels.ptr_array(levels),
-                     kernels.int_array([d for lvl in levels for d in lvl.shape]
-                                       + list(counts)),
-                     kernels.ptr(ys), kernels.ptr(xs), K,
-                     kernels.ptr(tb["gk"]), kernels.ptr(tb["xm"]),
-                     kernels.ptr(tb["ym"]), kernels.ptr(pat),
-                     None if angles is None else kernels.ptr(angles),
-                     kernels.ptr(ang), kernels.ptr(desc),
-                     kernels.stream_of(levels[0])), "orb_learned_levels")
+    kernels.check(fn(img0, base, table, ys.data_ptr(), xs.data_ptr(), K,
+                     None if angles is None else angles.data_ptr(),
+                     ang.data_ptr(), desc.data_ptr(), kernels.stream_of(lvl0)),
+                  "orb_learned_levels")
+    del held  # the table the launch read
     return ang, desc
 
 
@@ -696,8 +799,10 @@ class OrbFeatures(NamedTuple):
 class OrbExtractor:
     """ORB pipeline for a fixed image geometry (reference defaults:
     scaleFactor=1.2, nlevels=8, iniThFAST=20, minThFAST=7). Given a CUDA
-    `device`, it builds kernel K8's tables of the geometry there at once
-    (`image_ops.prepare_pyramid`), so that no frame pays for them."""
+    `device`, it builds the launch tables of the geometry there at once
+    (kernel K8's, `image_ops.prepare_pyramid`; K9's, `prepare_spread_topk`;
+    K7's with the learned pattern, `prepare_learned`), so that no frame
+    pays for them."""
 
     def __init__(self, height: int, width: int, n_features: int = 1000,
                  scale_factor: float = 1.2, n_levels: int = 8,
@@ -719,6 +824,9 @@ class OrbExtractor:
                                       device)
             prepare_spread_topk(height, width, n_features, scale_factor,
                                 n_levels, cell)
+            if self.full_image_path:
+                prepare_learned(height, width, n_features, scale_factor,
+                                n_levels, pattern, device)
 
     def __call__(self, img) -> OrbFeatures:
         return self._extract_impl_pyr(img)[0]

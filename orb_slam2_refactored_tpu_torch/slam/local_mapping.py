@@ -34,6 +34,7 @@ from typing import List
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..geometry import projection as proj
 from ..geometry import se3
 from ..ops import hamming
@@ -94,14 +95,16 @@ class LocalMapper:
                  window: int = 12, lambda0: float = 1e-4, min_kfs: int = 2,
                  tri_neighbors: int = 6, device=None):
         """`cg_iters` is accepted and unused, as in the JAX package: the
-        window BA solves its reduced camera system densely (Schur)."""
+        window BA solves its reduced camera system densely (Schur). The
+        mapper runs on `cuda:0` unless `device` says otherwise
+        (`resolve_device`: with no card and no device it raises)."""
         self.cam = cam
         self.window = window
         self.min_kfs = min_kfs
         self.tri_neighbors = tri_neighbors
         self.ba_iters = ba_iters
         self.lambda0 = lambda0
-        self.device = torch.device("cpu" if device is None else device)
+        self.device = resolve_device(device)
         self.sf, _, self.inv_sigma2 = scale_factors(n_levels, scale_factor,
                                                     device=self.device)
         self.n_ba = 0  # window BA solves run

@@ -1,6 +1,9 @@
 """The CUDA kernels against their plain versions, on the card: K1 (in its
 three gate modes), K2 and K3 (on one level and on a whole pyramid in one
-call), K8 (the pyramid) and K9 (the per-level spread top-k), K7 (the learned pattern, given the angles and whole), K4 (pose LM), K5 (BA assembly and cost, both modes), K6 (the fused CG
+call), K8 (the pyramid) and K9 (the per-level spread top-k), K7 (the
+learned pattern, given the angles and whole, at the borders, on empty
+levels, with one keypoint, and through its launch table), K4 (pose LM), K5
+(BA assembly and cost, both modes), K6 (the fused CG
 solve of global BA) and B9 (the stereo SAD
 refinement alone, and the whole stereo association after K1 in one
 launch), and the BoW vocabulary on K1 (quantization, training,
@@ -288,6 +291,99 @@ def test_orb_learned_kernel_matches_plain():
     _, dx = orb.angles_and_descriptors_learned_levels(levels, ys, xs, ks,
                                                       pattern=pat)
     assert ((bits(dx) != bits(dp)) & ~gate).sum() > 100
+
+
+def _k7_edge_case(name):
+    """(levels, ys, xs, counts) of the VGA pyramid: "borders", keypoints
+    19, 20 and 21 px from each border and in each corner of every level
+    (windows reaching 2, 1 and 0 px past the border); "empty_levels",
+    frame keypoints with no keypoint on levels 2 and 7; "one", K = 1."""
+    levels, ys, xs, ks = _k7_case()
+    if name == "one":
+        return levels, ys[:1], xs[:1], [1] + [0] * (len(ks) - 1)
+    if name == "empty_levels":
+        parts = list(zip(ys.split(ks), xs.split(ks)))
+        counts = [0 if l in (2, 7) else k for l, k in enumerate(ks)]
+        keep = [p for l, p in enumerate(parts) if counts[l]]
+        return (levels, torch.cat([y for y, _ in keep]),
+                torch.cat([x for _, x in keep]), counts)
+    yy, xx, counts = [], [], []
+    for lvl in levels:
+        h, w = lvl.shape
+        ey = [19, 20, 21, h - 22, h - 21, h - 20]
+        ex = [19, 20, 21, w - 22, w - 21, w - 20]
+        y = ey + ey + [h // 2] * 6 + ey + [19, 19, h - 20, h - 20]
+        x = ex + ex[::-1] + ex + [w // 2] * 6 + [19, w - 20, 19, w - 20]
+        yy += y
+        xx += x
+        counts.append(len(y))
+    dev = levels[0].device
+    return (levels, torch.tensor(yy, dtype=torch.int32, device=dev),
+            torch.tensor(xx, dtype=torch.int32, device=dev), counts)
+
+
+@pytest.mark.parametrize("name", ["borders", "empty_levels", "one"])
+def test_orb_learned_kernel_at_borders_empty_levels_and_one(name):
+    """K7 at the edges of what it takes: given the plain version's angles,
+    its descriptors bit for bit and the angles returned as given; with its
+    own angles, level 0's equal and the others within 3e-5 rad; one launch
+    a call."""
+    levels, ys, xs, counts = _k7_edge_case(name)
+    ap, dp = orb.angles_and_descriptors_learned_plain(levels, ys, xs, counts)
+    before = kernels.counts()["orb_desc_learned"]
+    ag, dg = orb.angles_and_descriptors_learned_levels(levels, ys, xs,
+                                                       counts, angles=ap)
+    ak, _ = orb.angles_and_descriptors_learned_levels(levels, ys, xs, counts)
+    torch.cuda.synchronize()
+    assert kernels.counts()["orb_desc_learned"] == before + 2
+    assert torch.equal(ag, ap) and torch.equal(dg, dp)
+    assert torch.equal(ak[:counts[0]], ap[:counts[0]])
+    d = torch.remainder(ak - ap + np.pi, 2 * np.pi) - np.pi
+    assert float(d.abs().max()) < 3e-5
+
+
+def test_orb_learned_kernel_reads_the_pyramid_buffer():
+    """Levels as kernel K8 writes them take the launch table built once for
+    the geometry; the same levels copied apart take a table built on the
+    call; both give the same angles and descriptors."""
+    dev = _card()
+    levels = image_ops.build_pyramid(_vga_pyramid()[0].to(dev), 8, 1.2)
+    ks = orb.features_per_level(1000, 8, 1.2)
+    ys, xs = _vga_keypoints([lvl.cpu() for lvl in levels], ks)
+    ys, xs = ys.to(dev), xs.to(dev)
+    plan = orb.prepare_learned(480, 640, 1000, 1.2, 8, "learned", dev)
+    assert orb.learned_sources(levels, plan)[2] == plan.address
+    apart = [lvl.clone() for lvl in levels]
+    assert orb.learned_sources(apart, plan)[2] != plan.address
+    a, d = orb.angles_and_descriptors_learned_levels(levels, ys, xs, ks)
+    b, e = orb.angles_and_descriptors_learned_levels(apart, ys, xs, ks)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(d, e)
+
+
+def test_extractor_builds_learned_table_when_constructed(monkeypatch):
+    """An extractor with the learned pattern given the card builds K7's
+    launch table of its geometry when it is constructed, so its frames
+    build none (not even one of addresses) and launch K7 once each."""
+    dev = _card()
+    plans = orb._learned_plan.cache_info
+    ext = orb.OrbExtractor(208, 304, 500, 1.2, 5, pattern="learned",
+                           device=dev)
+    built = plans().misses
+    calls = []
+    real = orb._learned_call_table
+    monkeypatch.setattr(orb, "_learned_call_table",
+                        lambda *a: calls.append(1) or real(*a))
+    rng = np.random.default_rng(9)
+    before = kernels.counts()["orb_desc_learned"]
+    for _ in range(2):
+        img = torch.from_numpy(rng.integers(0, 256, (208, 304),
+                                            dtype=np.uint8))
+        feats = ext(img.to(dev))
+    torch.cuda.synchronize()
+    assert plans().misses == built and not calls
+    assert kernels.counts()["orb_desc_learned"] == before + 2
+    assert feats.desc.shape == (500, 8) and bool(feats.valid.any())
 
 
 def test_extractor_with_the_learned_pattern_launches_k7_not_k3():

@@ -11,7 +11,9 @@ import torch
 
 from orb_slam2_refactored_tpu.slam import frame as jframe
 from orb_slam2_refactored_tpu_torch import convert, kernels, resolve_device
+from orb_slam2_refactored_tpu_torch.geometry import projection as tproj
 from orb_slam2_refactored_tpu_torch.slam import frame as tframe
+from orb_slam2_refactored_tpu_torch.slam.local_mapping import LocalMapper
 from orb_slam2_refactored_tpu_torch.slam.map_state import MapCapacity
 from orb_slam2_refactored_tpu_torch.slam.tracking import (
     Tracker, TrackerConfig, TrackState)
@@ -181,15 +183,21 @@ def test_local_mapping_is_ported():
 
 
 def test_device_defaults_to_the_card():
+    cam = tproj.CameraIntrinsics.create(50.0, 50.0, 32.0, 24.0, 4.0)
     if torch.cuda.is_available():
         assert resolve_device() == torch.device("cuda:0")
+        assert LocalMapper(cam, 2, 1.2).device == torch.device("cuda:0")
     else:
         with pytest.raises(RuntimeError):
             resolve_device()
         with pytest.raises(RuntimeError):
             Tracker(_cfg())
+        with pytest.raises(RuntimeError):
+            LocalMapper(cam, 2, 1.2)
     assert Tracker(_cfg(dist_coeffs=(0.1, 0.0, 0.0, 0.0, 0.0)),
                    device="cpu").device == torch.device("cpu")
+    assert LocalMapper(cam, 2, 1.2, device="cpu").device == torch.device(
+        "cpu")
 
 
 def test_lost_frame_without_an_index_stays_lost():
