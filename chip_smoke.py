@@ -78,7 +78,23 @@ Phases (any failure raises and the script exits non-zero):
        frame and K3 never, window BA at every keyframe after the second;
     j. the `stereo_kitti` and `mono_tum` CLIs on the JAX driver tests' own
        40-frame QVGA exports and gates (ATE < 5 cm, a line a frame; sim3
-       ATE < 0.3 m, >= 30 lines);
+       ATE < 0.3 m, >= 30 lines); `stereo_euroc` on 40 raw EuRoC-layout
+       pairs whose settings carry LEFT./RIGHT. blocks, so the driver
+       rectifies every pair on the host (the JAX driver test's QVGA rig,
+       600 features, 4 levels; and EuRoC's 752x480 with EuRoC.yaml's
+       extractor settings, 1200 features, 8 levels): the JAX test's gates
+       (ATE of the saved file, timestamps associated, < 5 cm over >= 35
+       frames), the rectifier's host ms a pair printed;
+    k. cameras past VGA, RGB-D on the bench's box-room orbit with its field
+       of view (fx = 520 w / 640, 1000 features, 8 levels, local BA on):
+       1920x1200, 30 frames (0 lost, ATE <= 3 cm) and 3840x2160, 10 frames
+       (0 lost), each tracker's construction time (K8's GEMM probes and
+       work split) and `SPLIT_MISSES` printed; K9's large kernel once a
+       frame; then at 1920x1200, 2048x1088 and 3840x2160 K8 (bit for bit
+       where `SPLIT_MISSES` is 0, else within 1e-4 gray), K2, K9 and K3
+       against their plain versions on two frames, K8's and K9's
+       CUDA-event times (50 calls back to back), and K9's large kernel
+       alone on 3840x2160's levels 0-3 (its row in the kernel line);
     f. stereo save/load (run after phase 4's cell-(c) checks): cell (c)'s
        map through `save_map` and `load_map` into a fresh stereo tracker,
        which must relocalize within 3 pairs from view 40, within 2 cm of
@@ -87,8 +103,9 @@ Phases (any failure raises and the script exits non-zero):
     Each of (a)-(c) checks ATE against the 3 cm gate, that no frame was
     lost, that every kernel of its path launched and that K2 and K3
     launched once a frame (twice a stereo frame, with one B9 launch); every
-    cell (a)-(j) and the save/load check that K8, K2 and K9 launched once
-    an image (twice a stereo frame); (b)
+    cell (a)-(k) and the save/load check that K8, K2 and K9 launched once
+    an image (twice a stereo frame), and K9's large kernel never outside
+    (k); (b)
     and (c) also that window BA ran at every keyframe after the second, and
     print the keyframe stages' times (`kf.loop`: the BoW index, on the
     training keyframe and on the others).
@@ -226,6 +243,9 @@ GUARD_S = 0.005
 # extraction's kernels that launch once an image, whatever the pattern:
 # K8 (the pyramid), K2 (FAST and the rank rounds), K9 (the spread top-k)
 EXTRACTION_KERNELS = ("pyramid", "fast", "spread_topk")
+# K9's kernel for levels past 8,192 candidates: no VGA or QVGA level has
+# that many, so it launches at phase 3k's geometries only
+LARGE_KERNEL = "spread_topk_large"
 
 
 def sh(cmd):
@@ -233,13 +253,16 @@ def sh(cmd):
                           check=True).stdout.strip()
 
 
-def extraction_launches(launches, images, tag):
+def extraction_launches(launches, images, tag, large=False):
     """K8, K2 and K9 launched once for each of the cell's `images` (two a
-    stereo frame)."""
-    got = {k: launches[k] for k in EXTRACTION_KERNELS}
+    stereo frame); K9's large kernel as often where the geometry has a
+    level past 8,192 candidates (`large`), else never."""
+    got = {k: launches[k] for k in EXTRACTION_KERNELS + (LARGE_KERNEL,)}
     print(f"  {tag}: extraction launches {json.dumps(got)} for {images} "
           "images")
-    assert set(got.values()) == {images}, (tag, got, images)
+    assert set(got[k] for k in EXTRACTION_KERNELS) == {images}, (tag, got,
+                                                                 images)
+    assert got[LARGE_KERNEL] == images * large, (tag, got, images)
 
 
 def card_line():
@@ -1644,6 +1667,8 @@ def run_main_path(imgs, second, gt, device, local_ba, stereo=False):
     assert ate <= ATE_GATE_M, f"ATE {ate} m above the {ATE_GATE_M} m gate"
     assert lost == 0, f"{lost} frames lost"
     for k, v in launches.items():
+        if k == LARGE_KERNEL:
+            continue  # `extraction_launches` holds it
         if k == LEARNED_KERNEL:
             assert v == 0, f"K7 launched on the fresh pattern's path ({tag})"
         elif k == "stereo_sad" and not stereo:
@@ -1823,6 +1848,8 @@ def run_kidnap(imgs, depths, gt, device, cfg=None):
     assert ate <= RELOC_ATE_M, ate
     assert rec, "no relocalization was recorded"
     for k, v in launches.items():
+        if k == LARGE_KERNEL:
+            continue  # `extraction_launches` holds it
         if k in ("stereo_sad", LEARNED_KERNEL) or k in LOOP_KERNELS:
             assert v == 0, f"{k} launched on cell D"
         else:
@@ -2626,6 +2653,8 @@ def run_circuit(cell, loop, frames, gt, device, record=None, gated=True):
         return stats, tracker
     assert stats["state"] == 1, tracker.track_info[-3:]
     for k, v in launches.items():
+        if k == LARGE_KERNEL:
+            continue  # `extraction_launches` holds it
         if k in ("stereo_sad", LEARNED_KERNEL):
             assert v == 0, f"{k} launched on cell {cell}"
         elif k in LOOP_KERNELS:
@@ -3211,7 +3240,7 @@ def mono_launch_gates(launches, tag, loop_closed=False):
     """Every kernel of the mono path launched; B9 never; the global BA's
     only where a loop closed."""
     for k, v in launches.items():
-        if k in ("stereo_sad", LEARNED_KERNEL):
+        if k in ("stereo_sad", LEARNED_KERNEL, LARGE_KERNEL):
             assert v == 0, f"{k} launched on {tag}"
         elif k in LOOP_KERNELS:
             assert (v > 0) == loop_closed, (k, v, tag)
@@ -3926,6 +3955,8 @@ def run_cell_i(imgs, depths, gt, tmp):
     assert kitti_rows.shape == (n, 12), kitti_rows.shape
     assert kf_lines == len(tracker.graph.alive_kfs()), kf_lines
     for k, v in launches.items():
+        if k == LARGE_KERNEL:
+            continue  # `extraction_launches` holds it
         if k in ("stereo_sad", "orb_desc") or k in LOOP_KERNELS:
             assert v == 0, f"{k} launched on cell I"
         else:
@@ -3972,12 +4003,14 @@ def record_tracked_frame_i(system, seq):
 
 
 def run_driver_cells(tmp):
-    """Phase 3j: the `stereo_kitti` and `mono_tum` CLIs on the card, on the
-    JAX driver tests' own exports and gates: a 40-frame QVGA KITTI stereo
-    export (`tests/test_stereo_dataset_drivers.py:115-141`: one KITTI line a
-    frame, ATE < 5 cm against poses_gt.txt) and a 40-frame TUM export
-    through `mono_tum` (`tests/test_mono_drivers.py:68-103`: >= 30 tracked
-    lines, sim3 ATE < 0.3 m over >= 25 associated frames)."""
+    """Phase 3j: the `stereo_kitti`, `mono_tum` and `stereo_euroc` CLIs on
+    the card, on the JAX driver tests' own exports and gates: a 40-frame
+    QVGA KITTI stereo export (`tests/test_stereo_dataset_drivers.py:115-141`:
+    one KITTI line a frame, ATE < 5 cm against poses_gt.txt), a 40-frame
+    TUM export through `mono_tum` (`tests/test_mono_drivers.py:68-103`: >=
+    30 tracked lines, sim3 ATE < 0.3 m over >= 25 associated frames), and
+    40 raw EuRoC pairs through `stereo_euroc` at QVGA and at 752x480
+    (`run_euroc_cli`)."""
     import os
 
     from orb_slam2_refactored_tpu_torch import drivers, kernels
@@ -4052,7 +4085,291 @@ def run_driver_cells(tmp):
     assert n_assoc >= 25 and ate < MONO_DRIVER_ATE_M, (n_assoc, ate)
     assert launches["fast"] == launches["orb_desc"] == DRIVER_FRAMES
     extraction_launches(launches, DRIVER_FRAMES, "3j mono_tum")
+    # stereo_euroc on raw pairs, rectified from the LEFT./RIGHT. blocks
+    for tag, rig_args, orb_args in EUROC_RIGS:
+        res[f"stereo_euroc_{tag}"] = run_euroc_cli(tmp, tag, rig_args,
+                                                   orb_args, planes)
     return res
+
+
+# phase 3j's stereo_euroc runs: the JAX driver test's QVGA rig and export
+# (tests/test_stereo_dataset_drivers.py:60-73, :202-245: 600 features, 4
+# levels), and EuRoC's full width with EuRoC.yaml's extractor settings
+# (1200 features, 8 levels, 1.2, ThDepth 35)
+EUROC_RIGS = (
+    ("qvga", dict(width=320, height=240, fx_rect=260.0, baseline=0.08),
+     dict(n_features=600, n_levels=4)),
+    ("752x480", dict(width=752, height=480, fx_rect=435.2, baseline=0.11),
+     dict(n_features=1200, n_levels=8, th_depth=35.0)),
+)
+
+
+def run_euroc_cli(tmp, tag, rig_args, orb_args, planes):
+    """`drivers.main(["stereo_euroc", ...])` on cuda:0, loop closing off,
+    on a 40-frame EuRoC-layout export of raw (distorted, rotated) pairs
+    whose settings carry LEFT./RIGHT. blocks, so the driver rectifies every
+    pair (`io/datasets.py::EurocRectifier`, on the host, timed a pair).
+    Gates (the JAX driver test's): rc 0, ATE of the saved TUM file against
+    groundtruth_tum.txt with timestamp association < 5 cm over at least
+    N - 5 frames; two K2 and K3 calls and one B9 launch a pair."""
+    import os
+
+    from orb_slam2_refactored_tpu_torch import drivers, kernels
+    from orb_slam2_refactored_tpu_torch.io import datasets
+    from orb_slam2_refactored_tpu_torch.io.evaluation import ate_rmse_assoc
+    from orb_slam2_refactored_tpu_torch.io.synthetic import (
+        euroc_settings_yaml, export_euroc_sequence, make_euroc_rig,
+        orbit_trajectory)
+
+    t0 = time.perf_counter()
+    rig = make_euroc_rig(**rig_args)
+    seq = export_euroc_sequence(
+        os.path.join(tmp, f"euroc_{tag}"), planes,
+        orbit_trajectory(DRIVER_FRAMES, radius=0.3, yaw_amp=0.2), rig=rig,
+        fps=20.0)
+    t_export = time.perf_counter() - t0
+    settings = _write(os.path.join(tmp, f"euroc_{tag}.yaml"),
+                      euroc_settings_yaml(rig, **orb_args))
+    out = os.path.join(tmp, f"euroc_{tag}_traj.txt")
+    pair_s, call = [], datasets.EurocRectifier.__call__
+
+    def timed(self, img_l, img_r):
+        t = time.perf_counter()
+        pair = call(self, img_l, img_r)
+        pair_s.append(time.perf_counter() - t)
+        return pair
+
+    datasets.EurocRectifier.__call__ = timed
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    try:
+        rc = drivers.main(["stereo_euroc", "--settings", settings,
+                           "--sequence", seq, "--timestamps",
+                           os.path.join(seq, "timestamps.txt"), "--out", out,
+                           "--no-loop-closing"])
+        torch.cuda.synchronize()
+    finally:
+        datasets.EurocRectifier.__call__ = call
+    wall = time.perf_counter() - t0
+    launches = kernels.counts()
+    est_ts, est_cw = _read_tum_file(out)
+    gt_ts, gt_cw = datasets.load_tum_groundtruth(
+        os.path.join(seq, "groundtruth_tum.txt"))
+    ate, _, n_assoc = ate_rmse_assoc(est_ts, est_cw, gt_ts, gt_cw,
+                                     max_dt=0.01)
+    ms = np.asarray(pair_s) * 1e3
+    r = {"rc": rc, "size": [rig["width"], rig["height"]], **orb_args,
+         "lines": len(est_ts), "associated": n_assoc, "ate_m": ate,
+         "rectifier_host_ms_a_pair": {
+             "pairs": len(ms), "median": float(np.median(ms)),
+             "min": float(ms.min()), "max": float(ms.max())},
+         "export_s": t_export, "wall_s": wall, "launches": launches}
+    print(f"phase 3j stereo_euroc CLI ({tag}, rectified) " + json.dumps(r))
+    assert rc == 0 and len(ms) == DRIVER_FRAMES, (rc, len(ms))
+    assert n_assoc >= DRIVER_FRAMES - 5, n_assoc
+    assert ate < STEREO_DRIVER_ATE_M, f"stereo_euroc {tag}: ATE {ate} m"
+    assert launches["fast"] == launches["orb_desc"] == 2 * DRIVER_FRAMES
+    assert launches["stereo_sad"] == DRIVER_FRAMES, launches
+    extraction_launches(launches, 2 * DRIVER_FRAMES, f"3j stereo_euroc {tag}")
+    return r
+
+
+# ---------------------------------------------------------------------------
+# phase 3k: cameras past VGA (K9's large kernel, K8's search past 4 x 132
+# blocks)
+# ---------------------------------------------------------------------------
+
+# tracked runs: frames a geometry and whether the bench's ATE gate holds
+GEOMETRY_RUNS = {(1200, 1920): (30, True), (2160, 3840): (10, False)}
+# K8, K2, K9 and K3 held against their plain versions on two frames
+GEOMETRY_CHECKS = ((1200, 1920), (1088, 2048), (2160, 3840))
+
+
+def geometry_config(h, w):
+    """The bench's RGB-D configuration (`bench_config(True)`: 1000
+    features, 8 levels, 1.2, local BA on) at an [h, w] camera with the
+    bench's field of view: fx = fy = 520 w / 640, the principal point at
+    the centre, bf = 0.08 fx."""
+    import dataclasses
+
+    fx = 520.0 * w / 640
+    return dataclasses.replace(bench_config(True), width=w, height=h, fx=fx,
+                               fy=fx, cx=w / 2.0, cy=h / 2.0, bf=0.08 * fx)
+
+
+def geometry_frames(h, w, n):
+    """The bench's box-room orbit (`bench_frames`: its room, its 120-view
+    trajectory, 1 % depth noise from numpy seed 0), its first n views
+    rendered at [h, w] with `geometry_config`'s camera; numpy, frames
+    rendered on host threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from orb_slam2_refactored_tpu_torch.io.synthetic import (
+        SyntheticScene, box_room, orbit_trajectory)
+
+    fx = 520.0 * w / 640
+    scene = SyntheticScene(width=w, height=h, fx=fx, fy=fx, planes=box_room(
+        half_x=1.8, half_y=1.4, z_far=3.0, z_near=-3.0))
+    gt = orbit_trajectory(N_FRAMES, radius=0.4, yaw_amp=0.3)[:n]
+    with ThreadPoolExecutor(8) as pool:
+        views = list(pool.map(scene.render, gt))
+    rng = np.random.default_rng(0)
+    imgs = np.stack([np.clip(img, 0, 255).astype(np.uint8)
+                     for img, _ in views])
+    depths = np.stack([(d * (1 + rng.normal(0, 0.01, d.shape))).astype(
+        np.float16) for _, d in views])
+    return imgs, depths, gt
+
+
+def geometry_misses(h, w, device_str):
+    """Outputs of the geometry's 14 products that no split of the card's
+    GEMM explains (`SPLIT_MISSES`, found when K8's tables were built)."""
+    from orb_slam2_refactored_tpu_torch.ops import image as image_ops
+
+    shapes = image_ops.pyramid_shapes(h, w, 8, 1.2)
+    return sum(image_ops.SPLIT_MISSES.get((a, b, o, v, device_str), 0)
+               for (ih, iw), (oh, ow) in zip(shapes[:-1], shapes[1:])
+               for a, b, o, v in ((ih, oh, iw, True), (iw, ow, oh, False))
+               if a != b)
+
+
+def run_geometry(h, w, device):
+    """One camera geometry's tracked run: `geometry_frames` through
+    `Tracker.track_rgbd` on cuda:0, every launch counter set to 0 just
+    before and read just after. Prints the tracker's construction time
+    (K8's GEMM probes and work split, K9's and K3's tables). Gates: no
+    frame lost; at 1920x1200 the bench's ATE gate (3 cm); K8, K2, K9 and
+    K9's large kernel once a frame, K3 once a frame, K1 and K4 launched.
+    Returns the run's stats and its first two frames."""
+    from orb_slam2_refactored_tpu_torch import kernels
+    from orb_slam2_refactored_tpu_torch.io.evaluation import ate_rmse
+    from orb_slam2_refactored_tpu_torch.slam.tracking import Tracker
+    from orb_slam2_refactored_tpu_torch.utils.timing import StageTimer
+
+    n, gated = GEOMETRY_RUNS[(h, w)]
+    t0 = time.perf_counter()
+    imgs, depths, gt = geometry_frames(h, w, n)
+    t_render = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tracker = Tracker(geometry_config(h, w), device=device)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    timer = StageTimer(device)
+    kernels.reset_counts()
+    for i in range(n):
+        with timer.time("step"):
+            tracker.track_rgbd(imgs[i], depths[i].astype(np.float32),
+                               timestamp=i / 30.0)
+    launches = kernels.counts()
+    tracker.flush()
+    est = np.stack(tracker.trajectory)
+    assert est.shape == gt.shape and np.isfinite(est).all()
+    ate, _ = ate_rmse(est, gt, align="se3")
+    lost = sum(1 for t in tracker.track_info if t.get("lost"))
+    step = np.asarray(timer.samples["step"][1:]) * 1e3
+    stats = {"size": [w, h], "frames": n, "ate_m": ate, "lost_frames": lost,
+             "tracker_construction_s": t_build,
+             "split_misses": geometry_misses(h, w, str(device)),
+             "keyframes_created": 1 + sum(1 for t in tracker.track_info
+                                          if t.get("kf")),
+             "step_ms_median": float(np.median(step)),
+             "step_ms_max": float(step.max()), "render_s": t_render,
+             "launches": launches}
+    print(f"phase 3k {w}x{h} " + json.dumps(stats))
+    assert lost == 0, f"{w}x{h}: {lost} frames lost"
+    if gated:
+        assert ate <= ATE_GATE_M, f"{w}x{h}: ATE {ate} m above the gate"
+    assert launches["fast"] == launches["orb_desc"] == n, launches
+    assert launches["hamming_best2"] > 0 and launches["pose_lm"] > 0
+    extraction_launches(launches, n, f"3k {w}x{h}", large=True)
+    return stats, imgs[:2]
+
+
+def check_geometry(h, w, imgs, device):
+    """K8, K2, K9 and K3 against their plain versions at an [h, w] camera
+    on two frames, as extraction calls them: K8 bit for bit where no output
+    of the geometry's products misses its GEMM split (`SPLIT_MISSES` 0),
+    else within 1e-4 gray; K2 and K9 bit for bit; K3 as phase 2 holds it.
+    Then K8's and K9's time on the second frame: CUDA events around 50
+    calls back to back, which at these sizes keep the card busy (no
+    torch.profiler window here: on the H100 windows taken late in the run
+    lost launches, PERF.md §7). Returns the geometry's numbers, and K9's
+    large kernel's alone where it launches (its levels through the
+    wrapper, which launches only the large kernel for them)."""
+    from orb_slam2_refactored_tpu_torch.ops import fast
+    from orb_slam2_refactored_tpu_torch.ops import image as image_ops
+    from orb_slam2_refactored_tpu_torch.ops import orb
+
+    t0 = time.perf_counter()
+    ext = orb.OrbExtractor(h, w, 1000, 1.2, 8, device=device)
+    torch.cuda.synchronize()
+    t_plan = time.perf_counter() - t0
+    tag = f"{w}x{h}"
+    misses = geometry_misses(h, w, str(device))
+    for i, img in enumerate(imgs):
+        gray = image_ops.to_gray(torch.as_tensor(img, device=device))
+        levels = image_ops.build_pyramid(gray, 8, 1.2)
+        ref = image_ops.build_pyramid_plain(gray, 8, 1.2)
+        torch.cuda.synchronize()
+        err, share = pyramid_agreement(levels, ref)
+        print(f"  K8 {tag} frame {i}: SPLIT_MISSES {misses}, max_abs_err "
+              f"per level {err}, bit-equal share per level {share}")
+        if misses == 0:
+            assert all(x == 1.0 for x in share), (tag, share)
+        else:
+            assert max(err) <= 1e-4, (tag, err)
+        check_fast(levels, ext.budgets, f"{tag} frame {i}")
+        check_topk(levels, ext.budgets, ext.level_scales, f"{tag} frame {i}")
+        check_orb(levels, *level_keypoints(levels, ext.budgets), ext.budgets,
+                  f"{tag} frame {i}")
+    shapes = [tuple(x.shape) for x in levels]
+    k2 = fast.detect_and_rank(levels, 20.0, 7.0, ext.budgets,
+                              margin=orb.EDGE_MARGIN)
+    ranked = [(r, p) for _, r, p in k2]
+    args = (ranked, ext.budgets, shapes, list(range(8)), ext.level_scales)
+    plan = image_ops.prepare_pyramid(h, w, 8, 1.2, device)
+    res = {"size": [w, h], "extractor_construction_s": t_plan,
+           "split_misses": misses,
+           "k8_grid": [len(plan.rows), len(plan.cols)],
+           "k9_candidates": [r.numel() for r, _ in ranked],
+           "k9_launches": list(orb.prepare_spread_topk(
+               h, w, 1000, 1.2, 8).launches)}
+    for name, fn in (
+            ("K8", lambda: image_ops.build_pyramid(gray, 8, 1.2)),
+            ("K9", lambda: orb.spread_topk_levels(*args,
+                                                  buffers=k2.buffers))):
+        res[f"{name}_card_ms"] = cuda_time_ms(fn, 50)
+    nbytes, ops = pyramid_work(shapes)
+    res["K8_bound_ms"] = bound_ms(nbytes, ops)[0]
+    res["K9_bound_ms"] = bound_ms(*topk_work(ranked, ext.budgets))[0]
+    print(f"phase 3k {tag} K8 and K9 ({card_line()}): " + json.dumps(res))
+    big = [l for l, (r, _) in enumerate(ranked)
+           if r.numel() > orb.SPREAD_MAX_KEYS]
+    if not big:
+        return res, None
+    large = ([ranked[l] for l in big], [ext.budgets[l] for l in big],
+             [shapes[l] for l in big], big,
+             [ext.level_scales[l] for l in big])
+    assert orb.prepare_spread_topk(h, w, 1000, 1.2, 8).launches[-1] == \
+        LARGE_KERNEL
+
+    def call():
+        return orb.spread_topk_levels(*large)
+
+    def plain():
+        return orb.spread_topk_levels_plain(*large)
+
+    out, ref = call(), plain()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, ref)), tag
+    library, _ = sort_topk(*large[:2])
+    nbytes, ops = topk_work(*large[:2])
+    r = (0.0, cuda_time_ms(call, 50), cuda_time_ms(plain, 20), nbytes, ops)
+    lib_ms = cuda_time_ms(library, 50)
+    print(f"  K9's large kernel {tag}, levels {big}: card {r[1]:.5f} ms, "
+          f"plain {r[2]:.5f} ms, bound {bound_ms(nbytes, ops)[0]:.6f} ms, "
+          f"library (stable sort) {lib_ms:.5f} ms")
+    return res, (r, lib_ms)
 
 
 def _desc_bits(d):
@@ -4294,11 +4611,26 @@ def main():
     stats_i, system_i, seq_i = run_cell_i(imgs, depths, gt, tmp)
     mark("3_cell_I")
     drivers_3j = run_driver_cells(tmp)
+    mark("3_j_drivers")
+    # phase 3k: cameras past VGA, tracked; then K8, K2, K9 and K3 held
+    # against their plain versions there
+    geo_runs, geo_frames = {}, {}
+    for h, w in GEOMETRY_RUNS:
+        geo_runs[(h, w)], geo_frames[(h, w)] = run_geometry(h, w, device)
     main_paths.close()
     print(f"phase 3: K8, K9 and K7 calls that built their tables on a frame "
           f"{plan_builds[0]}")
     assert plan_builds[0] == 0, "a frame built K8's, K9's or K7's tables"
-    mark("3_j_drivers")
+    geo_checks, large_r = {}, None
+    for h, w in GEOMETRY_CHECKS:
+        frames = geo_frames.get((h, w))
+        if frames is None:
+            frames = geometry_frames(h, w, 2)[0]
+        geo_checks[(h, w)], got = check_geometry(h, w, frames, device)
+        if (h, w) == (2160, 3840):
+            large_r = got
+    del geo_frames
+    mark("3_k_geometries")
 
     # ---- phase 4: every kernel on the arguments the main path gave it ----
     from orb_slam2_refactored_tpu_torch.ops import matching
@@ -4569,9 +4901,15 @@ def main():
         kernel_row("spread_topk", pkg + "spread_topk.cu",
                    ref + "ops/orb.py:203", L["spread_topk"], topk_r,
                    topk_lib_ms),
+        kernel_row(LARGE_KERNEL, pkg + "spread_topk.cu",
+                   ref + "ops/orb.py:203",
+                   sum(g["launches"][LARGE_KERNEL]
+                       for g in geo_runs.values()), *large_r),
     ]
     rows[3]["max_abs_err"] = max(rows[3]["max_abs_err"], reloc_k4_err)
     for row in rows:
+        row["launches_cell_3k"] = sum(g["launches"][row["name"]]
+                                      for g in geo_runs.values())
         row["launches_cell_d"] = stats_d["launches"][row["name"]]
         row["launches_cell_g"] = stats_g["launches"][row["name"]]
         row["launches_cell_h"] = stats_h["launches"][row["name"]]
@@ -4595,8 +4933,15 @@ def main():
           "GEMMs with the weights on the card (bit-equal to K8); "
           "spread_topk (K9) = one launch for the 8 levels' top-k of frame "
           "0, library_ms one stable torch.sort over the padded keys (the "
-          "same selection); launches_cell_g / _h / _i: those cells' own "
-          "runs")
+          "same selection); spread_topk_large (K9's kernel for levels past "
+          "8,192 candidates) = one launch for 3840x2160's levels 0-3 of "
+          "frame 1, its launches from phase 3k's tracked runs (one a "
+          "frame), library_ms the stable sort over those levels' keys; "
+          "launches_cell_g / _h / _i / _3k: those cells' own runs")
+    print("phase 3k: " + json.dumps(
+        {f"{w}x{h}": {**{k: v for k, v in geo_runs.get((h, w), {}).items()
+                         if k != "launches"}, **geo_checks[(h, w)]}
+         for h, w in GEOMETRY_CHECKS}))
     print("phase 3j: " + json.dumps(
         {k: {kk: vv for kk, vv in v.items() if kk != "launches"}
          for k, v in drivers_3j.items()}))

@@ -48,8 +48,23 @@
 //     bitonic sort of the selected words (padded to a power of two) orders
 //     them.
 // That is 12 barriers a level where a bitonic sort of every candidate took
-// ~66 at VGA's level 0. A level holds at most 8,192 candidates
-// (`SPREAD_MAX_KEYS` in ops/orb.py, which raises past it).
+// ~66 at VGA's level 0. The register path takes a level of at most 8,192
+// candidates (`SPREAD_MAX_KEYS` in ops/orb.py).
+//
+// Larger levels (a camera past ~1920x1080 at 1000 features: 32,640
+// candidates on 3840x2160's level 0) take a second kernel, launched after
+// the first on the same stream, whose block of a level keeps no key in
+// registers: each radix pass reads the level's raw responses again from
+// device memory (130 KB at 32,640 keys, resident in the L2 after the first
+// pass) a candidate a thread, neighbouring threads on neighbouring
+// candidates; the compaction reads a contiguous run of candidates a
+// thread twice (to count, then to write) and scans the two counts as one
+// 64-bit word, so no count is capped. It selects and orders exactly as
+// the register path does, so the outputs are the same. A level holds at
+// most 2^24 candidates (`SPREAD_MAX_KEYS_LARGE`) and a budget of at most
+// 16,384 (`SPREAD_MAX_BUDGET`: its selected words, padded to a power of
+// two, fill at most 128 KB of shared memory); ops/orb.py raises past
+// either.
 // Every value written is an exact integer or one f32 add or product, so
 // the outputs equal the plain version's bit for bit.
 
@@ -61,6 +76,7 @@ namespace {
 
 constexpr int kMaxLevels = 16;
 constexpr int kMaxKeys = 8192;  // `SPREAD_MAX_KEYS` in ops/orb.py
+constexpr int kMaxKeysLarge = 1 << 24;  // `SPREAD_MAX_KEYS_LARGE`
 constexpr int kThreads = 1024;
 constexpr int kPer = kMaxKeys / kThreads;  // candidates a thread, at most
 constexpr int kRankMax = 1024;  // selected a level ranked by counting
@@ -116,6 +132,100 @@ __device__ __forceinline__ void decode(const TopkArgs& a, const TopkLevel& v,
   a.valid[o] = key > 0.f;
 }
 
+// the key of level v's candidate i (of round i / C): boost + raw for a
+// corner, -1 otherwise, as order-preserving bits
+__device__ __forceinline__ uint32_t key_at(const TopkArgs& a,
+                                           const TopkLevel& v, int i) {
+  const int r = i / v.cells;
+  const float raw = a.raw[v.off + i];
+  const float boost =
+      1e6f * (float)(a.rank_rounds - r > 0 ? a.rank_rounds - r : 0);
+  return ordered_bits(raw > 0.f ? __fadd_rn(boost, raw) : -1.f);
+}
+
+// warp 0, after a radix pass's histogram `hist` of the keys still in the
+// running: the digit at which the count from the top reaches kk, into
+// s_pick (the prefix with it, and how many of the keys with that prefix
+// are still to take)
+__device__ __forceinline__ void pick_digit(const unsigned int* hist,
+                                           int lane, uint32_t prefix,
+                                           uint32_t kk, int shift,
+                                           unsigned int* s_pick) {
+  // lane L holds bins 255 - 8L down to 248 - 8L
+  unsigned int c[8], s = 0;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    c[q] = hist[255 - 8 * lane - q];
+    s += c[q];
+  }
+  unsigned int incl = s;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned int t = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += t;
+  }
+  const unsigned int excl = incl - s;
+  if (excl < kk && kk <= incl) {  // exactly one lane
+    unsigned int run = excl;
+    int d = 0;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      if (d == 0 && run + c[q] >= kk) d = 256 + 255 - 8 * lane - q;
+      if (d == 0) run += c[q];
+    }
+    s_pick[0] = prefix | ((uint32_t)(d - 256) << shift);
+    s_pick[1] = kk - run;
+  }
+}
+
+// the k selected words of level v, compacted into s_sel[0, k) by every
+// thread of the block: each decoded into output slot `rank`, its rank
+// counted (k <= kRankMax) or found by a bitonic sort
+__device__ __forceinline__ void order_selected(const TopkArgs& a,
+                                               const TopkLevel& v,
+                                               unsigned long long* s_sel,
+                                               int tid) {
+  const int k = v.k;
+  if (k <= kRankMax) {
+    __syncthreads();
+    // g threads a selected word: its rank, the selected words above it
+    int g = 1;
+    while (g < 32 && 2 * g * k <= kThreads) g <<= 1;
+    const int e = tid / g, m = tid % g;
+    const unsigned long long word = e < k ? s_sel[e] : 0ull;
+    unsigned int rank = 0;
+    if (e < k)
+      for (int j = m; j < k; j += g) rank += s_sel[j] > word;
+    for (int o = 1; o < g; o <<= 1)
+      rank += __shfl_xor_sync(0xffffffffu, rank, o);
+    if (e < k && m == 0) decode(a, v, word, (int)rank);
+    return;
+  }
+  // past kRankMax: a bitonic sort of the selected, descending; padding
+  // (0) is below every word
+  const int P = v.slots;
+  for (int i = k + tid; i < P; i += kThreads) s_sel[i] = 0ull;
+  __syncthreads();
+  for (int size = 2; size <= P; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = tid; i < P; i += kThreads) {
+        const int j = i ^ stride;
+        if (j > i) {
+          const unsigned long long x = s_sel[i], y = s_sel[j];
+          const bool down = (i & size) == 0;
+          if (down ? x < y : x > y) {
+            s_sel[i] = y;
+            s_sel[j] = x;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+  for (int t = tid; t < k; t += kThreads) decode(a, v, s_sel[t], t);
+}
+
+// levels of at most kMaxKeys candidates, each thread's keys in registers
 __global__ void __launch_bounds__(kThreads)
 spread_topk_kernel(const __grid_constant__ TopkArgs a) {
   extern __shared__ unsigned long long s_sel[];  // the selected words
@@ -123,9 +233,9 @@ spread_topk_kernel(const __grid_constant__ TopkArgs a) {
   __shared__ unsigned int s_warp[32];
   __shared__ unsigned int s_pick[2];
   const TopkLevel& v = a.lv[blockIdx.x];
-  if (v.k <= 0) return;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n = v.rounds * v.cells;
+  if (v.k <= 0 || n > kMaxKeys) return;  // the large kernel's level
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int per = (n + kThreads - 1) / kThreads;
   const int i0 = tid * per;
   // the keys' order-preserving bits, candidates i0 .. i0 + per - 1
@@ -134,13 +244,7 @@ spread_topk_kernel(const __grid_constant__ TopkArgs a) {
   for (int j = 0; j < kPer; ++j) {
     key[j] = 0;
     const int i = i0 + j;
-    if (j < per && i < n) {
-      const int r = i / v.cells;
-      const float raw = a.raw[v.off + i];
-      const float boost =
-          1e6f * (float)(a.rank_rounds - r > 0 ? a.rank_rounds - r : 0);
-      key[j] = ordered_bits(raw > 0.f ? __fadd_rn(boost, raw) : -1.f);
-    }
+    if (j < per && i < n) key[j] = key_at(a, v, i);
   }
   s_hist[tid >> 8][tid & 255] = 0;
   __syncthreads();
@@ -165,33 +269,7 @@ spread_topk_kernel(const __grid_constant__ TopkArgs a) {
       }
     }
     __syncthreads();
-    if (warp == 0) {
-      // lane L holds bins 255 - 8L down to 248 - 8L
-      unsigned int c[8], s = 0;
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        c[q] = hist[255 - 8 * lane - q];
-        s += c[q];
-      }
-      unsigned int incl = s;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const unsigned int t = __shfl_up_sync(0xffffffffu, incl, o);
-        if (lane >= o) incl += t;
-      }
-      const unsigned int excl = incl - s;
-      if (excl < kk && kk <= incl) {  // exactly one lane
-        unsigned int run = excl;
-        int d = 0;
-#pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          if (d == 0 && run + c[q] >= kk) d = 256 + 255 - 8 * lane - q;
-          if (d == 0) run += c[q];
-        }
-        s_pick[0] = prefix | ((uint32_t)(d - 256) << shift);
-        s_pick[1] = kk - run;
-      }
-    }
+    if (warp == 0) pick_digit(hist, lane, prefix, kk, shift, s_pick);
     __syncthreads();
     prefix = s_pick[0];
     kk = s_pick[1];
@@ -244,55 +322,106 @@ spread_topk_kernel(const __grid_constant__ TopkArgs a) {
       }
     }
   }
-  const int k = v.k;
-  if (k <= kRankMax) {
-    __syncthreads();
-    // g threads a selected word: its rank, the selected words above it
-    int g = 1;
-    while (g < 32 && 2 * g * k <= kThreads) g <<= 1;
-    const int e = tid / g, m = tid % g;
-    const unsigned long long word = e < k ? s_sel[e] : 0ull;
-    unsigned int rank = 0;
-    if (e < k)
-      for (int j = m; j < k; j += g) rank += s_sel[j] > word;
-    for (int o = 1; o < g; o <<= 1)
-      rank += __shfl_xor_sync(0xffffffffu, rank, o);
-    if (e < k && m == 0) decode(a, v, word, (int)rank);
-    return;
-  }
-  // past kRankMax: a bitonic sort of the selected, descending; padding
-  // (0) is below every word
-  const int P = v.slots;
-  for (int i = k + tid; i < P; i += kThreads) s_sel[i] = 0ull;
+  order_selected(a, v, s_sel, tid);
+}
+
+// levels of more than kMaxKeys candidates: the same select and order, the
+// keys read again from device memory wherever they are needed
+__global__ void __launch_bounds__(kThreads)
+spread_topk_large_kernel(const __grid_constant__ TopkArgs a) {
+  extern __shared__ unsigned long long s_sel[];  // the selected words
+  __shared__ unsigned int s_hist[4][256];        // a histogram a pass
+  __shared__ unsigned long long s_warp[32];
+  __shared__ unsigned int s_pick[2];
+  const TopkLevel& v = a.lv[blockIdx.x];
+  const int n = v.rounds * v.cells;
+  if (v.k <= 0 || n <= kMaxKeys) return;  // the register kernel's level
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  s_hist[tid >> 8][tid & 255] = 0;
   __syncthreads();
-  for (int size = 2; size <= P; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int i = tid; i < P; i += kThreads) {
-        const int j = i ^ stride;
-        if (j > i) {
-          const unsigned long long x = s_sel[i], y = s_sel[j];
-          const bool down = (i & size) == 0;
-          if (down ? x < y : x > y) {
-            s_sel[i] = y;
-            s_sel[j] = x;
-          }
-        }
+  uint32_t prefix = 0, kk = (uint32_t)v.k;
+  for (int pass = 0; pass < 4; ++pass) {
+    const int shift = 24 - 8 * pass;
+    const uint32_t high = pass == 0 ? 0u : 0xffffffffu << (shift + 8);
+    unsigned int* hist = s_hist[pass];
+    // a candidate a thread, coalesced; the bound is the same for every
+    // thread, so the ballot is whole
+    for (int base = 0; base < n; base += kThreads) {
+      const int i = base + tid;
+      const uint32_t key = i < n ? key_at(a, v, i) : 0u;
+      const bool in = i < n && (key & high) == prefix;
+      const unsigned int who = __ballot_sync(0xffffffffu, in);
+      if (in) {
+        const uint32_t d = (key >> shift) & 255u;
+        const unsigned int same = __match_any_sync(who, d);
+        if (lane == __ffs(same) - 1) atomicAdd(hist + d, __popc(same));
       }
-      __syncthreads();
+    }
+    __syncthreads();
+    if (warp == 0) pick_digit(hist, lane, prefix, kk, shift, s_pick);
+    __syncthreads();
+    prefix = s_pick[0];
+    kk = s_pick[1];
+  }
+  // compaction in index order over a contiguous run a thread; the counts
+  // above and tied as one 64-bit word (ties in the low half, < 2^24)
+  const int per = (n + kThreads - 1) / kThreads;
+  const int i0 = min(tid * per, n), i1 = min(i0 + per, n);
+  unsigned int above = 0, ties = 0;
+  for (int i = i0; i < i1; ++i) {
+    const uint32_t key = key_at(a, v, i);
+    above += key > prefix;
+    ties += key == prefix;
+  }
+  const unsigned long long mine = ((unsigned long long)above << 32) | ties;
+  unsigned long long incl = mine;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned long long t = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += t;
+  }
+  if (lane == 31) s_warp[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const unsigned long long tot = s_warp[lane];
+    unsigned long long x = tot;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned long long t = __shfl_up_sync(0xffffffffu, x, o);
+      if (lane >= o) x += t;
+    }
+    s_warp[lane] = x - tot;
+  }
+  __syncthreads();
+  const unsigned long long before = s_warp[warp] + incl - mine;
+  unsigned int a_before = (unsigned int)(before >> 32);
+  unsigned int t_before = (unsigned int)(before & 0xffffffffull);
+  for (int i = i0; i < i1; ++i) {
+    const uint32_t key = key_at(a, v, i);
+    const unsigned long long word = ((unsigned long long)key << 32) |
+                                    (uint32_t)(0xffffffffu - (uint32_t)i);
+    if (key > prefix) {
+      s_sel[a_before + min(t_before, kk)] = word;
+      ++a_before;
+    } else if (key == prefix) {
+      if (t_before < kk) s_sel[a_before + t_before] = word;
+      ++t_before;
     }
   }
-  for (int t = tid; t < k; t += kThreads) decode(a, v, s_sel[t], t);
+  order_selected(a, v, s_sel, tid);
 }
 
 }  // namespace
 
-// Every level's top-k in one launch. raw, pos: every level's rank rounds
-// in one buffer each; params: per level kParams ints (the offset of its
-// rank rounds in both buffers, h, w, k, rounds, C, level id, the f32 bits
-// of its level-0 scale); K: the sum of the budgets; out: int32 [6 K +
-// ceil(K / 4)] holding ys, xs, level ids, xy (f32 [K, 2]), responses (f32)
-// and valid (K bytes), in that order; smem: bytes of the selected words
-// of the largest level (`ops/orb.py::SpreadPlan`).
+// Every level's top-k: one launch of the register kernel for the levels of
+// at most kMaxKeys candidates, and one of the large kernel after it where
+// a level has more. raw, pos: every level's rank rounds in one buffer
+// each; params: per level kParams ints (the offset of its rank rounds in
+// both buffers, h, w, k, rounds, C, level id, the f32 bits of its level-0
+// scale); K: the sum of the budgets; out: int32 [6 K + ceil(K / 4)]
+// holding ys, xs, level ids, xy (f32 [K, 2]), responses (f32) and valid
+// (K bytes), in that order; smem: bytes of the selected words of the
+// largest level (`ops/orb.py::SpreadPlan`).
 extern "C" int spread_topk_levels(int n, const void* raw, const void* pos,
                                   const int* params, int cell,
                                   int rank_rounds, int margin, int K,
@@ -312,7 +441,7 @@ extern "C" int spread_topk_levels(int n, const void* raw, const void* pos,
   a.xy = (float*)(o + 3 * K);
   a.resp = (float*)(o + 5 * K);
   a.valid = (unsigned char*)(o + 6 * K);
-  int total = 0, need = 0;
+  int total = 0, need = 0, small = 0, large = 0;
   for (int l = 0; l < n; ++l) {
     TopkLevel& v = a.lv[l];
     const int* q = params + kParams * l;
@@ -329,8 +458,9 @@ extern "C" int spread_topk_levels(int n, const void* raw, const void* pos,
     const long long keys = (long long)v.rounds * v.cells;
     if (v.off < 0 || v.h < 1 || v.w < 1 || v.k < 0 || v.rounds < 0 ||
         v.cells != v.cells_x * ((v.h + cell - 1) / cell) ||
-        (v.k > 0 && (keys < v.k || keys > kMaxKeys)))
+        (v.k > 0 && (keys < v.k || keys > kMaxKeysLarge)))
       return (int)cudaErrorInvalidValue;
+    if (v.k > 0) ++(keys > kMaxKeys ? large : small);
     v.slots = 1;
     while (v.slots < v.k) v.slots <<= 1;
     const int bytes = (int)sizeof(unsigned long long) *
@@ -342,10 +472,20 @@ extern "C" int spread_topk_levels(int n, const void* raw, const void* pos,
   if (K == 0) return 0;
   // above 48 KB of dynamic shared memory only after opting in
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        spread_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    const void* kernels[2] = {(const void*)spread_topk_kernel,
+                              (const void*)spread_topk_large_kernel};
+    for (int f = 0; f < 2; ++f) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kernels[f], cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+  }
+  if (small > 0) {
+    spread_topk_kernel<<<n, kThreads, smem, (cudaStream_t)stream>>>(a);
+    const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
-  spread_topk_kernel<<<n, kThreads, smem, (cudaStream_t)stream>>>(a);
+  if (large > 0)
+    spread_topk_large_kernel<<<n, kThreads, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

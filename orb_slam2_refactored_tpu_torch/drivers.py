@@ -14,8 +14,9 @@ Usage (on the card by default; `--device cpu` runs the plain versions):
       --sequence /data/kitti/00 --out traj.txt --kitti-out traj_kitti.txt
   python -m orb_slam2_refactored_tpu_torch.drivers synthetic_rgbd --frames 120
 
-`stereo_euroc` reads rectified pairs only: the EuRoC rectifier is not
-ported, and settings with LEFT./RIGHT. rectification blocks raise.
+`stereo_euroc` rectifies the raw pairs when the settings carry LEFT./RIGHT.
+rectification blocks (`io/datasets.py::EurocRectifier`), as the reference
+(`stereo_euroc.cc:61-107`) and the JAX package's driver do.
 """
 
 from __future__ import annotations
@@ -141,11 +142,11 @@ def main(argv=None):
         _run(system, stream,
              lambda s, it: s.track_stereo(it[1], it[2], it[0]), args)
     elif args.mode == "stereo_euroc":
-        # settings with LEFT./RIGHT. blocks need the rectifier, which is
-        # not ported: the reader raises for them
-        stream = datasets.euroc_stereo_sequence(
-            args.sequence, args.timestamps,
-            rectifier=system.settings.rectification)
+        rect = None
+        if system.settings.rectification is not None:
+            rect = datasets.EurocRectifier(system.settings.rectification)
+        stream = datasets.euroc_stereo_sequence(args.sequence,
+                                                args.timestamps, rect)
         _run(system, stream,
              lambda s, it: s.track_stereo(it[1], it[2], it[0]), args)
     elif args.mode == "mono_euroc":

@@ -54,7 +54,8 @@ LAUNCHES: Dict[str, int] = {"hamming_best2": 0, "fast": 0, "orb_desc": 0,
                             "ba_assemble": 0, "ba_cost": 0,
                             "stereo_sad": 0, "ba_assemble_w_obs": 0,
                             "ba_schur_cg": 0, "orb_desc_learned": 0,
-                            "pyramid": 0, "spread_topk": 0}
+                            "pyramid": 0, "spread_topk": 0,
+                            "spread_topk_large": 0}
 
 _BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -347,32 +347,56 @@ def axis_parts(sizes, idxs, g: int) -> np.ndarray:
 def pyramid_schedule(shapes, n_sm: int = PYR_SMS):
     """K8's work split for a pyramid of `shapes`: a grid of gy x gx blocks
     over the deepest level, block (by, bx) taking row part by and column
-    part bx of `axis_parts` at every level. Of the grids whose shared
-    memory fits a block (the tap records of its needed rows and columns of
-    every level, two buffers of the largest needed region and one of the
-    largest vertical sums), the one whose slowest block computes the
-    fewest outputs (a level's vertical sums and outputs, level 0's staged
-    pixels), times the waves of n_sm blocks it takes. Returns (rows
-    [gy, levels, 4], cols [gx, levels, 4], records, region floats, sums
-    floats)."""
+    part bx of `axis_parts` at every level. Of the grids of at most 4 x
+    n_sm blocks whose shared memory fits a block (the tap records of its
+    needed rows and columns of every level, two buffers of the largest
+    needed region and one of the largest vertical sums), the one whose
+    slowest block computes the fewest outputs (a level's vertical sums and
+    outputs, level 0's staged pixels), times the waves of n_sm blocks it
+    takes. Where no grid under that cap fits (a frame past ~2560x1440:
+    3840x2160 takes ~800 blocks), the cap doubles until one does; the
+    deepest level's pixels bound it, and past them the geometry raises.
+    Returns (rows [gy, levels, 4], cols [gx, levels, 4], records, region
+    floats, sums floats)."""
     rows = [s[0] for s in shapes]
     cols = [s[1] for s in shapes]
     ridx = [resize_taps(a, b)[0] for a, b in zip(rows[:-1], rows[1:])]
     cidx = [resize_taps(a, b)[0] for a, b in zip(cols[:-1], cols[1:])]
+    r_parts, c_parts = {}, {}
     most = 4 * n_sm
-    r_parts = {g: axis_parts(rows, ridx, g)
-               for g in range(1, min(rows[-1], most) + 1)}
-    c_parts = {g: axis_parts(cols, cidx, g)
-               for g in range(1, min(cols[-1], most) + 1)}
+    while True:
+        best = _best_grid(rows, cols, ridx, cidx, r_parts, c_parts, most,
+                          n_sm)
+        if best is not None:
+            return best[1:]
+        if most >= rows[-1] * cols[-1]:
+            raise ValueError(f"pyramid: no work split of {shapes} fits a "
+                             f"block's shared memory, up to a grid of "
+                             f"{most} blocks")
+        most *= 2
+
+
+def _best_grid(rows, cols, ridx, cidx, r_parts, c_parts, most: int,
+               n_sm: int):
+    """`pyramid_schedule`'s search among the grids of at most `most`
+    blocks; each axis's parts, with their per-part output counts, their
+    largest count a level and their most records, are kept in `r_parts`
+    and `c_parts` by the parts' number across searches. None where no grid
+    fits."""
+    for sizes, idxs, parts in ((rows, ridx, r_parts), (cols, cidx, c_parts)):
+        for g in range(1, min(sizes[-1], most) + 1):
+            if g not in parts:
+                p = axis_parts(sizes, idxs, g)
+                n = p[:, :, 1] - p[:, :, 0]
+                parts[g] = (p, n, n.max(0), int(n[:, 1:].sum(1).max()))
     best = None
-    for gy, rp in r_parts.items():
-        ny = rp[:, :, 1] - rp[:, :, 0]
+    for gy in range(1, min(rows[-1], most) + 1):
+        rp, ny, ny_max, ny_rec = r_parts[gy]
         for gx in range(1, min(cols[-1], most // gy) + 1):
-            cp = c_parts[gx]
-            nx = cp[:, :, 1] - cp[:, :, 0]
-            records = int(ny[:, 1:].sum(1).max() + nx[:, 1:].sum(1).max())
-            region = int((ny.max(0) * nx.max(0)).max())
-            sums = int((ny.max(0)[1:] * nx.max(0)[:-1]).max(initial=0))
+            cp, nx, nx_max, nx_rec = c_parts[gx]
+            records = ny_rec + nx_rec
+            region = int((ny_max * nx_max).max())
+            sums = int((ny_max[1:] * nx_max[:-1]).max(initial=0))
             if 48 * records + 4 * (2 * region + sums) > PYR_SMEM:
                 continue
             work = (ny[:, :1] * nx[:, :1].T + ny[:, 1:] @ (
@@ -380,10 +404,7 @@ def pyramid_schedule(shapes, n_sm: int = PYR_SMS):
             score = (-(-gy * gx // n_sm) * int(work.max()), gy * gx)
             if best is None or score < best[0]:
                 best = (score, rp, cp, records, region, sums)
-    if best is None:
-        raise ValueError(f"pyramid: no work split of {shapes} fits a block's "
-                         f"shared memory")
-    return best[1:]
+    return best
 
 
 class PyramidPlan(NamedTuple):

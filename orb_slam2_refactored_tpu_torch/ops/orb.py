@@ -5,7 +5,8 @@ extraction is four launches: the 8-level pyramid (kernel K8,
 `ops/image.py::build_pyramid`), one call of kernel K2 (`ops/fast.py`:
 two-threshold FAST, NMS and the per-cell rank rounds of every level), the
 rank-boosted global top-k of every level in one launch of kernel K9
-(`csrc/spread_topk.cu`, wrapper `spread_topk_levels`), and one call of
+(`csrc/spread_topk.cu`, wrapper `spread_topk_levels`; two where a level
+has more than 8,192 candidates, past ~1920x1080), and one call of
 kernel K3 (the fused in-window blur + IC angle + steered BRIEF of every
 level's keypoints, `csrc/orb_desc.cu`, wrapper
 `angles_and_descriptors_levels`). Descriptors are int32[K,8],
@@ -291,7 +292,9 @@ def spread_topk_levels_plain(ranked, ks, shapes, level_ids, scales,
     return SpreadTopk(*(torch.cat(f) for f in zip(*parts)))
 
 
-SPREAD_MAX_KEYS = 8192  # rank-round candidates a level (`kMaxKeys` in K9)
+SPREAD_MAX_KEYS = 8192  # candidates a level in registers (`kMaxKeys` in K9)
+SPREAD_MAX_KEYS_LARGE = 1 << 24  # candidates a level (`kMaxKeysLarge`)
+SPREAD_MAX_BUDGET = 16384  # a level's words fill <= 128 KB of shared memory
 SPREAD_RANK_MAX = 1024  # selected a level K9 ranks by counting (`kRankMax`)
 SPREAD_PARAMS = 8  # ints a level in K9's table (`kParams`)
 
@@ -306,6 +309,9 @@ class SpreadPlan(NamedTuple):
     K: int                 # the sum of the budgets
     smem: int              # bytes of the largest level's selected words
     params: object         # the C table: SPREAD_PARAMS ints a level
+    launches: Tuple[str, ...]  # the kernels a call launches, in order: the
+    # register kernel ("spread_topk") for levels of at most SPREAD_MAX_KEYS
+    # candidates, the large one ("spread_topk_large") for the others
 
 
 @functools.lru_cache(maxsize=64)
@@ -323,14 +329,22 @@ def _spread_plan(shapes, ks, level_ids, scales, rounds, cell: int
         raise ValueError(f"spread_topk: {n} levels, the kernel takes at most "
                          f"{kernels.MAX_LEVELS}")
     rc, offsets, params, off, smem = [], [], [], 0, 0
+    small = large = False
     for (h, w), k, l, sc, r in zip(shapes, ks, level_ids, scales, rounds):
         C = fast_ops.n_cells(h, w, cell)
         if k < 0 or (k > 0 and r * C < k):
             raise ValueError(f"spread_topk: budget {k} from {r * C} "
                              f"candidates")
-        if k > 0 and r * C > SPREAD_MAX_KEYS:
+        if k > 0 and r * C > SPREAD_MAX_KEYS_LARGE:
             raise ValueError(f"spread_topk: {r * C} candidates on a level, "
-                             f"kernel K9 takes at most {SPREAD_MAX_KEYS}")
+                             f"kernel K9 takes at most "
+                             f"{SPREAD_MAX_KEYS_LARGE}")
+        if k > SPREAD_MAX_BUDGET:
+            raise ValueError(f"spread_topk: budget {k} on a level, kernel K9 "
+                             f"orders at most {SPREAD_MAX_BUDGET} in shared "
+                             f"memory")
+        small |= 0 < k and r * C <= SPREAD_MAX_KEYS
+        large |= 0 < k and r * C > SPREAD_MAX_KEYS
         rc.append((r, C))
         offsets.append(off)
         params += [off, h, w, k, r, C, l,
@@ -339,7 +353,9 @@ def _spread_plan(shapes, ks, level_ids, scales, rounds, cell: int
         smem = max(smem, 8 * (k if k <= SPREAD_RANK_MAX
                               else 1 << (k - 1).bit_length()))
     return SpreadPlan(tuple(rc), tuple(offsets), off, sum(ks), smem,
-                      kernels.int_array(params))
+                      kernels.int_array(params),
+                      ("spread_topk",) * small
+                      + ("spread_topk_large",) * large)
 
 
 def prepare_spread_topk(height: int, width: int, n_features: int,
@@ -394,13 +410,16 @@ def spread_topk_levels(ranked, ks, shapes, level_ids, scales,
     lowest flat index first (`jax.lax.top_k`'s order), decoded to (ys, xs)
     clamped into the level, then to the edge margin; the level-0
     coordinates (xs, ys) x scales[i], level_ids[i], the response and
-    key > 0 as valid. `shapes` are the levels' [h, w]. One launch of
-    kernel K9 (`csrc/spread_topk.cu`, a block a level) on CUDA tensors,
-    which raises past SPREAD_MAX_KEYS candidates a level; the plain
-    version on CPU tensors. K9 reads two flat buffers through the launch
-    table `_spread_plan` caches per geometry: `buffers`, K2's own
-    (`ops/fast.py::RankRounds.buffers`, of which `ranked` are the views),
-    or else those `_rank_buffers` finds or packs."""
+    key > 0 as valid. `shapes` are the levels' [h, w]. On CUDA tensors
+    kernel K9 (`csrc/spread_topk.cu`, a block a level): one launch for the
+    levels of at most SPREAD_MAX_KEYS candidates, keys in registers, and
+    one of its large kernel after it for the larger levels, if any; it
+    raises past SPREAD_MAX_KEYS_LARGE candidates or a budget of
+    SPREAD_MAX_BUDGET on a level. The plain version on CPU tensors. K9
+    reads two flat buffers through the launch table `_spread_plan` caches
+    per geometry: `buffers`, K2's own (`ops/fast.py::RankRounds.buffers`,
+    of which `ranked` are the views), or else those `_rank_buffers` finds
+    or packs."""
     raw0 = ranked[0][0]
     if not raw0.is_cuda:
         return spread_topk_levels_plain(ranked, ks, shapes, level_ids, scales,
@@ -426,7 +445,8 @@ def spread_topk_levels(ranked, ks, shapes, level_ids, scales,
     fn = kernels.bind("spread_topk", "spread_topk_levels",
                       [kernels.CI] + [kernels.VP] * 3 + [kernels.CI] * 4
                       + [kernels.VP, kernels.CI, kernels.VP])
-    kernels.LAUNCHES["spread_topk"] += 1
+    for name in plan.launches:
+        kernels.LAUNCHES[name] += 1
     kernels.check(fn(len(ranked), raw.data_ptr(), pos.data_ptr(), plan.params,
                      cell, rank_rounds, margin, K, buf.data_ptr(), plan.smem,
                      kernels.stream_of(raw0)), "spread_topk_levels")

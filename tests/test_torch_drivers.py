@@ -194,8 +194,27 @@ def test_readers_match_jax(exports, tmp_path):
                   jdatasets.euroc_stereo_sequence(euroc, stamps))
     _same_streams(datasets.euroc_mono_sequence(euroc, stamps),
                   jdatasets.euroc_mono_sequence(euroc, stamps))
-    with pytest.raises(NotImplementedError, match="EurocRectifier"):
-        next(datasets.euroc_stereo_sequence(euroc, stamps, rectifier=object()))
+    # raw pairs through each package's rectifier, from the rig's settings
+    # (`tests/test_torch_euroc_rectifier.py` holds the rectifier itself)
+    from orb_slam2_refactored_tpu.config import Settings as JSettings
+    from orb_slam2_refactored_tpu_torch.config import Settings
+    from orb_slam2_refactored_tpu_torch.io.synthetic import (
+        euroc_settings_yaml, make_euroc_rig)
+
+    settings = str(tmp_path / "euroc.yaml")
+    with open(settings, "w") as f:
+        f.write(euroc_settings_yaml(make_euroc_rig()))
+    rect = datasets.EurocRectifier(Settings.from_yaml(settings).rectification)
+    jrect = jdatasets.EurocRectifier(
+        JSettings.from_yaml(settings).rectification)
+    got = list(datasets.euroc_stereo_sequence(euroc, stamps, rect))
+    want = list(jdatasets.euroc_stereo_sequence(euroc, stamps, jrect))
+    assert len(got) == len(want) == 6
+    for x, y in zip(got, want):
+        assert x[0] == y[0]
+        for u, v in zip(x[1:], y[1:]):
+            assert u.dtype == v.dtype == np.float32
+            np.testing.assert_allclose(u, v, rtol=0, atol=1e-4)
     # an association file, and the nearest-timestamp fallback with a
     # depth stamp that is too far
     pairs = jdatasets.load_tum_associations(tum)
@@ -223,21 +242,43 @@ def test_readers_match_jax(exports, tmp_path):
     np.testing.assert_allclose(cw, jcw, atol=1e-6)
 
 
-def test_stereo_euroc_cli_refuses_rectification_blocks(exports, tmp_path):
-    """The EuRoC rectifier is not ported: settings with LEFT./RIGHT.
-    blocks raise, naming it, rather than track unrectified pairs."""
+def test_stereo_euroc_cli_refuses_rectification_blocks(exports, tmp_path,
+                                                        monkeypatch):
+    """Settings with LEFT./RIGHT. blocks are no longer refused: the CLI
+    builds the rectifier from them, as JAX's driver does, and tracks the
+    rectified pairs (two of the export's, on the CPU)."""
+    from orb_slam2_refactored_tpu_torch.config import Settings
     from orb_slam2_refactored_tpu_torch.io.synthetic import (
         euroc_settings_yaml, make_euroc_rig)
+    from orb_slam2_refactored_tpu_torch.slam.system import SlamSystem
 
     _, _, euroc = exports
     settings = str(tmp_path / "euroc.yaml")
     with open(settings, "w") as f:
         f.write(euroc_settings_yaml(make_euroc_rig()))
-    with pytest.raises(NotImplementedError, match="EurocRectifier"):
-        drivers.main(["stereo_euroc", "--settings", settings, "--sequence",
-                      euroc, "--timestamps",
-                      os.path.join(euroc, "timestamps.txt"),
-                      "--out", str(tmp_path / "t.txt"), "--device", "cpu"])
+    stamps = str(tmp_path / "stamps.txt")
+    with open(os.path.join(euroc, "timestamps.txt")) as f:
+        first = f.read().split()[:2]
+    with open(stamps, "w") as f:
+        f.write("\n".join(first) + "\n")
+    seen, track = [], SlamSystem.track_stereo
+
+    def spy(self, left, right, timestamp):
+        seen.append((left, right))
+        return track(self, left, right, timestamp)
+
+    monkeypatch.setattr(SlamSystem, "track_stereo", spy)
+    out = str(tmp_path / "t.txt")
+    rc = drivers.main(["stereo_euroc", "--settings", settings, "--sequence",
+                       euroc, "--timestamps", stamps, "--out", out,
+                       "--no-loop-closing", "--device", "cpu"])
+    assert rc == 0 and len(seen) == 2
+    with open(out) as f:
+        assert len(f.read().splitlines()) == 2
+    rect = datasets.EurocRectifier(Settings.from_yaml(settings).rectification)
+    for (l, r), (_, rl, rr) in zip(seen, datasets.euroc_stereo_sequence(
+            euroc, stamps, rect)):
+        assert np.array_equal(l, rl) and np.array_equal(r, rr)
 
 
 def test_evaluation_association_matches_jax():

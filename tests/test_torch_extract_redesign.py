@@ -22,8 +22,10 @@ on a card.
   table `_spread_plan` caches, equals `spread_topk_levels_plain` bit for
   bit and JAX's `select_spread_topk` with the extractor's clamps, on
   tie-heavy levels: equal raws within a round, every candidate a
-  non-corner, k = 1, k equal to the candidates, and a level of exactly
-  SPREAD_MAX_KEYS candidates.
+  non-corner, k = 1, k equal to the candidates, a level of exactly
+  SPREAD_MAX_KEYS candidates, and a level of 9,120 (1920x1200's level 0),
+  which takes K9's large kernel: the same select and order, its two
+  counts scanned 32 bits each.
 """
 
 import jax
@@ -122,15 +124,17 @@ def _select_level(raw, pos, k, C, rank_rounds):
     above, ties = bits > prefix, bits == prefix
     assert int(above.sum()) == k - kk and 1 <= kk <= int(ties.sum())
     # the block scan: a contiguous run of `per` candidates a thread, its two
-    # counts packed in one word
+    # counts packed in one word (16 bits each in registers, 32 bits each
+    # in the large kernel past SPREAD_MAX_KEYS)
+    half = 16 if n <= torb.SPREAD_MAX_KEYS else 32
     per = -(-n // THREADS)
     runs = np.zeros((THREADS, per), np.int64)
-    runs.reshape(-1)[:n] = (above.astype(np.int64) << 16) | ties
+    runs.reshape(-1)[:n] = (above.astype(np.int64) << half) | ties
     mine = runs.sum(1)
     before = np.cumsum(mine) - mine
     within = np.cumsum(runs, 1) - runs
     prior = (before[:, None] + within).reshape(-1)[:n]
-    a_before, t_before = prior >> 16, prior & 0xffff
+    a_before, t_before = prior >> half, prior & ((1 << half) - 1)
     slot = np.where(above, a_before + np.minimum(t_before, kk),
                     a_before + t_before)
     take = above | (ties & (t_before < kk))
@@ -219,6 +223,15 @@ def _k9_case(name):
         scores = [(rng.integers(1, 4, (512, 512)) *
                    (rng.uniform(size=(512, 512)) < 0.3)).astype(np.float32)]
         ks, ids = [1400], [0]
+    elif name == "large_keys":  # the large kernel: 9,120 candidates on
+        # 1920x1200's level 0 at 1000 features, tie-heavy, beside a level
+        # of the register kernel with k past SPREAD_RANK_MAX
+        scores = [(rng.integers(1, 3, (1200, 1920)) *
+                   (rng.uniform(size=(1200, 1920)) < 0.05)).astype(
+                       np.float32),
+                  (rng.integers(1, 4, (512, 512)) *
+                   (rng.uniform(size=(512, 512)) < 0.3)).astype(np.float32)]
+        ks, ids = [217, 1400], [0, 1]
     else:  # "k_all": k equal to the candidates, rank rounds given as is
         C = tfast.n_cells(64, 96, 32)
         raw = (rng.integers(0, 3, (4, C)) * 5.0).astype(np.float32)
@@ -231,13 +244,19 @@ def _k9_case(name):
 
 
 @pytest.mark.parametrize("name", ["ties_in_rounds", "no_corners", "k_one",
-                                  "max_keys", "k_all"])
+                                  "max_keys", "k_all", "large_keys"])
 def test_k9_select_then_order_equals_plain_and_jax(name):
     scores, ranked, ks, ids, shapes = _k9_case(name)
     scales = [1.2 ** l for l in ids]
     n_keys = [r.numel() for r, _ in ranked]
     if name == "max_keys":
         assert n_keys == [torb.SPREAD_MAX_KEYS]
+    if name == "large_keys":
+        assert n_keys == [9120, torb.SPREAD_MAX_KEYS]
+        assert torb._spread_plan(
+            tuple(shapes), tuple(ks), tuple(ids), tuple(scales),
+            tuple(r.shape[0] for r, _ in ranked), 32).launches == (
+                "spread_topk", "spread_topk_large")
     if name == "k_all":
         assert n_keys == ks
     emu = _emulate_k9(ranked, ks, shapes, ids, scales)
@@ -276,7 +295,7 @@ def test_k9_plan_is_built_by_the_extractor_on_a_card_only():
     built = plans().misses
     torb.OrbExtractor(64, 88, 200, 1.2, 3, device="cpu")
     assert plans().misses == built
-    with pytest.raises(ValueError, match=str(torb.SPREAD_MAX_KEYS)):
-        torb._spread_plan(((512, 512),), (1400,), (0,), (1.0,), (33,), 32)
+    with pytest.raises(ValueError, match=str(torb.SPREAD_MAX_BUDGET)):
+        torb._spread_plan(((4096, 4096),), (16385,), (0,), (1.0,), (33,), 32)
     with pytest.raises(ValueError, match="budget 30"):
         torb._spread_plan(((64, 96),), (30,), (0,), (1.0,), (4,), 32)

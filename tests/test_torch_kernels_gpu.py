@@ -567,6 +567,17 @@ def _topk_case(name):
                 [4], [(64, 96)])
     elif name == "max_keys":  # 32 rounds x 256 cells
         scores, ks, ids = [ties(512, 512, 0.3)], [1400], [0]
+    elif name == "large_9120":  # 1920x1200's level 0 (the large kernel)
+        # beside a level of the register kernel, tie-heavy
+        scores, ks, ids = [ties(1200, 1920, 0.05), ties(1000, 1600, 0.05)], \
+            [217, 181], [0, 1]
+    elif name == "large_32640":  # 3840x2160's level 0, and all-tie keys
+        scores = [ties(2160, 3840, 0.02), np.full((1800, 3200), 2.0,
+                                                  np.float32)]
+        ks, ids = [217, 181], [0, 1]
+    elif name == "large_sorted":  # 1920x1200 at 6,000 features: level 0's
+        # budget past SPREAD_RANK_MAX (the large kernel's sorted branch)
+        scores, ks, ids = [ties(1200, 1920, 0.3)], [1303], [0]
     else:  # "rank_max": k at the counting branch's limit and one past it
         scores = [ties(480, 640, 0.3), ties(480, 640, 0.3)]
         ks, ids = [orb.SPREAD_RANK_MAX, orb.SPREAD_RANK_MAX + 1], [0, 1]
@@ -576,22 +587,33 @@ def _topk_case(name):
 
 @pytest.mark.parametrize("name", ["rendered", "all_ties", "empty_levels",
                                   "k_above_corners", "sixteen_levels",
-                                  "k_one", "k_all", "max_keys", "rank_max"])
+                                  "k_one", "k_all", "max_keys", "rank_max",
+                                  "large_9120", "large_32640",
+                                  "large_sorted"])
 def test_spread_topk_kernel_equals_plain(name):
     """K9 against `spread_topk_levels_plain`, every output bit for bit, in
-    one launch a call (the rank rounds packed into two buffers first: they
-    do not lie in K2's)."""
+    one launch a call, or two where a level has more than SPREAD_MAX_KEYS
+    candidates (the rank rounds packed into two buffers first: they do not
+    lie in K2's)."""
     dev = _card()
     ranked, ks, ids, shapes = _topk_case(name)
+    n_keys = [r.numel() for r, _ in ranked]
     if name == "max_keys":
-        assert ranked[0][0].numel() == orb.SPREAD_MAX_KEYS
+        assert n_keys == [orb.SPREAD_MAX_KEYS]
+    large = name.startswith("large")
+    if large:
+        assert n_keys[0] == {"large_9120": 9120, "large_32640": 32640,
+                             "large_sorted": 9120}[name]
+    want = {"spread_topk": int(any(0 < k and n <= orb.SPREAD_MAX_KEYS
+                                   for k, n in zip(ks, n_keys))),
+            "spread_topk_large": int(large)}
     scales = [1.2 ** l for l in ids]
     ref = orb.spread_topk_levels_plain(ranked, ks, shapes, ids, scales)
-    before = kernels.counts()["spread_topk"]
+    before = kernels.counts()
     out = orb.spread_topk_levels([(r.to(dev), p.to(dev)) for r, p in ranked],
                                  ks, shapes, ids, scales)
     torch.cuda.synchronize()
-    assert kernels.counts()["spread_topk"] == before + 1
+    assert {k: kernels.counts()[k] - before[k] for k in want} == want
     for a, b in zip(out, ref):
         assert a.dtype == b.dtype and a.shape == b.shape
         assert torch.equal(a.cpu(), b)
@@ -619,19 +641,78 @@ def test_spread_topk_kernel_reads_k2_buffers():
 
 
 def test_spread_topk_refuses_past_its_key_limit():
-    """Past 8,192 candidates on a level K9 raises and names the limit; it
-    never falls back to the plain version."""
+    """Past its limits (a budget of SPREAD_MAX_BUDGET on a level; 8,192
+    candidates no longer is one) K9 raises and names the limit; it never
+    falls back to the plain version."""
     dev = _card()
-    raw = torch.ones((28, 300), device=dev)
-    pos = torch.zeros((28, 300), dtype=torch.int32, device=dev)
-    before = kernels.counts()["spread_topk"]
-    with pytest.raises(ValueError, match=str(orb.SPREAD_MAX_KEYS)):
-        orb.spread_topk_levels([(raw, pos)], [1400], [(480, 640)], [0],
-                               [1.0])
+    raw = torch.ones((55, 300), device=dev)
+    pos = torch.zeros((55, 300), dtype=torch.int32, device=dev)
+    before = kernels.counts()
+    with pytest.raises(ValueError, match=str(orb.SPREAD_MAX_BUDGET)):
+        orb.spread_topk_levels([(raw, pos)], [orb.SPREAD_MAX_BUDGET + 1],
+                               [(480, 640)], [0], [1.0])
     with pytest.raises(ValueError):
         orb.spread_topk_levels([(raw, pos.long())], [100], [(480, 640)], [0],
                                [1.0])
-    assert kernels.counts()["spread_topk"] == before
+    assert kernels.counts() == before
+
+
+@pytest.mark.parametrize("h,w", [(1200, 1920), (1088, 2048), (2160, 3840)])
+def test_pyramid_kernel_at_large_geometries(h, w):
+    """K8 at cameras past VGA (3840x2160's grid is past 4 x 132 blocks):
+    bit-equal to the plain version where the card's GEMM splits of the
+    geometry's products are all explained (`SPLIT_MISSES` 0), else within
+    1e-4 gray, the tolerance `chip_smoke.py` holds it to."""
+    dev = _card()
+    image_ops.prepare_pyramid(h, w, 8, 1.2, dev)
+    shapes = image_ops.pyramid_shapes(h, w, 8, 1.2)
+    keys = {(a, b, o, v, str(dev)) for (ih, iw), (oh, ow) in
+            zip(shapes[:-1], shapes[1:])
+            for a, b, o, v in ((ih, oh, iw, True), (iw, ow, oh, False))
+            if a != b}
+    misses = sum(image_ops.SPLIT_MISSES.get(k, 0) for k in keys)
+    rng = np.random.default_rng(h)
+    img = torch.from_numpy(rng.integers(0, 256, (h, w), dtype=np.uint8)
+                           .astype(np.float32)).to(dev)
+    before = kernels.counts()["pyramid"]
+    out = image_ops.build_pyramid(img, 8, 1.2)
+    ref = image_ops.build_pyramid_plain(img, 8, 1.2)
+    torch.cuda.synchronize()
+    assert kernels.counts()["pyramid"] == before + 1
+    for a, b in zip(out, ref):
+        if misses == 0:
+            assert torch.equal(a, b)
+        else:
+            assert float((a - b).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("h,w", [(1200, 1920), (1088, 2048), (2160, 3840)])
+def test_tracker_constructs_at_large_geometries(h, w):
+    """A tracker on the card at 1000 features and 8 levels builds K8's and
+    K9's tables of these cameras (it refused them before K9's large kernel
+    and K8's search past 4 x 132 blocks), and tracks a frame."""
+    from orb_slam2_refactored_tpu_torch.slam.map_state import MapCapacity
+    from orb_slam2_refactored_tpu_torch.slam.tracking import (
+        Tracker, TrackerConfig)
+
+    dev = _card()
+    fx = 520.0 * w / 640
+    cfg = TrackerConfig(width=w, height=h, fx=fx, fy=fx, cx=w / 2, cy=h / 2,
+                        bf=0.08 * fx, n_features=1000, n_levels=8,
+                        map_capacity=MapCapacity(16, 4096, 1000),
+                        enable_local_ba=False, enable_loop_closing=False,
+                        pipelined=False)
+    tracker = Tracker(cfg, device=dev)
+    plan = orb.prepare_spread_topk(h, w, 1000, 1.2, 8)
+    assert plan.launches == ("spread_topk", "spread_topk_large")
+    scene = SyntheticScene(width=w, height=h, fx=fx, fy=fx)
+    img, depth = scene.render(orbit_trajectory(4)[0])
+    before = kernels.counts()
+    tracker.track_rgbd(np.clip(img, 0, 255).astype(np.uint8), depth)
+    torch.cuda.synchronize()
+    after = kernels.counts()
+    assert after["spread_topk_large"] == before["spread_topk_large"] + 1
+    assert after["pyramid"] == before["pyramid"] + 1
 
 
 def test_extractor_is_four_launches():

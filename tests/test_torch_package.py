@@ -64,7 +64,7 @@ def test_every_kernel_source_exists():
                                      "ba_assemble", "ba_cost", "stereo_sad",
                                      "ba_assemble_w_obs", "ba_schur_cg",
                                      "orb_desc_learned", "pyramid",
-                                     "spread_topk"}
+                                     "spread_topk", "spread_topk_large"}
 
 
 def test_empty_frame_and_scale_tables_match_jax():
