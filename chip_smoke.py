@@ -3,6 +3,8 @@ loop closing, and its system facade and CLI drivers, on one CUDA card.
 
     python3 chip_smoke.py [--profile] [--parent DIR]
     python3 chip_smoke.py --c13
+    python3 chip_smoke.py --arena
+    python3 chip_smoke.py --c13 --arena
 
 Phases (any failure raises and the script exits non-zero):
  1. print the card, its power limit and the toolchain; build every CUDA
@@ -180,6 +182,14 @@ Phases (any failure raises and the script exits non-zero):
 The line before the last is a JSON object with one entry per kernel; the
 last line is `{"ok": true, "device": {...}}`.
 
+With --arena the script measures the C++ map-graph arena (`native.py`),
+which the tracker does not take yet (ROADMAP.md, A1): the port's copy of
+`map_graph.cpp` built with g++ on this host, then cell A and cells E and F
+(loop closing off and on) on the Python graph and on the arena, with the
+ATEs, the tracked step and every `kf.*` stage side by side; cell A's gates
+are held, the loop cells' recorded and not held. With --c13 --arena,
+--c13's runs are made on the arena.
+
 With --c13 the script runs only cells E and F, loop closing off and on,
 under three orders of K8's partial sums (the card's GEMM's, one chain an
 output, splits at 8-wide input blocks), and prints each run's ATE and
@@ -195,6 +205,7 @@ import ctypes
 import inspect
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -1612,10 +1623,11 @@ def record_mapping(tracker):
     return tri_k1, asm[0], solve[0]
 
 
-def run_main_path(imgs, second, gt, device, local_ba, stereo=False):
+def run_main_path(imgs, second, gt, device, local_ba, stereo=False,
+                  label=None):
     """One cell: `imgs` with their depth maps (`second`) through
     `track_rgbd`, or, with `stereo`, left images with the right ones
-    through `track_stereo`."""
+    through `track_stereo`; `label` is added to the printed tag."""
     from orb_slam2_refactored_tpu_torch import kernels
     from orb_slam2_refactored_tpu_torch.io.evaluation import ate_rmse, rpe
     from orb_slam2_refactored_tpu_torch.slam.tracking import Tracker
@@ -1624,6 +1636,8 @@ def run_main_path(imgs, second, gt, device, local_ba, stereo=False):
     tag = "local BA on" if local_ba else "local BA off"
     if stereo:
         tag = "stereo, " + tag
+    if label:
+        tag += ", " + label
     tracker = Tracker(bench_config(local_ba), device=device)
     timer = StageTimer(device)  # synchronizes the card at both ends
     kernels.reset_counts()
@@ -2646,6 +2660,8 @@ def run_circuit(cell, loop, frames, gt, device, record=None, gated=True):
         "close_loop_ms": [x * 1e3 for x in samples.get("loop.close_loop",
                                                       [])],
         "gba_merge_ms": [x * 1e3 for x in samples.get("kf.gba_merge", [])],
+        "kf_stages": kf_stage_ms(tracker),
+        "graph": type(tracker.graph).__name__,
         "wall_s": wall, "launches": launches}
     print(f"cell {cell} (loop closing {'on' if loop else 'off'}) "
           + json.dumps(stats))
@@ -2677,6 +2693,113 @@ def gate_loop_cell(on, off):
     assert on["loops_closed"] >= 1, f"cell {cell}: no loop closed"
     assert on["ate_m"] < off["ate_m"], (cell, on["ate_m"], off["ate_m"])
     assert on["ate_m"] < LOOP_ATE_M, (cell, on["ate_m"])
+
+
+# --arena: the C++ map-graph arena (`native.py`) measured beside the
+# Python graph. The tracker does not take it yet (ROADMAP.md, A1): cell F's
+# loops-help gate does not hold on it on the H100.
+
+
+def kf_stage_ms(tracker):
+    """Count, median and p90 (host ms, synchronized) of every `kf.*` stage
+    of a tracker's timer."""
+    return {k: {"n": len(v), "median_ms": float(np.median(v) * 1e3),
+                "p90_ms": float(np.percentile(v, 90) * 1e3)}
+            for k, v in sorted(tracker.timer.samples.items())
+            if k.startswith("kf.")}
+
+
+@contextlib.contextmanager
+def native_graph():
+    """Trackers built inside take the C++ arena: the `MapGraph` that
+    `slam/tracking.py` constructs is replaced by `native.NativeMapGraph`
+    (the tracker itself offers no switch)."""
+    from orb_slam2_refactored_tpu_torch import native
+    from orb_slam2_refactored_tpu_torch.slam import tracking
+
+    old = tracking.MapGraph
+    tracking.MapGraph = native.NativeMapGraph
+    try:
+        yield
+    finally:
+        tracking.MapGraph = old
+
+
+def stage_pairs(py, arena):
+    """Each `kf.*` stage's median and p90 on the Python graph and on the
+    arena, side by side."""
+    return {k: {"python_median_ms": py.get(k, {}).get("median_ms"),
+                "arena_median_ms": arena.get(k, {}).get("median_ms"),
+                "python_p90_ms": py.get(k, {}).get("p90_ms"),
+                "arena_p90_ms": arena.get(k, {}).get("p90_ms")}
+            for k in sorted(set(py) | set(arena))}
+
+
+def run_arena(device, card):
+    """`--arena`: build the port's arena from `csrc/map_graph.cpp` with g++
+    on this host (the compiler and the build's seconds printed); then cell
+    A (120 VGA frames, local BA on, `run_main_path` with its gates) and
+    cells E and F (loop closing off and on, `run_circuit`) on the Python
+    graph and on the arena. Prints the ATEs, loops, keyframes, points, the
+    tracked step's median and p90, `_close_loop` ms and every `kf.*`
+    stage's median and p90 side by side, and the organic-loop gates'
+    outcomes for E and F on each graph, recorded and not held (as
+    `--c13`): the arena is measured here, not brought up. Returns the
+    table."""
+    from orb_slam2_refactored_tpu_torch import native
+
+    t0 = time.perf_counter()
+    path = native.build_library()
+    res = {"build": {"compiler": native.compiler_version(),
+                     "flags": " ".join(native.FLAGS),
+                     "build_s": time.perf_counter() - t0,
+                     "library": os.path.relpath(path)}}
+    print(f"arena: map graph built ({card}): " + json.dumps(res["build"]))
+    imgs, depths, gt = bench_frames(N_FRAMES)
+    graphs = {"python": contextlib.nullcontext, "arena": native_graph}
+    keys = ("ate_m", "keyframes_created", "keyframes_alive",
+            "window_ba_solves", "map_points_alive", "step_ms_median",
+            "step_ms_p90")
+    a = {}
+    for graph, ctx in graphs.items():
+        with ctx():
+            a[graph] = run_main_path(imgs, depths, gt, device, local_ba=True,
+                                     label=f"{graph} graph")
+    assert type(a["arena"][1].graph).__name__ == "NativeMapGraph"
+    res["A"] = {g: {k: a[g][0][k] for k in keys} for g in graphs}
+    res["A"]["kf_stages"] = stage_pairs(kf_stage_ms(a["python"][1]),
+                                        kf_stage_ms(a["arena"][1]))
+    print(f"arena cell A ({card}): " + json.dumps(res["A"]))
+    del a
+    keys = ("ate_m", "loops_closed", "keyframes_alive", "map_points_alive",
+            "close_loop_ms", "gba_merge_ms", "last_loop_info", "wall_s")
+    for cell in ("E", "F"):
+        frames, cgt = circuit_frames(cell)
+        runs = {}
+        for graph, ctx in graphs.items():
+            with ctx():
+                off, _ = run_circuit(cell, False, frames, cgt, device,
+                                     gated=False)
+                on, _ = run_circuit(cell, True, frames, cgt, device,
+                                    gated=False)
+            runs[graph] = (off, on)
+        del frames
+        assert runs["arena"][1]["graph"] == "NativeMapGraph"
+        res[cell] = {g: {"loop_off": {k: off[k] for k in keys},
+                         "loop_on": {k: on[k] for k in keys},
+                         "gates": {"state_ok": off["state"] == on["state"]
+                                   == 1,
+                                   "loop_closed": on["loops_closed"] >= 1,
+                                   "loops_help": on["ate_m"] < off["ate_m"],
+                                   "under_6cm": on["ate_m"] < LOOP_ATE_M}}
+                     for g, (off, on) in runs.items()}
+        res[cell]["kf_stages_loop_on"] = stage_pairs(
+            runs["python"][1]["kf_stages"], runs["arena"][1]["kf_stages"])
+        print(f"arena cell {cell} ({card}): ATE off / on "
+              + ", ".join(f"{g} {off['ate_m']:.7f} / {on['ate_m']:.7f} m"
+                          for g, (off, on) in runs.items())
+              + "; " + json.dumps(res[cell]))
+    return res
 
 
 def block_splits(n_in, n_out, block=8):
@@ -4480,6 +4603,11 @@ def main():
                     "jobs through one side's kernels (a process of its own, "
                     "started by --parent)")
     ap.add_argument("--jobs", metavar="FILE", help=argparse.SUPPRESS)
+    ap.add_argument("--arena", action="store_true",
+                    help="only measure the C++ map-graph arena beside the "
+                    "Python graph (cells A, E and F), recording the loop "
+                    "cells' gates without holding them; with --c13, run "
+                    "--c13's cells on the arena")
     ap.add_argument("--c13", action="store_true",
                     help="only run cells E and F, loop closing off and on, "
                     "under three orders of K8's partial sums (the GEMM's, "
@@ -4492,13 +4620,24 @@ def main():
     if args.time_side:
         time_side(args.time_side, args.parent, args.jobs)
         return
+    if args.arena and not args.c13:
+        from orb_slam2_refactored_tpu_torch import kernels
+
+        card = card_line()
+        print(card)
+        kernels.build_all()
+        table = run_arena(torch.device("cuda:0"), card)
+        print(card)
+        print(json.dumps({"arena": table}))
+        return
     if args.c13:
         from orb_slam2_refactored_tpu_torch import kernels
 
         card = card_line()
         print(card)
         kernels.build_all()
-        table = run_c13(torch.device("cuda:0"))
+        with native_graph() if args.arena else contextlib.nullcontext():
+            table = run_c13(torch.device("cuda:0"))
         print(card)
         print(json.dumps({"c13": table}))
         return

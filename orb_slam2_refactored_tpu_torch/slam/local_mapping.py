@@ -485,59 +485,16 @@ class LocalMapper:
         dst_pt_all = packed[..., 1]
         keep_all = packed[..., 2] > 0
         src_mp_all = packed[..., 3]
-        n_merged = n_added = 0
-        # collect every host-graph decision, then apply ALL device writes in
-        # one program
-        add_kf, add_feat, add_pt = [], [], []
-        merge_src, merge_dst = [], []
-        for bi, (a, b) in enumerate(pairs):
-            if a == b:
-                continue
-            idx = idx_all[bi]
-            dst_pt = dst_pt_all[bi]
-            keep = keep_all[bi]
-            src_mp = src_mp_all[bi]
-            for f_src in np.nonzero(keep)[0]:
-                p_src = int(src_mp[f_src])
-                f_dst = int(idx[f_src])
-                p_dst = int(dst_pt[f_src])
-                if not graph.pt_alive[p_src]:
-                    continue
-                if p_dst < 0:
-                    # dst feature has no landmark: add observation
-                    if graph.obs_feat_in_kf(p_src, int(b)) < 0:
-                        graph.add_observation(p_src, int(b), f_dst, False)
-                        add_kf.append(int(b))
-                        add_feat.append(f_dst)
-                        add_pt.append(p_src)
-                        n_added += 1
-                elif p_dst != p_src and graph.pt_alive[p_dst]:
-                    # duplicate landmark: keep the better-observed one
-                    if graph.n_obs(p_dst) >= graph.n_obs(p_src):
-                        lo, hi = p_src, p_dst
-                    else:
-                        lo, hi = p_dst, p_src
-                    for okf, feat in graph.obs_pairs(lo):
-                        if graph.obs_feat_in_kf(hi, okf) < 0:
-                            graph.add_observation(hi, okf, feat, False)
-                    graph.kill_point(lo)
-                    merge_src.append(lo)
-                    merge_dst.append(hi)
-                    n_merged += 1
-        if n_merged or n_added:
-            # resolve merge chains (x->y then y->z must land on z, matching
-            # the sequential host merges above)
-            remap = dict(zip(merge_src, merge_dst))
-
-            def _resolve(d):
-                while d in remap:
-                    d = remap[d]
-                return d
-
-            merge_dst = [_resolve(d) for d in merge_dst]
+        # every host-graph decision first (the C++ arena's `mg_apply_fuse`
+        # or the Python graph's loop), then ALL device writes in one program
+        (a_kf, a_ft, a_pt), (m_src, m_dst), _ = graph.apply_fuse(
+            np.asarray([a for a, _ in pairs], np.int32),
+            np.asarray([b for _, b in pairs], np.int32),
+            idx_all, dst_pt_all, keep_all, src_mp_all)
+        if len(a_kf) or len(m_src):
             m = self._fuse_apply_impl(
-                m, self._t(add_kf), self._t(add_feat), self._t(add_pt),
-                self._t(merge_src), self._t(merge_dst))
+                m, self._t(a_kf), self._t(a_ft), self._t(a_pt),
+                self._t(m_src), self._t(m_dst))
             graph.update_connections(new_kf, graph.kf_row[new_kf])
         return m
 

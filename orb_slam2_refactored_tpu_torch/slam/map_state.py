@@ -7,8 +7,9 @@ Port of `orb_slam2_refactored_tpu/slam/map_state.py`:
   Descriptors are int32[..., 8] (bit-identical to the JAX package's uint32).
 - `MapGraph`: the covisibility graph, spanning tree, observation lists and
   lifecycle counters kept in numpy + dicts on the host; a copy of the JAX
-  package's pure-Python `MapGraph`. The native C++ arena of the JAX package
-  is not ported yet.
+  package's pure-Python `MapGraph`, the tracker's graph.
+  `native.py::NativeMapGraph`, the JAX package's C++ arena, presents the
+  same interface; the tracker does not take it yet (ROADMAP.md, A1).
 """
 
 from __future__ import annotations
@@ -303,8 +304,14 @@ class MapGraph:
             self.set_covis(kf, best, best_w)
         # spanning tree: first connection becomes parent (src/KeyFrame.cc:300-306)
         if obs_for_new and self.parent[kf] < 0 and kf != self.origin_kf and best >= 0:
-            self.parent[kf] = best
-            self.children.setdefault(best, set()).add(kf)
+            self.set_parent(kf, best)
+
+    def set_parent(self, kf: int, p: int):
+        """`parent[kf] = p`, with kf recorded among p's children (as the
+        C++ arena's `mg_set_parent`)."""
+        self.parent[kf] = p
+        if p >= 0:
+            self.children.setdefault(p, set()).add(kf)
 
     # -- observations -----------------------------------------------------
 
@@ -410,6 +417,60 @@ class MapGraph:
             b += 1
         return pts, okf, oft, nob, b
 
+    def apply_fuse(self, srcs, dsts, idx_all, dst_pt_all, keep_all,
+                   src_mp_all):
+        """The fuse decisions of `LocalMapper._drain_fuse` applied to the
+        graph: for each pair row bi (srcs[bi] == dsts[bi] rows are padding)
+        and each kept feature, the source point joins the destination
+        keyframe where that feature has no point, or the less observed of
+        two live points merges into the other. The JAX package's per-feature
+        loop, with the C++ arena's return (`native.NativeMapGraph.
+        apply_fuse`): (adds (kf, ft, pt), merges (src, dst resolved along
+        merge chains), killed points), int32 arrays in decision order."""
+        adds, merge_src, merge_dst = [], [], []
+        for bi, (a, b) in enumerate(zip(srcs, dsts)):
+            if a == b:
+                continue
+            b = int(b)
+            for f_src in np.nonzero(keep_all[bi])[0]:
+                p_src = int(src_mp_all[bi, f_src])
+                f_dst = int(idx_all[bi, f_src])
+                p_dst = int(dst_pt_all[bi, f_src])
+                if not self.pt_alive[p_src]:
+                    continue
+                if p_dst < 0:
+                    # dst feature has no landmark: add observation
+                    if self.obs_feat_in_kf(p_src, b) < 0:
+                        self.add_observation(p_src, b, f_dst, False)
+                        adds.append((b, f_dst, p_src))
+                elif p_dst != p_src and self.pt_alive[p_dst]:
+                    # duplicate landmark: keep the better-observed one
+                    if self.n_obs(p_dst) >= self.n_obs(p_src):
+                        lo, hi = p_src, p_dst
+                    else:
+                        lo, hi = p_dst, p_src
+                    for okf, feat in self.obs_pairs(lo):
+                        if self.obs_feat_in_kf(hi, okf) < 0:
+                            self.add_observation(hi, okf, feat, False)
+                    self.kill_point(lo)
+                    merge_src.append(lo)
+                    merge_dst.append(hi)
+        # resolve merge chains (x->y then y->z must land on z, matching the
+        # sequential merges above)
+        remap = dict(zip(merge_src, merge_dst))
+
+        def _resolve(d):
+            while d in remap:
+                d = remap[d]
+            return d
+
+        i32 = np.int32
+        adds = np.asarray(adds, i32).reshape(-1, 3)
+        return ((adds[:, 0], adds[:, 1], adds[:, 2]),
+                (np.asarray(merge_src, i32),
+                 np.asarray([_resolve(d) for d in merge_dst], i32)),
+                np.asarray(merge_src, i32))
+
     def points_with_obs(self):
         return [p for p, o in self.obs.items() if o]
 
@@ -458,9 +519,8 @@ class MapGraph:
                 w = self.covis_weight.get(child, {}).get(cand, 0)
                 if w > best_w:
                     best_w, best_p = w, cand
-            self.parent[child] = best_p
+            self.set_parent(child, best_p)
             if best_p >= 0:
-                self.children.setdefault(best_p, set()).add(child)
                 candidates.add(child)
         if parent >= 0:
             self.children.get(parent, set()).discard(kf)

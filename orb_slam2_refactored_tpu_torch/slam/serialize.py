@@ -8,7 +8,9 @@ loaded map can relocalize at once.
 
 The schema is the JAX package's key for key and dtype for dtype:
 descriptors and vocabulary words are written as uint32 (`convert.py`), so a
-file saved by either package loads in the other.
+file saved by either package loads in the other. The graph goes through the
+accessors both host graphs share, so a file saved from the Python
+`MapGraph` or the C++ arena (`native.py`) loads into either.
 """
 
 from __future__ import annotations
@@ -158,10 +160,8 @@ def load_map(tracker: Tracker, path: str):
         g.update_connections(int(k), kf_mp[k], obs_for_new=False)
     for k, p in enumerate(z["graph_parent"]):
         if p >= 0:
-            g.parent[int(k)] = int(p)
-            # children do not follow parent writes; keyframe culling's
-            # re-parenting needs them
-            g.children.setdefault(int(p), set()).add(int(k))
+            # keyframe culling's re-parenting needs the children
+            g.set_parent(int(k), int(p))
     for a, b in z["graph_loops"]:
         g.loop_edges.setdefault(int(a), set()).add(int(b))
         g.loop_edges.setdefault(int(b), set()).add(int(a))
