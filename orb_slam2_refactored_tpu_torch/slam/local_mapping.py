@@ -2,7 +2,7 @@
 bundle adjustment.
 
 Port of `orb_slam2_refactored_tpu/slam/local_mapping.py` (the reference's
-`LocalMapping`, `src/LocalMapping.cc:93-130`), synchronous form. The device
+`LocalMapping`, `src/LocalMapping.cc:93-130`). The device
 programs (`_ba_impl`, `_cull_impl`, `_triangulate_impl`, `_tri_insert_impl`,
 `_fuse_pair_impl`, `_kill_kf_impl`, `_fuse_apply_impl`,
 `_refresh_points_impl`) take and return `MapArrays` functionally, as the
@@ -10,10 +10,15 @@ JAX programs do; the host orchestration keeps the JAX package's stage
 order and its one-keyframe lags (triangulation, fusion, ratio culling and
 the BA outlier erasure all drain at the next keyframe's `drain_pending`).
 
+Every read the host waits for at a drain is started when its product is
+made, as `utils/readback.py::Readback` (the JAX package's `_fetch`: an
+async copy, a future), so the tracker's staged pump can ask whether it
+has landed: `tri_ready`, `fuse_ready` and `ratio_ready`, as in JAX.
+
 Differences of form from the JAX package:
-- there is no fetch thread: a device->host read is a synchronous `.cpu()`
-  where the JAX code starts an async copy, so every stage is ready when
-  the tracker pumps it (the JAX `*_ready()` predicates have no port);
+- there is no fetch thread: on the card a read is a copy into a pinned
+  buffer and a CUDA event; on the CPU it is resolved at once, so there
+  every stage is ready when the tracker pumps it;
 - index lists go to the device at their exact length (JAX pads them to
   bucketed lengths only to bound its compiles); out-of-range indices are
   still dropped, never clamped, exactly as `mode="drop"` does;
@@ -39,6 +44,7 @@ from ..geometry import projection as proj
 from ..geometry import se3
 from ..ops import hamming
 from ..optim.ba import BAProblem, ba_solve, highest_precision
+from ..utils.readback import Readback
 from .frame import scale_factors
 from .map_state import INVALID, MapArrays, MapGraph
 
@@ -117,6 +123,18 @@ class LocalMapper:
         self._pending_ratio = None
         self._pending_ba_erase = None
         self._pending_tcp = None
+
+    def tri_ready(self) -> bool:
+        p = self._pending_tri
+        return p is None or p[3].done()
+
+    def fuse_ready(self) -> bool:
+        p = self._pending_fuse
+        return p is None or p[2].done()
+
+    def ratio_ready(self) -> bool:
+        p = self._pending_ratio
+        return p is None or p[1].done()
 
     def _t(self, a, dtype=torch.int32):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
@@ -471,7 +489,7 @@ class LocalMapper:
         packed = [torch.stack([idx, dst_pt, keep.to(torch.int32), src_mp], -1)
                   for idx, dst_pt, keep, src_mp in
                   (self._fuse_pair_impl(m, a, b) for a, b in pairs)]
-        self._pending_fuse = (new_kf, pairs, torch.stack(packed))
+        self._pending_fuse = (new_kf, pairs, Readback(torch.stack(packed)))
         return m, {"merged": -1, "added": -1}
 
     def _drain_fuse(self, m: MapArrays, graph: MapGraph):
@@ -479,8 +497,8 @@ class LocalMapper:
         if pend is None:
             return m
         self._pending_fuse = None
-        new_kf, pairs, packed_dev = pend
-        packed = packed_dev.cpu().numpy()
+        new_kf, pairs, packed_read = pend
+        packed = packed_read.result()
         idx_all = packed[..., 0]
         dst_pt_all = packed[..., 1]
         keep_all = packed[..., 2] > 0
@@ -537,7 +555,7 @@ class LocalMapper:
             ps = [max(p, 0) for _, p in killed[:PAD]]
             tcp = se3.compose(m.kf_pose[self._t(ks).long()],
                               se3.inverse(m.kf_pose[self._t(ps).long()]))
-            self._pending_tcp = (list(killed[:PAD]), tcp.cpu().numpy())
+            self._pending_tcp = (list(killed[:PAD]), Readback(tcp))
         return m, [k for k, _ in killed]
 
     def _resolve_tcp(self, graph: MapGraph):
@@ -545,7 +563,8 @@ class LocalMapper:
         if pend is None:
             return
         self._pending_tcp = None
-        killed, tcp = pend
+        killed, tcp_read = pend
+        tcp = tcp_read.result()
         for i, (k, p) in enumerate(killed):
             graph.kf_tcp[k] = (p, tcp[i])
 
@@ -616,7 +635,7 @@ class LocalMapper:
         self.n_ba += 1
         # host-side erasure defers to the NEXT keyframe (the reference's
         # mapping-thread lag); the device kf_mp was cleaned by _ba_impl
-        self._pending_ba_erase = (old_rows, outlier_dev.cpu().numpy())
+        self._pending_ba_erase = (old_rows, Readback(outlier_dev))
         return m, {"cost0_dev": c0, "cost1_dev": c1, "free": n_f}
 
     def drain_pending(self, m: MapArrays, graph: MapGraph):
@@ -635,7 +654,8 @@ class LocalMapper:
         if pend is None:
             return m
         self._pending_ratio = None
-        ref_kf, packed = pend
+        ref_kf, packed_read = pend
+        packed = packed_read.result()
         vis, found = packed[0], packed[1]
         ratio = found / np.maximum(vis, 1)
         kill = []
@@ -652,9 +672,9 @@ class LocalMapper:
 
     def queue_ratio_cull(self, ref_kf: int, vis_dev, found_dev):
         """Snapshot the found/visible counters for ratio culling at the next
-        drain (one stacked read)."""
+        drain (one stacked read, started now)."""
         self._pending_ratio = (ref_kf,
-                               torch.stack([vis_dev, found_dev]).cpu().numpy())
+                               Readback(torch.stack([vis_dev, found_dev])))
 
     def drain_ba_erase(self, m: MapArrays, graph: MapGraph):
         """Apply the PREVIOUS keyframe's BA outlier erasure to the host
@@ -663,8 +683,9 @@ class LocalMapper:
         if p is None:
             return m
         self._pending_ba_erase = None
-        old_rows, outlier = p
-        touched = self.erase_outlier_obs(graph, old_rows, outlier)
+        old_rows, outlier_read = p
+        touched = self.erase_outlier_obs(graph, old_rows,
+                                         outlier_read.result())
         m, _ = self.kill_orphan_points(m, graph, touched)
         return m
 
@@ -709,7 +730,11 @@ class LocalMapper:
             return m, 0
         nbs = [int(nb) for nb in neighbors[: self.tri_neighbors]]
         out = [self._triangulate_impl(m, new_kf, nb) for nb in nbs]
-        self._pending_tri = (new_kf, nbs, out)
+        # the host needs (idx_b, good) for slot allocation and the graph:
+        # one read, started now; the positions stay on the device
+        small = torch.stack([torch.stack([idx_b, good.to(torch.int32)], -1)
+                             for _, idx_b, good in out])
+        self._pending_tri = (new_kf, nbs, out, Readback(small))
         return m, -1  # created count known at drain time
 
     def _drain_tri(self, m: MapArrays, graph: MapGraph):
@@ -717,9 +742,8 @@ class LocalMapper:
         if pend is None:
             return m
         self._pending_tri = None
-        new_kf, nbs, out = pend
-        small = torch.stack([torch.stack([idx_b, good.to(torch.int32)], -1)
-                             for _, idx_b, good in out]).cpu().numpy()
+        new_kf, nbs, out, small_read = pend
+        small = small_read.result()
         idx_b_b = small[..., 0]
         good_b = small[..., 1] > 0
         n_created = 0

@@ -3,7 +3,10 @@
 Port of `orb_slam2_refactored_tpu/slam/loop_closing.py` (the reference's
 `LoopClosing`, `src/LoopClosing.cc`):
 - detection from BoW scores and covisibility consistency over consecutive
-  keyframes (`detect`, `_detect_policy`; minConsistency 3);
+  keyframes (`detect`, `_detect_policy`; minConsistency 3), or split in
+  two: `dispatch_detection` indexes the keyframe and starts the scores'
+  read when it is created, `resolve_detection` runs the policy at the
+  insert drain;
 - the Sim3 between the current and the loop keyframe: descriptor matching
   (K1), Horn RANSAC on the landmark pairs, guided matching through S0 and
   S0^-1 (K1 under a dense window mask), mutual agreement and
@@ -26,8 +29,10 @@ Differences of form from the JAX package:
 - the global BA's problem holds the live points only (`compact_points`,
   in index order), scattered back after the solve; on the card a map with
   more live points than K5's index holds raises;
-- `dispatch_detection` / `resolve_detection` (the pipelined mode), the
-  `TPU_SLAM_DEBUG_LOOP` prints and `correct`'s synchronous global-BA
+- the scores' read is a `utils/readback.py::Readback` (a CUDA event on a
+  pinned buffer), where `dispatch_detection` in JAX takes the mapper's
+  fetch function;
+- the `TPU_SLAM_DEBUG_LOOP` prints and `correct`'s synchronous global-BA
   branch (`async_gba=False`, which nothing calls) are not ported.
 
 Faults of the JAX package that are kept, so that parity holds: `correct`
@@ -51,6 +56,7 @@ from ..optim.pose_graph import (PoseGraphProblem, edge_measurement,
                                 pose_graph_solve)
 from ..optim.sim3_opt import optimize_sim3
 from ..solvers.ransac import horn_ransac
+from ..utils.readback import Readback
 from .frame import scale_factors
 from .map_state import MapArrays, MapGraph
 from .system import _np_compose, _np_inverse
@@ -96,6 +102,27 @@ class LoopCloser:
         if self._n_indexed % 8 == 0:
             self.db.refit_idf()
         return v
+
+    def dispatch_detection(self, m: MapArrays, kf: int):
+        """Index keyframe `kf` and start the scoring query's read (scores
+        and common-word counts in one stack: counts below 2^24 are exact
+        in f32); `resolve_detection` consumes it at the insert drain."""
+        v = self.add_keyframe_bow(m, kf)
+        s, cw = self.db.score_query(v)
+        return kf, Readback(torch.stack([s, cw.to(torch.float32)]))
+
+    def resolve_detection(self, graph: MapGraph, kf: int,
+                          pending) -> Optional[int]:
+        """Finish a `dispatch_detection` query: the host-side active mask,
+        then the detection policy."""
+        pkf, read = pending
+        assert pkf == kf
+        packed = read.result()
+        s = packed[0].copy()
+        cw = packed[1].astype(np.int32)
+        s[~self.db.active] = -1.0
+        cw[~self.db.active] = 0
+        return self._detect_policy(graph, kf, s, cw)
 
     def detect(self, m: MapArrays, graph: MapGraph, kf: int,
                bow_vec) -> Optional[int]:

@@ -1,8 +1,8 @@
 """Tracking stage: per-frame RGB-D, stereo and monocular pose estimation
 over device-resident map state.
 
-Port of `orb_slam2_refactored_tpu/slam/tracking.py` in its synchronous
-mode: `_prepare_impl` (ORB extraction + depth association),
+Port of `orb_slam2_refactored_tpu/slam/tracking.py`: `_prepare_impl` (ORB
+extraction + depth association),
 `_prepare_stereo_impl` (left and right extraction, the row-banded stereo
 association and the per-level SAD refinement, `ops/stereo.py`) and
 `_prepare_mono_impl` (extraction, no depth), `_track_impl` (motion-model
@@ -13,45 +13,73 @@ matching, final pose LM, found/visible statistics), the fused
 (`_insert_kf_impl` / `_insert_kf_auto_impl`), the monocular bootstrap
 (`_initialize_mono`: windowed matching against a reference frame, the
 H/F initializer of `solvers/initializer.py`, two keyframes and their
-triangulated landmarks at unit median depth, a 2-keyframe BA), the
-synchronous host loops `track_rgbd`, `track_stereo` and `track_mono` and,
-with `enable_local_ba=True`, the
-synchronous local-mapping job that follows each keyframe
+triangulated landmarks at unit median depth, a 2-keyframe BA), the host
+loops `track_rgbd`, `track_stereo` and `track_mono` and, with
+`enable_local_ba=True`, the local-mapping job that follows each keyframe
 (`slam/local_mapping.py`: triangulation, fusion, point culling, window BA,
-keyframe culling; the tracker adopts the BA-refined pose of the new
-keyframe). Every keyframe is indexed in the BoW database
+keyframe culling), run by the staged pump `_pump_mapping` (JAX's stages
+-1 to 3: the insert drain, then triangulation, fusion, culling and the
+window BA, keyframe culling). Every keyframe is indexed in the BoW database
 (`_ensure_bow_index`: the vocabulary is trained at the 4th keyframe), and a
 LOST frame relocalizes against it (`_relocalize`: BoW candidates, descriptor
 matching, Horn RANSAC on depth or PnP RANSAC in mono, pose LM, a
 projection-guided polish). With
-`enable_loop_closing=True` each keyframe runs the loop stage
-(`_loop_closing_stage`: BoW detection, then `_close_loop`: the Sim3 solve,
+`enable_loop_closing=True` each keyframe runs the loop stage (BoW
+detection, dispatched when the keyframe is made and resolved at its insert
+drain once the index exists, as JAX does in both modes, else
+`_loop_closing_stage`; then `_close_loop`: the Sim3 solve,
 the projection check, the essential-graph correction and a global BA that
 is merged at the next keyframe), with the implicit-loop and seam pathways
 (`_implicit_loop_candidate`, `_seam_check`); with `local_map_window > 0`
 the whole-map projection search sees only the covisibility window's points
 (`_refresh_local_mask`). `change_calibration` swaps the camera model
 mid-session, and `localization_only` (set by the facade's localization
-mode) stops keyframes and holds the mapping job.
+mode) stops keyframes, and the unforced pump holds the mapping job.
+
+Two modes, as in JAX. Synchronous (`pipelined=False`): each frame's pack
+is read at once, and the mapping job is completed inside the frame that
+made the keyframe (`_complete_mapping`: the pump, forced), which then
+adopts the BA-refined pose of the new keyframe. Pipelined
+(`pipelined=True`, the JAX bench's setting): `_run_frame_pipelined`
+dispatches frame t from the device state of frame t-1 and queues its
+pack's read; frames leave the queue (`_finalize_pending`, with the
+keyframe decision) once more than `max(pipeline_depth, 1)` are in
+flight, and the mapping job advances by up to two ready stages a frame
+(`_pump_mapping`). A loss discards every frame still in flight (each keeps
+one trajectory slot and one `discarded` entry); a keyframe made from a
+popped frame keeps the newer frame's device state; no BA or loop
+correction pose is adopted.
+Only tracked frames in OK state go through the queue: initialization,
+relocalization and a LOST frame drain it first (`_run_frame`), in every
+sensor. `flush()` drains the queue, then the map.
 
 Differences of form from the JAX package:
 - the tracker runs on `cuda:0` unless the caller passes another device
   (the tests pass "cpu"); with no card and no explicit device it raises;
 - the frame is quantized on the host as the JAX package's wire format
   quantizes it (`wire_image`: gray, uint8; depth through f16), then
-  uploaded as it is: there is no packed buffer, no pipelined mode and no
-  k-frame or pair chaining;
+  uploaded as it is: there is no packed buffer, no k-frame or pair
+  chaining, no `*_uploaded` or `prefetch_*` entry and no batch ingest;
 - `jax.lax.cond(use_ref, ...)` is a Python branch on `use_ref.item()`, one
-  documented host sync per frame, beside the one read of the host pack;
+  documented host wait per frame in the middle of the step, beside the
+  read of the host pack: the host cannot run a whole frame ahead of the
+  card (`use_ref_waits` keeps each frame's wait on the host clock);
+- a device read the host does not need at once is a
+  `utils/readback.py::Readback` (a copy into a pinned buffer and a CUDA
+  event; no thread), where JAX hands `np.asarray` to a fetch pool; on the
+  CPU it is resolved at once, so there every pumped stage is ready and
+  the pipelined schedule is deterministic, where JAX's depends on when
+  its fetches land;
+- in pipelined mode `Tracker.timer` reads the host clock only; in
+  synchronous mode it synchronizes the card at both ends of a stage;
 - the frame counter `fidx` is a Python int (it seeds the RANSAC generator);
 - the mono initializer's samples are drawn from a `torch.Generator`
   seeded with the frame id (`_mono_init_samples`), where JAX uses
   `PRNGKey(frame_id)`;
 - map updates at keyframe insertion happen in place;
-- every device read is synchronous, so the JAX tracker's staged mapping
-  pump (`_pump_mapping_once`, which waits for each stage's read to land)
-  is one call, `_run_mapping_job`, that runs its stages in order;
 - `flush()` drains every deferred mapping product (see its docstring);
+- JAX's `last_mp` (the host copy of the last frame's landmarks, read only
+  by `viz/`, which is not ported) has no port;
 - the relocalization RANSAC draws from `torch.Generator().manual_seed(
   frame_id * 31 + kf)` where JAX folds that number into `PRNGKey(0)`: a run
   repeats itself, and its outcome, not its samples, agrees with JAX;
@@ -73,6 +101,7 @@ at construction; none is silently ignored.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -87,6 +116,7 @@ from ..ops.stereo import stereo_associate
 from ..optim.pose_opt import pose_optimize
 from ..solvers.initializer import initialize
 from ..solvers.ransac import draw_samples, horn_ransac, pnp_ransac
+from ..utils.readback import Readback
 from ..utils.timing import StageTimer
 from .frame import FrameData, scale_factors
 from .local_mapping import LocalMapper
@@ -170,8 +200,6 @@ class TrackerConfig:
 def _unsupported(cfg: TrackerConfig) -> List[str]:
     """Settings that need machinery this slice does not port."""
     out = []
-    if cfg.pipelined:
-        out.append("pipelined=True (the software pipeline)")
     if cfg.depth_encoding != "f16":
         out.append(f"depth_encoding={cfg.depth_encoding!r} (wire formats)")
     if cfg.image_encoding != "raw":
@@ -217,9 +245,15 @@ class Tracker:
             pattern=cfg.descriptor_pattern, device=self.device)
         self.sf, self.sigma2, self.inv_sigma2 = scale_factors(
             cfg.n_levels, cfg.scale_factor, device=self.device)
-        # per-stage times of the keyframe path (synchronizes the card at
-        # both ends of a stage)
-        self.timer = StageTimer(self.device)
+        # per-stage times of the keyframe path; in synchronous mode the
+        # timer synchronizes the card at both ends of a stage, in pipelined
+        # mode it reads the host clock only (a synchronization would drain
+        # the frames in flight)
+        self.timer = StageTimer(None if cfg.pipelined else self.device)
+        # the host's wait in the step's one branch read (`use_ref.item()`),
+        # a tracked frame, and the pumps that met a read not yet landed
+        self.use_ref_waits: List[float] = []
+        self.pumps_not_ready = 0
         if cfg.enable_local_ba:
             self.local_mapper = LocalMapper(
                 self.cam, cfg.n_levels, cfg.scale_factor,
@@ -413,9 +447,11 @@ class Tracker:
             frame.xy, frame.u_right, inv_s2_feat, has_mm, self.cam,
             rounds=min(cfg.pose_opt_rounds, 2),
             iters_per_round=cfg.pose_opt_iters)
-        # the one branch of the step: a host sync (jax.lax.cond in JAX)
+        # the one branch of the step: a host wait (jax.lax.cond in JAX)
+        t0 = time.perf_counter()
         use_ref = bool(((n_mm < cfg.min_matches_mm)
                         | (r1_mm.num_inliers < 10)).item())
+        self.use_ref_waits.append(time.perf_counter() - t0)
 
         if use_ref:
             # ---- 1b. TrackReferenceKeyFrame fallback: descriptor match
@@ -750,20 +786,34 @@ class Tracker:
         })
 
     def flush(self):
-        """Drain every deferred mapping product (call before reading the
-        trajectory or the map).
+        """Drain the frames in flight, then every deferred mapping product
+        (call before reading the trajectory or the map).
 
-        The mapping job itself always completes in the frame that made the
-        keyframe. The JAX tracker's `flush` completes the job and promises
-        this drain in its docstring, but leaves the last window BA's outlier
-        erasure for the next keyframe. Here it drains that too, so the map
-        read after `flush` is final. The frame loop never calls `flush`, so
-        the one-keyframe lag of the erasure is kept while tracking."""
+        The JAX tracker's `flush` completes the job and promises this drain
+        in its docstring, but leaves the last window BA's outlier erasure
+        for the next keyframe. Here it drains that too, so the map read
+        after `flush` is final. The frame loop never calls `flush`, so the
+        one-keyframe lag of the erasure is kept while tracking."""
+        self._drain_queue()
         self._finalize_map()
 
+    def _drain_queue(self):
+        """Finalize every frame in flight, oldest first; a loss discards
+        the rest."""
+        q = self._pending_q
+        while q:
+            self._finalize_pending(q.pop(0))
+            if self.state != TrackState.OK:
+                break
+
     def _run_frame(self, prep_fn, step_fn, timestamp: float, init_fn=None):
-        if not self.localization_only:
-            self._run_held_map_job()
+        """One frame: through the in-flight queue in pipelined OK state;
+        otherwise (or synchronous) the queue and the mapping job are
+        completed first, as JAX's `flush` does there."""
+        if self.cfg.pipelined and self.state == TrackState.OK:
+            return self._run_frame_pipelined(step_fn, timestamp)
+        self._drain_queue()
+        self._complete_mapping()
         if self.state == TrackState.NOT_INITIALIZED:
             frame = prep_fn()
             (init_fn or self._initialize)(frame, timestamp)
@@ -786,7 +836,7 @@ class Tracker:
         (frame, pose_dev, vel_dev, feat_mp_dev, host_pack,
          self.mp_vis_dev, self.mp_found_dev,
          self.mp_seen_dev, self.fidx) = step_fn()
-        pack = host_pack.cpu().numpy()
+        pack = Readback(host_pack).result()
         n_inl, n_mm = int(pack[14]), int(pack[15])
         tracked_close, untracked_close = int(pack[16]), int(pack[17])
         if n_inl < self.cfg.min_inliers_track:
@@ -823,6 +873,85 @@ class Tracker:
         self.frame_id += 1
         return self.pose
 
+    # ------------------------------------------------------------------
+    # pipelined mode: frame t is dispatched from frame t-1's device
+    # outputs and its pack read while later frames are issued; the
+    # keyframe decision for t lands `pipeline_depth` frames late (the
+    # reference's mapping thread lags tracking too, src/System.cc:398-411)
+    # ------------------------------------------------------------------
+
+    def _run_frame_pipelined(self, step_fn, timestamp: float):
+        with self.timer.time("track.dispatch"):
+            (frame, pose_dev, vel_dev, feat_mp_dev, host_pack,
+             self.mp_vis_dev, self.mp_found_dev,
+             self.mp_seen_dev, self.fidx) = step_fn()
+        q = self._pending_q
+        q.append((frame, feat_mp_dev, Readback(host_pack), timestamp,
+                  self.ref_kf))
+        # the device-side tracking state advances at once
+        self.pose_dev, self.velocity_dev = pose_dev, vel_dev
+        self.last_frame = frame
+        self.last_mp_dev = feat_mp_dev
+        while len(q) > max(int(self.cfg.pipeline_depth), 1):
+            with self.timer.time("track.finalize"):
+                self._finalize_pending(q.pop(0))
+            if self.state != TrackState.OK:
+                break  # the loss emptied the queue
+        # the mapping job advances between tracked frames
+        self._pump_mapping()
+        self.frame_id += 1
+        return self.pose
+
+    def _finalize_pending(self, pending):
+        """Read a queued frame's pack and act on it: the loss check (which
+        discards every frame still in flight), the pose, the keyframe
+        decision and, for a keyframe, its creation with the newer frame's
+        device state kept."""
+        frame, feat_mp_dev, pack_read, ts, disp_ref = pending
+        pack = pack_read.result()
+        n_inl = int(pack[14])
+        if n_inl < self.cfg.min_inliers_track:
+            self.state = TrackState.LOST
+            self.pose_dev = self._t(self.pose)  # rewind the device state
+            self.velocity_dev = self._t(se3.identity().numpy())
+            self._record_frame(lost=True)
+            self.track_info.append({"inliers": n_inl, "lost": True})
+            # every frame still in flight was predicted from this state;
+            # its result is discarded, but it keeps one trajectory slot
+            # (the savers pair each entry with a timestamp)
+            q = self._pending_q
+            while q:
+                q.pop(0)
+                self._record_frame(lost=True)
+                self.track_info.append(
+                    {"inliers": 0, "lost": True, "discarded": True})
+            self._maybe_auto_reset()
+            return
+        self.pose = pack[0:7]
+        self.velocity = pack[7:14]
+        self.frames_since_kf += 1
+        need_kf = self._need_new_keyframe(n_inl, int(pack[16]),
+                                          int(pack[17]))
+        if self._seam_check(int(pack[26])):
+            need_kf = True
+        if need_kf:
+            # the keyframe must not clobber the newer (in-flight) frame's
+            # device state
+            save = (self.last_frame, self.last_mp_dev, self.pose_dev,
+                    self.velocity_dev)
+            pose_np = self.pose.copy()
+            self._create_keyframe(frame, pack[27:].astype(np.int32), ts,
+                                  feat_mp_dev=feat_mp_dev)
+            (self.last_frame, self.last_mp_dev, self.pose_dev,
+             self.velocity_dev) = save
+            self.pose = pose_np
+        else:
+            self._maybe_refresh_local_mask()
+        self._record_frame(tcr=pack[19:26], ref=disp_ref)
+        self.track_info.append(
+            {"inliers": n_inl, "mm": int(pack[15]), "kf": bool(need_kf),
+             "ref_fallback": bool(pack[18]), "lost": False})
+
     def reset_map(self):
         """Discard the map and return to NOT_INITIALIZED, keeping the
         trajectory log (System/Tracking::Reset analog)."""
@@ -848,7 +977,13 @@ class Tracker:
         self._seam_pending = False
         self._seam_cooldown_until = 0
         self._gba_pending = None
-        self._held_map_job: Optional[int] = None
+        # the mapping job in flight, (keyframe slot, stage), the keyframe
+        # insert's read awaiting its drain, the dispatched loop detection
+        # and the frames in flight
+        self._map_job = None
+        self._pending_insert = None
+        self._loop_pending = None
+        self._pending_q: List[tuple] = []
         if self.loop_closer is not None:
             self.loop_closer.db.clear()
             self.loop_closer.consistent_groups = []
@@ -1117,8 +1252,12 @@ class Tracker:
                                     inl, pt_a, pt_b)
         self._gba_pending = info.pop("gba_pending", None)
         self.last_loop_info = {"loop_kf": loop_kf, "kf": slot, **info}
-        self.pose_dev = self.map.kf_pose[slot].clone()
-        self.pose = self.pose_dev.cpu().numpy()
+        # pipelined mode keeps the in-flight frames' device state: their
+        # predictions predate the correction, and tracking re-acquires
+        # against the corrected map
+        if not self.cfg.pipelined:
+            self.pose_dev = self.map.kf_pose[slot].clone()
+            self.pose = self.pose_dev.cpu().numpy()
 
     def _need_new_keyframe(self, n_inl, tracked_close, untracked_close) -> bool:
         """NeedNewKeyFrame policy: ratio vs reference KF, close-point
@@ -1260,9 +1399,11 @@ class Tracker:
                          create_mask: Optional[np.ndarray] = None,
                          feat_mp_dev=None):
         cfg = self.cfg
-        # drain the previous keyframe's deferred mapping products FIRST: they
-        # free and allocate point slots, so they must precede this
-        # keyframe's own allocations
+        # complete the previous keyframe's mapping job and drain its
+        # deferred products FIRST: they free and allocate point slots, so
+        # they must precede this keyframe's own allocations (the
+        # reference's mapping thread finishes one keyframe before it takes
+        # the next, src/LocalMapping.cc:79)
         if self.local_mapper is not None:
             with self.timer.time("kf.drain"):
                 self._finalize_map()
@@ -1294,10 +1435,25 @@ class Tracker:
             self._ref_mp_row = None  # refined at drain
             self.frames_since_kf = 0
             self.last_mp_dev = all_mp_dev
-            with self.timer.time("kf.insert_drain"):
-                mapping = self._drain_insert(slot, frame, pack_dev, got)
-            if mapping:
-                self._run_mapping_job(slot)
+            # the loop-detection query needs device arrays only: dispatch
+            # it now, its read lands with the insert pack's
+            self._loop_pending = None
+            if (cfg.enable_loop_closing and self.loop_closer is not None
+                    and self.local_mapper is not None):
+                self._loop_pending = self.loop_closer.dispatch_detection(
+                    self.map, slot)
+            # the graph bookkeeping waits for the insert pack's read: the
+            # pump's stage -1 (`_drain_insert`)
+            self._pending_insert = (slot, frame, Readback(pack_dev), got,
+                                    timestamp)
+            self._map_job = (slot, -1)
+            if self.local_mapper is None:
+                # no mapping pump to drain the insert: resolve it here
+                with self.timer.time("kf.insert_drain"):
+                    self._drain_insert()
+                self._map_job = None
+            elif not cfg.pipelined:
+                self._complete_mapping()
             return slot
         # ---- explicit-mask path (bootstrap initialization) ----
         n_new = int(create_mask.sum())
@@ -1335,16 +1491,21 @@ class Tracker:
         self._ref_mp_row = all_mp.copy()
         self.frames_since_kf = 0
         self.last_mp_dev = packed_dev[0].contiguous()
-        if self._post_insert(slot, frame):
-            self._run_mapping_job(slot)
+        self._post_insert(slot, frame)
+        if self._map_job is not None and not cfg.pipelined:
+            self._complete_mapping()
         return slot
 
-    def _drain_insert(self, slot: int, frame: FrameData, pack_dev, got) -> bool:
-        """Graph bookkeeping of a device-selected keyframe insert: replay
-        the device's slot mapping (created features consumed slot_buf[:n] in
-        feature order) and return the unused slots; then the post-insert
-        work. True when a mapping job was dispatched."""
-        pack = pack_dev.cpu().numpy()
+    def _drain_insert(self):
+        """Graph bookkeeping of a device-selected keyframe insert, once its
+        pack's read has landed (the work the reference's mapping thread
+        does when it dequeues a keyframe, src/LocalMapping.cc:303-333):
+        replay the device's slot mapping (created features consumed
+        slot_buf[:n] in feature order) and return the unused slots; then
+        the post-insert work."""
+        slot, frame, pack_read, got, _ = self._pending_insert
+        self._pending_insert = None
+        pack = pack_read.result()
         all_mp, levels, created = pack[0], pack[1], pack[2].astype(bool)
         n_created = int(created.sum())
         if n_created < len(got):
@@ -1360,20 +1521,20 @@ class Tracker:
         if self.ref_kf == slot:
             self.ref_kf_tracked = int((all_mp >= 0).sum())
             self._ref_mp_row = all_mp.copy()
-        return self._post_insert(slot, frame)
+        self._post_insert(slot, frame)
 
-    def _post_insert(self, slot: int, frame: FrameData) -> bool:
+    def _post_insert(self, slot: int, frame: FrameData):
         """Post-insert work: merge a pending global BA (`kf.gba_merge`),
         rebuild the covisibility window's mask, zero the found/visible
         counters and last-seen stamps of recycled point slots, then, under
         `kf.loop`, index the keyframe in the BoW database and, with loop
-        closing on, run the loop stage (BoW detection first; when it closes
-        nothing, the implicit pathway: after a seam keyframe the explicit
-        Sim3 correction, the implicit one if that is refused), then
-        dispatch the local-mapping job (reference order,
+        closing on, run the loop stage (BoW detection first: the query
+        dispatched at the keyframe's creation, else `_loop_closing_stage`;
+        when it closes nothing, the implicit pathway: after a seam keyframe
+        the explicit Sim3 correction, the implicit one if that is refused),
+        then dispatch the local-mapping job (reference order,
         src/LocalMapping.cc:93-130: triangulate -> fuse neighbours -> cull
-        points -> local BA -> cull KFs). True when the job was
-        dispatched."""
+        points -> local BA -> cull KFs) as the pump's stage 0."""
         cfg = self.cfg
         # merge a pending global BA before the map grows further (the
         # reference's GBA thread merges under the map mutex,
@@ -1395,9 +1556,16 @@ class Tracker:
             self.mp_found_dev[idx] = 0
             self.mp_seen_dev[idx] = -1
         with self.timer.time("kf.loop"):
+            pend = self._loop_pending
+            self._loop_pending = None
             before = (self.loop_closer.loops_closed
                       if self.loop_closer is not None else 0)
-            if cfg.enable_loop_closing:
+            if pend is not None:
+                loop_kf = self.loop_closer.resolve_detection(self.graph, slot,
+                                                             pend)
+                if loop_kf is not None:
+                    self._close_loop(frame, slot, loop_kf)
+            elif cfg.enable_loop_closing:
                 self._loop_closing_stage(frame, slot)
             else:
                 self._ensure_bow_index(slot)
@@ -1433,67 +1601,111 @@ class Tracker:
                 # rule drains them right before local BA (stage 2)
                 self.local_mapper.queue_ratio_cull(slot, self.mp_vis_dev,
                                                    self.mp_found_dev)
-            return True
-        return False
+            self._map_job = (slot, 0)
+        else:
+            self._map_job = None
 
-    def _run_mapping_job(self, slot: int, force: bool = False):
-        """The keyframe's mapping job, in the stage order of the JAX
-        tracker's `_pump_mapping_once`. The BA outlier erasure stays pending
-        until the NEXT keyframe's drain (the reference's mapping-thread
-        lag); `_finalize_map` drains it."""
+    def _pump_mapping(self, force: bool = False, max_stages: int = 2):
+        """Advance the mapping job by up to `max_stages` stages whose reads
+        have landed; `force` waits for them instead. Pipelined mode pumps
+        once a frame, two stages at most."""
+        for _ in range(max(max_stages, 1)):
+            before = self._map_job
+            self._pump_mapping_once(force)
+            if self._map_job == before:
+                break
+
+    def _pump_mapping_once(self, force: bool = False):
+        """One stage of the mapping job (JAX's `_pump_mapping_once`): -1 the
+        insert drain, 0 the triangulation drain and the fusion dispatch, 1
+        the fusion drain, 2 the point refresh, the culls and the window BA,
+        3 the keyframe cull. Unforced, a stage whose read has not landed
+        leaves the job where it is; localization mode holds it."""
+        lm = self.local_mapper
+        job = self._map_job
+        if lm is None or job is None:
+            return
         if self.localization_only and not force:
             # localization mode froze the map: a job made here (a seam
-            # keyframe) is held until deactivation or `_finalize_map`, as
-            # the JAX tracker's pump holds it
-            self._held_map_job = slot
+            # keyframe's) is held until deactivation or a forced pump
             return
-        lm = self.local_mapper
-        # triangulation results: insert points, then neighbour fusion over
-        # the refreshed covisibility ring
-        with self.timer.time("kf.tri_drain"):
-            self.map = lm._drain_tri(self.map, self.graph)
-        with self.timer.time("kf.fuse"):
-            self.map, _ = lm.fuse_neighbors(self.map, self.graph, slot)
-        with self.timer.time("kf.fuse_drain"):
-            self.map = lm._drain_fuse(self.map, self.graph)
-        # refresh point stats, run the host culling rules (the ratio rule
-        # BEFORE BA, so doomed points don't pollute the solve), window BA
-        with self.timer.time("kf.refresh_points"):
-            self.map = lm.refresh_points(self.map, self.graph, slot)
-        with self.timer.time("kf.cull_points"):
-            self.map, _ = lm.cull_points(self.map, self.graph, slot)
-            self.map = lm._drain_ratio_cull(self.map, self.graph)
-        if self._gba_pending is None:
-            with self.timer.time("kf.local_ba"):
-                self.map, self.last_ba_info = lm.local_ba(self.map,
-                                                          self.graph, slot)
+        slot, stage = job
+        if stage == -1:
+            pend = self._pending_insert
+            if pend is None:
+                self._map_job = (slot, 0)
+                return
+            if not force and not pend[2].done():
+                self.pumps_not_ready += 1
+                return
+            with self.timer.time("kf.insert_drain"):
+                self._drain_insert()
+            return
+        ready = (lm.tri_ready, lm.fuse_ready, lm.ratio_ready)
+        if stage < 3 and not force and not ready[stage]():
+            self.pumps_not_ready += 1
+            return
+        if stage == 0:
+            # triangulation results: insert points, then neighbour fusion
+            # over the refreshed covisibility ring
+            with self.timer.time("kf.tri_drain"):
+                self.map = lm._drain_tri(self.map, self.graph)
+            with self.timer.time("kf.fuse"):
+                self.map, _ = lm.fuse_neighbors(self.map, self.graph, slot)
+            self._map_job = (slot, 1)
+        elif stage == 1:
+            with self.timer.time("kf.fuse_drain"):
+                self.map = lm._drain_fuse(self.map, self.graph)
+            self._map_job = (slot, 2)
+        elif stage == 2:
+            # refresh point stats, run the host culling rules (the ratio
+            # rule BEFORE BA, so doomed points don't pollute the solve),
+            # window BA
+            with self.timer.time("kf.refresh_points"):
+                self.map = lm.refresh_points(self.map, self.graph, slot)
+            with self.timer.time("kf.cull_points"):
+                self.map, _ = lm.cull_points(self.map, self.graph, slot)
+                self.map = lm._drain_ratio_cull(self.map, self.graph)
+            if self._gba_pending is None:
+                with self.timer.time("kf.local_ba"):
+                    self.map, self.last_ba_info = lm.local_ba(
+                        self.map, self.graph, slot)
+            else:
+                # a global BA is pending: its merge overwrites every
+                # launched pose, and a window solve now would drag the
+                # loop-corrected seam back toward the still-drifted fixed
+                # frontier (the reference stops local mapping across the
+                # correction and GBA, src/LoopClosing.cc:532-544)
+                self.last_ba_info = None
+            self._map_job = (slot, 3)
         else:
-            # a global BA is pending: its merge overwrites every launched
-            # pose, and a window solve now would drag the loop-corrected
-            # seam back toward the still-drifted fixed frontier (the
-            # reference stops local mapping across the correction and GBA,
-            # src/LoopClosing.cc:532-544)
-            self.last_ba_info = None
-        with self.timer.time("kf.cull_kfs"):
-            self.map, killed = lm.cull_keyframes(self.map, self.graph, slot)
-        if killed and self.loop_closer is not None:
-            for k in killed:
-                self.loop_closer.db.erase(k)
-        if self.last_ba_info is not None:
-            # adopt the BA-refined pose of the new keyframe as the tracker's
-            # current pose (the reference's map-update hand-off,
-            # src/Tracking.cc:1196)
-            self.pose_dev = self.map.kf_pose[slot].clone()
-            self.pose = self.pose_dev.cpu().numpy()
+            # the BA outlier erasure stays pending until the NEXT
+            # keyframe's drain (the reference's mapping-thread lag)
+            with self.timer.time("kf.cull_kfs"):
+                self.map, killed = lm.cull_keyframes(self.map, self.graph,
+                                                     slot)
+            if killed and self.loop_closer is not None:
+                for k in killed:
+                    self.loop_closer.db.erase(k)
+            self._map_job = None
+            if self.last_ba_info is not None and not self.cfg.pipelined:
+                # adopt the BA-refined pose of the new keyframe as the
+                # tracker's current pose (the reference's map-update
+                # hand-off, src/Tracking.cc:1196): exact in synchronous
+                # mode, which completes the job in the keyframe's frame;
+                # pipelined mode skips it (the frames in flight own the
+                # device state)
+                self.pose_dev = self.map.kf_pose[slot].clone()
+                self.pose = self.pose_dev.cpu().numpy()
 
-    def _run_held_map_job(self, force: bool = False):
-        """Run a mapping job held by localization mode."""
-        slot, self._held_map_job = self._held_map_job, None
-        if slot is not None:
-            self._run_mapping_job(slot, force)
+    def _complete_mapping(self):
+        """Run the mapping job to completion (the pump, forced). The BA
+        outlier erasure may stay pending; `_finalize_map` drains it."""
+        while self._map_job is not None:
+            self._pump_mapping(force=True)
 
     def _finalize_map(self):
-        """Drain every deferred mapping product (a held mapping job too)."""
-        self._run_held_map_job(force=True)
+        """Complete the mapping job and drain every deferred product."""
+        self._complete_mapping()
         if self.local_mapper is not None:
             self.map = self.local_mapper.drain_pending(self.map, self.graph)

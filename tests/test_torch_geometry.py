@@ -4,6 +4,7 @@ Inputs are made with numpy from a seed and handed to both; tolerances are
 f32 rounding (the two packages evaluate the same formulas).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -95,3 +96,28 @@ def test_undistort_matches_jax():
     assert tproj.image_bounds_np(458.0, 457.0, 367.0, 248.0, coeffs, 752,
                                  480) == jproj.image_bounds_np(
         458.0, 457.0, 367.0, 248.0, coeffs, 752, 480)
+
+
+def test_projection_rounds_as_jax_compiled():
+    """`project` and `project_stereo` are bit-equal to JAX's jitted ones on
+    the CPU, where XLA fuses `fx * x * inv_z + cx` and `u - bf * inv_z`
+    into multiply-adds: 50,000 points from a seed, and a point on cell E's
+    motion-model window edge (u = 59.000004 in JAX; rounding the product
+    first gives 59.0, which matched two more features at frame 1)."""
+    jc = jproj.CameraIntrinsics.create(260.0, 260.0, 160.0, 120.0, 20.8)
+    tc = tproj.CameraIntrinsics.create(260.0, 260.0, 160.0, 120.0, 20.8)
+    rng = np.random.default_rng(5)
+    n = 50000
+    xc = np.stack([rng.uniform(-2, 2, n), rng.uniform(-1.5, 1.5, n),
+                   rng.uniform(0.3, 6, n)], -1).astype(np.float32)
+    edge = np.array([3214978127, 0, 1078906516], np.uint32).view(np.float32)
+    xc = np.concatenate([xc, edge[None]])
+    for jfn, tfn in ((jproj.project, tproj.project),
+                     (jproj.project_stereo, tproj.project_stereo)):
+        want = np.asarray(jax.jit(lambda x, f=jfn: f(jc, x))(
+            jnp.asarray(xc)))
+        np.testing.assert_array_equal(tfn(tc, torch.from_numpy(xc)).numpy(),
+                                      want)
+    assert want[-1, 0] == np.float32(59.000004)
+    x = torch.from_numpy(edge)
+    assert float(260.0 * x[0] * (1.0 / x[2]) + 160.0) == 59.0

@@ -330,6 +330,48 @@ def test_detect_policy_matches_jax_over_four_calls():
     assert convert.loop_state(fresh) == convert.loop_state(jlc)
 
 
+def test_dispatch_then_resolve_matches_jax_over_four_calls():
+    """The pipelined detection (`dispatch_detection` when the keyframe is
+    made, `resolve_detection` at its insert drain) on the same four
+    scripted calls: each package's database returns the scripted scores,
+    rows 14 and 15 are not indexed (the active mask), JAX's read is
+    resolved at once. The candidates and the consistency groups equal
+    JAX's, and the policy's own on the same scores."""
+    from orb_slam2_refactored_tpu.slam.tracking import _Resolved
+
+    lc, jlc = _closers()
+    ref_lc, _ = _closers()
+    g, jg = _host_graph(MapGraph, MapCapacity), _host_graph(JGraph, JCap)
+    for c in (lc, jlc):
+        c.add_keyframe_bow = lambda m, kf: None
+        c.db.active[:14] = True
+    rng = np.random.default_rng(4)
+    fired = []
+    for call, kf in enumerate((10, 11, 12, 13)):
+        scores = rng.uniform(0.0, 0.05, 16).astype(np.float32)
+        scores[[0, 1, 2]] = [0.30, 0.25, 0.2]
+        if call == 1:
+            scores[[0, 1, 2]] = 0.01
+        common = rng.integers(1, 30, 16).astype(np.int32)
+        common[[0, 1, 2]] = 40
+        lc.db.score_query = lambda v, s=scores, c=common: (
+            torch.from_numpy(s), torch.from_numpy(c))
+        jlc.db.score_query = lambda v, s=scores, c=common: (
+            jnp.asarray(s), jnp.asarray(c))
+        out = lc.resolve_detection(g, kf, lc.dispatch_detection(None, kf))
+        ref = jlc.resolve_detection(jg, kf, jlc.dispatch_detection(
+            None, kf, lambda a: _Resolved(np.asarray(a))))
+        masked = scores.copy()
+        masked[14:] = -1.0
+        cw = common.copy()
+        cw[14:] = 0
+        assert out == ref == ref_lc._detect_policy(g, kf, masked, cw)
+        assert ([(sorted(a), n) for a, n in lc.consistent_groups]
+                == [(sorted(a), n) for a, n in jlc.consistent_groups])
+        fired.append(out)
+    assert any(f is not None for f in fired) or lc.consistent_groups
+
+
 def test_loop_configuration_constructs_and_tracks():
     """`enable_loop_closing=True` with the covisibility window constructs
     and tracks on the CPU: a few frames of the orbit, tracking OK."""

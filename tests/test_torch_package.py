@@ -87,7 +87,6 @@ def _cfg(**kw):
 
 
 @pytest.mark.parametrize("setting", [
-    dict(pipelined=True), dict(enable_local_ba=True, pipelined=True),
     dict(depth_encoding="log8"), dict(image_encoding="dct"),
 ])
 def test_unported_settings_raise(setting):

@@ -230,16 +230,19 @@ def test_localization_mode_freezes_the_map(run, frames):
     assert _map_hash(tr) == h0 and tr.graph.num_kfs == n_kf
     assert run.get_tracking_state() == TrackState.OK
     assert not any(t.get("kf") for t in tr.track_info[-N_FRAMES:])
-    # a mapping job made in the mode (a seam keyframe's) is held, as the
-    # JAX tracker's pump holds it, and runs once the mode is off
-    tr._run_mapping_job(tr.ref_kf)
-    assert tr._held_map_job == tr.ref_kf and _map_hash(tr) == h0
+    # a mapping job in the mode (a seam keyframe's) is held by the pump, as
+    # the JAX tracker's pump holds it; the next frame, once the mode is
+    # off, completes it
+    job = (tr.ref_kf, 0)
+    tr._map_job = job
+    tr._pump_mapping()
+    assert tr._map_job == job and _map_hash(tr) == h0
     run.request_command("localization_mode", "off")
     assert tr.localization_only  # applied at the next frame, not before
     for i in range(2 * N_FRAMES, 2 * N_FRAMES + 4):
         run.track_rgbd(*frames[i], timestamp=100.0 + i / 5.0)
     assert not tr.localization_only and not run.localization_only
-    assert tr._held_map_job is None
+    assert tr._map_job is None
     assert tr.graph.num_kfs > n_kf
 
 

@@ -10,6 +10,11 @@ Python `MapGraph` (`TPU_SLAM_NATIVE_GRAPH=0`), the one the port has.
   every position within 2 cm of JAX's.
 - `flush()` leaves no pending mapping product: `drain_pending` after it
   changes neither the map nor the graph.
+- Pipelined (`pipelined=True`, `pipeline_depth=2`), both trackers on
+  JAX's pyramid, with every stage ready at its first pump (JAX's mapper
+  fetches resolved at once, `_Resolved`; the port's reads on the CPU
+  are): the same keyframes, every position within 5 mm of JAX's, one
+  trajectory entry a frame after `flush()`, which leaves nothing pending.
 """
 
 import jax
@@ -21,6 +26,7 @@ import torch
 from orb_slam2_refactored_tpu.ops import image as jax_image
 from orb_slam2_refactored_tpu.slam.map_state import MapCapacity as JCap
 from orb_slam2_refactored_tpu.slam.tracking import Tracker as JTracker
+from orb_slam2_refactored_tpu.slam.tracking import _Resolved
 from orb_slam2_refactored_tpu.slam.tracking import TrackerConfig as JConfig
 from orb_slam2_refactored_tpu_torch import convert
 from orb_slam2_refactored_tpu_torch.io.evaluation import ate_rmse
@@ -35,6 +41,7 @@ N_FRAMES = 20
 KW = dict(width=320, height=240, fx=260.0, fy=260.0, cx=160.0, cy=120.0,
           bf=0.08 * 260.0, n_features=500, n_levels=4, enable_local_ba=True,
           pipelined=False)
+PIPE = dict(KW, pipelined=True, pipeline_depth=2)
 
 
 @pytest.fixture(scope="module")
@@ -53,26 +60,30 @@ def clip():
     return frames, gt
 
 
-@pytest.fixture(scope="module")
-def jax_run(clip):
-    frames, _ = clip
+def _jax_tracker_run(frames, kw):
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("TPU_SLAM_NATIVE_GRAPH", "0")
-        jt = JTracker(JConfig(map_capacity=JCap(16, 4096, 500), **KW))
+        jt = JTracker(JConfig(map_capacity=JCap(16, 4096, 500), **kw))
+        if kw["pipelined"]:
+            # every mapping stage ready at its first pump
+            jt.local_mapper._fetch = lambda a: _Resolved(np.asarray(a))
         for img, depth in frames:
             jt.track_rgbd(img, depth)
     jt.flush()
     return jt
 
 
-def _port_tracker():
-    return Tracker(TrackerConfig(map_capacity=MapCapacity(16, 4096, 500),
-                                 **KW), device="cpu")
-
-
 @pytest.fixture(scope="module")
-def port_on_jax_pyramid(clip):
-    frames, _ = clip
+def jax_run(clip):
+    return _jax_tracker_run(clip[0], KW)
+
+
+def _port_tracker(kw=KW):
+    return Tracker(TrackerConfig(map_capacity=MapCapacity(16, 4096, 500),
+                                 **kw), device="cpu")
+
+
+def _port_on_jax_pyramid_run(frames, kw):
     jax_pyramid = jax.jit(jax_image.build_pyramid, static_argnums=(1, 2))
 
     def build_pyramid(img, n_levels, scale_factor):
@@ -81,10 +92,15 @@ def port_on_jax_pyramid(clip):
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(port_image, "build_pyramid", build_pyramid)
-        tt = _port_tracker()
+        tt = _port_tracker(kw)
         for img, depth in frames:
             tt.track_rgbd(img, depth)
     return tt
+
+
+@pytest.fixture(scope="module")
+def port_on_jax_pyramid(clip):
+    return _port_on_jax_pyramid_run(clip[0], KW)
 
 
 @pytest.fixture(scope="module")
@@ -129,8 +145,12 @@ def test_clip_with_local_ba_own_pyramid(clip, jax_run, port_run):
 
 
 def test_flush_leaves_no_pending_product(port_run):
-    tt = port_run
+    _assert_flush_leaves_nothing(port_run)
+
+
+def _assert_flush_leaves_nothing(tt):
     tt.flush()
+    assert tt._map_job is None and not tt._pending_q
     lm = tt.local_mapper
     assert all(p is None for p in (lm._pending_tri, lm._pending_fuse,
                                    lm._pending_ratio, lm._pending_ba_erase,
@@ -157,3 +177,20 @@ def test_reset_map_clears_the_mapping_job(clip):
                                    lm._pending_ratio, lm._pending_ba_erase,
                                    lm._pending_tcp))
     assert len(tt.graph.alive_kfs()) == 0
+
+
+def test_pipelined_on_jax_pyramid_within_5mm(clip):
+    frames, gt = clip
+    jt = _jax_tracker_run(frames, PIPE)
+    tt = _port_on_jax_pyramid_run(frames, PIPE)
+    tt.flush()
+    assert len(tt.trajectory) == len(jt.trajectory) == N_FRAMES
+    assert len(tt.track_info) == len(jt.track_info) == N_FRAMES - 1
+    assert not any(t.get("lost") for t in tt.track_info)
+    assert _kf_frames(tt.track_info) == _kf_frames(jt.track_info)
+    assert len(tt.graph.alive_kfs()) == len(jt.graph.alive_kfs()) >= 3
+    est_t, est_j = np.stack(tt.trajectory), np.stack(jt.trajectory)
+    assert np.abs(est_t[:, 4:] - est_j[:, 4:]).max() <= 5e-3
+    assert ate_rmse(est_t, gt)[0] < 0.03
+    assert tt.pumps_not_ready == 0
+    _assert_flush_leaves_nothing(tt)

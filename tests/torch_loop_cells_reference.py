@@ -1,9 +1,9 @@
-"""Cells E, F and H of `chip_smoke.py` through the JAX package on the CPU:
-the reference numbers beside the port's loop cells. Not a test; run by
-hand:
+"""Cells E, F and H (and A) of `chip_smoke.py` through the JAX package on
+the CPU: the reference numbers beside the port's cells. Not a test; run
+by hand:
 
     JAX_PLATFORMS=cpu python3 tests/torch_loop_cells_reference.py \\
-        [--graph python|native] [--port] [E] [F] [H]
+        [--graph python|native] [--port] [--depth N] [A] [E] [F] [H]
     JAX_PLATFORMS=cpu python3 tests/torch_loop_cells_reference.py \\
         [--graph python|native] --lockstep [--jax-pyramid] \\
         [--trace-graph] [--frames N] E
@@ -33,6 +33,14 @@ first frame (ROADMAP.md, C2); the next is frame 1's projection (C15).
 `--trace-graph` records every graph call each tracker makes (name,
 arguments, result) and prints the first that differs between the
 packages; `--frames N` stops after N frames.
+
+Cell A (the bench's 120 VGA orbit frames, `chip_smoke.bench_config`,
+loop closing off) is there for `--depth`'s sake: phase 3m's A-pipe.
+`--depth N` runs the cells pipelined (`pipelined=True`,
+`pipeline_depth=N`, phase 3m's F-pipe at 6) with loop closing on only;
+the JAX package's mapper reads are resolved at once (its `_fetch`
+returns `_Resolved`), as the port's are on the CPU, so both packages
+pump every stage when it comes due.
 
 `--port-pyramid` feeds the JAX package the port's plain pyramid instead
 (a host callback inside its compiled extraction).
@@ -73,20 +81,23 @@ def check_graph(tracker, graph):
     assert native == (graph == "native"), (type(tracker.graph), graph)
 
 
-def port_config(cell, loop):
+def port_config(cell, loop, depth=0):
     import chip_smoke
 
-    return (chip_smoke.mono_circuit_config() if cell == "H"
-            else chip_smoke.circuit_config(cell, loop))
+    if cell == "A":
+        return chip_smoke.pipelined(chip_smoke.bench_config(True), depth)
+    return chip_smoke.pipelined(
+        chip_smoke.mono_circuit_config() if cell == "H"
+        else chip_smoke.circuit_config(cell, loop), depth)
 
 
-def jax_config(cell, loop):
+def jax_config(cell, loop, depth=0):
     """The port configuration of `port_config` as the JAX package's
     `TrackerConfig`."""
     from orb_slam2_refactored_tpu.slam.map_state import MapCapacity
     from orb_slam2_refactored_tpu.slam.tracking import TrackerConfig
 
-    cfg = port_config(cell, loop)
+    cfg = port_config(cell, loop, depth)
     fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
     cap = cfg.map_capacity
     fields["map_capacity"] = MapCapacity(cap.max_keyframes, cap.max_points,
@@ -94,7 +105,7 @@ def jax_config(cell, loop):
     return TrackerConfig(**fields)
 
 
-def ate_runs(cell, graph, port=False):
+def ate_runs(cell, graph, port=False, depth=0):
     import chip_smoke
     from orb_slam2_refactored_tpu_torch.io.evaluation import ate_rmse
     if port:
@@ -104,15 +115,22 @@ def ate_runs(cell, graph, port=False):
     else:
         from orb_slam2_refactored_tpu.slam.system import (
             corrected_frame_poses)
-        from orb_slam2_refactored_tpu.slam.tracking import Tracker
+        from orb_slam2_refactored_tpu.slam.tracking import Tracker, _Resolved
 
     mono = cell == "H"
-    frames, gt = (chip_smoke.mono_circuit_frames() if mono
-                  else chip_smoke.circuit_frames(cell))
-    for loop in (True,) if mono else (False, True):
+    if cell == "A":
+        imgs, depths, gt = chip_smoke.bench_frames(chip_smoke.N_FRAMES)
+        frames = list(zip(imgs, depths))
+    else:
+        frames, gt = (chip_smoke.mono_circuit_frames() if mono
+                      else chip_smoke.circuit_frames(cell))
+    for loop in ((False,) if cell == "A" else (True,) if mono or depth
+                 else (False, True)):
         t0 = time.time()
-        tracker = (Tracker(port_config(cell, loop), device="cpu") if port
-                   else Tracker(jax_config(cell, loop)))
+        tracker = (Tracker(port_config(cell, loop, depth), device="cpu")
+                   if port else Tracker(jax_config(cell, loop, depth)))
+        if depth and not port and tracker.local_mapper is not None:
+            tracker.local_mapper._fetch = lambda a: _Resolved(np.asarray(a))
         check_graph(tracker, graph)
         for i, frame in enumerate(frames):
             if mono:
@@ -128,9 +146,11 @@ def ate_runs(cell, graph, port=False):
             "package": "port" if port else "jax", "graph": graph,
             "cell": cell, "loop_closing": loop, "ate_m": float(ate),
             "loops_closed": lc.loops_closed if lc else 0,
-            "state": int(tracker.state),
+            "state": int(tracker.state), "pipeline_depth": depth,
             "lost_frames": sum(1 for t in tracker.track_info
                                if t.get("lost")),
+            "first_lost": next((i for i, t in enumerate(tracker.track_info)
+                                if t.get("lost")), None),
             "keyframes_alive": int(len(tracker.graph.alive_kfs())),
             "map_points_alive": int(tracker.graph.pt_alive.sum()),
             "last_loop_info": str(tracker.last_loop_info),
@@ -274,6 +294,9 @@ def main():
     ap.add_argument("--port-pyramid", action="store_true",
                     help="feed the JAX package the port's plain pyramid")
     ap.add_argument("--graph", choices=sorted(GRAPHS), default="python")
+    ap.add_argument("--depth", type=int, default=0,
+                    help="run pipelined with N frames in flight, loop "
+                    "closing on only")
     ap.add_argument("--frames", type=int, default=None,
                     help="with --lockstep: only the first N frames")
     ap.add_argument("--trace-graph", action="store_true",
@@ -297,7 +320,7 @@ def main():
         if args.lockstep:
             lockstep(cell, args.graph, args.frames, args.trace_graph)
         else:
-            ate_runs(cell, args.graph, port=args.port)
+            ate_runs(cell, args.graph, port=args.port, depth=args.depth)
 
 
 if __name__ == "__main__":
