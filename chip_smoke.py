@@ -102,6 +102,33 @@ Phases (any failure raises and the script exits non-zero):
        which must relocalize within 3 pairs from view 40, within 2 cm of
        cell (c)'s pose there in the saved map (the pose it recorded
        relative to its reference keyframe, on that keyframe's saved pose).
+    n. the sharded global BA (run after phase 5): (a) world size 1 over
+       NCCL on cuda:0, every launch counter set to 0 just before and read
+       just after: `parallel/distributed.py::dryrun`'s problem (K=256
+       keyframes x 512 observations over 16,384 points, 2 LM x 8 CG) and
+       cell F's first global BA through `sharded_ba_solve`, whose CG is K6
+       split at its reductions (`ba_cg_ut`, `ba_cg_ap`, `ba_cg_update`:
+       three launches a CG iteration, the collectives between them), each
+       held to its plain solve in f64 at `check_gba`'s gate, the bf16
+       control outside it; (b) the same two solves on two gloo ranks on
+       cuda:0 (processes the script starts, `--sharded-rank`): costs,
+       points and poses bit-equal on both ranks, within the gate of (a)'s
+       result, every collective on CUDA tensors; (c) each entry against its
+       plain version on the calls of one sharded CG on cell F's first LM
+       iteration; (d) that CG's time beside K6's one launch on the same
+       arguments (device times in a process of its own,
+       `--sharded-times`), its launches and collectives a CG iteration and
+       their host ms;
+    o. the live viewer (run last): cell A's 120 frames again without a
+       viewer (the control), then with `viz/viewer.py::LiveViewer` at 2 Hz
+       on the tracker: cell A's ATE to the bit, `map_latest.png` decoding
+       through `io/png.py`, `status.json` OK, at least one tick rendered
+       while tracking, the render's host ms a tick and the step's median
+       and p90 beside cell A's and the control's; then `viz/ar.py::ArOverlay` on the last frame: a plane found
+       and the cube drawn (more than 50 red pixels); then the viewer's
+       cost: the frames again with it rendering back to back, the same
+       ATE bits, and the step's median and p90 of the frames that
+       overlapped a render beside those apart from one.
     Each of (a)-(c) checks ATE against the 3 cm gate, that no frame was
     lost, that every kernel of its path launched and that K2 and K3
     launched once a frame (twice a stereo frame, with one B9 launch); every
@@ -247,6 +274,8 @@ CIRCUIT_FRAMES = 170
 LOOP_ATE_M = 0.06
 # the global BA's kernels: they launch only where a loop closes
 LOOP_KERNELS = ("ba_assemble_w_obs", "ba_schur_cg")
+# the sharded global BA's CG (K6 split at its reductions): phase 3n only
+SHARDED_KERNELS = ("ba_cg_ut", "ba_cg_ap", "ba_cg_update")
 # the learned BRIEF pattern's kernel: it launches only on cell I (cells A-H
 # run the fresh pattern on K3)
 LEARNED_KERNEL = "orb_desc_learned"
@@ -1669,12 +1698,41 @@ def pipelined(cfg, depth):
     return dataclasses.replace(cfg, pipelined=True, pipeline_depth=depth)
 
 
+def viewer_readings(viewer, ticks, spans, step_s, warmup=WARMUP_FRAMES):
+    """A `LiveViewer`'s readings over a tracked run: the `ticks` rendered
+    while tracking and their host ms, and the step's host ms after
+    `warmup` frames split into the frames whose span (`spans`, on
+    `time.perf_counter`'s clock) overlapped a rendered tick and the
+    others: count, median and p90 of each."""
+    v_ms = np.asarray(viewer.render_ms[:ticks] or [np.nan])
+    rendered = [(a, b) for a, b, r in viewer.tick_spans if r]
+    over = np.asarray([any(a < f1 and f0 < b for a, b in rendered)
+                       for f0, f1 in spans[warmup:]], bool)
+    steps = np.asarray(step_s[warmup:]) * 1e3
+    out = {"ticks_rendered": ticks,
+           "render_ms_median": float(np.median(v_ms)),
+           "render_ms_max": float(v_ms.max()),
+           "reads_not_landed": viewer.reads_not_landed,
+           "failed_ticks": viewer.failures}
+    for tag, sel in (("overlapping", over), ("apart", ~over)):
+        x = steps[sel]
+        out[f"frames_{tag}"] = int(sel.sum())
+        out[f"step_ms_median_{tag}"] = (float(np.median(x)) if x.size
+                                        else None)
+        out[f"step_ms_p90_{tag}"] = (float(np.percentile(x, 90)) if x.size
+                                     else None)
+    return out
+
+
 def run_main_path(imgs, second, gt, device, local_ba, stereo=False,
-                  label=None, depth=0):
+                  label=None, depth=0, viewer_dir=None, viewer_hz=None):
     """One cell: `imgs` with their depth maps (`second`) through
     `track_rgbd`, or, with `stereo`, left images with the right ones
     through `track_stereo`; `label` is added to the printed tag; `depth`
-    > 0 runs it pipelined with that many frames in flight."""
+    > 0 runs it pipelined with that many frames in flight. With
+    `viewer_dir`, a `LiveViewer` at `viewer_hz` (VIEWER_HZ by default)
+    renders the tracker there while it tracks (phase 3o), stopped after
+    the flush; its readings (`viewer_readings`) are `stats["viewer"]`."""
     from orb_slam2_refactored_tpu_torch import kernels
     from orb_slam2_refactored_tpu_torch.io.evaluation import ate_rmse, rpe
     from orb_slam2_refactored_tpu_torch.slam.tracking import Tracker
@@ -1689,8 +1747,14 @@ def run_main_path(imgs, second, gt, device, local_ba, stereo=False,
         tag += f", pipelined depth {depth}"
     tracker = Tracker(pipelined(bench_config(local_ba), depth), device=device)
     timer = StageTimer(device)  # synchronizes the card at both ends
+    viewer = None
+    if viewer_dir is not None:
+        from orb_slam2_refactored_tpu_torch.viz.viewer import LiveViewer
+
+        viewer = LiveViewer(tracker, out_dir=viewer_dir,
+                            hz=viewer_hz or VIEWER_HZ).start()
     kernels.reset_counts()
-    kf_made = []
+    kf_made, spans = [], []
     for i in range(len(imgs)):
         if stereo:
             track = partial(tracker.track_stereo, imgs[i], second[i],
@@ -1698,10 +1762,16 @@ def run_main_path(imgs, second, gt, device, local_ba, stereo=False,
         else:
             track = partial(tracker.track_rgbd, imgs[i],
                             second[i].astype(np.float32), timestamp=i / 30.0)
+        t0 = time.perf_counter()
         kf_made.append(timed_frame(timer, tracker, track))
+        spans.append((t0, time.perf_counter()))
     tracker.flush()
     launches = kernels.counts()
     step_s = timer.samples["step"]
+    if viewer is not None:
+        ticks = viewer.frames_rendered
+        viewer.stop()  # and a last render, waited for
+        viewer = viewer_readings(viewer, ticks, spans, step_s)
     est = np.stack(tracker.trajectory)
     assert est.shape == gt.shape and np.isfinite(est).all()
     ate, _ = ate_rmse(est, gt, align="se3")
@@ -1721,6 +1791,8 @@ def run_main_path(imgs, second, gt, device, local_ba, stereo=False,
         "first_frame_ms": step_s[0] * 1e3,
         "launches": launches,
     }
+    if viewer is not None:
+        stats["viewer"] = viewer
     print(f"main path ({tag}) " + json.dumps(stats))
     if local_ba:
         print(f"keyframe stages ({stage_clock(tracker)}):")
@@ -1729,8 +1801,8 @@ def run_main_path(imgs, second, gt, device, local_ba, stereo=False,
     assert ate <= ATE_GATE_M, f"ATE {ate} m above the {ATE_GATE_M} m gate"
     assert lost == 0, f"{lost} frames lost"
     for k, v in launches.items():
-        if k == LARGE_KERNEL:
-            continue  # `extraction_launches` holds it
+        if k == LARGE_KERNEL or sharded_only(k, v, tag):
+            continue  # `extraction_launches` holds K9's large kernel
         if k == LEARNED_KERNEL:
             assert v == 0, f"K7 launched on the fresh pattern's path ({tag})"
         elif k == "stereo_sad" and not stereo:
@@ -1910,8 +1982,8 @@ def run_kidnap(imgs, depths, gt, device, cfg=None):
     assert ate <= RELOC_ATE_M, ate
     assert rec, "no relocalization was recorded"
     for k, v in launches.items():
-        if k == LARGE_KERNEL:
-            continue  # `extraction_launches` holds it
+        if k == LARGE_KERNEL or sharded_only(k, v, "cell D"):
+            continue  # `extraction_launches` holds K9's large kernel
         if k in ("stereo_sad", LEARNED_KERNEL) or k in LOOP_KERNELS:
             assert v == 0, f"{k} launched on cell D"
         else:
@@ -2780,8 +2852,8 @@ def run_circuit(cell, loop, frames, gt, device, record=None, gated=True,
         return stats, tracker
     assert stats["state"] == 1, tracker.track_info[-3:]
     for k, v in launches.items():
-        if k == LARGE_KERNEL:
-            continue  # `extraction_launches` holds it
+        if k == LARGE_KERNEL or sharded_only(k, v, f"cell {cell}"):
+            continue  # `extraction_launches` holds K9's large kernel
         if k in ("stereo_sad", LEARNED_KERNEL):
             assert v == 0, f"{k} launched on cell {cell}"
         elif k in LOOP_KERNELS:
@@ -2849,9 +2921,10 @@ def stage_pairs(py, arena):
 def run_arena(device, card):
     """`--arena`: build the port's arena from `csrc/map_graph.cpp` with g++
     on this host (the compiler and the build's seconds printed); then cell
-    A (120 VGA frames, local BA on, `run_main_path` with its gates) and
-    cells E and F (loop closing off and on, `run_circuit`) on the Python
-    graph and on the arena. Prints the ATEs, loops, keyframes, points, the
+    A (120 VGA frames, local BA on, `run_main_path` with its gates),
+    cells E and F (loop closing off and on, `run_circuit`) and F-pipe (F,
+    loops on, pipelined at phase 3m's depth) on the Python graph and on
+    the arena. Prints the ATEs, loops, keyframes, points, the
     tracked step's median and p90, `_close_loop` ms and every `kf.*`
     stage's median and p90 side by side, and the organic-loop gates'
     outcomes for E and F on each graph, recorded and not held (as
@@ -2886,13 +2959,18 @@ def run_arena(device, card):
             "close_loop_ms", "gba_merge_ms", "last_loop_info", "wall_s")
     for cell in ("E", "F"):
         frames, cgt = circuit_frames(cell)
-        runs = {}
+        runs, pipe = {}, {}
         for graph, ctx in graphs.items():
             with ctx():
                 off, _ = run_circuit(cell, False, frames, cgt, device,
                                      gated=False)
                 on, _ = run_circuit(cell, True, frames, cgt, device,
                                     gated=False)
+                if cell == "F":
+                    p, _ = run_circuit(cell, True, frames, cgt, device,
+                                       gated=False, depth=PIPE_DEPTHS[cell])
+                    pipe[graph] = {k: p[k] for k in keys + ("lost_frames",
+                                                            "state")}
             runs[graph] = (off, on)
         del frames
         assert runs["arena"][1]["graph"] == "NativeMapGraph"
@@ -2904,6 +2982,9 @@ def run_arena(device, card):
                                    "loops_help": on["ate_m"] < off["ate_m"],
                                    "under_6cm": on["ate_m"] < LOOP_ATE_M}}
                      for g, (off, on) in runs.items()}
+        if pipe:
+            res[cell + "-pipe"] = pipe
+            print(f"arena cell {cell}-pipe ({card}): " + json.dumps(pipe))
         res[cell]["kf_stages_loop_on"] = stage_pairs(
             runs["python"][1]["kf_stages"], runs["arena"][1]["kf_stages"])
         print(f"arena cell {cell} ({card}): ATE off / on "
@@ -3582,7 +3663,7 @@ def mono_launch_gates(launches, tag, loop_closed=False):
     """Every kernel of the mono path launched; B9 never; the global BA's
     only where a loop closed."""
     for k, v in launches.items():
-        if k in ("stereo_sad", LEARNED_KERNEL, LARGE_KERNEL):
+        if k in ("stereo_sad", LEARNED_KERNEL, LARGE_KERNEL) + SHARDED_KERNELS:
             assert v == 0, f"{k} launched on {tag}"
         elif k in LOOP_KERNELS:
             assert (v > 0) == loop_closed, (k, v, tag)
@@ -4303,8 +4384,8 @@ def run_cell_i(imgs, depths, gt, tmp):
     assert kitti_rows.shape == (n, 12), kitti_rows.shape
     assert kf_lines == len(tracker.graph.alive_kfs()), kf_lines
     for k, v in launches.items():
-        if k == LARGE_KERNEL:
-            continue  # `extraction_launches` holds it
+        if k == LARGE_KERNEL or sharded_only(k, v, "cell I"):
+            continue  # `extraction_launches` holds K9's large kernel
         if k in ("stereo_sad", "orb_desc") or k in LOOP_KERNELS:
             assert v == 0, f"{k} launched on cell I"
         else:
@@ -4805,6 +4886,462 @@ def check_orb_learned(levels, ys, xs, ks, tag, timed=False):
             nbytes, ops)
 
 
+# ---------------------------------------------------------------------------
+# phase 3n: the sharded global BA (K6 split at its reductions)
+# ---------------------------------------------------------------------------
+
+SHARDED_RANKS = 2  # phase 3n's gloo ranks, both on cuda:0
+SHARDED_TIMEOUT_S = 600
+
+
+def sharded_only(k, v, tag):
+    """True for the sharded solve's kernels, which no tracker's path
+    launches (phase 3n drives them): they must not have launched."""
+    if k in SHARDED_KERNELS:
+        assert v == 0, f"{k} launched on {tag}"
+        return True
+    return False
+
+
+def free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def collectives_read():
+    """The collectives since the last `kernels.reset_counts()`: {name:
+    calls} and their host seconds."""
+    from orb_slam2_refactored_tpu_torch import kernels
+
+    return kernels.collective_counts(), kernels.collective_host_s()
+
+
+def sharded_problems(rec, device):
+    """Phase 3n's two solves as `ba_solve` arguments: `dryrun`'s problem
+    (K=256 keyframes x 512 observations over 16,384 points, 2 LM x 8 CG)
+    and cell F's first global BA as `check_gba` holds it."""
+    from orb_slam2_refactored_tpu_torch.parallel import distributed
+
+    prob, cam = distributed.make_ba_problem(device=device)
+    return {"dryrun": {"p": prob, "cam": cam, "iters": 2, "cg_iters": 8},
+            "F": dict(rec["ba_solve"][0])}
+
+
+def solve_sharded(sa, group):
+    from orb_slam2_refactored_tpu_torch.parallel.sharded_ba import (
+        sharded_ba_solve)
+
+    return sharded_ba_solve(sa["p"], sa["cam"], group=group,
+                            iters=sa["iters"], cg_iters=sa["cg_iters"],
+                            lambda0=sa.get("lambda0", 1e-4))
+
+
+def sharded_rank_main(rank, world, coord, jobs_path):
+    """One rank of phase 3n (b), a process of its own: gloo on cuda:0,
+    the saved solves through `sharded_ba_solve`, the results saved beside
+    the jobs."""
+    import torch.distributed as dist
+
+    from orb_slam2_refactored_tpu_torch import kernels
+    from orb_slam2_refactored_tpu_torch.parallel import distributed
+
+    dev = distributed.initialize(coord, world, rank, backend="gloo",
+                                 device="cuda:0")
+    out = {}
+    jobs = torch.load(jobs_path, map_location=dev, weights_only=False)
+    kernels.reset_counts()
+    for name, sa in jobs.items():
+        t0 = time.perf_counter()
+        res = solve_sharded(sa, dist.group.WORLD)
+        torch.cuda.synchronize()
+        out[name] = {"kf_pose": res.kf_pose.cpu(),
+                     "pt_pos": res.pt_pos.cpu(),
+                     "c0": res.initial_cost.cpu(),
+                     "c1": res.final_cost.cpu(),
+                     "wall_s": time.perf_counter() - t0}
+    out["launches"] = {n: kernels.counts()[n] for n in SHARDED_KERNELS}
+    out["calls"], out["host_s"] = collectives_read()
+    torch.save(out, f"{jobs_path}.rank{rank}")
+    dist.destroy_process_group()
+
+
+def sharded_device_times(k6_call, firsts, tmp):
+    """Phase 3n's device times, from torch.profiler windows in a process of
+    its own (`--sharded-times`): late in this process's run a window of
+    20 `ba_cg_ut` launches recorded 12, in five tries, on the H100. Each
+    entry on its recorded call (20 calls a window), the split CG with a
+    world-size-1 NCCL group of the child's and K6's one launch on cell F's
+    first LM iteration (5 calls a window). Returns {name: (ms, rows)}."""
+    jobs = os.path.join(tmp, "sharded_times.pt")
+    torch.save({"k6": k6_call, "entries": firsts}, jobs)
+    p = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--sharded-times", "--jobs", jobs],
+                       capture_output=True, text=True,
+                       timeout=SHARDED_TIMEOUT_S)
+    assert p.returncode == 0, p.stdout[-3000:] + p.stderr[-3000:]
+    return torch.load(jobs + ".times", weights_only=False)
+
+
+def sharded_times_main(jobs_path):
+    """The child of `sharded_device_times`."""
+    import torch.distributed as dist
+
+    from orb_slam2_refactored_tpu_torch.optim import ba
+    from orb_slam2_refactored_tpu_torch.parallel import distributed
+
+    distributed.initialize(f"localhost:{free_port()}", 1, 0)
+    jobs = torch.load(jobs_path, map_location="cuda:0", weights_only=False)
+    k6 = jobs["k6"]
+    comm = ba.ShardComm(dist.group.WORLD, k6["G"].shape[0])
+    out = {n: profiled_ms(partial(getattr(ba, n), **_clone_args(a)), 20)
+           for n, a in jobs["entries"].items()}
+    out["split"] = profiled_ms(partial(ba.sharded_cg_solve, **k6,
+                                       comm=comm), 5)
+    out["k6"] = profiled_ms(partial(ba.ba_schur_cg, **k6), 5)
+    dist.destroy_process_group()
+    torch.save(out, jobs_path + ".times")
+
+
+def rank_command(rank, coord, jobs):
+    """The command of one rank of phase 3n (b): this script in its
+    `--sharded-rank` mode."""
+    return [sys.executable, os.path.abspath(__file__), "--sharded-rank",
+            str(rank), "--world", str(SHARDED_RANKS), "--coord", coord,
+            "--jobs", jobs]
+
+
+def run_two_ranks(probs, tmp):
+    """Phase 3n (b): `SHARDED_RANKS` processes on cuda:0 over gloo (NCCL
+    refuses two ranks on one card), each solving `probs`; their saved
+    results in rank order."""
+    jobs = os.path.join(tmp, "sharded_jobs.pt")
+    torch.save(probs, jobs)
+    coord = f"localhost:{free_port()}"
+    procs = [subprocess.Popen(rank_command(r, coord, jobs),
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(SHARDED_RANKS)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=SHARDED_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {r} failed:\n{out[-4000:]}"
+    return [torch.load(f"{jobs}.rank{r}", weights_only=False)
+            for r in range(SHARDED_RANKS)]
+
+
+def _clone_args(args):
+    return {k: _clone(v) for k, v in args.items()}
+
+
+def entry_readings(calls):
+    """Phase 3n (c): each recorded call of the split CG's entries run
+    again through the kernel and through its plain version (W_obs in the
+    slot layout), both on copies of the recorded arguments; every output
+    against the plain version in f64: at most CG_FACTOR x the f32 plain
+    version's distance plus CG_FLOOR x the f64 result's largest magnitude,
+    and the new direction p bit-equal to the plain version's. Returns
+    {entry: (largest difference from the f32 plain version, the kernel's
+    and the plain version's CUDA-event ms on the first iteration's call,
+    bytes, ops)} and {entry: that call's arguments}."""
+    from orb_slam2_refactored_tpu_torch.optim import ba
+
+    firsts = {}
+    outputs = {"ba_cg_ut": ("out", "p_out"), "ba_cg_ap": ("out", "pap"),
+               "ba_cg_update": ("x", "r", "z", "rz")}
+    plain = {"ba_cg_ut": ba.ba_cg_ut_plain, "ba_cg_ap": ba.ba_cg_ap_plain,
+             "ba_cg_update": ba.ba_cg_update_plain}
+    res = {}
+    for name, recorded in calls.items():
+        fn, worst, err = getattr(ba, name), 0.0, 0.0
+        for c in recorded:
+            slot = {k: (ba.w_obs_slot_rows(v) if isinstance(v, ba.LiveRows)
+                        else v) for k, v in c.items()}
+            # the entries write in place: each side gets its own copies
+            k_args, p_args = _clone_args(c), _clone_args(slot)
+            e_args = {k: _f64(v) for k, v in _clone_args(slot).items()}
+            fn(**k_args)
+            with deterministic():
+                plain[name](**p_args)
+                plain[name](**e_args)
+            for o in outputs[name]:
+                if o not in k_args:
+                    continue
+                k, r, e = k_args[o], p_args[o], e_args[o]
+                err = max(err, float((k - r).abs().max()))
+                if o == "p_out":
+                    assert torch.equal(k, r), (name, o)
+                    continue
+                e_p = float((r.double() - e).abs().max())
+                bound = CG_FACTOR * e_p + CG_FLOOR * float(e.abs().max())
+                e_k = float((k.double() - e).abs().max())
+                worst = max(worst, e_k / bound if bound else float(e_k > 0))
+        first = next(c for c in recorded if c.get("it", 0) == 0
+                     and ("p_out" in c or "p" in c))
+        slot = {k: (ba.w_obs_slot_rows(v) if isinstance(v, ba.LiveRows)
+                    else v) for k, v in first.items()}
+        k_args, p_args = _clone_args(first), _clone_args(slot)
+        ms = cuda_time_ms(lambda: fn(**k_args), 20)
+        plain_ms = cuda_time_ms(lambda: plain[name](**p_args), 5)
+        nbytes, ops = entry_work(name, first)
+        res[name] = (err, ms, plain_ms, nbytes, ops)
+        firsts[name] = first
+        print(f"  {name}: {len(recorded)} recorded calls, largest share of "
+              f"the f64 yardstick's bound {worst:.3g}, largest difference "
+              f"from the f32 plain version {err:.3g}; card {ms:.5f} ms, "
+              f"plain {plain_ms:.5f} ms a call")
+        assert worst <= 1.0, (name, worst)
+    return res, firsts
+
+
+def entry_work(name, c):
+    """Bytes (each input read once, each output written once) and
+    operations of one call of a split-CG entry on this call's data: the
+    live rows only, the points they observe, the keyframes."""
+    rows = c["W_obs"].index.offsets if "W_obs" in c else None
+    K = c["free"].shape[0]
+    if name == "ba_cg_update":
+        # Minv, r, x, p, ap and free read; x, r, z and a scalar written
+        return K * (144 + 4 * 24 + 1) + K * 72 + 12, {"f32": 78 * K}
+    L = int(rows[-1])
+    Q = rows.shape[0] - 1
+    S = c["obs_pt"].numel()
+    if name == "ba_cg_ut":
+        # live rows, their slots, the index, free, z and p_prev read; p and
+        # U^T p written; 18 FMAs a live row and the direction's 12
+        return (L * 76 + (Q + 1) * 4 + K * 49 + Q * 12,
+                {"f32": 30 * L, "int32": 4 * L})
+    # ap: place (every slot), obs_pt and the row of a live slot, G and the
+    # vector of the observed points, Hpp_d, p, free read; A p and p.Ap
+    # written; 27 FMAs a live slot
+    n_pts = int(torch.unique(c["obs_pt"][c["obs_ok"]]).numel())
+    return (S * 4 + L * 76 + n_pts * 48 + K * (144 + 24 + 1) + K * 24 + 4,
+            {"f32": 27 * L + 42 * K, "int32": 3 * S})
+
+
+def run_sharded_phase(rec, k6_call, device, tmp):
+    """Phase 3n. (a) World size 1 over NCCL on cuda:0: `dryrun`'s problem
+    and cell F's first global BA through `sharded_ba_solve` (the split CG:
+    `ba_cg_ut`, `ba_cg_ap`, `ba_cg_update`, three launches a CG iteration),
+    every launch counter set to 0 just before and read just after; each
+    held to its plain solve in f64 at `check_gba`'s gate, with the bf16
+    control outside it. (b) Two gloo ranks on cuda:0 (`run_two_ranks`):
+    costs and points bit-equal on both, poses within the gate of (a)'s.
+    (c) Each entry against its plain version on the calls of one sharded
+    CG on cell F's first LM iteration (`entry_readings`). (d) That CG's
+    CUDA-event time beside K6's one launch on the same arguments, its
+    launches and collectives a CG iteration and the collectives' host ms;
+    the device times of both and of each entry in a child process
+    (`sharded_device_times`)."""
+    import torch.distributed as dist
+
+    from orb_slam2_refactored_tpu_torch import kernels
+    from orb_slam2_refactored_tpu_torch.optim import ba
+    from orb_slam2_refactored_tpu_torch.parallel import distributed
+
+    t0 = time.perf_counter()
+    probs = sharded_problems(rec, device)
+    distributed.initialize(f"localhost:{free_port()}", 1, 0)
+    assert dist.get_backend() == "nccl", dist.get_backend()
+    world = dist.group.WORLD
+    out, ws1 = {}, {}
+    kernels.reset_counts()
+    for name, sa in probs.items():
+        t1 = time.perf_counter()
+        ws1[name] = solve_sharded(sa, world)
+        torch.cuda.synchronize()
+        out[name] = {"wall_s": time.perf_counter() - t1}
+    launches = kernels.counts()
+    calls, host_s = collectives_read()
+    print(f"  phase 3n (a) world size 1 (NCCL) launches: " + json.dumps(
+        {n: v for n, v in launches.items() if v}) + f"; collectives "
+        f"{json.dumps(calls)}, {host_s * 1e3:.3f} ms of host time")
+    for n, v in launches.items():
+        if n in SHARDED_KERNELS:
+            assert v > 0, f"{n} never launched in phase 3n"
+        elif n == "ba_schur_cg":
+            assert v == 0, "K6's one launch on the sharded path"
+    for name, sa in probs.items():
+        p = sa["p"]
+        res_e, _ = plain_gba(sa, f64=True)
+        res_b, _ = plain_gba(sa, bits=7)
+        g, g_b = gba_gap(ws1[name], res_e, p), gba_gap(res_b, res_e, p)
+        out[name].update(vs_f64=g, bf16_vs_f64=g_b,
+                         cost=(float(ws1[name].initial_cost),
+                               float(ws1[name].final_cost)))
+        print(f"  {name}: world size 1 vs f64: rot {g[0]:.3g} rad trans "
+              f"{g[1]:.3g} m points {g[2]:.3g} m, costs {g[3]:.10g} / "
+              f"{g[4]:.10g}; within the gate {gba_within(g)}; bf16 inputs "
+              f"within it {gba_within(g_b)}")
+        assert gba_within(g), (name, g)
+        assert not gba_within(g_b), (name, g_b)
+        assert float(ws1[name].final_cost) < float(ws1[name].initial_cost)
+
+    # (b) two ranks on the one card, gloo
+    t1 = time.perf_counter()
+    ranks = run_two_ranks(probs, tmp)
+    out["two_ranks_wall_s"] = time.perf_counter() - t1
+    r0, r1 = ranks
+    print(f"  phase 3n (b) {SHARDED_RANKS} gloo ranks on cuda:0 (gloo takes "
+          "the CUDA tensors of all three collectives): launches "
+          f"{json.dumps(r0['launches'])}, collectives {json.dumps(r0['calls'])}"
+          f", {r0['host_s'] * 1e3:.1f} ms of host time (rank 0)")
+    assert all(r0["calls"][n] > 0 for n in ("all_reduce", "reduce_scatter",
+                                            "all_gather")), r0["calls"]
+    for name, sa in probs.items():
+        a, b = r0[name], r1[name]
+        same = all(torch.equal(a[k], b[k]) for k in ("c0", "c1", "pt_pos",
+                                                     "kf_pose"))
+        res = ba.BAResult(a["kf_pose"].to(device), a["pt_pos"].to(device),
+                          a["c0"], a["c1"], None)
+        g = gba_gap(res, ws1[name], sa["p"])
+        out[name].update(two_ranks_bit_equal=same, two_ranks_vs_ws1=g,
+                         two_ranks_wall_s=a["wall_s"])
+        print(f"  {name}: ranks bit-equal (costs, points, poses) {same}; "
+              f"vs world size 1: rot {g[0]:.3g} trans {g[1]:.3g} points "
+              f"{g[2]:.3g}, costs {g[3]:.10g} / {g[4]:.10g}; within the "
+              f"gate {gba_within(g)}")
+        assert same and gba_within(g), (name, same, g)
+    for n in SHARDED_KERNELS:
+        assert r0["launches"][n] > 0, r0["launches"]
+
+    # (c) the entries on the calls of one sharded CG (cell F, LM 0)
+    comm = ba.ShardComm(world, k6_call["G"].shape[0])
+    entry_calls = {n: [] for n in SHARDED_KERNELS}
+    with contextlib.ExitStack() as stack:
+        for n in SHARDED_KERNELS:
+            stack.enter_context(recording(entry_calls[n], (ba, n)))
+        ba.sharded_cg_solve(**k6_call, comm=comm)
+    readings, firsts = entry_readings(entry_calls)
+    del entry_calls
+
+    # (d) device time of the sharded CG beside K6's one launch
+    it = k6_call["cg_iters"]
+    kernels.reset_counts()
+    ba.sharded_cg_solve(**k6_call, comm=comm)
+    torch.cuda.synchronize()
+    per_call = {n: kernels.counts()[n] for n in SHARDED_KERNELS}
+    coll, host_s = collectives_read()
+    host_ms = host_s * 1e3
+    split_card = cuda_time_ms(lambda: ba.sharded_cg_solve(**k6_call,
+                                                          comm=comm), 5)
+    k6_card = cuda_time_ms(lambda: ba.ba_schur_cg(**k6_call), 5)
+    dist.destroy_process_group()
+    dev = sharded_device_times(k6_call, firsts, tmp)
+    split_ms, split_rows = dev["split"]
+    k6_ms, k6_rows = dev["k6"]
+    for n in SHARDED_KERNELS:
+        readings[n] += (dev[n][0],)
+    out["cg"] = {"cg_iters": it, "launches": per_call,
+                 "launches_a_cg_iteration": sum(per_call.values()) / it,
+                 "collectives": coll,
+                 "collectives_a_cg_iteration": sum(coll.values()) / it,
+                 "collectives_host_ms": host_ms,
+                 "collective_host_ms_each": host_ms / max(sum(coll.values()),
+                                                          1),
+                 "device_ms_split": split_ms, "device_ms_k6": k6_ms,
+                 "card_ms_split": split_card, "card_ms_k6": k6_card}
+    print(f"  phase 3n (d) one LM iteration's CG (cell F, {it} CG "
+          f"iterations, world size 1): split {split_ms:.4f} ms of device "
+          f"time ({split_card:.4f} ms CUDA events), K6's one launch "
+          f"{k6_ms:.4f} ms ({k6_card:.4f}); launches {json.dumps(per_call)}, "
+          f"collectives {json.dumps(coll)} ({host_ms:.3f} ms of host time); "
+          f"split rows: {split_rows}; K6 rows: {k6_rows}; entries' device "
+          "ms a call: " + ", ".join(f"{n} {dev[n][0]:.5f}"
+                                    for n in SHARDED_KERNELS))
+    assert all(v == it + 1 for v in per_call.values()), per_call
+    # world size 1: the points do not shard, so U^T p is an all_reduce:
+    # three a CG iteration, r.z of the setup and U^T dp
+    assert coll == {"all_reduce": 3 * it + 2, "reduce_scatter": 0,
+                    "all_gather": 0}, coll
+    out["wall_s"] = time.perf_counter() - t0
+    print("phase 3n: " + json.dumps(out, default=str))
+    return readings, launches, out
+
+
+# ---------------------------------------------------------------------------
+# phase 3o: the live viewer beside cell A
+# ---------------------------------------------------------------------------
+
+VIEWER_HZ = 2.0
+# the viewer's cost to the step: ticks 1 ms apart, a render as soon as the
+# last ends, so that tens of renders overlap the run's ~1.2 s of steps
+VIEWER_HZ_BUSY = 1000.0
+AR_MIN_OBS = 2  # tests/test_ar_live.py: a short map tops out at few views
+AR_RED_PIXELS = 50  # tests/test_ar_live.py:130-133
+
+
+def run_viewer_phase(imgs, depths, gt, device, stats_a, tmp):
+    """Phase 3o: cell A's 120 frames again, first without a viewer (the
+    control: the same point in the run), then with a `LiveViewer` at 2 Hz
+    on the tracker: the same ATE bits as cell A, `map_latest.png` decoding
+    through `io/png.py`, `status.json` OK, at least one tick rendered while
+    tracking; the render's host ms a tick and the step's median and p90
+    beside cell A's and the control's; then `ArOverlay` on the last frame:
+    a plane found and the cube drawn (more than 50 red pixels). Then the
+    viewer's cost: the same frames with the viewer rendering back to back
+    (VIEWER_HZ_BUSY), the same ATE bits, and the step's median and p90 of
+    the frames that overlapped a render beside those of the frames apart
+    from one and the control's."""
+    from orb_slam2_refactored_tpu_torch.io.png import read_png
+    from orb_slam2_refactored_tpu_torch.viz.ar import ArOverlay
+
+    ctrl, _ = run_main_path(imgs, depths, gt, device, local_ba=True,
+                            label="the viewer's control")
+    out_dir = os.path.join(tmp, "viz_live")
+    stats, tracker = run_main_path(imgs, depths, gt, device, local_ba=True,
+                                   label="viewer at 2 Hz",
+                                   viewer_dir=out_dir)
+    v = stats.pop("viewer")
+    busy, _ = run_main_path(imgs, depths, gt, device, local_ba=True,
+                            label="viewer rendering back to back",
+                            viewer_dir=os.path.join(tmp, "viz_busy"),
+                            viewer_hz=VIEWER_HZ_BUSY)
+    busy_v = busy.pop("viewer")
+    img = read_png(os.path.join(out_dir, "map_latest.png"))
+    status = json.load(open(os.path.join(out_dir, "status.json")))
+    ar = ArOverlay(tracker, min_obs=AR_MIN_OBS)
+    found = ar.insert_cube(size=0.3)
+    red = 0
+    if found:
+        over = ar.render(imgs[-1])
+        red = int(((over[..., 0].astype(int) - over[..., 2].astype(int))
+                   > 100).sum())
+    res = {"ate_m": stats["ate_m"], "ate_m_cell_a": stats_a["ate_m"],
+           "step_ms_median": stats["step_ms_median"],
+           "step_ms_p90": stats["step_ms_p90"],
+           "step_ms_median_cell_a": stats_a["step_ms_median"],
+           "step_ms_p90_cell_a": stats_a["step_ms_p90"],
+           "step_ms_median_control": ctrl["step_ms_median"],
+           "step_ms_p90_control": ctrl["step_ms_p90"],
+           **v, "png_shape": list(img.shape), "status": status,
+           "ar_plane": found, "ar_red_pixels": red,
+           "busy": {"hz": VIEWER_HZ_BUSY,
+                    "step_ms_median": busy["step_ms_median"],
+                    "step_ms_p90": busy["step_ms_p90"], **busy_v}}
+    print("phase 3o: " + json.dumps(res))
+    assert (stats["ate_m"] == ctrl["ate_m"] == stats_a["ate_m"]
+            == busy["ate_m"]), (stats["ate_m"], ctrl["ate_m"],
+                                stats_a["ate_m"], busy["ate_m"])
+    assert busy_v["frames_overlapping"] > 0, busy_v
+    assert img.shape == (800, 800, 3), img.shape
+    assert status["state"] == 1, status
+    assert v["ticks_rendered"] >= 1, v
+    assert found and red > AR_RED_PIXELS, (found, red)
+    return res
+
+
 def kernel_row(name, src, rep, launches, r, library_ms=None):
     b_ms, b_by = bound_ms(r[3], r[4])
     return {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -4828,6 +5365,13 @@ def main():
                     "jobs through one side's kernels (a process of its own, "
                     "started by --parent)")
     ap.add_argument("--jobs", metavar="FILE", help=argparse.SUPPRESS)
+    # one rank of phase 3n (b), started by the script itself
+    ap.add_argument("--sharded-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--world", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--coord", help=argparse.SUPPRESS)
+    # phase 3n's device times, started by the script itself
+    ap.add_argument("--sharded-times", action="store_true",
+                    help=argparse.SUPPRESS)
     ap.add_argument("--arena", action="store_true",
                     help="only measure the C++ map-graph arena beside the "
                     "Python graph (cells A, E and F), recording the loop "
@@ -4844,6 +5388,13 @@ def main():
         sys.exit(1)
     if args.time_side:
         time_side(args.time_side, args.parent, args.jobs)
+        return
+    if args.sharded_rank is not None:
+        sharded_rank_main(args.sharded_rank, args.world, args.coord,
+                          args.jobs)
+        return
+    if args.sharded_times:
+        sharded_times_main(args.jobs)
         return
     if args.arena and not args.c13:
         from orb_slam2_refactored_tpu_torch import kernels
@@ -5231,6 +5782,12 @@ def main():
             "stereo tracked frames (cell C)")
 
     mark("5_profiles")
+    # phase 3n: the sharded global BA (world size 1 over NCCL, two gloo
+    # ranks on the card), its split CG's entries against their plain
+    # versions and timed (device times in a child process)
+    sharded_r, sharded_launches, _ = run_sharded_phase(rec_f, k6_calls[0],
+                                                       device, tmp)
+    mark("3_n_sharded_ba")
     # phase 3m: the bench's pipelined segments, each beside its
     # synchronous cell. It runs after phase 5: with its ~650 frames ahead
     # of them, phase 5's profiler windows of cell D's relocalization LM lost
@@ -5243,6 +5800,9 @@ def main():
     del frames_f
     assert builds[0] == 0, "a pipelined frame built K8's, K9's or K7's tables"
     mark("3_m_pipelined")
+    # phase 3o: the live viewer beside cell A, and the AR cube
+    run_viewer_phase(imgs, depths, gt, device, stats, tmp)
+    mark("3_o_viewer")
     print("wall s: " + json.dumps(wall))
     pkg, ref = "orb_slam2_refactored_tpu_torch/csrc/", "orb_slam2_refactored_tpu/"
     L = stats["launches"]
@@ -5283,7 +5843,9 @@ def main():
                    ref + "ops/orb.py:203",
                    sum(g["launches"][LARGE_KERNEL]
                        for g in geo_runs.values()), *large_r),
-    ]
+    ] + [kernel_row(n, pkg + "ba_schur_sharded.cu", ref + "optim/ba.py:" + line,
+                    sharded_launches[n], sharded_r[n])
+         for n, line in zip(SHARDED_KERNELS, ("319", "335", "349"))]
     rows[3]["max_abs_err"] = max(rows[3]["max_abs_err"], reloc_k4_err)
     for row in rows:
         row["launches_cell_3k"] = sum(g["launches"][row["name"]]
@@ -5318,7 +5880,12 @@ def main():
           "frame 1, its launches from phase 3k's tracked runs (one a "
           "frame), library_ms the stable sort over those levels' keys; "
           "launches_cell_g / _h / _i / _3k / _3m: those cells' own runs "
-          "(_3m: A-pipe, C-pipe, G-pipe and F-pipe together)")
+          "(_3m: A-pipe, C-pipe, G-pipe and F-pipe together); ba_cg_ut, "
+          "ba_cg_ap and ba_cg_update (K6 split at its reductions, the "
+          "sharded global BA's CG) = one call of each on cell F's first LM "
+          "iteration (CG iteration 0), their launches from phase 3n's "
+          "world-size-1 run (dryrun's problem and cell F's first global "
+          "BA)")
     print("phase 3k: " + json.dumps(
         {f"{w}x{h}": {**{k: v for k, v in geo_runs.get((h, w), {}).items()
                          if k != "launches"}, **geo_checks[(h, w)]}

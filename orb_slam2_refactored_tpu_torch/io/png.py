@@ -13,8 +13,9 @@ pixel with equal channels unchanged; on the test images it equals cv2's
 result in every pixel. `read_png` is `cv2.IMREAD_UNCHANGED` for a gray image
 (uint8 or uint16).
 
-`write_png` writes 8-bit or 16-bit gray with no filter (type 0), so reading
-it back costs one `zlib.decompress`.
+`write_png` writes 8-bit or 16-bit gray, or 8-bit RGB (the viewer's
+figures, `viz/`), with no filter (type 0), so reading it back costs one
+`zlib.decompress`.
 """
 
 from __future__ import annotations
@@ -145,19 +146,21 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
 
 
 def write_png(path: str, img: np.ndarray):
-    """Write a uint8 or uint16 gray [H,W] image (`cv2.imwrite` of it)."""
+    """Write a uint8 or uint16 gray [H,W] image, or a uint8 RGB [H,W,3]
+    one (`cv2.imwrite` of it, channels in RGB order)."""
     img = np.asarray(img)
-    if img.ndim != 2 or img.dtype not in (np.uint8, np.uint16):
-        raise ValueError(f"write_png takes uint8 or uint16 gray [H,W], got "
-                         f"{img.dtype} {img.shape}")
-    h, w = img.shape
-    depth = 8 if img.dtype == np.uint8 else 16
+    rgb = img.ndim == 3 and img.shape[2] == 3 and img.dtype == np.uint8
+    if not rgb and (img.ndim != 2 or img.dtype not in (np.uint8, np.uint16)):
+        raise ValueError(f"write_png takes uint8 or uint16 gray [H,W] or "
+                         f"uint8 RGB [H,W,3], got {img.dtype} {img.shape}")
+    h, w = img.shape[:2]
+    depth = 16 if img.dtype == np.uint16 else 8
     rows = img.astype(">u2").view(np.uint8).reshape(h, -1) if depth == 16 \
-        else img
+        else img.reshape(h, -1)
     raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)
     with open(path, "wb") as f:
         f.write(_SIGNATURE
-                + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, 0, 0,
-                                              0, 0))
+                + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth,
+                                              2 if rgb else 0, 0, 0, 0))
                 + _chunk(b"IDAT", zlib.compress(raw.tobytes()))
                 + _chunk(b"IEND", b""))

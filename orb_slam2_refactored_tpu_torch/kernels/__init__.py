@@ -40,6 +40,9 @@ SOURCES: Dict[str, tuple] = {
     "pose_lm": ("pose_lm.cu", []),
     "ba_assemble": ("ba_assemble.cu", []),
     "ba_schur": ("ba_schur.cu", []),
+    # every rounding the plain version's parity depends on is written out
+    # (`__fmul_rn`, `__fadd_rn`)
+    "ba_schur_sharded": ("ba_schur_sharded.cu", []),
     # `l_x - ur_lvl * sf` must round the product first, as torch does
     "stereo_sad": ("stereo_sad.cu", ["-fmad=false"]),
     # every rounding is written out (`__fmul_rn`, `__fmaf_rn`, `__fadd_rn`),
@@ -55,21 +58,47 @@ LAUNCHES: Dict[str, int] = {"hamming_best2": 0, "fast": 0, "orb_desc": 0,
                             "stereo_sad": 0, "ba_assemble_w_obs": 0,
                             "ba_schur_cg": 0, "orb_desc_learned": 0,
                             "pyramid": 0, "spread_topk": 0,
-                            "spread_topk_large": 0}
+                            "spread_topk_large": 0, "ba_cg_ut": 0,
+                            "ba_cg_ap": 0, "ba_cg_update": 0}
+
+# collective name -> calls of the sharded solve's collectives since the last
+# reset (`optim/ba.py::collective`), and their host seconds
+COLLECTIVES: Dict[str, int] = {"all_reduce": 0, "reduce_scatter": 0,
+                               "all_gather": 0}
+COLLECTIVE_HOST_S: Dict[str, float] = {k: 0.0 for k in COLLECTIVES}
 
 _BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def reset_counts():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for k in COLLECTIVES:
+        COLLECTIVES[k] = 0
+        COLLECTIVE_HOST_S[k] = 0.0
 
 
 def counts() -> Dict[str, int]:
     return dict(LAUNCHES)
+
+
+def count_collective(name: str, host_s: float):
+    # ranks may share this process (threads): the two adds under the lock
+    with _count_lock:
+        COLLECTIVES[name] += 1
+        COLLECTIVE_HOST_S[name] += host_s
+
+
+def collective_counts() -> Dict[str, int]:
+    return dict(COLLECTIVES)
+
+
+def collective_host_s() -> float:
+    return sum(COLLECTIVE_HOST_S.values())
 
 
 def nvcc_path() -> str:

@@ -30,17 +30,36 @@ Differences of form, not of result:
   launch, with no float atomic and no host read; `cg_solve_plain` is the
   same solve op by op.
 
-The sharded forms (`axis_name`, `axis_size > 1`) belong to multi-GPU BA
-and raise NotImplementedError. Everything is f32 at "highest" matmul
-precision: the S contraction and the solves never run in TF32.
+The sharded forms: JAX's `axis_name` / `axis_size` under `shard_map`
+become `group=`, a `torch.distributed` process group (`ShardComm`). The
+keyframe axis is this rank's shard and the points are replicated; every
+cross-device reduction of JAX's solve is a collective: the costs and the
+two CG scalars an `all_reduce`; the [P,12] Hll|g_l and U^T dp a
+`reduce_scatter` when the points shard (group size > 1, the CG branch,
+P % n == 0) and an `all_reduce` otherwise, with an `all_gather` of the
+rank's point rows where JAX gathers them (G and g_l before the CG, the
+landmark update after it). The CG of a sharded solve is kernel K6 split
+at its reductions (`sharded_cg_solve`, `csrc/ba_schur_sharded.cu`: three
+launches and three all_reduces a CG iteration), since a collective cannot
+run inside K6's one launch. The dense branch over a group of more than one
+rank gathers every rank's keyframe rows of Hpp_d, g_p and T
+(`all_gather`, in rank order) and solves the whole reduced system on each
+rank: T is indexed by the rank's own keyframes, so JAX's `psum` of T
+(`optim/ba.py:377-380`, a path its sharded solve never takes) would add
+different keyframes under one index.
+
+Everything is f32 at "highest" matmul precision: the S contraction and
+the solves never run in TF32.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import NamedTuple, Optional
+import time
+from typing import Dict, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from .. import kernels
 from ..geometry import projection as proj
@@ -541,6 +560,326 @@ def ba_schur_cg(Hpp_d, g_p, g_l, G, W_obs, obs_pt, obs_ok, free,
     return x, ut
 
 
+# ---------------------------------------------------------------------------
+# the sharded solve's collectives, and K6 split at its reductions
+# ---------------------------------------------------------------------------
+
+def collective(name: str, fn, *tensors, group):
+    """`fn(*tensors, group=group)`, one of the sharded solve's collectives,
+    counted in `kernels.COLLECTIVES[name]` and its host time in
+    `kernels.COLLECTIVE_HOST_S[name]`; returns `tensors[0]`."""
+    t0 = time.perf_counter()
+    fn(*tensors, group=group)
+    kernels.count_collective(name, time.perf_counter() - t0)
+    return tensors[0]
+
+
+def all_gather_rows(x, group):
+    """Every rank's [R, ...] rows -> [n R, ...] in rank order."""
+    x = x.contiguous()
+    out = torch.empty((group.size() * x.shape[0],) + tuple(x.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    return collective("all_gather", dist.all_gather_into_tensor, out, x,
+                      group=group)
+
+
+class ShardComm:
+    """The collectives of a keyframe-sharded solve over `group` (JAX's
+    `psum`, `psum_scatter` and `all_gather` over the mesh axis). The points
+    shard as JAX shards them (`optim/ba.py:242-243`): group size > 1, the
+    CG branch and P % n == 0; then rank r holds point rows
+    [r P/n, (r + 1) P/n). Each collective runs in the caller's stream
+    order and is counted by `collective`. Gloo takes CUDA tensors for all
+    three (torch 2.11 on the H100, phase 3n of `chip_smoke.py`), so two
+    ranks can share one card."""
+
+    def __init__(self, group, P: int, dense_schur: bool = False):
+        self.group = group
+        self.n, self.rank = group.size(), group.rank()
+        self.shard = self.n > 1 and not dense_schur and P % self.n == 0
+        self.Psh = P // self.n if self.shard else P
+
+    def _run(self, name, fn, *tensors):
+        return collective(name, fn, *tensors, group=self.group)
+
+    def sum_(self, t):
+        """`t` summed over the group, in place (JAX `psum`)."""
+        return self._run("all_reduce", dist.all_reduce, t)
+
+    def to_shard(self, x):
+        """A local [P, ...] accumulator -> the reduced rows this rank holds:
+        [P/n, ...] by `reduce_scatter` when the points shard, else all of
+        them by `all_reduce`."""
+        x = x.contiguous()
+        if not self.shard:
+            return self.sum_(x)
+        out = torch.empty((self.Psh,) + tuple(x.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        return self._run("reduce_scatter", dist.reduce_scatter_tensor, out,
+                         x)
+
+    def to_full(self, x):
+        """This rank's [P/n, ...] rows -> [P, ...] in rank order when the
+        points shard; else `x` as it is."""
+        return all_gather_rows(x, self.group) if self.shard else x
+
+    def my_rows(self, x):
+        """This rank's rows of a replicated [P, ...] array."""
+        if not self.shard:
+            return x
+        return x[self.rank * self.Psh:(self.rank + 1) * self.Psh]
+
+
+def _guard(d):
+    return torch.where(torch.abs(d) < 1e-12, torch.full_like(d, 1e-12), d)
+
+
+def ba_cg_ut_plain(W_obs, obs_pt, obs_ok, free, v, out, p_prev=None,
+                   p_out=None, rz=None, it: int = 0):
+    """Plain version of K6s `ba_cg_ut` (same signature; W_obs in the slot
+    layout). Without `p_out`: out [Q,3] = U^T v over every live slot. With
+    `p_out` (a CG iteration): p_out = v (the preconditioned residual z) at
+    iteration 0, else v + beta p_prev with beta = rz[it] / rz[it - 1]
+    (guarded), and out = U^T p_out on the free keyframes."""
+    Q = out.shape[0]
+    if p_out is None:
+        return out.copy_(ba_schur_ut_plain(v, W_obs, obs_pt, obs_ok, Q))
+    p = v if it == 0 else v + rz[it] / _guard(rz[it - 1]) * p_prev
+    p_out.copy_(p)
+    fm = free[:, None].to(v.dtype)
+    return out.copy_(ba_schur_ut_plain(p_out * fm, W_obs, obs_pt, obs_ok, Q))
+
+
+def ba_cg_ap_plain(Hpp_d, g_p, G, vec, W_obs, obs_pt, obs_ok, free, out,
+                   p=None, pap=None, it: int = 0):
+    """Plain version of K6s `ba_cg_ap` (same signature; W_obs in the slot
+    layout; G and vec [Q,...] over every point). Without `p` (the rhs):
+    out = -(g_p - U G vec) on the free keyframes. With `p`: out = A p =
+    Hpp_d p - U G vec on the free keyframes (vec = U^T p, summed over the
+    group) and pap[it] = p . A p, this rank's part."""
+    fm = free[:, None].to(g_p.dtype)
+    y = torch.einsum("pij,pj->pi", G, vec)
+    if p is None:
+        return out.copy_(-(g_p - ba_schur_u_plain(y, W_obs, obs_pt, obs_ok))
+                         * fm)
+    hv = torch.einsum("kij,kj->ki", Hpp_d, p * fm)
+    out.copy_((hv - ba_schur_u_plain(y, W_obs, obs_pt, obs_ok)) * fm)
+    pap[it] = torch.sum(p * out)
+    return out
+
+
+def ba_cg_update_plain(Minv, free, r, x, z, rz, p=None, ap=None, pap=None,
+                       it: int = 0):
+    """Plain version of K6s `ba_cg_update` (same signature), in place.
+    Without `p` (the setup): x = 0, z = Minv r on the free keyframes and
+    rz[0] = r . z, this rank's part. With `p`: alpha = rz[it] / pap[it]
+    (guarded), x += alpha p, r -= alpha ap, z = Minv r and rz[it + 1] =
+    r . z."""
+    fm = free[:, None].to(r.dtype)
+    if p is None:
+        x.zero_()
+    else:
+        alpha = rz[it] / _guard(pap[it])
+        x.copy_(x + alpha * p)
+        r.copy_(r - alpha * ap)
+    z.copy_(torch.einsum("kij,kj->ki", Minv, r) * fm)
+    rz[0 if p is None else it + 1] = torch.sum(r * z)
+    return x
+
+
+def _cg_args(W_obs, obs_pt, free, K, N, Q, what):
+    if not isinstance(W_obs, LiveRows):
+        raise TypeError(f"{what}: on the card W_obs is K5's LiveRows (the "
+                        f"live rows in point order), got {type(W_obs)}")
+    limit = kernels.bind("ba_schur", "ba_schur_cg_max_k", [])()
+    if not 1 <= K <= limit or N < 1 or Q < 1:
+        raise ValueError(f"{what}: needs 1 <= K <= {limit} and N, Q >= 1, "
+                         f"got {K}, {N}, {Q}")
+    rows, index = W_obs
+    kernels.require(rows, what + " W_obs", torch.float32, (K * N, 18))
+    kernels.require(index.offsets, what + " offsets", torch.int32, (Q + 1,))
+    kernels.require(index.slots, what + " slots", torch.int32, (K * N,))
+    kernels.require(index.place, what + " place", torch.int32, (K * N,))
+    kernels.require(obs_pt, what + " obs_pt", torch.int32, (K, N))
+    kernels.require(free, what + " free", torch.bool, (K,))
+    return rows, index
+
+
+def ba_cg_ut(W_obs, obs_pt, obs_ok, free, v, out, p_prev=None, p_out=None,
+             rz=None, it: int = 0):
+    """This rank's part of U^T v [Q,3] (see `ba_cg_ut_plain`), one launch:
+    a warp a point over its live rows. CUDA tensors -> kernel
+    `csrc/ba_schur_sharded.cu`; CPU -> plain version."""
+    if not v.is_cuda:
+        return ba_cg_ut_plain(W_obs, obs_pt, obs_ok, free, v, out, p_prev,
+                              p_out, rz, it)
+    (K, N), Q = obs_pt.shape, out.shape[0]
+    rows, index = _cg_args(W_obs, obs_pt, free, K, N, Q, "ba_cg_ut")
+    mode = int(p_out is not None)
+    kernels.require(v, "ba_cg_ut v", torch.float32, (K, 6))
+    kernels.require(out, "ba_cg_ut out", torch.float32, (Q, 3))
+    if mode:
+        kernels.require(p_prev, "ba_cg_ut p_prev", torch.float32, (K, 6))
+        kernels.require(p_out, "ba_cg_ut p_out", torch.float32, (K, 6))
+        kernels.require(rz, "ba_cg_ut rz", torch.float32)
+        if not 0 <= it < rz.numel() or p_prev.data_ptr() == p_out.data_ptr():
+            raise ValueError("ba_cg_ut: needs 0 <= it < rz.numel() and "
+                             "p_prev apart from p_out")
+    fn = kernels.bind("ba_schur_sharded", "ba_cg_ut",
+                      [kernels.VP] * 8 + [kernels.CI] * 5 + [kernels.VP] * 2)
+    kernels.LAUNCHES["ba_cg_ut"] += 1
+    kernels.check(fn(kernels.ptr(rows), kernels.ptr(index.offsets),
+                     kernels.ptr(index.slots), kernels.ptr(free),
+                     kernels.ptr(v),
+                     kernels.ptr(p_prev) if mode else None,
+                     kernels.ptr(rz) if mode else None,
+                     kernels.ptr(p_out) if mode else None,
+                     it, mode, K, N, Q, kernels.ptr(out),
+                     kernels.stream_of(v)), "ba_cg_ut")
+    return out
+
+
+def ba_cg_ap(Hpp_d, g_p, G, vec, W_obs, obs_pt, obs_ok, free, out, p=None,
+             pap=None, it: int = 0):
+    """A p (or the rhs) on this rank's keyframes, with this rank's part of
+    p . A p (see `ba_cg_ap_plain`), one launch: a block a keyframe over its
+    live slots, G vec a slot; the last block adds the keyframes' parts in
+    order. CUDA tensors -> kernel `csrc/ba_schur_sharded.cu`; CPU -> plain
+    version."""
+    if not g_p.is_cuda:
+        return ba_cg_ap_plain(Hpp_d, g_p, G, vec, W_obs, obs_pt, obs_ok,
+                              free, out, p, pap, it)
+    (K, N), Q = obs_pt.shape, G.shape[0]
+    rows, index = _cg_args(W_obs, obs_pt, free, K, N, Q, "ba_cg_ap")
+    mode = int(p is not None)
+    for t, what, shape in ((Hpp_d, "Hpp_d", (K, 6, 6)), (g_p, "g_p", (K, 6)),
+                           (G, "G", (Q, 3, 3)), (vec, "vec", (Q, 3)),
+                           (out, "out", (K, 6))):
+        kernels.require(t, "ba_cg_ap " + what, torch.float32, shape)
+    if mode:
+        kernels.require(p, "ba_cg_ap p", torch.float32, (K, 6))
+        kernels.require(pap, "ba_cg_ap pap", torch.float32)
+        if not 0 <= it < pap.numel():
+            raise ValueError("ba_cg_ap: needs 0 <= it < pap.numel()")
+    dev = g_p.device
+    part = torch.empty((K,), dtype=torch.float32, device=dev)
+    fn = kernels.bind("ba_schur_sharded", "ba_cg_ap",
+                      [kernels.VP] * 10 + [kernels.CI] * 5
+                      + [kernels.VP] * 4)
+    kernels.LAUNCHES["ba_cg_ap"] += 1
+    kernels.check(fn(*(kernels.ptr(t) for t in (
+        Hpp_d, g_p, G, vec, rows, obs_pt, index.place, free)),
+        kernels.ptr(p) if mode else None, kernels.ptr(out), K, N, Q, mode,
+        it, kernels.ptr(part), kernels.ptr(kernels.ticket(dev, "ba_cg_ap", 1)),
+        kernels.ptr(pap) if mode else None, kernels.stream_of(g_p)),
+        "ba_cg_ap")
+    return out
+
+
+def ba_cg_update(Minv, free, r, x, z, rz, p=None, ap=None, pap=None,
+                 it: int = 0):
+    """The CG's vector step on this rank's keyframes (see
+    `ba_cg_update_plain`), one launch of one block. CUDA tensors -> kernel
+    `csrc/ba_schur_sharded.cu`; CPU -> plain version."""
+    if not r.is_cuda:
+        return ba_cg_update_plain(Minv, free, r, x, z, rz, p, ap, pap, it)
+    K = r.shape[0]
+    mode = int(p is not None)
+    kernels.require(Minv, "ba_cg_update Minv", torch.float32, (K, 6, 6))
+    kernels.require(free, "ba_cg_update free", torch.bool, (K,))
+    for t, what in ((r, "r"), (x, "x"), (z, "z")) + (
+            ((p, "p"), (ap, "ap")) if mode else ()):
+        kernels.require(t, "ba_cg_update " + what, torch.float32, (K, 6))
+    kernels.require(rz, "ba_cg_update rz", torch.float32)
+    if mode:
+        kernels.require(pap, "ba_cg_update pap", torch.float32)
+        if not (0 <= it < pap.numel() and it + 1 < rz.numel()):
+            raise ValueError("ba_cg_update: needs it < pap.numel() and "
+                             "it + 1 < rz.numel()")
+    fn = kernels.bind("ba_schur_sharded", "ba_cg_update",
+                      [kernels.VP] * 9 + [kernels.CI] * 3 + [kernels.VP])
+    kernels.LAUNCHES["ba_cg_update"] += 1
+    kernels.check(fn(*(kernels.ptr(t) for t in (Minv, free, r, x, z, rz)),
+                     kernels.ptr(p) if mode else None,
+                     kernels.ptr(ap) if mode else None,
+                     kernels.ptr(pap) if mode else None, K, mode, it,
+                     kernels.stream_of(r)), "ba_cg_update")
+    return x
+
+
+def _split_cg(Hpp_d, g_p, g_l, G, W_obs, obs_pt, obs_ok, free,
+              cg_iters: int, comm: Optional[ShardComm], entries):
+    """The sharded CG as `entries` (ut, ap, update) and the collectives
+    between them: per CG iteration ut (beta, p and this rank's U^T p), its
+    all_reduce, ap (G w1 a slot, A p and this rank's p . A p), its
+    all_reduce, update (alpha, x, r, z and this rank's r . z), its
+    all_reduce: three launches and three collectives. JAX reduce-scatters
+    U^T p and gathers G w1 when the points shard; with G applied a slot
+    there is no per-point work to divide, and one all_reduce moves the
+    same bytes. g_l and G are this rank's point rows, gathered once; U^T
+    dp comes back as this rank's rows."""
+    ut, ap, update = entries
+    K = obs_pt.shape[0]
+    dev = g_p.device
+    sum_ = comm.sum_ if comm is not None else (lambda t: t)
+    shard = comm.to_shard if comm is not None else (lambda t: t)
+    full = comm.to_full if comm is not None else (lambda t: t)
+    G_f = full(G.reshape(G.shape[0], 9)).reshape(-1, 3, 3)
+    gl_f = full(g_l.contiguous())
+    P = G_f.shape[0]
+    eye6 = torch.eye(6, dtype=torch.float32, device=dev)
+    Minv = torch.linalg.inv_ex(Hpp_d + 1e-9 * eye6).inverse.contiguous()
+    r, x, z, Ap = (torch.empty((K, 6), dtype=torch.float32, device=dev)
+                   for _ in range(4))
+    pbuf = torch.empty((2, K, 6), dtype=torch.float32, device=dev)
+    # this iteration's scalars, reduced in place: r.z before iteration i at
+    # rz[i], p.Ap of iteration i at pap[i]
+    rz = torch.zeros((cg_iters + 1,), dtype=torch.float32, device=dev)
+    pap = torch.zeros((max(cg_iters, 1),), dtype=torch.float32, device=dev)
+    part = torch.empty((P, 3), dtype=torch.float32, device=dev)
+    ap(Hpp_d, g_p, G_f, gl_f, W_obs, obs_pt, obs_ok, free, r)
+    update(Minv, free, r, x, z, rz)
+    sum_(rz[0:1])
+    for i in range(cg_iters):
+        p = pbuf[i % 2]
+        ut(W_obs, obs_pt, obs_ok, free, z, part, p_prev=pbuf[(i + 1) % 2],
+           p_out=p, rz=rz, it=i)
+        w1 = sum_(part)
+        ap(Hpp_d, g_p, G_f, w1, W_obs, obs_pt, obs_ok, free, Ap, p=p,
+           pap=pap, it=i)
+        sum_(pap[i:i + 1])
+        update(Minv, free, r, x, z, rz, p=p, ap=Ap, pap=pap, it=i)
+        sum_(rz[i + 1:i + 2])
+    ut(W_obs, obs_pt, obs_ok, free, x, part)
+    return x, shard(part)
+
+
+def sharded_cg_solve_plain(Hpp_d, g_p, g_l, G, W_obs, obs_pt, obs_ok, free,
+                           cg_iters: int, comm: Optional[ShardComm] = None):
+    """Plain version of `sharded_cg_solve` (same signature; W_obs in the
+    slot layout): `cg_solve_plain` with the collectives, op for op, so
+    that without a group (or in a group of one) it gives `cg_solve_plain`'s
+    bits."""
+    return _split_cg(Hpp_d, g_p, g_l, G, W_obs, obs_pt, obs_ok, free,
+                     cg_iters, comm, (ba_cg_ut_plain, ba_cg_ap_plain,
+                                      ba_cg_update_plain))
+
+
+def sharded_cg_solve(Hpp_d, g_p, g_l, G, W_obs, obs_pt, obs_ok, free,
+                     cg_iters: int, comm: Optional[ShardComm] = None):
+    """dp [K,6] of this rank's keyframes and U^T dp of this rank's point
+    rows of one LM iteration of a keyframe-sharded solve: `cg_solve_plain`'s
+    solve with its sums over the group. g_l and G are this rank's point
+    rows. CUDA tensors -> K6 split at its reductions (`ba_cg_ut`,
+    `ba_cg_ap`, `ba_cg_update`: three launches a CG iteration) on W_obs as
+    `ba_assemble(..., w_obs=True)` gives it on the card; CPU -> the same
+    entries' plain versions (`sharded_cg_solve_plain`'s bits)."""
+    if cg_iters < 0:
+        raise ValueError(f"sharded_cg_solve: cg_iters >= 0, got {cg_iters}")
+    return _split_cg(Hpp_d, g_p, g_l, G, W_obs, obs_pt, obs_ok, free,
+                     cg_iters, comm, (ba_cg_ut, ba_cg_ap, ba_cg_update))
+
+
 # the compacted global-BA problem's point count is a multiple of this, so
 # that its shapes repeat from one loop to the next
 POINT_BUCKET = 1024
@@ -577,9 +916,8 @@ def compact_points(p: BAProblem):
 
 def ba_solve(p: BAProblem, cam: proj.CameraIntrinsics, iters: int = 10,
              cg_iters: int = 50, use_huber: bool = True,
-             chi2_gate: bool = True, axis_name: str = None,
-             lambda0: float = 1e-4, dense_schur: bool = False,
-             axis_size: int = 1) -> BAResult:
+             chi2_gate: bool = True, lambda0: float = 1e-4,
+             dense_schur: bool = False, group=None) -> BAResult:
     """LM bundle adjustment with the landmarks eliminated (Schur).
 
     `dense_schur=True` forms S = blockdiag(Hpp_d) - sum_j T_j G_j T_j^T from
@@ -587,21 +925,32 @@ def ba_solve(p: BAProblem, cam: proj.CameraIntrinsics, iters: int = 10,
     192x192 for the W=32 window; `cg_iters` unused). `dense_schur=False`
     solves the same system by `cg_iters` iterations of block-Jacobi
     preconditioned CG, S applied matrix-free, one K6 launch an LM
-    iteration."""
-    if axis_name is not None or axis_size > 1:
-        raise NotImplementedError(
-            "sharded BA (axis_name / axis_size) belongs to the multi-GPU "
-            "slice")
+    iteration.
+
+    With `group` (a `torch.distributed` process group; JAX's `axis_name`
+    and `axis_size` under `shard_map`), `p`'s keyframe axis is this rank's
+    shard and its points are replicated: every cross-device reduction is a
+    collective of `ShardComm`, the CG is `sharded_cg_solve`, the dense
+    branch solves every rank's keyframes (`_dense_step_gathered`), and
+    pt_pos comes back with the same bits on every rank. A group of one
+    gives the unsharded solve's result (on the CPU its bits)."""
+    comm = (None if group is None
+            else ShardComm(group, p.pt_pos.shape[0], dense_schur))
     with highest_precision():
         return _ba_solve_f32(p, cam, iters, use_huber, chi2_gate, lambda0,
-                             dense_schur, cg_iters)
+                             dense_schur, cg_iters, comm)
 
 
-def _dense_step(T, Hpp_d, g_p, g_l, G, free, fmask, rows, cols, K, P):
+def _dense_step(T, Hpp_d, g_p, g_l, G, free, K, P):
     """dp [K,6] and U^T dp [P,3] of one LM iteration from the dense reduced
     camera system S [K*6, K*6], solved directly (JAX
     `optim/ba.py:362-391`)."""
     D = K * 6
+    fmask = free.repeat_interleave(6).to(torch.float32)
+    k6 = (torch.arange(K, device=T.device)[:, None] * 6
+          + torch.arange(6, device=T.device)[None, :])
+    rows = k6[:, :, None].expand(K, 6, 6)
+    cols = k6[:, None, :].expand(K, 6, 6)
     T3 = T.reshape(P, D, 3)
     TG = torch.einsum("pdi,pij->pdj", T3, G)
     S_sub = torch.einsum("pdi,pei->de", TG, T3)
@@ -618,8 +967,27 @@ def _dense_step(T, Hpp_d, g_p, g_l, G, free, fmask, rows, cols, K, P):
     return dp, torch.einsum("pdi,d->pi", T3, dp.reshape(D))
 
 
+def _dense_step_gathered(comm, T, Hpp_d, g_p, g_l, G, free_all, K, P):
+    """`_dense_step` over a group of n > 1 ranks, each holding K keyframes:
+    every rank's keyframe rows of Hpp_d, g_p and T gathered in rank order
+    (one `all_gather`) and the whole [n K*6, n K*6] system solved on each
+    rank. dp is this rank's rows; U^T dp sums every keyframe's, with the
+    same bits on every rank."""
+    Ka = comm.n * K
+    mine = torch.cat([Hpp_d.reshape(K, 36), g_p,
+                      T.reshape(P, K, 18).transpose(0, 1).reshape(K, P * 18)],
+                     1)
+    every = all_gather_rows(mine, comm.group)
+    T_all = every[:, 42:].reshape(Ka, P, 18).transpose(0, 1).reshape(
+        P * Ka, 18)
+    dp, ut_dp = _dense_step(T_all, every[:, :36].reshape(Ka, 6, 6),
+                            every[:, 36:42], g_l, G, free_all, Ka, P)
+    return dp[comm.rank * K:(comm.rank + 1) * K], ut_dp
+
+
 def _ba_solve_f32(p: BAProblem, cam, iters, use_huber, chi2_gate,
-                  lambda0, dense_schur=True, cg_iters=50) -> BAResult:
+                  lambda0, dense_schur=True, cg_iters=50,
+                  comm: Optional[ShardComm] = None) -> BAResult:
     K, N = p.obs_uv.shape[:2]
     P = p.pt_pos.shape[0]
     dev = p.pt_pos.device
@@ -629,18 +997,18 @@ def _ba_solve_f32(p: BAProblem, cam, iters, use_huber, chi2_gate,
     obs_ok0 = (p.obs_pt >= 0) & p.pt_valid[
         torch.clamp(p.obs_pt, 0, P - 1).long()]
     free = ~p.kf_fixed
-    fmask = free.repeat_interleave(6).to(torch.float32)
     eye3 = torch.eye(3, dtype=torch.float32, device=dev)
     eye6 = torch.eye(6, dtype=torch.float32, device=dev)
-    rows = (torch.arange(K, device=dev)[:, None, None] * 6
-            + torch.arange(6, device=dev)[None, :, None]).expand(K, 6, 6)
-    cols = (torch.arange(K, device=dev)[:, None, None] * 6
-            + torch.arange(6, device=dev)[None, None, :]).expand(K, 6, 6)
+    # the dense branch over several ranks solves every rank's keyframes
+    gathered = dense_schur and comm is not None and comm.n > 1
+    if gathered:
+        free_all = all_gather_rows(free.to(torch.uint8), comm.group).bool()
 
+    sum_ = comm.sum_ if comm is not None else (lambda t: t)
     # obs_pt and obs_ok0 hold for the whole solve: one point index
     index = ba_point_index(p.obs_pt, obs_ok0, P)
-    cost0, _ = ba_cost(p.kf_pose, p.pt_pos, p, obs_ok0, cam, use_huber,
-                       want_chi2=False)
+    cost0 = sum_(ba_cost(p.kf_pose, p.pt_pos, p, obs_ok0, cam, use_huber,
+                         want_chi2=False)[0])
     kf_pose, pt_pos = p.kf_pose, p.pt_pos
     lam = torch.full((), lambda0, dtype=torch.float32, device=dev)
     cost = cost0
@@ -649,7 +1017,10 @@ def _ba_solve_f32(p: BAProblem, cam, iters, use_huber, chi2_gate,
         Hpp, g_p, acc, T = ba_assemble(kf_pose, pt_pos, p, obs_ok0, cam,
                                        use_huber, index=index,
                                        w_obs=not dense_schur)
-        Hll = acc[:, :9].reshape(P, 3, 3)
+        if comm is not None:
+            # this rank's point rows, summed over the group
+            acc = comm.to_shard(acc)
+        Hll = acc[:, :9].reshape(acc.shape[0], 3, 3)
         g_l = acc[:, 9:]
         dp_diag = torch.diagonal(Hpp, dim1=1, dim2=2)
         Hpp_d = Hpp + (lam * dp_diag + 1e-6)[:, :, None] * eye6
@@ -659,20 +1030,30 @@ def _ba_solve_f32(p: BAProblem, cam, iters, use_huber, chi2_gate,
         if p.pt_frozen is not None:
             # frozen landmarks leave the Schur elimination (G = 0): no
             # -U G U^T term, and dl = 0 in back-substitution
-            G = torch.where(p.pt_frozen[:, None, None], torch.zeros_like(G), G)
-        if dense_schur:
-            dp, ut_dp = _dense_step(T, Hpp_d, g_p, g_l, G, free, fmask, rows,
-                                    cols, K, P)
-        else:
+            frozen = (p.pt_frozen if comm is None
+                      else comm.my_rows(p.pt_frozen))
+            G = torch.where(frozen[:, None, None], torch.zeros_like(G), G)
+        if gathered:
+            dp, ut_dp = _dense_step_gathered(comm, T, Hpp_d, g_p, g_l, G,
+                                             free_all, K, P)
+        elif dense_schur:
+            dp, ut_dp = _dense_step(T, Hpp_d, g_p, g_l, G, free, K, P)
+        elif comm is None:
             dp, ut_dp = ba_schur_cg(Hpp_d, g_p, g_l, G, T, p.obs_pt,
                                     obs_ok0, free, cg_iters)
+        else:
+            dp, ut_dp = sharded_cg_solve(Hpp_d, g_p, g_l, G, T, p.obs_pt,
+                                         obs_ok0, free, cg_iters, comm)
         dl = torch.einsum("pij,pj->pi", G, -g_l - ut_dp)
+        if comm is not None:
+            # this rank's rows, gathered: the same bits on every rank
+            dl = comm.to_full(dl)
         dl = torch.where(p.pt_valid[:, None], dl, torch.zeros_like(dl))
         new_pose = se3.retract(kf_pose, dp)
         new_pose = torch.where(free[:, None], new_pose, kf_pose)
         new_pts = pt_pos + dl
-        new_cost, _ = ba_cost(new_pose, new_pts, p, obs_ok0, cam, use_huber,
-                              want_chi2=False)
+        new_cost = sum_(ba_cost(new_pose, new_pts, p, obs_ok0, cam,
+                                use_huber, want_chi2=False)[0])
         improved = new_cost < cost
         # frozen-state mask: an iteration after `done` changes nothing
         take = improved & ~done
@@ -684,6 +1065,8 @@ def _ba_solve_f32(p: BAProblem, cam, iters, use_huber, chi2_gate,
         rel_gain = (cost - new_cost) / torch.clamp(cost, min=1e-12)
         cost = torch.where(take, new_cost, cost)
         done = done | (improved & (rel_gain < 1e-5))
+    # chi2 is a slot's own: the gate needs no collective (JAX's psum of
+    # this cost is unused)
     _, chi2 = ba_cost(kf_pose, pt_pos, p, obs_ok0, cam, use_huber)
     inlier = obs_ok0 & (chi2 <= chi2_th) if chi2_gate else obs_ok0
     return BAResult(kf_pose, pt_pos, cost0, cost, inlier)

@@ -12,8 +12,9 @@ every state (:281-308). Tracking, local mapping and loop closing are
 synchronous staged calls, as in the JAX package.
 
 Poses are f32 `[qw, qx, qy, qz, tx, ty, tz]`, world-to-camera. The tracker
-runs on `cuda:0` unless `create` is given another device. Not ported: the
-viewer (`viz/`), so `use_viewer=True` raises.
+runs on `cuda:0` unless `create` is given another device. `use_viewer=True`
+starts the live viewer (`viz/viewer.py`, the reference's Viewer thread);
+`shutdown()` stops it.
 """
 
 from __future__ import annotations
@@ -109,21 +110,22 @@ class SlamSystem:
         self.localization_only = False
         self.timestamps: List[float] = []
         self._pending_cmds: List = []
+        self.viewer = None
 
     @staticmethod
     def create(settings_path: str, sensor: int, map_capacity=None,
                enable_loop_closing: bool = True, vocabulary=None,
-               device=None, use_viewer: bool = False) -> "SlamSystem":
+               device=None, use_viewer: bool = False,
+               viewer_dir: str = "viz_live") -> "SlamSystem":
         """Build from a reference-format YAML settings file (the key schema
         of `src/System.cc:333-375`, `config.Settings`), with the
         `TrackerConfig` the JAX package fills from it. `vocabulary` is a
         port `Vocabulary` (a JAX one goes through
-        `convert.vocabulary_from_numpy`); `device` defaults to the card."""
+        `convert.vocabulary_from_numpy`); `device` defaults to the card.
+        `use_viewer` is the reference constructor's bUseViewer: it starts
+        the background `LiveViewer` render loop into `viewer_dir`."""
         from .tracking import Tracker, TrackerConfig
 
-        if use_viewer:
-            raise NotImplementedError(
-                "the viewer (viz/) is not ported; pass use_viewer=False")
         st = Settings.from_yaml(settings_path)
         cam = st.camera
         if not cam.width or not cam.height:
@@ -153,7 +155,13 @@ class SlamSystem:
         tracker = Tracker(cfg, device)
         if vocabulary is not None:
             tracker.set_vocabulary(vocabulary)
-        return SlamSystem(tracker, sensor, st)
+        system = SlamSystem(tracker, sensor, st)
+        if use_viewer:
+            from ..viz.viewer import LiveViewer
+
+            system.viewer = LiveViewer(tracker, out_dir=viewer_dir,
+                                       system=system).start()
+        return system
 
     # per-frame entry points (System::Track*, src/System.cc:430-622)
 
@@ -257,6 +265,15 @@ class SlamSystem:
         """Restore a saved map; the next tracked frame relocalizes in it."""
         from .serialize import load_map as _load
         _load(self.tracker, path)
+
+    def shutdown(self):
+        """Stop the viewer thread if one runs (the reference joins its
+        Viewer, LocalMapping and LoopClosing threads, `src/System.cc:
+        665-684`; here the stages run in the caller's thread, so the viewer
+        is the only thread)."""
+        if self.viewer is not None:
+            self.viewer.stop()
+            self.viewer = None
 
     # trajectory export in the reference's text formats
 

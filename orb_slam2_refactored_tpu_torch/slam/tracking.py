@@ -79,7 +79,7 @@ Differences of form from the JAX package:
 - map updates at keyframe insertion happen in place;
 - `flush()` drains every deferred mapping product (see its docstring);
 - JAX's `last_mp` (the host copy of the last frame's landmarks, read only
-  by `viz/`, which is not ported) has no port;
+  by `viz/`) has no port: the port's `viz/ar.py` reads `last_mp_dev`;
 - the relocalization RANSAC draws from `torch.Generator().manual_seed(
   frame_id * 31 + kf)` where JAX folds that number into `PRNGKey(0)`: a run
   repeats itself, and its outcome, not its samples, agrees with JAX;

@@ -5,12 +5,12 @@ blocking `np.asarray` to a thread pool (its tracker's and `LocalMapper`'s
 fetch pools); the future's `done()` tells its pipelined mode whether a
 stage's read has landed. Here CUDA does that job: `Readback(t)` on a CUDA
 tensor copies it with `non_blocking=True` into a pinned host buffer on the
-current stream and records a `torch.cuda.Event` after the copy. `done()` is
-the event's query and `result()` waits for the event, then returns the
-buffer as a numpy array. Every read gets a buffer of its own from
-PyTorch's caching host allocator, which does not hand a block out again
-before the copy's event has completed, so k reads in flight never share
-one.
+current stream of the tensor's device and records a `torch.cuda.Event`
+after the copy on that stream. `done()` is the event's query and
+`result()` waits for the event, then returns the buffer as a numpy array.
+Every read gets a buffer of its own from PyTorch's caching host allocator,
+which does not hand a block out again before the copy's event has
+completed, so k reads in flight never share one.
 
 On a CPU tensor the read is resolved at once: the result is a copy taken
 when the read is made, as the card's copy is, and `done()` is always
@@ -33,8 +33,10 @@ class Readback:
         if t.device.type == "cuda":
             self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
             self._host.copy_(t, non_blocking=True)
+            # the copy runs on the current stream of the tensor's device,
+            # which need not be the calling thread's current device
             self._event = torch.cuda.Event()
-            self._event.record()
+            self._event.record(torch.cuda.current_stream(t.device))
         else:
             self._host = t.clone()
             self._event = None

@@ -123,14 +123,26 @@ def test_ba_solve_dense_schur_matches_jax(iters, use_huber):
 
 
 def test_ba_settings_of_other_slices_raise():
+    """The sharded forms run: JAX's `axis_name` / `axis_size` are
+    `group=`, and a group of one gives the unsharded solve's bits on both
+    branches (`tests/test_torch_sharded_ba.py` holds the sharded solve to
+    JAX's)."""
+    import torch.distributed as dist
+
     tc = tproj.CameraIntrinsics.create(FX, FX, CX, CY, BF)
     p = convert.ba_problem_from_numpy(_problem(), "cpu")
-    with pytest.raises(NotImplementedError):
-        tba.ba_solve(p, tc, dense_schur=False, axis_name="kf")
-    with pytest.raises(NotImplementedError):
-        tba.ba_solve(p, tc, dense_schur=True, axis_name="kf")
-    with pytest.raises(NotImplementedError):
-        tba.ba_solve(p, tc, dense_schur=True, axis_size=2)
+    be = dist.ProcessGroupGloo(dist.HashStore(), 0, 1)
+    group = dist.ProcessGroup(dist.HashStore(), 0, 1)
+    group._set_default_backend(dist.ProcessGroup.BackendType.GLOO)
+    group._register_backend(torch.device("cpu"),
+                            dist.ProcessGroup.BackendType.GLOO, be)
+    for dense in (False, True):
+        ref = tba.ba_solve(p, tc, iters=3, cg_iters=10, dense_schur=dense)
+        got = tba.ba_solve(p, tc, iters=3, cg_iters=10, dense_schur=dense,
+                           group=group)
+        assert all(torch.equal(a, b) for a, b in zip(ref, got))
+    with pytest.raises(TypeError):
+        tba.ba_solve(p, tc, axis_name="kf")
 
 
 @pytest.fixture(scope="module")

@@ -151,8 +151,15 @@ def test_png_writes_what_cv2_reads(tmp_path):
         png.write_png(path, img)
         ref = cv2.imread(path, cv2.IMREAD_UNCHANGED)
         assert ref.dtype == img.dtype and np.array_equal(ref, img)
-    with pytest.raises(ValueError):
-        png.write_png(path, np.zeros((4, 4, 3), np.uint8))
+    # 8-bit RGB (the viewer's figures): cv2 reads it back in BGR order
+    rgb = np.stack([smooth, smooth[::-1], smooth[:, ::-1]], -1).astype(
+        np.uint8)
+    png.write_png(path, rgb)
+    assert np.array_equal(cv2.imread(path, cv2.IMREAD_UNCHANGED)[..., ::-1],
+                          rgb)
+    for bad in (np.zeros((4, 4, 3), np.uint16), np.zeros((4, 4, 4), np.uint8)):
+        with pytest.raises(ValueError):
+            png.write_png(path, bad)
 
 
 @pytest.fixture(scope="module")

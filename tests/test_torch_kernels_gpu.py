@@ -4,7 +4,8 @@ call), K8 (the pyramid) and K9 (the per-level spread top-k), K7 (the
 learned pattern, given the angles and whole, at the borders, on empty
 levels, with one keypoint, and through its launch table), K4 (pose LM), K5
 (BA assembly and cost, both modes), K6 (the fused CG
-solve of global BA) and B9 (the stereo SAD
+solve of global BA) and K6 split at its reductions (the sharded solve's
+CG), and B9 (the stereo SAD
 refinement alone, and the whole stereo association after K1 in one
 launch), and the BoW vocabulary on K1 (quantization, training,
 compute_bow).
@@ -1168,6 +1169,47 @@ def test_schur_cg_wrapper_refuses_what_the_kernel_does_not_take():
            "obs_pt": args["obs_pt"][:1].expand(K, -1)}
     with pytest.raises(ValueError, match="K <="):
         ba.ba_schur_cg(**big)
+
+
+
+@pytest.mark.parametrize("name", ["w40", "global", "small"])
+def test_split_cg_kernels_match_plain(name):
+    """K6 split at its reductions (`ba_cg_ut`, `ba_cg_ap`, `ba_cg_update`,
+    the CG of a sharded solve), with no group: three launches a CG
+    iteration, two more for the setup and one for U^T dp; two calls
+    bit-equal; dp and U^T dp within the f64 yardstick of `_cg_agrees`. The
+    wrappers take K5's `LiveRows` only, and raise on the slot layout."""
+    dev = _card()
+    p = ba.BAProblem(*(t.to(dev) for t in _cg_case(name)))
+    Q = p.pt_pos.shape[0]
+    obs_ok = (p.obs_pt >= 0) & p.pt_valid[p.obs_pt.clamp(0, Q - 1).long()]
+    out = ba.ba_assemble(p.kf_pose, p.pt_pos, p, obs_ok, CAM, True,
+                         w_obs=True)
+    args = _cg_args(p, out)
+    args["g_l"] = args["g_l"].contiguous()
+    names = ("ba_cg_ut", "ba_cg_ap", "ba_cg_update")
+    before = kernels.counts()
+    got = ba.sharded_cg_solve(**args)
+    after = kernels.counts()
+    it = args["cg_iters"]
+    assert [after[n] - before[n] for n in names] == [it + 1, it + 1, it + 1]
+    again = ba.sharded_cg_solve(**args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    plain_args = {**args, "W_obs": ba.w_obs_slot_rows(args["W_obs"])}
+    torch.use_deterministic_algorithms(True)
+    try:
+        ref = ba.cg_solve_plain(**plain_args)
+        exact = ba.cg_solve_plain(**{
+            n: v.double() if isinstance(v, torch.Tensor)
+            and v.is_floating_point() else v for n, v in plain_args.items()})
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for k, r, e in zip(got, ref, exact):
+        e_k = float((k.double() - e).abs().max())
+        e_p = float((r.double() - e).abs().max())
+        assert e_k <= 2 * e_p + 1e-4 * float(e.abs().max()), (e_k, e_p)
+    with pytest.raises(TypeError):
+        ba.sharded_cg_solve(**plain_args)
 
 
 VGA_SHAPES = image_ops.pyramid_shapes(480, 640, 8, 1.2)

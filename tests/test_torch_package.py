@@ -41,9 +41,9 @@ def _imported_modules(path):
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
-    """Nor `yaml` or `cv2`: the machine with the card has neither, so the
-    settings reader, the PNG codec and the dataset readers are the port's
-    own."""
+    """Nor `yaml`, `cv2` or `matplotlib`: the machine with the card has
+    none of them, so the settings reader, the PNG codec, the dataset
+    readers and the viewer's figures are the port's own."""
     bad = []
     srcs = _sources()
     assert len(srcs) > 15
@@ -51,7 +51,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         for mod in _imported_modules(path):
             root = mod.split(".")[0]
             if root in ("jax", "jaxlib", "flax", "orb_slam2_refactored_tpu",
-                        "yaml", "cv2"):
+                        "yaml", "cv2", "matplotlib"):
                 bad.append((os.path.relpath(path, ROOT), mod))
     assert not bad, bad
 
@@ -64,7 +64,8 @@ def test_every_kernel_source_exists():
                                      "ba_assemble", "ba_cost", "stereo_sad",
                                      "ba_assemble_w_obs", "ba_schur_cg",
                                      "orb_desc_learned", "pyramid",
-                                     "spread_topk", "spread_topk_large"}
+                                     "spread_topk", "spread_topk_large",
+                                     "ba_cg_ut", "ba_cg_ap", "ba_cg_update"}
 
 
 def test_empty_frame_and_scale_tables_match_jax():

@@ -148,7 +148,8 @@ def test_settings_match_jax(which, settings_path, tmp_path):
 
 
 def test_create_builds_jax_config_and_tracks_as_a_tracker(run, frames,
-                                                          settings_path):
+                                                          settings_path,
+                                                          tmp_path):
     """The facade's `TrackerConfig` is the one the JAX facade fills
     (`system.py:139-159`: bf, the distortion, `kf_max_interval` from the
     fps, `kf_ref_ratio`, the pattern), and a `Tracker` built by hand with
@@ -177,8 +178,13 @@ def test_create_builds_jax_config_and_tracks_as_a_tracker(run, frames,
                                   np.stack(run.tracker.trajectory))
     assert run.get_tracking_state() == TrackState.OK
     assert len(run.tracker.graph.alive_kfs()) >= 2
-    with pytest.raises(NotImplementedError, match="viz"):
-        SlamSystem.create(settings_path, RGBD, device="cpu", use_viewer=True)
+    # the viewer (`viz/viewer.py`) starts with the system and stops with it
+    viewed = SlamSystem.create(settings_path, RGBD, device="cpu",
+                               use_viewer=True, viewer_dir=str(tmp_path))
+    assert viewed.viewer.running and viewed.viewer.system is viewed
+    viewer = viewed.viewer
+    viewed.shutdown()
+    assert viewed.viewer is None and not viewer.running
 
 
 def test_savers_write_jax_bytes(run, tmp_path):
