@@ -276,6 +276,9 @@ LOOP_ATE_M = 0.06
 LOOP_KERNELS = ("ba_assemble_w_obs", "ba_schur_cg")
 # the sharded global BA's CG (K6 split at its reductions): phase 3n only
 SHARDED_KERNELS = ("ba_cg_ut", "ba_cg_ap", "ba_cg_update")
+# K10, the packed frame's decode: it launches only where a frame carries
+# log8 depth or a DCT image (phase 3p)
+WIRE_KERNEL = "wire_unpack"
 # the learned BRIEF pattern's kernel: it launches only on cell I (cells A-H
 # run the fresh pattern on K3)
 LEARNED_KERNEL = "orb_desc_learned"
@@ -374,10 +377,13 @@ def bench_cam():
 
 
 def bench_config(local_ba: bool):
-    """`bench.py:98-107`'s RGB-D configuration; `local_ba` is its
+    """`bench.py:98-107`'s RGB-D camera and tracker; `local_ba` is its
     `enable_local_ba` (the bench leaves it on), synchronous. Its stereo
-    segment's (`bench.py:742-753`) is the same. The bench runs both
-    pipelined (`pipelined`, PIPE_DEPTHS), as phase 3m does."""
+    segment's (`bench.py:742-753`) is the same. It omits the bench's depth
+    wire format (log8 at subsample 8, `bench.py:120-131`): cells A-I send
+    f16 depth at full resolution, and phase 3p runs the bench's
+    (`ingest_config`). The bench runs both pipelined (`pipelined`,
+    PIPE_DEPTHS), as phases 3m and 3p do."""
     from orb_slam2_refactored_tpu_torch.slam.map_state import MapCapacity
     from orb_slam2_refactored_tpu_torch.slam.tracking import TrackerConfig
 
@@ -1562,6 +1568,164 @@ def b9_wrapper_host_us(tail, reps=2000):
 
 
 # ---------------------------------------------------------------------------
+# phase 2 (K10): the packed frame's decode against its plain version
+# ---------------------------------------------------------------------------
+
+# the DCT image's geometries: VGA, EuRoC's 752x480 and phase 3k's cameras
+WIRE_DCT_SIZES = ((480, 640), (480, 752), (1200, 1920), (2160, 3840))
+# gray: JAX's own gate between its two decoders (`tests/test_codec.py:47`);
+# the kernel adds the 16 products of a pixel in another order than einsum
+WIRE_DCT_TOL = 1e-3
+
+
+def ingest_config(**kw):
+    """`bench.py:98-131`'s RGB-D tracker: the bench's configuration
+    pipelined at its depth 6, with its depth wire format (log8 at
+    subsample 8, `BENCH_DEPTH_ENC` and `BENCH_DEPTH_SUB`'s defaults)."""
+    import dataclasses
+
+    return dataclasses.replace(
+        pipelined(bench_config(True), PIPE_DEPTHS["A"]), depth_subsample=8,
+        depth_encoding="log8", **kw)
+
+
+def wire_work(buf, img, dep):
+    """Bytes K10 must move (the coded bytes it decodes read once, its table,
+    4 bytes a decoded value written) and its f32 operations (KEEP * KEEP
+    + KEEP multiply-adds a pixel of the image)."""
+    from orb_slam2_refactored_tpu_torch.ops import codec
+
+    k = buf.shape[0]
+    nbytes, ops = 0, 0
+    if img is not None:
+        H, W = img[1:]
+        nbytes += k * (codec.encoded_nbytes(H, W) + 4 * H * W)
+        ops += k * H * W * (codec.KEEP * codec.KEEP + codec.KEEP)
+    if dep is not None:
+        h, w = dep[1:]
+        nbytes += k * 5 * h * w + 4 * 256
+    return nbytes, {"f32": ops}
+
+
+def k10_reading(buf, img, dep, lut, reps=50):
+    """K10 on `buf` (a [k, B] card tensor) against its plain version on
+    the card: the depth bit for bit, the image within WIRE_DCT_TOL. Returns
+    (largest image difference, CUDA-event ms, plain ms, bytes, ops)."""
+    from orb_slam2_refactored_tpu_torch.ops import codec
+
+    k_img, k_dep = codec.wire_unpack(buf, img, dep, lut)
+    p_img, p_dep = codec.wire_unpack_plain(buf, img, dep)
+    torch.cuda.synchronize()
+    err = 0.0
+    if dep is not None:
+        assert torch.equal(k_dep, p_dep), "K10's depth is not the plain one"
+    if img is not None:
+        err = float((k_img - p_img).abs().max())
+        assert err <= WIRE_DCT_TOL, f"K10's image {err} gray from plain"
+    ms = cuda_time_ms(lambda: codec.wire_unpack(buf, img, dep, lut), reps)
+    plain_ms = cuda_time_ms(lambda: codec.wire_unpack_plain(buf, img, dep),
+                            max(reps // 5, 2))
+    return (err, ms, plain_ms) + wire_work(buf, img, dep)
+
+
+def einsum_ms(buf, img, reps=50):
+    """K10's library call for the DCT half: the plain version's one
+    `torch.einsum` on the decoded coefficients of `buf`'s rows."""
+    from orb_slam2_refactored_tpu_torch.ops import codec
+
+    _, H, W = img
+    bh, bw, keep = H // 8, W // 8, codec.KEEP
+    raw = buf[:, :codec.encoded_nbytes(H, W)].reshape(-1, bh, bw,
+                                                      keep * keep)
+    f = raw.to(torch.float32)
+    K = (torch.where(raw < 128, f, f - 256.0) * codec.AC_STEP).reshape(
+        -1, bh, bw, keep, keep).clone()
+    K[..., 0, 0] = raw[..., 0].to(torch.float32) * codec.DC_STEP
+    cr = torch.as_tensor(codec._dct_matrix()[:keep], device=buf.device)
+    crt = cr.T.contiguous()
+    return cuda_time_ms(
+        lambda: torch.einsum("ak,rbwkl,lc->rbwac", crt, K, cr), reps)
+
+
+def wire_batch(cfg, imgs, depths, k, device):
+    """Cell A's first k frames packed under `cfg`, a [k, B] card tensor."""
+    from orb_slam2_refactored_tpu_torch.slam.tracking import pack_rgbd
+
+    return torch.from_numpy(np.stack([
+        pack_rgbd(cfg, imgs[i], depths[i].astype(np.float32))
+        for i in range(k)])).to(device)
+
+
+def check_wire(imgs, depths, device):
+    """K10 against its plain version: log8 bit for bit on all 256 codes and
+    on cell A's frames at the bench's setting (one frame, a [4, B] batch);
+    the DCT image within WIRE_DCT_TOL at WIRE_DCT_SIZES (cell A's frame 0
+    tiled to the size) and on a [4, B] batch of DCT + log8 rows; a CPU
+    tensor and a wrong dtype raise. Returns the readings of the bench's
+    buffers ("log8", "log8_batch4") and of a DCT + log8 frame ("dct",
+    "dct_batch4"), each (error, ms, plain ms, bytes, ops), and the
+    einsum's ms on the DCT frame."""
+    from orb_slam2_refactored_tpu_torch.ops import codec
+    from orb_slam2_refactored_tpu_torch.slam import tracking
+
+    lut = codec.log8_table(device)
+    codes = torch.arange(256, dtype=torch.uint8, device=device)[None]
+    assert torch.equal(codec.wire_unpack(codes, dep=(0, 16, 16), lut=lut)[1],
+                       codec.decode_log8_plain(codes).reshape(1, 16, 16))
+    out = {}
+    for tag, kw in (("log8", {}), ("dct", {"image_encoding": "dct"})):
+        cfg = ingest_config(**kw)
+        img, dep = tracking.wire_sections(cfg)
+        batch = wire_batch(cfg, imgs, depths, 4, device)
+        out[tag] = k10_reading(batch[:1].contiguous(), img, dep, lut)
+        out[tag + "_batch4"] = k10_reading(batch, img, dep, lut)
+        if img is not None:
+            lib = einsum_ms(batch[:1].contiguous(), img)
+    sizes = {}
+    for h, w in WIRE_DCT_SIZES:
+        tiled = np.tile(imgs[0], (-(-h // 480), -(-w // 640)))[:h, :w]
+        buf = torch.from_numpy(codec.encode_dct(tiled)).to(device)[None]
+        r = k10_reading(buf, (0, h, w), None, lut, reps=20)
+        b_ms, _ = bound_ms(r[3], r[4])
+        sizes[f"{w}x{h}"] = {"max_abs_err": r[0], "ms": r[1],
+                             "plain_ms": r[2], "bound_ms": b_ms}
+    for bad, what in ((codes.cpu(), "a CPU tensor"),
+                      (codes.to(torch.int32), "a wrong dtype")):
+        try:
+            codec.wire_unpack(bad, dep=(0, 16, 16), lut=lut)
+        except ValueError:
+            continue
+        raise AssertionError(f"K10's wrapper took {what}")
+    res = {t: {"max_abs_err": r[0], "ms": r[1], "plain_ms": r[2],
+               "bound_ms": bound_ms(r[3], r[4])[0], "bytes": r[3]}
+           for t, r in out.items()}
+    print(f"K10 against its plain version ({card_line()}): " + json.dumps(
+        {**res, "dct_sizes": sizes, "einsum_ms_dct": lib}))
+    return out, lib
+
+
+def wire_device_ms(wire, imgs, depths, device):
+    """Phase 5: K10's device time (profiler rows) on each of `check_wire`'s
+    buffers, appended to its reading."""
+    from orb_slam2_refactored_tpu_torch.ops import codec
+    from orb_slam2_refactored_tpu_torch.slam import tracking
+
+    lut = codec.log8_table(device)
+    for tag in list(wire):
+        cfg = ingest_config(**({"image_encoding": "dct"}
+                               if tag.startswith("dct") else {}))
+        img, dep = tracking.wire_sections(cfg)
+        buf = wire_batch(cfg, imgs, depths,
+                         4 if tag.endswith("batch4") else 1, device)
+        n_ops = []
+        ms, rows = profiled_ms(
+            lambda: codec.wire_unpack(buf, img, dep, lut), 20, n_ops)
+        assert n_ops[0] == 1, rows
+        wire[tag] = wire[tag][:5] + (ms,)
+        print(f"K10 device time ({tag}) {ms:.5f} ms a call: {rows}")
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the main paths
 # ---------------------------------------------------------------------------
 
@@ -1801,7 +1965,7 @@ def run_main_path(imgs, second, gt, device, local_ba, stereo=False,
     assert ate <= ATE_GATE_M, f"ATE {ate} m above the {ATE_GATE_M} m gate"
     assert lost == 0, f"{lost} frames lost"
     for k, v in launches.items():
-        if k == LARGE_KERNEL or sharded_only(k, v, tag):
+        if k == LARGE_KERNEL or off_cell(k, v, tag):
             continue  # `extraction_launches` holds K9's large kernel
         if k == LEARNED_KERNEL:
             assert v == 0, f"K7 launched on the fresh pattern's path ({tag})"
@@ -1982,7 +2146,7 @@ def run_kidnap(imgs, depths, gt, device, cfg=None):
     assert ate <= RELOC_ATE_M, ate
     assert rec, "no relocalization was recorded"
     for k, v in launches.items():
-        if k == LARGE_KERNEL or sharded_only(k, v, "cell D"):
+        if k == LARGE_KERNEL or off_cell(k, v, "cell D"):
             continue  # `extraction_launches` holds K9's large kernel
         if k in ("stereo_sad", LEARNED_KERNEL) or k in LOOP_KERNELS:
             assert v == 0, f"{k} launched on cell D"
@@ -2852,7 +3016,7 @@ def run_circuit(cell, loop, frames, gt, device, record=None, gated=True,
         return stats, tracker
     assert stats["state"] == 1, tracker.track_info[-3:]
     for k, v in launches.items():
-        if k == LARGE_KERNEL or sharded_only(k, v, f"cell {cell}"):
+        if k == LARGE_KERNEL or off_cell(k, v, f"cell {cell}"):
             continue  # `extraction_launches` holds K9's large kernel
         if k in ("stereo_sad", LEARNED_KERNEL):
             assert v == 0, f"{k} launched on cell {cell}"
@@ -3006,23 +3170,41 @@ def block_splits(n_in, n_out, block=8):
     return np.where(cut < first + count, cut - first, count).astype(np.int32)
 
 
-def run_c13(device):
-    """`--c13`: cells E and F, loop closing off and on, with K8 fed three
-    split tables through its plan (`gemm_tap_splits` replaced, the plan
-    caches cleared): the card's GEMM's (the tracker's own), one `fmaf`
-    chain an output, and splits at 8-wide input blocks only. Each run's
-    ATE pair and whether the cells' gates hold (F: loops beat no loops; E:
-    also under 6 cm) are recorded, not gated: hazard C13's margin under a
-    last-bit change of the pyramid. Returns the table."""
+K8_ORDERS = ("gemm", "chain", "block8")
+
+
+@contextlib.contextmanager
+def k8_order(order):
+    """K8 fed one of three split tables through its plan
+    (`gemm_tap_splits` replaced, the plan caches cleared): the card's
+    GEMM's (the tracker's own), one `fmaf` chain an output, or splits at
+    8-wide input blocks only: a last-bit change of the pyramid."""
     from orb_slam2_refactored_tpu_torch.ops import image as image_ops
 
     found = image_ops.gemm_tap_splits
-    orders = {
+    splits = {
         "gemm": found,
         "chain": lambda n_in, n_out, *a: image_ops.resize_taps(
             n_in, n_out)[0][:, 4].copy(),
-        "block8": lambda n_in, n_out, *a: block_splits(n_in, n_out)}
+        "block8": lambda n_in, n_out, *a: block_splits(n_in, n_out)}[order]
     caches = (image_ops._tap_records, image_ops._pyramid_plan)
+    image_ops.gemm_tap_splits = splits
+    for c in caches:
+        c.cache_clear()
+    try:
+        yield
+    finally:
+        image_ops.gemm_tap_splits = found
+        for c in caches:
+            c.cache_clear()
+
+
+def run_c13(device):
+    """`--c13`: cells E and F, loop closing off and on, under each of
+    K8's three orders (`k8_order`). Each run's ATE pair and whether the
+    cells' gates hold (F: loops beat no loops; E: also under 6 cm) are
+    recorded, not gated: hazard C13's margin under a last-bit change of
+    the pyramid. Returns the table."""
     cells = {}
     for cell in ("E", "F"):
         t0 = time.perf_counter()
@@ -3030,31 +3212,23 @@ def run_c13(device):
         print(f"cell {cell}: {len(cells[cell][0])} frames rendered in "
               f"{time.perf_counter() - t0:.1f} s")
     table = {}
-    try:
-        for order, splits in orders.items():
-            image_ops.gemm_tap_splits = splits
-            for c in caches:
-                c.cache_clear()
-            for cell, (frames, cgt) in cells.items():
-                t0 = time.perf_counter()
+    for order in K8_ORDERS:
+        for cell, (frames, cgt) in cells.items():
+            t0 = time.perf_counter()
+            with k8_order(order):
                 off, _ = run_circuit(cell, False, frames, cgt, device,
                                      gated=False)
                 on, _ = run_circuit(cell, True, frames, cgt, device,
                                     gated=False)
-                row = {"ate_off_m": off["ate_m"], "ate_on_m": on["ate_m"],
-                       "loops_closed": on["loops_closed"],
-                       "loops_beat_no_loops": on["ate_m"] < off["ate_m"],
-                       "on_under_6cm": on["ate_m"] < LOOP_ATE_M,
-                       "state_ok": [off["state"] == 1, on["state"] == 1],
-                       "lost_frames": [off["lost_frames"],
-                                       on["lost_frames"]],
-                       "wall_s": time.perf_counter() - t0}
-                table.setdefault(order, {})[cell] = row
-                print(f"c13 {order} cell {cell}: " + json.dumps(row))
-    finally:
-        image_ops.gemm_tap_splits = found
-        for c in caches:
-            c.cache_clear()
+            row = {"ate_off_m": off["ate_m"], "ate_on_m": on["ate_m"],
+                   "loops_closed": on["loops_closed"],
+                   "loops_beat_no_loops": on["ate_m"] < off["ate_m"],
+                   "on_under_6cm": on["ate_m"] < LOOP_ATE_M,
+                   "state_ok": [off["state"] == 1, on["state"] == 1],
+                   "lost_frames": [off["lost_frames"], on["lost_frames"]],
+                   "wall_s": time.perf_counter() - t0}
+            table.setdefault(order, {})[cell] = row
+            print(f"c13 {order} cell {cell}: " + json.dumps(row))
     return table
 
 
@@ -3663,7 +3837,8 @@ def mono_launch_gates(launches, tag, loop_closed=False):
     """Every kernel of the mono path launched; B9 never; the global BA's
     only where a loop closed."""
     for k, v in launches.items():
-        if k in ("stereo_sad", LEARNED_KERNEL, LARGE_KERNEL) + SHARDED_KERNELS:
+        if k in ("stereo_sad", LEARNED_KERNEL, LARGE_KERNEL,
+                 WIRE_KERNEL) + SHARDED_KERNELS:
             assert v == 0, f"{k} launched on {tag}"
         elif k in LOOP_KERNELS:
             assert (v > 0) == loop_closed, (k, v, tag)
@@ -3671,7 +3846,7 @@ def mono_launch_gates(launches, tag, loop_closed=False):
             assert v > 0, f"kernel {k} never launched on {tag}"
 
 
-def run_mono_orbit(imgs, gt, device, depth=0):
+def run_mono_orbit(imgs, gt, device, depth=0, uploaded=False):
     """Cell G: the bench's orbit through `Tracker.track_mono` twice, a
     warm-up lap (which initializes) and a measured lap, as the bench's mono
     probe runs it, every launch counter set to 0 just before the first lap
@@ -3680,7 +3855,9 @@ def run_mono_orbit(imgs, gt, device, depth=0):
     bootstrap BA's first `ba_assemble` and its `ba_solve` are recorded.
     Gates: OK at the end, >= 2 keyframes, sim3 ATE of the measured lap
     under MONO_ATE_M. `depth` > 0 runs it pipelined with that many frames
-    in flight."""
+    in flight; `uploaded` packs and uploads the lap's images once on the
+    tracker's pool (`prefetch_mono`, phase 3p) and steps them through
+    `track_mono_uploaded`, as the bench's mono probe does."""
     from orb_slam2_refactored_tpu_torch import kernels
     from orb_slam2_refactored_tpu_torch.io.evaluation import ate_rmse
     from orb_slam2_refactored_tpu_torch.optim import ba
@@ -3695,6 +3872,8 @@ def run_mono_orbit(imgs, gt, device, depth=0):
     kf_made = []
     kernels.reset_counts()
     t0 = time.perf_counter()
+    bufs = ([f.result() for f in tracker.prefetch_mono(imgs)] if uploaded
+            else None)
     for lap in range(2):
         for j in range(n):
             cur = {"k1": [], "init": [], "asm": [], "solve": []}
@@ -3708,6 +3887,8 @@ def run_mono_orbit(imgs, gt, device, depth=0):
                     st.enter_context(recording(
                         cur["solve"], (local_mapping, "ba_solve")))
                 kf_made.append(timed_frame(timer, tracker, partial(
+                    tracker.track_mono_uploaded, bufs[j],
+                    timestamp=(lap * n + j) / 30.0) if uploaded else partial(
                     tracker.track_mono, imgs[j],
                     timestamp=(lap * n + j) / 30.0)))
             if cur["init"] and tracker.state == tracking.TrackState.OK:
@@ -3736,7 +3917,8 @@ def run_mono_orbit(imgs, gt, device, depth=0):
         "fps_measured_lap": float(n / steps.sum()),
         **lap2,
         "wall_s": wall, "launches": launches}
-    mode = f", pipelined depth {depth}" if depth else ""
+    mode = (f", pipelined depth {depth}" if depth else "") + (
+        ", prefetch_mono" if uploaded else "")
     print(f"cell G (mono orbit{mode}) " + json.dumps(stats))
     print(f"keyframe stages ({stage_clock(tracker)}):")
     for line in tracker.timer.report().splitlines():
@@ -4384,7 +4566,7 @@ def run_cell_i(imgs, depths, gt, tmp):
     assert kitti_rows.shape == (n, 12), kitti_rows.shape
     assert kf_lines == len(tracker.graph.alive_kfs()), kf_lines
     for k, v in launches.items():
-        if k == LARGE_KERNEL or sharded_only(k, v, "cell I"):
+        if k == LARGE_KERNEL or off_cell(k, v, "cell I"):
             continue  # `extraction_launches` holds K9's large kernel
         if k in ("stereo_sad", "orb_desc") or k in LOOP_KERNELS:
             assert v == 0, f"{k} launched on cell I"
@@ -4894,10 +5076,12 @@ SHARDED_RANKS = 2  # phase 3n's gloo ranks, both on cuda:0
 SHARDED_TIMEOUT_S = 600
 
 
-def sharded_only(k, v, tag):
-    """True for the sharded solve's kernels, which no tracker's path
-    launches (phase 3n drives them): they must not have launched."""
-    if k in SHARDED_KERNELS:
+def off_cell(k, v, tag):
+    """True for the kernels no cell of phases 3-3o launches, which must not
+    have launched there: the sharded solve's (phase 3n drives them) and
+    K10 (the cells send raw images and f16 depth; phase 3p the bench's
+    log8 depth and the DCT image)."""
+    if k in SHARDED_KERNELS + (WIRE_KERNEL,):
         assert v == 0, f"{k} launched on {tag}"
         return True
     return False
@@ -5271,6 +5455,273 @@ def run_sharded_phase(rec, k6_call, device, tmp):
 
 
 # ---------------------------------------------------------------------------
+# phase 3p: the bench's ingest (`bench.py:98-198`, `:618-620`, `:678-680`,
+# `:758-777`): log8 depth at subsample 8 decoded by K10, the upload pool,
+# pair / chain / batch stepping, `sync_device`, `warm_stage_programs`
+# ---------------------------------------------------------------------------
+
+# the RGB-D segment's ingest modes (`bench.py:153-198`): frames a step call,
+# frames an upload
+INGEST_MODES = {"uploaded": (1, 1), "pair": (2, 1), "chain4": (4, 1),
+                "batch4_mode4": (4, 4)}
+# the stereo segment's modes (`bench.py:758-777`, depth 3): per pair and in
+# pairs (the 2-chain) held to the 3 cm gate; in chains of 4 recorded, not
+# held: 3.021 cm on the H100, where both packages read 2.53 on the CPU and
+# a last-bit change of the pyramid moves the card's reading (PERF.md §6,
+# ROADMAP.md §C, C16)
+STEREO_GATED = ("uploaded", "pair")
+STEREO_RECORDED = ("chain4",)
+# the codec's gate against the raw run (`tests/test_codec.py:99-100`)
+DCT_ATE_MARGIN_M = 0.012
+
+
+def ingest_gates(launches, tag, images, buffers, stereo):
+    """Every kernel of the path launched (K10 once an uploaded buffer where
+    it decodes, else never), none of the others."""
+    for k, v in launches.items():
+        if k == WIRE_KERNEL:
+            assert v == buffers, (tag, k, v, buffers)
+        elif k in (LARGE_KERNEL, LEARNED_KERNEL) + LOOP_KERNELS \
+                + SHARDED_KERNELS or (k == "stereo_sad" and not stereo):
+            assert v == 0, f"{k} launched on {tag}"
+        else:
+            assert v > 0, f"kernel {k} never launched on {tag}"
+    assert launches["fast"] == launches["orb_desc"] == images, launches
+    extraction_launches(launches, images, tag)
+    if stereo:  # one B9 launch a pair
+        assert launches["stereo_sad"] == images // 2, launches
+
+
+def run_ingest(first, second, gt, device, mode, stereo=False, warm=False,
+               gated=True, **kw):
+    """Cell A's frames (or, with `stereo`, cell C's pairs) through one of
+    the bench's ingest modes: every frame packed and uploaded by the
+    tracker's pool (`prefetch_rgbd`, `prefetch_rgbd_batches` or
+    `prefetch_stereo`), then stepped per frame, in pairs, in chains of 4 or
+    in [4, B] batches in mode 4, each step call timed on a synchronizing
+    host clock. The launch counters are set to 0 just before the uploads
+    and read after the flush. With `warm`, `warm_stage_programs` and
+    `sync_device` afterwards, as the bench calls them, must leave the map,
+    the counters and the trajectory as they were. Gates: ATE <= 3 cm
+    (recorded only where `gated` is false), no frame lost, the launch
+    gates (`ingest_gates`)."""
+    from orb_slam2_refactored_tpu_torch import convert, kernels
+    from orb_slam2_refactored_tpu_torch.io.evaluation import ate_rmse
+    from orb_slam2_refactored_tpu_torch.slam import tracking
+    from orb_slam2_refactored_tpu_torch.utils.timing import StageTimer
+
+    per_step, per_upload = INGEST_MODES[mode]
+    cfg = (pipelined(bench_config(True), PIPE_DEPTHS["C"]) if stereo
+           else ingest_config(**kw))
+    tag = (f"3p {'stereo' if stereo else 'RGB-D'} {mode}"
+           + "".join(f" {k}={v}" for k, v in kw.items()))
+    tracker = tracking.Tracker(cfg, device=device)
+    n = len(first)
+    second = second if stereo else [d.astype(np.float32) for d in second]
+    pack = (partial(tracking.pack_stereo, cfg) if stereo
+            else partial(tracking.pack_rgbd, cfg))
+    t0 = time.perf_counter()
+    nbytes = sum(pack(first[i], second[i]).nbytes for i in range(n)) / n
+    pack_ms = (time.perf_counter() - t0) * 1e3 / n
+    kernels.reset_counts()
+    tracker.sync_device()
+    t0 = time.perf_counter()
+    if stereo:
+        futs = tracker.prefetch_stereo(first, second)
+    elif per_upload == 1:
+        futs = tracker.prefetch_rgbd(first, second)
+    else:
+        futs = tracker.prefetch_rgbd_batches(first, second, per_upload)
+    bufs = [f.result() for f in futs]
+    torch.cuda.synchronize()
+    upload_ms = (time.perf_counter() - t0) * 1e3 / n
+    assert all(b.device == device for b in bufs), "an upload missed the card"
+    one = tracker.track_stereo_uploaded if stereo \
+        else tracker.track_rgbd_uploaded
+    chain = tracker.track_stereo_chain_uploaded if stereo \
+        else tracker.track_rgbd_chain_uploaded
+    pair = tracker.track_stereo_pair_uploaded if stereo \
+        else tracker.track_rgbd_pair_uploaded
+    timer = StageTimer(device)  # synchronizes the card at both ends
+    sizes, i = [], 0
+    while i < n:
+        k = min(per_step, n - i)
+        ts = [(i + j) / 30.0 for j in range(k)]
+        if per_upload > 1:
+            call = partial(tracker.track_rgbd_batch, None, None, ts,
+                           uploaded=bufs[i // per_upload], mode=per_step)
+        elif k == 1:
+            call = partial(one, bufs[i], ts[0])
+        elif k == 2:
+            call = partial(pair, bufs[i], bufs[i + 1], *ts)
+        else:
+            call = partial(chain, bufs[i:i + k], ts)
+        timed_frame(timer, tracker, call)
+        sizes.append(k)
+        i += k
+    tracker.flush()
+    launches = kernels.counts()
+    if warm:
+        before = (convert.map_to_numpy(tracker.map), tracker.mp_vis_dev.clone(),
+                  tracker.mp_found_dev.clone(), tracker.mp_seen_dev.clone(),
+                  np.stack(tracker.trajectory))
+        t1 = time.perf_counter()
+        tracker.warm_stage_programs()
+        warm_s = time.perf_counter() - t1
+        tracker.sync_device()
+        after = convert.map_to_numpy(tracker.map)
+        assert all(np.array_equal(after[k], v, equal_nan=True)
+                   for k, v in before[0].items()), "warm moved the map"
+        assert all(torch.equal(a, b) for a, b in zip(before[1:4], (
+            tracker.mp_vis_dev, tracker.mp_found_dev, tracker.mp_seen_dev)))
+        assert np.array_equal(before[4], np.stack(tracker.trajectory))
+    est = np.stack(tracker.trajectory)
+    assert est.shape == gt.shape and np.isfinite(est).all()
+    ate, _ = ate_rmse(est, gt, align="se3")
+    lost = sum(1 for t in tracker.track_info if t.get("lost"))
+    per_frame = np.asarray([s / k for s, k in zip(timer.samples["step"],
+                                                   sizes)]) * 1e3
+    w = WARMUP_FRAMES // per_step
+    calls = np.asarray(timer.samples["step"][w:])
+    stats = {
+        "path": tag, "frames": n, "ate_m": ate, "lost_frames": lost,
+        "keyframes_created": 1 + sum(1 for t in tracker.track_info
+                                     if t.get("kf")),
+        "bytes_per_frame": nbytes, "pack_host_ms_per_frame": pack_ms,
+        "upload_host_ms_per_frame": upload_ms, "buffers": len(bufs),
+        "step_ms_median_per_frame": float(np.median(per_frame[w:])),
+        "step_ms_p90_per_frame": float(np.percentile(per_frame[w:], 90)),
+        "fps_after_warmup": float(sum(sizes[w:]) / calls.sum()),
+        "use_ref_wait_ms_median": float(
+            np.median(tracker.use_ref_waits) * 1e3),
+        "pumps_not_ready": tracker.pumps_not_ready, "launches": launches}
+    if warm:
+        stats["warm_stage_programs_s"] = warm_s
+    print(f"main path ({tag}) " + json.dumps(stats))
+    if gated:
+        assert ate <= ATE_GATE_M, f"{tag}: ATE {ate} m above the gate"
+    assert lost == 0, f"{tag}: {lost} frames lost"
+    decodes = not stereo and (cfg.depth_encoding == "log8"
+                              or cfg.image_encoding == "dct")
+    ingest_gates(launches, tag, n * (2 if stereo else 1),
+                 len(bufs) if decodes else 0, stereo)
+    return stats
+
+
+def run_ingest_phase(imgs, depths, gt, left, right, device, wire, card):
+    """Phase 3p: cell A's 120 frames at the bench's setting (log8 at
+    subsample 8, pipelined at depth 6) once per ingest mode, then with the
+    DCT image (per frame) under JAX's codec gates against the raw run;
+    cell C's pairs through `prefetch_stereo` in the bench's three stereo
+    modes (depth 3; per pair and in pairs gated, chains of 4 recorded:
+    STEREO_RECORDED); cell G's two
+    mono laps through `prefetch_mono` (depth 6, cell G's
+    gates). `wire` is phase 2's and 5's K10 readings; each mode's row
+    prints K10's on that mode's buffer shape."""
+    runs = {}
+    for mode in ("uploaded", "pair", "chain4", "batch4_mode4"):
+        runs[mode] = run_ingest(imgs, depths, gt, device, mode,
+                                warm=mode == "uploaded")
+    runs["dct"] = run_ingest(imgs, depths, gt, device, "uploaded",
+                             image_encoding="dct")
+    raw, dct = runs["uploaded"]["ate_m"], runs["dct"]["ate_m"]
+    print(f"3p DCT against raw: ATE {dct:.7f} m against {raw:.7f} m "
+          f"(gates < {ATE_GATE_M} m and < raw + {DCT_ATE_MARGIN_M} m)")
+    assert dct < ATE_GATE_M and dct < raw + DCT_ATE_MARGIN_M, (dct, raw)
+    for mode in STEREO_GATED + STEREO_RECORDED:
+        runs[f"stereo_{mode}"] = run_ingest(
+            left, right, gt, device, mode, stereo=True,
+            gated=mode in STEREO_GATED)
+    runs["mono"] = run_mono_orbit(imgs, gt, device, depth=PIPE_DEPTHS["G"],
+                                  uploaded=True)[0]
+    print(f"phase 3p ({card}; host clock around torch.cuda.synchronize(), "
+          f"after {WARMUP_FRAMES} warm-up frames; K10 from phases 2 and 5 "
+          f"on the mode's buffer; bound = bytes / 3.35 TB/s):")
+    keys = ("ate_m", "lost_frames", "bytes_per_frame",
+            "pack_host_ms_per_frame", "upload_host_ms_per_frame",
+            "step_ms_median_per_frame", "step_ms_p90_per_frame",
+            "fps_after_warmup")
+    for name, st in runs.items():
+        if name == "mono":
+            row = {k: st[k] for k in ("ate_sim3_m", "lost_frames",
+                                      "step_ms_median", "step_ms_p90")}
+        else:
+            row = {k: st[k] for k in keys}
+            w = None
+            if not name.startswith("stereo"):
+                w = wire[("dct" if name == "dct" else "log8")
+                         + ("_batch4" if name == "batch4_mode4" else "")]
+            if w is not None:
+                row.update(k10_ms=w[1], k10_device_ms=w[5],
+                           k10_bound_ms=bound_ms(w[3], w[4])[0],
+                           k10_plain_ms=w[2],
+                           k10_launches=st["launches"][WIRE_KERNEL])
+        print(f"  {name}: " + json.dumps(row))
+    return runs
+
+
+@contextlib.contextmanager
+def reads_at_once():
+    """Every `Readback` resolved when it is first asked whether it landed,
+    as on the CPU: the pipelined schedule of a CPU run, on the card."""
+    from orb_slam2_refactored_tpu_torch.utils.readback import Readback
+
+    done = Readback.done
+
+    def landed(self):
+        self.result()
+        return True
+
+    Readback.done = landed
+    try:
+        yield
+    finally:
+        Readback.done = done
+
+
+def run_ingest_schedule(imgs, depths, gt, left, right, device, card):
+    """`--ingest`: cell C's pairs in each of the bench's stereo modes
+    (`bench.py:758-777`: per pair, pairs, chains of 4; depth 3) and cell
+    A's frames at the bench's RGB-D setting per frame and in chains of 4,
+    each with the mapper's reads taken as they land and with every read
+    resolved at once (`reads_at_once`, the CPU's schedule); then the
+    stereo modes under K8's two other orders (`k8_order`). The ATE gate is
+    recorded, not held. Tells the card's schedule apart from its numerics,
+    and measures how far a last-bit change moves each mode's ATE."""
+    table = []
+    for stereo, modes in ((True, ("uploaded", "pair", "chain4")),
+                          (False, ("uploaded", "chain4"))):
+        for mode in modes:
+            for at_once in (False, True):
+                with reads_at_once() if at_once else contextlib.nullcontext():
+                    if stereo:
+                        st = run_ingest(left, right, gt, device, mode,
+                                        stereo=True, gated=False)
+                    else:
+                        st = run_ingest(imgs, depths, gt, device, mode,
+                                        gated=False)
+                table.append({
+                    "input": "stereo" if stereo else "rgbd_log8",
+                    "mode": mode, "reads_at_once": at_once,
+                    **{k: st[k] for k in ("ate_m", "keyframes_created",
+                                          "lost_frames", "pumps_not_ready",
+                                          "step_ms_median_per_frame")}})
+                print("ingest schedule " + json.dumps(table[-1]))
+    for order in K8_ORDERS[1:]:
+        for mode in ("uploaded", "pair", "chain4"):
+            with k8_order(order):
+                st = run_ingest(left, right, gt, device, mode, stereo=True,
+                                gated=False)
+            table.append({
+                "input": "stereo", "mode": mode, "k8_order": order,
+                **{k: st[k] for k in ("ate_m", "keyframes_created",
+                                      "lost_frames", "pumps_not_ready")}})
+            print("ingest schedule " + json.dumps(table[-1]))
+    print(f"ingest schedule ({card}): gate {ATE_GATE_M} m recorded, not held")
+    return table
+
+
+# ---------------------------------------------------------------------------
 # phase 3o: the live viewer beside cell A
 # ---------------------------------------------------------------------------
 
@@ -5382,6 +5833,11 @@ def main():
                     "under three orders of K8's partial sums (the GEMM's, "
                     "one chain, 8-wide blocks), recording the ATE and the "
                     "gates without holding them")
+    ap.add_argument("--ingest", action="store_true",
+                    help="only run phase 3p's stereo modes and two RGB-D "
+                    "modes with the mapper's reads as they land and "
+                    "resolved at once (the CPU's schedule), recording the "
+                    "ATE gate without holding it")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5405,6 +5861,19 @@ def main():
         table = run_arena(torch.device("cuda:0"), card)
         print(card)
         print(json.dumps({"arena": table}))
+        return
+    if args.ingest:
+        from orb_slam2_refactored_tpu_torch import kernels
+
+        card = card_line()
+        print(card)
+        kernels.build_all()
+        imgs, depths, gt = bench_frames(N_FRAMES)
+        left, right = bench_stereo_frames(gt)
+        table = run_ingest_schedule(imgs, depths, gt, left, right,
+                                    torch.device("cuda:0"), card)
+        print(card)
+        print(json.dumps({"ingest": table}))
         return
     if args.c13:
         from orb_slam2_refactored_tpu_torch import kernels
@@ -5472,8 +5941,9 @@ def main():
     kp0 = level_keypoints(levels, ext.budgets)
     orb_r = check_orb(levels, *kp0, ext.budgets, "frame 0", timed=True)
     fb_k1, fb_k4 = check_fallback(imgs, depths, gt, device)
+    wire, wire_lib = check_wire(imgs, depths, device)
 
-    mark("2_k8_k2_k9_k3_fallback")
+    mark("2_k8_k2_k9_k3_fallback_k10")
     # ---- phase 3: the main paths ----
     # no frame builds K8's, K9's or K7's tables: each tracker built them when
     # constructed
@@ -5707,6 +6177,7 @@ def main():
           f"call, {assoc_ops[0]:g} device operations: {assoc_rows}")
     assert not [r for r in assoc_rows if "Memcpy" in r], assoc_rows
     print(f"stereo K1 call: {device_times_k1(st_pair):.5f} ms of device time")
+    wire_device_ms(wire, imgs, depths, device)
     reloc_breakdown(rec_d, tracker_d)
     # windows of a few launches come before the one-call windows of long
     # solves (`profiled_solve`) and the tracked-frame windows: on the H100
@@ -5800,6 +6271,14 @@ def main():
     del frames_f
     assert builds[0] == 0, "a pipelined frame built K8's, K9's or K7's tables"
     mark("3_m_pipelined")
+    # phase 3p: the bench's ingest (log8 depth at subsample 8 through K10,
+    # the upload pool, pair / chain / batch stepping, the DCT image, the
+    # stereo chain, the mono prefetch)
+    with counting_plan_builds([0]) as builds:
+        ingest = run_ingest_phase(imgs, depths, gt, left, right, device,
+                                  wire, card)
+    assert builds[0] == 0, "an ingest frame built K8's, K9's or K7's tables"
+    mark("3_p_ingest")
     # phase 3o: the live viewer beside cell A, and the AR cube
     run_viewer_phase(imgs, depths, gt, device, stats, tmp)
     mark("3_o_viewer")
@@ -5845,7 +6324,15 @@ def main():
                        for g in geo_runs.values()), *large_r),
     ] + [kernel_row(n, pkg + "ba_schur_sharded.cu", ref + "optim/ba.py:" + line,
                     sharded_launches[n], sharded_r[n])
-         for n, line in zip(SHARDED_KERNELS, ("319", "335", "349"))]
+         for n, line in zip(SHARDED_KERNELS, ("319", "335", "349"))] + [
+        kernel_row(WIRE_KERNEL, pkg + "wire_unpack.cu",
+                   ref + "ops/codec.py:90",
+                   ingest["dct"]["launches"][WIRE_KERNEL], wire["dct"],
+                   wire_lib)]
+    rows[-1].update({f"{k}_{t}": v for t in ("log8", "log8_batch4")
+                     for k, v in zip(("ms", "plain_ms", "device_ms"),
+                                     wire[t][1:3] + wire[t][5:])}
+                    | {"bound_ms_log8": bound_ms(*wire["log8"][3:5])[0]})
     rows[3]["max_abs_err"] = max(rows[3]["max_abs_err"], reloc_k4_err)
     for row in rows:
         row["launches_cell_3k"] = sum(g["launches"][row["name"]]
@@ -5856,6 +6343,8 @@ def main():
         row["launches_cell_i"] = stats_i["launches"][row["name"]]
         row["launches_cell_3m"] = sum(c["launches"][row["name"]]
                                       for c in pipe.values())
+        row["launches_cell_3p"] = sum(c["launches"][row["name"]]
+                                      for c in ingest.values())
     print(f"relocalization K1 and K4 calls, and one training K1 call "
           f"(cell D): {json.dumps(reloc_shapes)}")
     print(f"per frame: K1 = {', '.join(frame_k1)}; K4 = "
@@ -5885,7 +6374,12 @@ def main():
           "sharded global BA's CG) = one call of each on cell F's first LM "
           "iteration (CG iteration 0), their launches from phase 3n's "
           "world-size-1 run (dryrun's problem and cell F's first global "
-          "BA)")
+          "BA); wire_unpack (K10) = one launch on a DCT + log8 frame at "
+          "the bench's setting (image and depth decoded), its launches "
+          "from phase 3p's DCT run (one a buffer), library_ms the plain "
+          "version's einsum of the DCT half; *_log8 / *_log8_batch4: the "
+          "bench's own buffers (raw image, log8 depth at subsample 8), "
+          "one frame and a [4, B] batch")
     print("phase 3k: " + json.dumps(
         {f"{w}x{h}": {**{k: v for k, v in geo_runs.get((h, w), {}).items()
                          if k != "launches"}, **geo_checks[(h, w)]}

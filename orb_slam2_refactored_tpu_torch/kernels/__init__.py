@@ -49,6 +49,8 @@ SOURCES: Dict[str, tuple] = {
     # so the default flags change no result of these two
     "pyramid": ("pyramid.cu", []),
     "spread_topk": ("spread_topk.cu", []),
+    # K10, the packed frame's decode; `fmaf` is written out
+    "wire_unpack": ("wire_unpack.cu", []),
 }
 
 # kernel name -> launches of that kernel since the last reset
@@ -59,7 +61,8 @@ LAUNCHES: Dict[str, int] = {"hamming_best2": 0, "fast": 0, "orb_desc": 0,
                             "ba_schur_cg": 0, "orb_desc_learned": 0,
                             "pyramid": 0, "spread_topk": 0,
                             "spread_topk_large": 0, "ba_cg_ut": 0,
-                            "ba_cg_ap": 0, "ba_cg_update": 0}
+                            "ba_cg_ap": 0, "ba_cg_update": 0,
+                            "wire_unpack": 0}
 
 # collective name -> calls of the sharded solve's collectives since the last
 # reset (`optim/ba.py::collective`), and their host seconds

@@ -14,7 +14,13 @@ matching, final pose LM, found/visible statistics), the fused
 (`_initialize_mono`: windowed matching against a reference frame, the
 H/F initializer of `solvers/initializer.py`, two keyframes and their
 triangulated landmarks at unit median depth, a 2-keyframe BA), the host
-loops `track_rgbd`, `track_stereo` and `track_mono` and, with
+loops `track_rgbd`, `track_stereo` and `track_mono` (each a packed
+upload and its `*_uploaded` entry), the ingest entries (`prefetch_rgbd`,
+`prefetch_rgbd_batches`, `prefetch_stereo`, `prefetch_mono` on the upload
+pool of `utils/upload.py`; `upload_rgbd_batch`, `track_rgbd_batch`; the
+fused pair and chain steps `track_*_pair_uploaded` and
+`track_*_chain_uploaded`, `_stepk`), `sync_device`, `warm_stage_programs`
+and, with
 `enable_local_ba=True`, the local-mapping job that follows each keyframe
 (`slam/local_mapping.py`: triangulation, fusion, point culling, window BA,
 keyframe culling), run by the staged pump `_pump_mapping` (JAX's stages
@@ -56,10 +62,23 @@ sensor. `flush()` drains the queue, then the map.
 Differences of form from the JAX package:
 - the tracker runs on `cuda:0` unless the caller passes another device
   (the tests pass "cpu"); with no card and no explicit device it raises;
-- the frame is quantized on the host as the JAX package's wire format
-  quantizes it (`wire_image`: gray, uint8; depth through f16), then
-  uploaded as it is: there is no packed buffer, no k-frame or pair
-  chaining, no `*_uploaded` or `prefetch_*` entry and no batch ingest;
+- a frame goes to the card as the JAX package's packed wire buffer
+  (`pack_rgbd`, `pack_stereo`, `pack_mono`: the same bytes), one upload a
+  frame or a [k, B] batch; `_unpack_rows` / `_unpack_stereo` take the raw
+  image and f16 depth as views of it, and decode a DCT image and log8
+  depth with ONE launch of K10 (`ops/codec.py::wire_unpack`) a buffer on
+  the card (the plain decode on a CPU tracker), where JAX decodes inside
+  each step program; a buffer on another device than the tracker's
+  raises; the mono path sends raw bytes under every `image_encoding`, as
+  JAX's does;
+- `prefetch_*` futures resolve to device tensors uploaded on a stream of
+  the pool's (`utils/upload.py`); the consumer's stream waits for each
+  copy's event;
+- a fused k-frame step (`_stepk`) is k eager steps with one stacked pack
+  read, where JAX compiles one program; the near-equivalence is JAX's
+  (the map and keyframe state at most k-1 finalizes staler);
+- `sync_device` synchronizes the card; `warm_stage_programs` builds and
+  loads every kernel library (JAX compiles its stage programs' variants);
 - `jax.lax.cond(use_ref, ...)` is a Python branch on `use_ref.item()`, one
   documented host wait per frame in the middle of the step, beside the
   read of the host pack: the host cannot run a whole frame ahead of the
@@ -94,23 +113,26 @@ Differences of form from the JAX package:
 - the loop closer's RANSAC draws from a generator seeded with the keyframe
   slot, where JAX uses `PRNGKey(slot)`.
 
-Settings whose machinery this slice does not port raise NotImplementedError
-at construction; none is silently ignored.
+An unknown `depth_encoding` or `image_encoding`, or `"dct"` at a width or
+height that is not a multiple of 8, raises ValueError at construction
+(JAX falls back to the default or fails at the first frame).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import kernels, resolve_device
 from ..geometry import projection as proj
 from ..geometry import se3, sim3
-from ..ops import matching
+from ..ops import codec, matching
+from ..ops.codec import LOG8_DMAX, LOG8_DMIN  # noqa: F401 (JAX's names)
 from ..ops.orb import OrbExtractor
 from ..ops.stereo import stereo_associate
 from ..optim.pose_opt import pose_optimize
@@ -118,6 +140,7 @@ from ..solvers.initializer import initialize
 from ..solvers.ransac import draw_samples, horn_ransac, pnp_ransac
 from ..utils.readback import Readback
 from ..utils.timing import StageTimer
+from ..utils.upload import UploadPool, ready
 from .frame import FrameData, scale_factors
 from .local_mapping import LocalMapper
 from .loop_closing import LoopCloser
@@ -197,14 +220,135 @@ class TrackerConfig:
                 "landmark ids would lose precision in the f32 host pack")
 
 
-def _unsupported(cfg: TrackerConfig) -> List[str]:
-    """Settings that need machinery this slice does not port."""
-    out = []
-    if cfg.depth_encoding != "f16":
-        out.append(f"depth_encoding={cfg.depth_encoding!r} (wire formats)")
-    if cfg.image_encoding != "raw":
-        out.append(f"image_encoding={cfg.image_encoding!r} (wire formats)")
+def _packed_depth_hw(cfg: TrackerConfig) -> Tuple[int, int]:
+    """The depth map's shape on the wire: subsampled s x s (ceil)."""
+    s = cfg.depth_subsample
+    return -(-cfg.height // s), -(-cfg.width // s)
+
+
+def _packed_img_nbytes(cfg: TrackerConfig) -> int:
+    """The image's bytes on the wire: raw uint8, or the DCT codec's."""
+    if cfg.image_encoding == "dct":
+        return codec.encoded_nbytes(cfg.height, cfg.width)
+    return cfg.height * cfg.width
+
+
+def packed_rgbd_nbytes(cfg: TrackerConfig) -> int:
+    h, w = _packed_depth_hw(cfg)
+    return _packed_img_nbytes(cfg) + h * w * (
+        1 if cfg.depth_encoding == "log8" else 2)
+
+
+def wire_sections(cfg: TrackerConfig):
+    """What K10 decodes in a packed RGB-D row: the DCT image's section
+    (offset, H, W) or None for a raw image, and the log8 depth's (offset,
+    h, w) or None for f16 depth."""
+    h, w = _packed_depth_hw(cfg)
+    img = ((0, cfg.height, cfg.width) if cfg.image_encoding == "dct"
+           else None)
+    dep = ((_packed_img_nbytes(cfg), h, w) if cfg.depth_encoding == "log8"
+           else None)
+    return img, dep
+
+
+def _into(out, n: int) -> np.ndarray:
+    if out is None:
+        return np.empty(n, np.uint8)
+    if out.shape != (n,) or out.dtype != np.uint8:
+        raise ValueError(f"a packed frame of {n} bytes does not fit "
+                         f"{out.dtype} {out.shape}")
     return out
+
+
+def pack_rgbd(cfg: TrackerConfig, img, depth, out=None) -> np.ndarray:
+    """JAX's `_pack_rgbd`, byte for byte: the gray image (`wire_image`,
+    truncated; DCT-coded under `image_encoding="dct"`), then the depth,
+    subsampled s x s unless it arrives subsampled, as f16 or log8 codes
+    (0 for a depth <= 0, beyond LOG8_DMAX or NaN). Written into `out` (a
+    uint8 array of the packed size) when given."""
+    img = wire_image(img, rint=False)
+    if cfg.image_encoding == "dct":
+        img = codec.encode_dct(img)
+    s = cfg.depth_subsample
+    depth = np.asarray(depth)
+    if s > 1 and depth.shape[0] == cfg.height:
+        depth = depth[::s, ::s]
+    if cfg.depth_encoding == "log8":
+        dep = codec.encode_log8(depth)
+    else:
+        dep = np.ascontiguousarray(depth, np.float16).view(np.uint8)
+    hw = img.size
+    out = _into(out, hw + dep.size)
+    out[:hw] = img.reshape(-1)
+    out[hw:] = dep.reshape(-1)
+    return out
+
+
+def pack_mono(img, out=None) -> np.ndarray:
+    """JAX's `_pack_mono`: the gray image rounded to uint8 (`wire_image`),
+    [H, W]; the raw bytes whatever `image_encoding` says, as JAX's mono
+    path sends them."""
+    img = wire_image(img, rint=True)
+    if out is None:
+        return img
+    out[...] = img.reshape(out.shape)
+    return out
+
+
+def pack_stereo(cfg: TrackerConfig, img_l, img_r, out=None) -> np.ndarray:
+    """JAX's `_pack_stereo`, byte for byte: both images rounded to uint8
+    gray, each DCT-coded under `image_encoding="dct"`, left then right."""
+    bufs = []
+    for img in (img_l, img_r):
+        img = wire_image(img, rint=True)
+        if cfg.image_encoding == "dct":
+            img = codec.encode_dct(img)
+        bufs.append(img.reshape(-1))
+    n = bufs[0].size
+    out = _into(out, n + bufs[1].size)
+    out[:n] = bufs[0]
+    out[n:] = bufs[1]
+    return out
+
+
+def _check_wire(cfg: TrackerConfig):
+    """The wire encodings JAX's tracker reads; an unknown name raises
+    rather than falling through to the default as it does there."""
+    if cfg.depth_encoding not in ("f16", "log8"):
+        raise ValueError(f"depth_encoding={cfg.depth_encoding!r}: 'f16' or "
+                         "'log8'")
+    if cfg.image_encoding not in ("raw", "dct"):
+        raise ValueError(f"image_encoding={cfg.image_encoding!r}: 'raw' or "
+                         "'dct'")
+    if cfg.image_encoding == "dct" and (cfg.height % codec.BLOCK
+                                        or cfg.width % codec.BLOCK):
+        raise ValueError(f"image_encoding='dct' needs H and W multiples of "
+                         f"{codec.BLOCK}, got {cfg.height}x{cfg.width}")
+
+
+def _f16_view(b: torch.Tensor) -> torch.Tensor:
+    """The f16 values of a byte slice: a view, or a copy when the slice
+    starts at an odd byte (odd H*W, or an odd row length in a batch)."""
+    if b.storage_offset() % 2:
+        b = b.clone()
+    return b.view(torch.float16)
+
+
+class _RowRead:
+    """One row of a stacked pack read (a chain's, or the deferred packs
+    of a batch): `done()`, `result()` as `Readback`'s."""
+
+    __slots__ = ("_read", "_row")
+
+    def __init__(self, read: Readback, row: int):
+        self._read = read
+        self._row = row
+
+    def done(self) -> bool:
+        return self._read.done()
+
+    def result(self) -> np.ndarray:
+        return self._read.result()[self._row]
 
 
 def _make_host_pack(pose, vel_new, n_inl, n_mm, t_close, u_close, used_ref,
@@ -232,12 +376,14 @@ class Tracker:
     tensors."""
 
     def __init__(self, cfg: TrackerConfig, device=None):
-        bad = _unsupported(cfg)
-        if bad:
-            raise NotImplementedError(
-                "not ported in this slice: " + "; ".join(bad))
+        _check_wire(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
+        # K10's log8 table, on the tracker's device; the upload pool of
+        # the `prefetch_*` entries, made at their first call
+        self._log8_lut = (codec.log8_table(self.device)
+                          if cfg.depth_encoding == "log8" else None)
+        self._upload_pool: Optional[UploadPool] = None
         self._set_intrinsics()
         self.extractor = OrbExtractor(
             cfg.height, cfg.width, cfg.n_features, cfg.scale_factor,
@@ -718,51 +864,281 @@ class Tracker:
     def _t(self, a, dtype=None):
         return torch.as_tensor(np.asarray(a), device=self.device, dtype=dtype)
 
+    # ------------------------------------------------------------------
+    # the packed wire: one upload a frame (or a [k, B] batch), unpacked on
+    # the device (JAX `_unpack_impl`, `_unpack_stereo_impl`)
+    # ------------------------------------------------------------------
+
+    def _unpack_rows(self, buf: torch.Tensor):
+        """The (image, depth) of each row of a [k, B] packed RGB-D buffer:
+        the raw image a uint8 view, f16 depth a float16 view (cast in
+        `_prepare_impl`); a DCT image and log8 depth decoded by ONE K10
+        launch for all rows on the card, by `wire_unpack_plain` on the
+        CPU."""
+        cfg = self.cfg
+        buf = self._ready(buf)
+        H, W = cfg.height, cfg.width
+        h, w = _packed_depth_hw(cfg)
+        ib = _packed_img_nbytes(cfg)
+        dct = cfg.image_encoding == "dct"
+        log8 = cfg.depth_encoding == "log8"
+        if buf.dim() != 2 or buf.dtype != torch.uint8 \
+                or buf.shape[1] != packed_rgbd_nbytes(cfg):
+            raise ValueError(f"a packed RGB-D batch is uint8 [k, "
+                             f"{packed_rgbd_nbytes(cfg)}], got {buf.dtype} "
+                             f"{tuple(buf.shape)}")
+        img = dep = None
+        if dct or log8:
+            sections = wire_sections(cfg)
+            if self.device.type == "cpu":
+                img, dep = codec.wire_unpack_plain(buf, *sections)
+            else:
+                img, dep = codec.wire_unpack(buf, *sections, self._log8_lut)
+        rows = []
+        for r in range(buf.shape[0]):
+            im = img[r] if dct else buf[r, :ib].view(H, W)
+            de = (dep[r] if log8
+                  else _f16_view(buf[r, ib:ib + 2 * h * w]).view(h, w))
+            rows.append((im, de))
+        return rows
+
+    def _ready(self, buf: torch.Tensor) -> torch.Tensor:
+        """`buf` usable on the tracker's stream (`ready`). A buffer on
+        another device raises: a card tracker never decodes on the host,
+        nor steps on an image that lies elsewhere."""
+        d = buf.device
+        if d.type != self.device.type or (
+                self.device.index is not None and d.index != self.device.index):
+            raise ValueError(f"a packed buffer on {d}; the tracker runs on "
+                             f"{self.device}")
+        return ready(buf)
+
+    def _unpack(self, buf: torch.Tensor):
+        """(image, depth) of one packed RGB-D buffer ([B])."""
+        return self._unpack_rows(buf.reshape(1, -1))[0]
+
+    def _unpack_stereo(self, buf: torch.Tensor):
+        """(left, right) of one packed stereo buffer: uint8 views, or both
+        DCT images decoded by one K10 launch (the plain decode on the
+        CPU)."""
+        cfg = self.cfg
+        buf = self._ready(buf)
+        H, W = cfg.height, cfg.width
+        ib = _packed_img_nbytes(cfg)
+        if buf.dtype != torch.uint8 or buf.numel() != 2 * ib:
+            raise ValueError(f"a packed stereo pair is uint8 [{2 * ib}], got "
+                             f"{buf.dtype} {tuple(buf.shape)}")
+        rows = buf.reshape(2, ib)
+        if cfg.image_encoding != "dct":
+            return rows[0].view(H, W), rows[1].view(H, W)
+        unpack = (codec.wire_unpack_plain if self.device.type == "cpu"
+                  else codec.wire_unpack)
+        img, _ = unpack(rows, (0, H, W), None)
+        return img[0], img[1]
+
+    def _upload(self, packed: np.ndarray) -> torch.Tensor:
+        """One synchronous upload of packed bytes from the calling thread."""
+        return torch.from_numpy(packed).to(self.device)
+
+    def _pool(self) -> UploadPool:
+        if self._upload_pool is None:
+            self._upload_pool = UploadPool(self.device)
+        return self._upload_pool
+
+    def _step_args(self):
+        """The tracker's device state a step reads, after the frame."""
+        return (self.last_frame, self.last_mp_dev, self.map, self.pose_dev,
+                self.velocity_dev, max(self.ref_kf, 0), self.mp_vis_dev,
+                self.mp_found_dev, self.mp_seen_dev, self.fidx,
+                self.local_mask_dev)
+
     def track_rgbd(self, img, depth, timestamp: float = 0.0):
         """Process one RGB-D frame (gray or RGB image, depth in metres);
-        returns the world->camera pose f32[7]. The image is truncated to
-        uint8 gray and the depth rounded to f16, as the JAX package's
-        `_pack_rgbd` sends them."""
-        img_t = self._t(wire_image(img, rint=False))
-        depth = np.asarray(depth)
-        s = self.cfg.depth_subsample
-        if s > 1 and depth.shape[0] == self.cfg.height:
-            depth = depth[::s, ::s]
-        depth_t = self._t(np.asarray(depth, np.float16).astype(np.float32))
+        returns the world->camera pose f32[7]. The frame is packed as the
+        JAX package's `_pack_rgbd` packs it (`pack_rgbd`), uploaded in one
+        copy and tracked by `track_rgbd_uploaded`."""
+        return self.track_rgbd_uploaded(
+            self._upload(pack_rgbd(self.cfg, img, depth)), timestamp)
+
+    def prefetch_rgbd(self, imgs, depths):
+        """Pack and upload frames on the upload pool; one Future a frame,
+        resolving to its packed buffer on the device, for
+        `track_rgbd_uploaded` (JAX `prefetch_rgbd`)."""
+        n = packed_rgbd_nbytes(self.cfg)
+        return [self._pool().submit(
+            (n,), lambda out, i=i: pack_rgbd(self.cfg, imgs[i], depths[i],
+                                             out=out))
+            for i in range(len(imgs))]
+
+    def prefetch_rgbd_batches(self, imgs, depths, k: int):
+        """Like `prefetch_rgbd`, k frames a transfer: one Future a batch,
+        resolving to a [k, B] buffer for `track_rgbd_batch(uploaded=)`."""
+        n = packed_rgbd_nbytes(self.cfg)
+
+        def fill(out, s):
+            for r in range(out.shape[0]):
+                pack_rgbd(self.cfg, imgs[s + r], depths[s + r], out=out[r])
+
+        return [self._pool().submit(
+            (min(s + k, len(imgs)) - s, n), lambda out, s=s: fill(out, s))
+            for s in range(0, len(imgs), k)]
+
+    def upload_rgbd_batch(self, imgs, depths) -> torch.Tensor:
+        """Pack k RGB-D frames and upload them as ONE [k, B] transfer from
+        the calling thread, for `track_rgbd_batch(uploaded=)`."""
+        return self._upload(np.stack([pack_rgbd(self.cfg, i, d)
+                                      for i, d in zip(imgs, depths)]))
+
+    def track_rgbd_uploaded(self, buf, timestamp: float = 0.0):
+        """Track one RGB-D frame from its packed buffer on the device (see
+        `prefetch_rgbd`): the same step as `track_rgbd`, on the unpacked
+        tensors."""
+        img, dep = self._unpack(buf)
         return self._run_frame(
-            lambda: self._prepare_impl(img_t, depth_t),
-            lambda: self._step_impl(
-                img_t, depth_t, self.last_frame, self.last_mp_dev, self.map,
-                self.pose_dev, self.velocity_dev, max(self.ref_kf, 0),
-                self.mp_vis_dev, self.mp_found_dev, self.mp_seen_dev,
-                self.fidx, self.local_mask_dev),
+            lambda: self._prepare_impl(img, dep),
+            lambda: self._step_impl(img, dep, *self._step_args()),
             timestamp)
+
+    def track_rgbd_pair_uploaded(self, buf_a, buf_b, ts_a: float = 0.0,
+                                 ts_b: float = 0.0):
+        """Track two RGB-D frames through the fused step (`_stepk`, k = 2):
+        one stacked pack read for both. Outside pipelined OK state each
+        goes through `track_rgbd_uploaded`. Near-equivalent to per-frame
+        stepping: frame b sees the map at most one finalize staler."""
+        return self.track_rgbd_chain_uploaded([buf_a, buf_b], [ts_a, ts_b])
+
+    def track_rgbd_chain_uploaded(self, bufs, timestamps=None):
+        """Track k RGB-D frames through the chained step (`_stepk`): one
+        stacked k-row pack read. Outside pipelined OK state (or for k < 2)
+        each goes through `track_rgbd_uploaded`. The map the chain sees is
+        up to k-1 finalizes staler (keep k <= pipeline_depth)."""
+        k = len(bufs)
+        timestamps = [0.0] * k if timestamps is None else list(timestamps)
+        if not (self.cfg.pipelined and self.state == TrackState.OK
+                and k >= 2):
+            for b, ts in zip(bufs, timestamps):
+                self.track_rgbd_uploaded(b, ts)
+            return self.pose
+        return self._run_chain([self._unpack(b) for b in bufs], timestamps)
+
+    def track_rgbd_batch(self, imgs, depths, timestamps=None, uploaded=None,
+                         paired: bool = False, mode: int = 0):
+        """Track k RGB-D frames from one [k, B] upload (`upload_rgbd_batch`
+        of `imgs` and `depths`, or `uploaded`, e.g. from
+        `prefetch_rgbd_batches`), decoded by one K10 launch. `mode` frames
+        a step (1: per frame; 2: fused pairs; 4: chained quads, then pairs,
+        then single frames for the tail, in pipelined OK state);
+        `paired=True` is mode 2. Per-frame stepping is `track_rgbd`'s, and
+        with `TPU_SLAM_DEFER_PACKS` set (pipelined, k <= pipeline_depth)
+        its pack reads become one stacked read for the batch. Returns a
+        pose a frame; a fused step reports its last frame's pose for each
+        of its frames."""
+        k = len(imgs) if imgs is not None else int(uploaded.shape[0])
+        timestamps = [0.0] * k if timestamps is None else list(timestamps)
+        batch = (self.upload_rgbd_batch(imgs, depths) if uploaded is None
+                 else uploaded)
+        rows = self._unpack_rows(batch)
+        cfg = self.cfg
+        defer = (cfg.pipelined and k <= max(int(cfg.pipeline_depth), 1)
+                 and bool(os.environ.get("TPU_SLAM_DEFER_PACKS")))
+        mode = mode or (2 if paired else 1)
+
+        def fused_ok():
+            return cfg.pipelined and self.state == TrackState.OK
+
+        def one(j, defer_fetch=False):
+            img, dep = rows[j]
+            return self._run_frame(
+                lambda: self._prepare_impl(img, dep),
+                lambda: self._step_impl(img, dep, *self._step_args()),
+                timestamps[j], defer_fetch=defer_fetch)
+
+        poses = []
+        if mode >= 2:
+            i = 0
+            while mode >= 4 and i + 3 < k and fused_ok():
+                self._run_chain(rows[i:i + 4], timestamps[i:i + 4])
+                poses.extend([self.pose] * 4)
+                i += 4
+            while i + 1 < k and fused_ok():
+                self._run_chain(rows[i:i + 2], timestamps[i:i + 2])
+                poses.extend([self.pose] * 2)
+                i += 2
+            for j in range(i, k):
+                poses.append(one(j))
+            return poses
+        for j in range(k):
+            poses.append(one(j, defer_fetch=defer))
+        if defer:
+            self._flush_deferred_packs()
+        return poses
 
     def track_stereo(self, img_l, img_r, timestamp: float = 0.0):
         """Process one rectified stereo pair (gray or RGB images); returns
-        the world->camera pose f32[7]. Each image is rounded to uint8 gray,
-        as the JAX package's `_pack_stereo` sends it."""
-        l_t = self._t(wire_image(img_l, rint=True))
-        r_t = self._t(wire_image(img_r, rint=True))
+        the world->camera pose f32[7]. The pair is packed as the JAX
+        package's `_pack_stereo` packs it (`pack_stereo`), uploaded in one
+        copy and tracked by `track_stereo_uploaded`."""
+        return self.track_stereo_uploaded(
+            self._upload(pack_stereo(self.cfg, img_l, img_r)), timestamp)
+
+    def prefetch_stereo(self, imgs_l, imgs_r):
+        """Pack and upload stereo pairs on the upload pool; one Future a
+        pair (the stereo mirror of `prefetch_rgbd`)."""
+        n = 2 * _packed_img_nbytes(self.cfg)
+        return [self._pool().submit(
+            (n,), lambda out, i=i: pack_stereo(self.cfg, imgs_l[i],
+                                               imgs_r[i], out=out))
+            for i in range(len(imgs_l))]
+
+    def track_stereo_uploaded(self, buf, timestamp: float = 0.0):
+        """Track one stereo pair from its packed buffer on the device."""
+        left, right = self._unpack_stereo(buf)
         return self._run_frame(
-            lambda: self._prepare_stereo_impl(l_t, r_t),
-            lambda: self._step_stereo_impl(
-                l_t, r_t, self.last_frame, self.last_mp_dev, self.map,
-                self.pose_dev, self.velocity_dev, max(self.ref_kf, 0),
-                self.mp_vis_dev, self.mp_found_dev, self.mp_seen_dev,
-                self.fidx, self.local_mask_dev),
+            lambda: self._prepare_stereo_impl(left, right),
+            lambda: self._step_stereo_impl(left, right, *self._step_args()),
             timestamp)
+
+    def track_stereo_pair_uploaded(self, buf_a, buf_b, ts_a: float = 0.0,
+                                   ts_b: float = 0.0):
+        """The stereo mirror of `track_rgbd_pair_uploaded`."""
+        return self.track_stereo_chain_uploaded([buf_a, buf_b], [ts_a, ts_b])
+
+    def track_stereo_chain_uploaded(self, bufs, timestamps=None):
+        """The stereo mirror of `track_rgbd_chain_uploaded`."""
+        k = len(bufs)
+        timestamps = [0.0] * k if timestamps is None else list(timestamps)
+        if not (self.cfg.pipelined and self.state == TrackState.OK
+                and k >= 2):
+            for b, ts in zip(bufs, timestamps):
+                self.track_stereo_uploaded(b, ts)
+            return self.pose
+        return self._run_chain([self._unpack_stereo(b) for b in bufs],
+                               timestamps, stereo=True)
 
     def track_mono(self, img, timestamp: float = 0.0):
         """Process one monocular frame (gray or RGB image); returns the
-        world->camera pose f32[7]. The image is rounded to uint8 gray, as
-        the JAX package's `_pack_mono` sends it. Until the map exists, each
-        frame goes to `_initialize_mono` (`MonocularInitialization`,
-        `src/Tracking.cc:1020-1185`)."""
-        img_t = self._t(wire_image(img, rint=True))
+        world->camera pose f32[7]. The image is rounded to uint8 gray
+        (`pack_mono`: raw bytes under every `image_encoding`, as JAX's mono
+        path sends them), uploaded and tracked by `track_mono_uploaded`."""
+        return self.track_mono_uploaded(self._upload(pack_mono(img)),
+                                        timestamp)
+
+    def prefetch_mono(self, imgs):
+        """Pack and upload mono frames on the upload pool; one Future a
+        frame (the mirror of `prefetch_rgbd`)."""
+        shape = (self.cfg.height, self.cfg.width)
+        return [self._pool().submit(
+            shape, lambda out, i=i: pack_mono(imgs[i], out=out))
+            for i in range(len(imgs))]
+
+    def track_mono_uploaded(self, img, timestamp: float = 0.0):
+        """Track one mono frame from its uint8 image on the device. Until
+        the map exists, each frame goes to `_initialize_mono`
+        (`MonocularInitialization`, `src/Tracking.cc:1020-1185`)."""
+        img = self._ready(img).reshape(self.cfg.height, self.cfg.width)
         return self._run_frame(
-            lambda: self._prepare_mono_impl(img_t),
-            lambda: self._mono_step(self._prepare_mono_impl(img_t)),
+            lambda: self._prepare_mono_impl(img),
+            lambda: self._mono_step(self._prepare_mono_impl(img)),
             timestamp, init_fn=self._initialize_mono)
 
     def _mono_step(self, frame: FrameData):
@@ -806,12 +1182,14 @@ class Tracker:
             if self.state != TrackState.OK:
                 break
 
-    def _run_frame(self, prep_fn, step_fn, timestamp: float, init_fn=None):
+    def _run_frame(self, prep_fn, step_fn, timestamp: float, init_fn=None,
+                   defer_fetch: bool = False):
         """One frame: through the in-flight queue in pipelined OK state;
         otherwise (or synchronous) the queue and the mapping job are
         completed first, as JAX's `flush` does there."""
         if self.cfg.pipelined and self.state == TrackState.OK:
-            return self._run_frame_pipelined(step_fn, timestamp)
+            return self._run_frame_pipelined(step_fn, timestamp,
+                                              defer_fetch=defer_fetch)
         self._drain_queue()
         self._complete_mapping()
         if self.state == TrackState.NOT_INITIALIZED:
@@ -880,14 +1258,20 @@ class Tracker:
     # reference's mapping thread lags tracking too, src/System.cc:398-411)
     # ------------------------------------------------------------------
 
-    def _run_frame_pipelined(self, step_fn, timestamp: float):
+    def _run_frame_pipelined(self, step_fn, timestamp: float,
+                             defer_fetch: bool = False):
+        """Dispatch a frame from the previous frame's device state and queue
+        its pack's read; with `defer_fetch` (a batch's per-frame steps) the
+        raw pack is queued, and `_flush_deferred_packs` reads the batch's
+        packs in one stacked read."""
         with self.timer.time("track.dispatch"):
             (frame, pose_dev, vel_dev, feat_mp_dev, host_pack,
              self.mp_vis_dev, self.mp_found_dev,
              self.mp_seen_dev, self.fidx) = step_fn()
         q = self._pending_q
-        q.append((frame, feat_mp_dev, Readback(host_pack), timestamp,
-                  self.ref_kf))
+        q.append((frame, feat_mp_dev,
+                  host_pack if defer_fetch else Readback(host_pack),
+                  timestamp, self.ref_kf))
         # the device-side tracking state advances at once
         self.pose_dev, self.velocity_dev = pose_dev, vel_dev
         self.last_frame = frame
@@ -902,12 +1286,82 @@ class Tracker:
         self.frame_id += 1
         return self.pose
 
+    # ------------------------------------------------------------------
+    # fused stepping: k frames stepped back to back from one map, one
+    # reference keyframe and one covisibility window, their packs read in
+    # one stacked read (JAX `_stepk_impl`, `_run_chain`, `_finish_chain`)
+    # ------------------------------------------------------------------
+
+    def _stepk(self, unpacked, stereo: bool = False):
+        """k `_step_impl` (or `_step_stereo_impl`) calls, frame i+1 from
+        frame i's outputs, with no finalize or pump between them; each
+        step keeps its one `use_ref.item()` wait. Returns the k (frame,
+        pose, velocity, landmarks), the stacked packs and the counters."""
+        step = self._step_stereo_impl if stereo else self._step_impl
+        (f, fmp, m, pose, vel, ref, mp_vis, mp_found, mp_seen, fidx,
+         local_mask) = self._step_args()
+        outs, packs = [], []
+        for u in unpacked:
+            (f, pose, vel, fmp, pack, mp_vis, mp_found, mp_seen,
+             fidx) = step(*u, f, fmp, m, pose, vel, ref, mp_vis, mp_found,
+                          mp_seen, fidx, local_mask)
+            outs.append((f, pose, vel, fmp))
+            packs.append(pack)
+        return outs, torch.stack(packs), mp_vis, mp_found, mp_seen, fidx
+
+    def _run_chain(self, unpacked, timestamps, stereo: bool = False):
+        """Dispatch a chained step over the unpacked frames and queue all
+        of them (`_finish_chain`)."""
+        with self.timer.time("track.dispatch"):
+            (outs, packs, self.mp_vis_dev, self.mp_found_dev,
+             self.mp_seen_dev, self.fidx) = self._stepk(unpacked, stereo)
+        return self._finish_chain(outs, packs, timestamps)
+
+    def _finish_chain(self, outs, packs, timestamps):
+        """The host epilogue of a fused step: one `Readback` of the stacked
+        packs, k queue entries each reading its own row, then the per-frame
+        epilogue k times (finalize past the depth, one pump, the frame
+        counter), as JAX's."""
+        read = Readback(packs)
+        q = self._pending_q
+        for i, (f, _, _, fmp) in enumerate(outs):
+            q.append((f, fmp, _RowRead(read, i), timestamps[i],
+                      self.ref_kf))
+        f, pose, vel, fmp = outs[-1]
+        self.pose_dev, self.velocity_dev = pose, vel
+        self.last_frame = f
+        self.last_mp_dev = fmp
+        for _ in range(len(outs)):
+            while len(q) > max(int(self.cfg.pipeline_depth), 1):
+                with self.timer.time("track.finalize"):
+                    self._finalize_pending(q.pop(0))
+                if self.state != TrackState.OK:
+                    break  # the loss emptied the queue
+            self._pump_mapping()
+            self.frame_id += 1
+        return self.pose
+
+    def _flush_deferred_packs(self):
+        """Stack every still-raw pack in the queue into one tensor and one
+        `Readback`; the entries get row reads. Partial batches and a queue
+        a loss emptied need no special case."""
+        q = self._pending_q
+        raw = [i for i, e in enumerate(q) if isinstance(e[2], torch.Tensor)]
+        if not raw:
+            return
+        read = Readback(torch.stack([q[i][2] for i in raw]))
+        for row, i in enumerate(raw):
+            e = q[i]
+            q[i] = e[:2] + (_RowRead(read, row),) + e[3:]
+
     def _finalize_pending(self, pending):
         """Read a queued frame's pack and act on it: the loss check (which
         discards every frame still in flight), the pose, the keyframe
         decision and, for a keyframe, its creation with the newer frame's
         device state kept."""
         frame, feat_mp_dev, pack_read, ts, disp_ref = pending
+        if isinstance(pack_read, torch.Tensor):  # a deferred pack
+            pack_read = Readback(pack_read)
         pack = pack_read.result()
         n_inl = int(pack[14])
         if n_inl < self.cfg.min_inliers_track:
@@ -951,6 +1405,31 @@ class Tracker:
         self.track_info.append(
             {"inliers": n_inl, "mm": int(pack[15]), "kf": bool(need_kf),
              "ref_fallback": bool(pack[18]), "lost": False})
+
+    def sync_device(self):
+        """A device barrier (JAX `sync_device`): waits for all the tracker
+        queued on its device, the map's write chain and a pending global
+        BA's poses, whose first row it reads."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        sinks = [self.map.kf_pose]
+        if self._gba_pending is not None:
+            sinks.append(self._gba_pending["gba_pose"])
+        for t in sinks:
+            Readback(t[:1]).result()
+
+    def warm_stage_programs(self):
+        """Build and load every kernel library of the port (those the
+        tracker's stages launch among them), then `sync_device` (JAX's
+        compiles every keyframe-stage program variant by no-op calls): no
+        first use mid-run pays a build. Map, counters and trajectory are left as they were. A
+        no-op on the CPU, where no kernel launches."""
+        if self.device.type != "cuda":
+            return
+        kernels.build_all()
+        for n in kernels.SOURCES:
+            kernels.load(n)
+        self.sync_device()
 
     def reset_map(self):
         """Discard the map and return to NOT_INITIALIZED, keeping the

@@ -21,15 +21,21 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = r"""
 import sys
 import torch
+import torch.distributed as dist
 torch.set_num_threads(1)
 sys.path.insert(0, sys.argv[4])
 from orb_slam2_refactored_tpu_torch.parallel.distributed import (
     initialize, run_multiprocess_ba)
 pid, nproc, coord = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
 dev = initialize(coord, nproc, pid, backend="gloo", device="cpu")
-assert dev.type == "cpu", dev
-c0, c1 = run_multiprocess_ba(K=64, N=128, P=2048, device="cpu")
-print(f"RESULT {pid} {c0.hex()} {c1.hex()}", flush=True)
+try:
+    assert dev.type == "cpu", dev
+    c0, c1 = run_multiprocess_ba(K=64, N=128, P=2048, device="cpu")
+    print(f"RESULT {pid} {c0.hex()} {c1.hex()}", flush=True)
+    dist.barrier()
+finally:
+    # gloo's threads abort the process at exit while its group lives
+    dist.destroy_process_group()
 """
 
 

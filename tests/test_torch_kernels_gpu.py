@@ -1419,3 +1419,129 @@ def test_vocabulary_training_and_bow_on_the_card_equal_plain():
     assert torch.equal(dbs[0].bow_ids.cpu(), dbs[1].bow_ids)
     assert float((s_k[0].cpu() - s_p[0]).abs().max()) <= 1e-6
     assert torch.equal(s_k[1].cpu(), s_p[1])
+
+
+# K10 (`csrc/wire_unpack.cu`): the packed frame's decode
+
+def _dct_buffer(h, w, k=1, seed=21):
+    """k rows of a rendered (VGA-scaled) view's DCT code, the last row a
+    noise image's (every coefficient byte in use)."""
+    from orb_slam2_refactored_tpu_torch.ops import codec
+
+    rng = np.random.default_rng(seed)
+    scene = SyntheticScene(width=w, height=h, fx=0.8125 * w, fy=0.8125 * w)
+    rows = []
+    for r in range(k):
+        if r == k - 1 and k > 1:
+            img = rng.uniform(0, 255.99, (h, w)).astype(np.float32)
+        else:
+            img = np.clip(scene.render(orbit_trajectory(4)[r % 4])[0], 0, 255)
+        rows.append(codec.encode_dct(img.astype(np.uint8)))
+    return torch.from_numpy(np.stack(rows))
+
+
+@pytest.mark.parametrize("hw,k", [((480, 640), 1), ((480, 752), 1),
+                                  ((1200, 1920), 1), ((2160, 3840), 1),
+                                  ((480, 640), 4)])
+def test_wire_unpack_dct_equals_plain(hw, k):
+    """The DCT image within 1e-3 gray of the plain decode (the sums are
+    added in another order), one launch for k rows."""
+    from orb_slam2_refactored_tpu_torch.ops import codec
+
+    dev = _card()
+    h, w = hw
+    buf = _dct_buffer(h, w, k)
+    kernels.reset_counts()
+    img, dep = codec.wire_unpack(buf.to(dev), img=(0, h, w))
+    torch.cuda.synchronize()
+    assert dep is None and kernels.LAUNCHES["wire_unpack"] == 1
+    ref, _ = codec.wire_unpack_plain(buf, img=(0, h, w))
+    assert img.shape == (k, h, w) and img.dtype == torch.float32
+    assert float((img.cpu() - ref).abs().max()) <= 1e-3
+    one = codec.decode_dct(buf[0].to(dev), h, w)
+    assert torch.equal(one, img[0])
+
+
+def test_wire_unpack_log8_equals_plain_bit_for_bit():
+    """Every code, and a VGA frame's raw + log8 rows at subsample 8 and
+    at 1, decoded through the card's table: the plain decode on the card
+    bit for bit."""
+    from orb_slam2_refactored_tpu_torch.ops import codec
+    from orb_slam2_refactored_tpu_torch.slam.tracking import (
+        TrackerConfig, pack_rgbd)
+
+    dev = _card()
+    lut = codec.log8_table(dev)
+    codes = torch.arange(256, dtype=torch.uint8).reshape(1, 256).to(dev)
+    _, dep = codec.wire_unpack(codes, dep=(0, 16, 16), lut=lut)
+    plain = codec.decode_log8_plain(codes).reshape(1, 16, 16)
+    assert torch.equal(dep, plain)
+    scene = SyntheticScene(width=640, height=480, fx=520.0, fy=520.0)
+    img, depth = scene.render(orbit_trajectory(4)[1])
+    for sub in (8, 1):
+        cfg = TrackerConfig(width=640, height=480, fx=520.0, fy=520.0,
+                            cx=320.0, cy=240.0, depth_subsample=sub,
+                            depth_encoding="log8")
+        row = pack_rgbd(cfg, np.clip(img, 0, 255), depth)
+        buf = torch.from_numpy(np.stack([row, row[::-1].copy()])).to(dev)
+        h, w = -(-480 // sub), -(-640 // sub)
+        _, dep = codec.wire_unpack(buf, dep=(640 * 480, h, w), lut=lut)
+        _, ref = codec.wire_unpack_plain(buf, dep=(640 * 480, h, w))
+        assert torch.equal(dep, ref)
+
+
+def test_wire_unpack_refuses_what_the_kernel_does_not_take():
+    from orb_slam2_refactored_tpu_torch.ops import codec
+
+    dev = _card()
+    lut = codec.log8_table(dev)
+    buf = torch.zeros((2, 4096), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="CUDA"):
+        codec.wire_unpack(buf.cpu(), dep=(0, 8, 8), lut=lut)
+    with pytest.raises(ValueError):
+        codec.wire_unpack(buf.to(torch.int32), dep=(0, 8, 8), lut=lut)
+    with pytest.raises(ValueError):
+        codec.wire_unpack(buf, dep=(0, 8, 8), lut=lut.cpu())
+    with pytest.raises(ValueError):
+        codec.wire_unpack(buf, img=(0, 128, 160))  # 5120 bytes: overruns
+    with pytest.raises(ValueError):
+        codec.wire_unpack(buf[:, ::2], img=(0, 8, 8))
+    with pytest.raises(ValueError):
+        codec.decode_dct(buf[0].cpu(), 8, 8)
+
+
+def test_tracker_uploads_land_on_the_card():
+    """`prefetch_rgbd` futures resolve to card tensors of the packed bytes;
+    a tracker on the card decodes a log8 buffer with one K10 launch and
+    equals the plain unpack of the same bytes, and refuses a buffer on the
+    host."""
+    from orb_slam2_refactored_tpu_torch.slam.map_state import MapCapacity
+    from orb_slam2_refactored_tpu_torch.slam.tracking import (
+        Tracker, TrackerConfig, pack_rgbd)
+
+    dev = _card()
+    scene = SyntheticScene(width=320, height=240, fx=260.0, fy=260.0)
+    img, depth = scene.render(orbit_trajectory(4)[1])
+    kw = dict(width=320, height=240, fx=260.0, fy=260.0, cx=160.0, cy=120.0,
+              bf=20.8, n_features=400, n_levels=4, depth_subsample=2,
+              depth_encoding="log8", image_encoding="dct",
+              map_capacity=MapCapacity(8, 1024, 400))
+    t = Tracker(TrackerConfig(**kw), device=dev)
+    futs = t.prefetch_rgbd([img] * 3, [depth] * 3)
+    bufs = [f.result() for f in futs]
+    packed = pack_rgbd(t.cfg, img, depth)
+    kernels.reset_counts()
+    for b in bufs:
+        assert b.device == dev
+        t_img, t_dep = t._unpack(b)
+        assert torch.equal(b.cpu(), torch.from_numpy(packed))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["wire_unpack"] == 3
+    c = Tracker(TrackerConfig(**kw), device="cpu")
+    p_img, p_dep = c._unpack(torch.from_numpy(packed))
+    assert float((t_img.cpu() - p_img).abs().max()) <= 1e-3
+    assert torch.equal(t_dep.cpu(), p_dep.to(torch.float32)) or \
+        float((t_dep.cpu() - p_dep).abs().max()) <= 1e-6
+    with pytest.raises(ValueError, match="tracker runs on"):
+        t._unpack(torch.from_numpy(packed))
+    assert kernels.LAUNCHES["wire_unpack"] == 3

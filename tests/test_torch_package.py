@@ -1,6 +1,6 @@
 """Port package rules: it imports neither JAX nor the JAX package (nor PyYAML
 or OpenCV, which the card's machine lacks), keeps the JAX package's frame
-layout, and refuses settings it has not ported."""
+layout, and builds with every setting JAX's tracker takes."""
 
 import ast
 import os
@@ -65,7 +65,8 @@ def test_every_kernel_source_exists():
                                      "ba_assemble_w_obs", "ba_schur_cg",
                                      "orb_desc_learned", "pyramid",
                                      "spread_topk", "spread_topk_large",
-                                     "ba_cg_ut", "ba_cg_ap", "ba_cg_update"}
+                                     "ba_cg_ut", "ba_cg_ap", "ba_cg_update",
+                                     "wire_unpack"}
 
 
 def test_empty_frame_and_scale_tables_match_jax():
@@ -90,9 +91,17 @@ def _cfg(**kw):
 @pytest.mark.parametrize("setting", [
     dict(depth_encoding="log8"), dict(image_encoding="dct"),
 ])
-def test_unported_settings_raise(setting):
-    with pytest.raises(NotImplementedError):
-        Tracker(_cfg(**setting), device="cpu")
+def test_wire_settings_build(setting):
+    """The wire encodings are ported: the tracker builds on the CPU with
+    each, reports it, and sizes its packed frame as JAX's does."""
+    t = Tracker(_cfg(**setting), device="cpu")
+    for k, v in setting.items():
+        assert getattr(t.cfg, k) == v
+    from orb_slam2_refactored_tpu_torch.slam.tracking import (
+        packed_rgbd_nbytes)
+    img = 64 * 48 // (4 if "image_encoding" in setting else 1)
+    dep = 64 * 48 * (1 if "depth_encoding" in setting else 2)
+    assert packed_rgbd_nbytes(t.cfg) == img + dep
 
 
 def test_learned_pattern_is_accepted():
