@@ -170,7 +170,14 @@ Phases (any failure raises and the script exits non-zero):
     pattern) on frame 0's keypoints and on the call of one more frame that
     cell I's system tracks: given the plain version's angles bit for bit,
     whole within the printed exceptions of `learned_tie_gate`, and a table
-    with one pair swapped that must fail the same hold.
+    with one pair swapped that must fail the same hold; B6 (the projection
+    search's gates and compaction) bit for bit against its plain version
+    on the projection searches the main paths made (one more tracked
+    frame's, cell C's tracked stereo frame's, cell D's relocalization
+    polish, every loop check of cells E and F), with R's projection mode
+    on K1's output for B6's rows and the whole search (B6, K1, R) against
+    the plain composition; R bit for bit on the tracked frame's, one
+    triangulation's and one fusion's claims.
  5. torch.profiler windows, after every agreement check: K2's and K3's
     device time on frame 0 (and K7's), K8's, K9's, the plain pyramid's
     and top-k's and their library calls', each with its device
@@ -184,8 +191,10 @@ Phases (any failure raises and the script exits non-zero):
     and the pose graph's bound (its operations counted from its shapes);
     the initializer's population and `pnp_ransac` (device time and
     operations, host time, bound), K1's mono window call and K4 on a mono
-    frame, and cell G's tracked mono frames under the profiler (device
-    operations, busy share);
+    frame, cell A's and cell G's tracked frames under the profiler (device
+    operations a frame, busy share); B6's and the tracked frame's R calls'
+    device time and operations beside their plain versions', and the whole
+    projection search's beside the plain composition's;
     K4's time split into passes
     and LM iterations (the same calls without iterations) and one
     iteration on no observation;
@@ -205,7 +214,10 @@ Phases (any failure raises and the script exits non-zero):
     and on cell I's tracked frame's call, its levels laid out as K8 writes
     them, outputs equal also given the plain version's angles; cell F's
     whole global BA, parent against change, in device time, operations and
-    host time).
+    host time; the tracked frame's projection search, the parent's plain
+    gates, K1 and plain resolution against B6, K1 and R; then cell A's
+    120 frames through the parent's tracker and this one's in turns, the
+    step's median and p90 and the ATE).
 The line before the last is a JSON object with one entry per kernel; the
 last line is `{"ok": true, "device": {...}}`.
 
@@ -890,11 +902,12 @@ def _clone(v):
 
 
 @contextlib.contextmanager
-def recording(calls, *targets):
+def recording(calls, *targets, like=None):
     """Inside the block, every call of the function that the (module,
-    attribute) `targets` name appends a copy of its arguments to `calls`."""
+    attribute) `targets` name appends a copy of its arguments to `calls`,
+    named as the parameters of `like` (default: the function's own)."""
     real = getattr(*targets[0])
-    sig = inspect.signature(real)
+    sig = inspect.signature(like or real)
 
     def record(*args, **kwargs):
         bound = sig.bind(*args, **kwargs).arguments
@@ -1777,38 +1790,47 @@ def record_tracked_frame(tracker, imgs, depths):
 
 def record_tracked_stereo_frame(tracker, left, right):
     """The K1, K2, K3 and K4 calls of one more stereo frame tracked after
-    cell C (frame 0 again: the orbit closes), and its `stereo_associate`
-    call (the stereo K1 call and B9), with their arguments."""
-    from orb_slam2_refactored_tpu_torch.ops import fast, orb, stereo
+    cell C (frame 0 again: the orbit closes), its `stereo_associate`
+    call (the stereo K1 call and B9) and its projection search (B6, K1,
+    R), with their arguments."""
+    from orb_slam2_refactored_tpu_torch.ops import fast, matching, orb, stereo
     from orb_slam2_refactored_tpu_torch.slam import tracking
 
-    k1, k2, k3, k4, sad = [], [], [], [], []
+    k1, k2, k3, k4, sad, sbp = [], [], [], [], [], []
     with recording_k1(k1), recording_k4(k4), \
             recording(k2, (fast, "detect_and_rank")), \
             recording(k3, (orb, "angles_and_descriptors_levels")), \
             recording(sad, (stereo, "stereo_associate"),
-                      (tracking, "stereo_associate")):
+                      (tracking, "stereo_associate")), \
+            recording(sbp, (matching, "search_by_projection_with_vis")):
         tracker.track_stereo(left[0], right[0])
     info = tracker.track_info[-1]
     assert not info.get("lost") and not info.get("ref_fallback"), info
-    assert (len(k2), len(k3), len(sad)) == (2, 2, 1), (len(k2), len(k3),
-                                                       len(sad))
-    return k1, k4, sad[0]
+    assert (len(k2), len(k3), len(sad), len(sbp)) == (2, 2, 1, 1), (
+        len(k2), len(k3), len(sad), len(sbp))
+    return k1, k4, sad[0], sbp[0]
 
 
-def record_mapping(tracker):
+def record_mapping(tracker, claims=None):
     """The arguments of one triangulation (its K1 calls with the epipolar
     pair gate) and of one window BA (its first `ba_assemble` call and its
-    `ba_solve` call) around the newest keyframe, as the mapper makes them.
+    `ba_solve` call) around the newest keyframe, as the mapper makes them;
+    kernel R's calls of that triangulation and of the fusion of the
+    keyframe into its first two covisible ones go into `claims` if given.
     The mapper's products are discarded: the map is left as it was."""
+    from orb_slam2_refactored_tpu_torch.ops import hamming
     from orb_slam2_refactored_tpu_torch.optim import ba
     from orb_slam2_refactored_tpu_torch.slam import local_mapping
 
     lm, kf = tracker.local_mapper, tracker.ref_kf
     saved = (lm._pending_tri, lm._pending_ba_erase, lm.n_ba)
     tri_k1, asm, solve = [], [], []
-    with recording_k1(tri_k1):
-        lm.triangulate_new_points(tracker.map, tracker.graph, kf)
+    with recording([] if claims is None else claims,
+                   (hamming, "resolve_duplicates")):
+        with recording_k1(tri_k1):
+            lm.triangulate_new_points(tracker.map, tracker.graph, kf)
+        for nb in tracker.graph.covis_neighbors(kf, top_k=2):
+            lm._fuse_pair_impl(tracker.map, kf, nb)
     with recording(asm, (ba, "ba_assemble")), \
             recording(solve, (local_mapping, "ba_solve")):
         _, info = lm.local_ba(tracker.map, tracker.graph, kf)
@@ -2017,10 +2039,11 @@ def record_relocalization(tracker, relocalize, frame):
     """Run a successful relocalization (`relocalize`, the tracker's own
     `_relocalize`) once more on the same frame, map, database and frame id,
     which repeats it call for call (its generators are seeded from the frame
-    id), with its K1, K4 and RANSAC calls and its stages' arguments
-    recorded; the launch counters are left as they were. Returns those with
-    copies of the frame, the map and the database."""
+    id), with its K1, K4, RANSAC and projection-search calls and its
+    stages' arguments recorded; the launch counters are left as they were.
+    Returns those with copies of the frame, the map and the database."""
     from orb_slam2_refactored_tpu_torch import kernels
+    from orb_slam2_refactored_tpu_torch.ops import matching
     from orb_slam2_refactored_tpu_torch.slam import tracking
 
     saved = kernels.counts()
@@ -2028,8 +2051,10 @@ def record_relocalization(tracker, relocalize, frame):
            "map": _clone(tracker.map),
            "db": snapshot_db(tracker.loop_closer.db)}
     k1, k4, ransac, match, solve, polish = [], [], [], [], [], []
+    sbp = []
     with recording_k1(k1), recording_k4(k4), \
             recording(ransac, (tracking, "horn_ransac")), \
+            recording(sbp, (matching, "search_by_projection_with_vis")), \
             recording(match, (tracker, "_reloc_match_impl")), \
             recording(solve, (tracker, "_reloc_solve_impl")), \
             recording(polish, (tracker, "_reloc_polish_impl")):
@@ -2037,7 +2062,7 @@ def record_relocalization(tracker, relocalize, frame):
     kernels.LAUNCHES.update(saved)
     assert ok, "the replayed relocalization failed"
     rec.update(k1=k1, k4=k4, ransac=ransac, match=match, solve=solve,
-               polish=polish)
+               polish=polish, sbp=sbp)
     return rec
 
 
@@ -2537,8 +2562,9 @@ def build_parent(parent):
     (`associate_from_best2`), K6 (`ba_schur_cg`, with `cg_args` to hand it
     a recorded call: W_obs in the parent's own `LiveRows` type), the
     global BA (`ba_solve`), K8 (`build_pyramid`), K9
-    (`spread_topk_levels`) and K7 (`angles_and_descriptors_learned_levels`,
-    which builds its C arguments its own way)."""
+    (`spread_topk_levels`), K7 (`angles_and_descriptors_learned_levels`,
+    which builds its C arguments its own way) and the projection search
+    (`search_by_projection_with_vis`)."""
     import importlib
     import importlib.util
     import os
@@ -2558,6 +2584,7 @@ def build_parent(parent):
     old_stereo = importlib.import_module("parent_port.ops.stereo")
     old_image = importlib.import_module("parent_port.ops.image")
     old_orb = importlib.import_module("parent_port.ops.orb")
+    old_matching = importlib.import_module("parent_port.ops.matching")
 
     def cg_args(c):
         live = c["W_obs"]
@@ -2570,7 +2597,8 @@ def build_parent(parent):
             "cg": old_ba.ba_schur_cg, "cg_args": cg_args,
             "solve": old_ba.ba_solve, "k8": old_image.build_pyramid,
             "k9": old_orb.spread_topk_levels,
-            "k7": old_orb.angles_and_descriptors_learned_levels}
+            "k7": old_orb.angles_and_descriptors_learned_levels,
+            "sbp": old_matching.search_by_projection_with_vis}
 
 
 def in_turns(label, calls, fns, reps=20):
@@ -2593,7 +2621,8 @@ SIDE_JOBS = {"k1_frame": ("k1", False), "k1_dense": ("k1", False),
              "k4_frame": ("k4", False), "k5_ba_assemble": ("asm", False),
              "k5_ba_cost": ("cost", False), "b9": ("b9", False),
              "k6": ("cg", True), "gba": ("solve", True), "k8": ("k8", False),
-             "k9": ("k9", False), "k7": ("k7", False)}
+             "k9": ("k9", False), "k7": ("k7", False),
+             "sbp": ("sbp", False)}
 
 
 def side_entries(side, parent):
@@ -2601,7 +2630,8 @@ def side_entries(side, parent):
     (`build_parent`); every kernel library of that side loaded. For K6,
     `cg_args` turns a recorded `ba_schur_cg` call into the side's."""
     from orb_slam2_refactored_tpu_torch import kernels
-    from orb_slam2_refactored_tpu_torch.ops import hamming, orb, stereo
+    from orb_slam2_refactored_tpu_torch.ops import (hamming, matching, orb,
+                                                    stereo)
     from orb_slam2_refactored_tpu_torch.ops import image as image_ops
     from orb_slam2_refactored_tpu_torch.optim import ba, pose_opt
 
@@ -2613,7 +2643,8 @@ def side_entries(side, parent):
                 "b9": stereo.associate_from_best2, "cg": ba.ba_schur_cg,
                 "cg_args": lambda c: c, "solve": ba.ba_solve,
                 "k8": image_ops.build_pyramid, "k9": orb.spread_topk_levels,
-                "k7": orb.angles_and_descriptors_learned_levels}
+                "k7": orb.angles_and_descriptors_learned_levels,
+                "sbp": matching.search_by_projection_with_vis}
     entries = build_parent(parent)
     old_kernels = sys.modules["parent_port.kernels"]
     for name in old_kernels.SOURCES:
@@ -2701,16 +2732,20 @@ def device_times_in_turns(parent, jobs):
 
 def compare_with_parent(parent, frame_k1, dense_k1, frame_k4, fb_k4,
                         asm_call, st_tail, k6_calls, gba_call, k8_calls,
-                        k9_calls, k7_calls):
-    """K1, K4, K5, B9, K6, K8, K9 and K7 against the parent checkout's own
+                        k9_calls, k7_calls, sbp_call):
+    """K1, K4, K5, B9, K6, K8, K9, K7 and the tracked frame's projection
+    search (B6, K1, R; the parent's plain gates, K1 and plain resolution
+    where it predates B6 and R) against the parent checkout's own
     entries (`build_parent`) on the same recorded arguments: outputs (K1,
-    B9, K8, K9 and K7 exactly, K7 also given the plain version's angles;
+    B9, K8, K9, K7 and the search exactly, K7 also given the plain
+    version's angles;
     K4 bit for bit, reported; K5's largest difference, reported; K6 under
     the f64 yardstick), CUDA-event times in turns in this process, then
     (`device_times_in_turns`) device times and operations, K4's iteration
     on no observation and cell F's whole global BA (device time,
     operations, host time), each side in a process of its own."""
-    from orb_slam2_refactored_tpu_torch.ops import hamming, orb, stereo
+    from orb_slam2_refactored_tpu_torch.ops import (hamming, matching, orb,
+                                                    stereo)
     from orb_slam2_refactored_tpu_torch.ops import image as image_ops
     from orb_slam2_refactored_tpu_torch.optim import ba, pose_opt
 
@@ -2783,6 +2818,17 @@ def compare_with_parent(parent, frame_k1, dense_k1, frame_k4, fb_k4,
         "B9, the stereo association after K1 on the recorded stereo frame, "
         "CUDA events", {"b9": st_tail},
         {"parent": old["b9"], "change": stereo.associate_from_best2})
+    new_out, new_vis = matching.search_by_projection_with_vis(**sbp_call)
+    old_out, old_vis = old["sbp"](**sbp_call)
+    same = [bool(torch.equal(x, y)) for x, y in zip(
+        (*new_out, new_vis), (*old_out, old_vis))]
+    print(f"  the tracked frame's projection search: (idx, dist, valid, "
+          f"vis) equal to the parent's {same}")
+    assert all(same), same
+    res["search_card_ms"] = in_turns(
+        "the tracked frame's projection search, CUDA events",
+        {"sbp": sbp_call}, {"parent": old["sbp"],
+                            "change": matching.search_by_projection_with_vis})
     par = {}
     for i, c in enumerate(k6_calls):
         yard, _, _ = cg_yardstick(
@@ -2804,8 +2850,54 @@ def compare_with_parent(parent, frame_k1, dense_k1, frame_k4, fb_k4,
         "k1_frame": frame_k1, "k1_dense": dense_k1, "k4_frame": frame_k4,
         "k5_ba_assemble": {"a": asm_call}, "k5_ba_cost": {"a": cost_call},
         "b9": {"b9": st_tail}, "k6": {"k6": c0}, "gba": {"gba": gba_call},
-        "k8": k8_calls, "k9": k9_calls, "k7": k7_calls})
+        "k8": k8_calls, "k9": k9_calls, "k7": k7_calls,
+        "sbp": {"sbp": sbp_call}})
     print("against the parent " + json.dumps(res))
+    return res
+
+
+def cell_a_steps(pkg, imgs, depths, gt, device):
+    """Cell A (`bench_config(True)`, 120 frames) through the tracker of the
+    port package `pkg` (this one's name, or `parent_port`): the step's
+    host ms on a synchronizing clock after WARMUP_FRAMES (median, p90) and
+    the ATE."""
+    import dataclasses
+    import importlib
+
+    from orb_slam2_refactored_tpu_torch.io.evaluation import ate_rmse
+
+    tracking = importlib.import_module(pkg + ".slam.tracking")
+    map_state = importlib.import_module(pkg + ".slam.map_state")
+    cfg = bench_config(True)
+    kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    kw["map_capacity"] = map_state.MapCapacity(
+        **dataclasses.asdict(cfg.map_capacity))
+    tracker = tracking.Tracker(tracking.TrackerConfig(**kw), device=device)
+    steps = []
+    for i in range(len(imgs)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tracker.track_rgbd(imgs[i], depths[i].astype(np.float32),
+                           timestamp=i / 30.0)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0) * 1e3)
+    tracker.flush()
+    ate, _ = ate_rmse(np.stack(tracker.trajectory), gt, align="se3")
+    x = np.asarray(steps[WARMUP_FRAMES:])
+    return {"step_ms_median": float(np.median(x)),
+            "step_ms_p90": float(np.percentile(x, 90)), "ate_m": ate}
+
+
+def cell_a_against_parent(imgs, depths, gt, device):
+    """With --parent (after `build_parent`): cell A through the parent's
+    tracker and this one's in turns (parent, change, change, parent): the
+    step's median and p90 and the ATE."""
+    res = {"parent": [], "change": []}
+    for side in ("parent", "change", "change", "parent"):
+        pkg = ("parent_port" if side == "parent"
+               else "orb_slam2_refactored_tpu_torch")
+        res[side].append(cell_a_steps(pkg, imgs, depths, gt, device))
+    print("cell A against the parent, in turns " + json.dumps(res))
     return res
 
 
@@ -2944,18 +3036,21 @@ def circuit_config(cell, loop):
 
 
 def run_circuit(cell, loop, frames, gt, device, record=None, gated=True,
-                depth=0):
+                depth=0, loop_checks=None):
     """One run of a loop cell through `Tracker.track_rgbd`, every launch
     counter set to 0 just before and read just after; the ATE of the
     corrected trajectory (`corrected_frame_poses`), the loops closed and
     the host times of `_close_loop` and `kf.gba_merge`. With `record` (a
     dict), the arguments of the run's global-BA calls (`compact_points`,
-    `ba_solve`) and pose-graph solves are recorded into it. Unless
+    `ba_solve`) and pose-graph solves are recorded into it, and with
+    `loop_checks` (a list) the loop check's projection searches (B6, K1,
+    R; `matching.search_by_projection`) into that. Unless
     `gated` is false (`--c13`, which records and gates nothing), tracking
     must end OK and every kernel of the path must launch. `depth` > 0 runs
     it pipelined with that many frames in flight."""
     from orb_slam2_refactored_tpu_torch import kernels
     from orb_slam2_refactored_tpu_torch.io.evaluation import ate_rmse
+    from orb_slam2_refactored_tpu_torch.ops import matching
     from orb_slam2_refactored_tpu_torch.slam import loop_closing
     from orb_slam2_refactored_tpu_torch.slam.system import (
         corrected_frame_poses)
@@ -2977,6 +3072,10 @@ def run_circuit(cell, loop, frames, gt, device, record=None, gated=True,
             for name in ("compact_points", "ba_solve", "pose_graph_solve"):
                 stack.enter_context(recording(record.setdefault(name, []),
                                               (loop_closing, name)))
+        if loop_checks is not None:
+            stack.enter_context(recording(
+                loop_checks, (matching, "search_by_projection"),
+                like=matching.search_by_projection_with_vis))
         kernels.reset_counts()
         t0 = time.perf_counter()
         kf_made = [timed_frame(timer, tracker, partial(
@@ -4351,38 +4450,176 @@ def mono_times(init_call, pnp_call, frame_bytes, frame_ops):
     return out
 
 
-def plain_stage_times(sbp_call):
-    """A stage of the tracked frame that stays plain torch, timed on the
-    card beside the bound of its work counted from its shapes: B6, the
-    gates and candidate compaction of `search_by_projection_with_vis` on
-    the tracked frame's call (its K1 launch, read off the profiler rows,
-    taken out): per map point ~70 f32 operations (transform, projection,
-    bounds, distance band, predicted level, view angle), its position,
-    normal, distances and validity read and (uv, radius, level, gates)
-    written, then the candidates' rows and descriptors gathered."""
-    from orb_slam2_refactored_tpu_torch.ops import matching
+# B6's parameters among `search_by_projection_with_vis`'s
+B6_ARGS = ("mp_pos", "mp_desc", "mp_normal", "mp_min_dist", "mp_max_dist",
+           "mp_valid", "pose_cw", "cam", "scale_factors", "radius",
+           "check_view_angle", "image_bounds", "candidate_cap")
 
-    out = {}
-    n_ops = []
-    a = sbp_call
+
+def _same_bits(a, b):
+    """Equal values, f32 compared by their bits (NaN included), int32 and
+    int64 indices by value."""
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    if a.dtype in (torch.int32, torch.int64):
+        return torch.equal(a.long(), b.long())
+    return torch.equal(a, b)
+
+
+def b6_work(a):
+    """(bytes, operations) of B6 on a search's arguments `a`: each point's
+    position, normal, distances and validity read (33 bytes) and its
+    visibility and row written (5); each row's descriptor read and its
+    (uv, radius, level, ok, descriptor, point) written (32 + 53); ~100 f32
+    operations a point (the transform's 27, the projection, the gates, the
+    distance, the level's log and divisions, the view angle, the radius)
+    and ~10 int32 ones (the ballots and the placement)."""
     P = a["mp_pos"].shape[0]
-    cap = min(a.get("candidate_cap", 8192), P)
-    ms, rows = profiled_ms(lambda: matching.search_by_projection_with_vis(
-        **a), 20, n_ops)
-    k1_us, _ = row_time_us(rows, "search_gated")
-    b_ms, b_by = bound_ms(P * 33 + P * 18 + cap * (32 + 49),
-                          {"f32": 70 * P, "int32": 20 * P})
-    out["B6 search_by_projection gates"] = {
-        "device_ms": ms - k1_us / 1e3, "device_ms_with_k1": ms,
-        "card_ms_with_k1": cuda_time_ms(
-            lambda: matching.search_by_projection_with_vis(**a), 20),
-        "bound_ms": b_ms, "bound_by": b_by, "device_ops": n_ops[0],
-        "points": P,
-        "candidate_cap": cap}
-    print("plain stages: " + json.dumps(out))
-    for r in rows:
-        print(f"  {r}")
-    return out
+    cap = a.get("candidate_cap", 8192)
+    R = cap if cap and cap < P else P
+    return P * 38 + R * 85, {"f32": 100 * P, "int32": 10 * P}
+
+
+def r_work(a):
+    """(bytes, operations) of R on the arguments `a` of
+    `resolve_duplicates` (M rows: target, distance, validity read, the
+    keep byte written) or of `resolve_to_points` (and the P points' slot
+    read and (idx, best, keep) written); ~10 int32 operations a row and a
+    point."""
+    M = a["target_idx"].shape[0]
+    P = a["slot"].shape[0] if "slot" in a else 0
+    nbytes = M * 9 + (P * 13 if P else M)
+    return nbytes, {"int32": 10 * (M + P)}
+
+
+def check_project_search(cases, per_frame):
+    """Phase 4: B6 against its plain version bit for bit on the projection
+    searches the main paths made (each row's uv, radius, level, ok,
+    descriptor and point, each point's visibility and row); then, on K1's
+    output for B6's rows, R in its projection mode against its plain
+    version, and the whole search (B6, K1, R) against
+    `search_by_projection_with_vis_plain`. The `per_frame` call (the
+    tracked frame's) is timed with CUDA events, its bound counted from its
+    shapes. Returns B6's (error, ms, plain ms, bytes, operations) and R's
+    arguments on that call."""
+    from orb_slam2_refactored_tpu_torch.ops import hamming, matching
+
+    row, frame_r = None, None
+    for name, a in cases.items():
+        b6 = {k: a[k] for k in B6_ARGS if k in a}
+        got = matching.project_candidates(**b6)
+        ref = matching.project_candidates_plain(**b6)
+        torch.cuda.synchronize()
+        bad = [f for f in matching.Candidates._fields
+               if not _same_bits(getattr(got, f), getattr(ref, f))]
+        idx, best, _ = hamming.masked_best2_gated(
+            got.desc, a["frame_desc"], got.ok, a["frame_valid"], got.uv,
+            got.rad, got.lvl, a["frame_xy"], a["frame_level"])
+        r_args = dict(target_idx=idx, dist=best, row_ok=got.ok,
+                      max_dist=a.get("max_dist", hamming.TH_HIGH),
+                      n_targets=a["frame_desc"].shape[0], slot=got.slot)
+        r_same = all(torch.equal(x, y) for x, y in zip(
+            hamming.resolve_to_points(**r_args),
+            hamming.resolve_to_points_plain(**r_args)))
+        out, vis = matching.search_by_projection_with_vis(**a)
+        ref_out, ref_vis = matching.search_by_projection_with_vis_plain(**a)
+        whole = all(torch.equal(x, y) for x, y in zip(
+            (*out, vis), (*ref_out, ref_vis)))
+        print(f"  B6 {name}: {a['mp_pos'].shape[0]} points, "
+              f"{int(ref.vis.sum())} visible, {int(ref.ok.sum())} of "
+              f"{ref.ok.shape[0]} rows passing, {int(out.valid.sum())} "
+              f"matched; fields that differ {bad}; R (projection mode) "
+              f"equal {r_same}; B6, K1, R equal to the plain search {whole}")
+        assert not bad and r_same and whole, name
+        if name == per_frame:
+            nbytes, ops = b6_work(a)
+            row = (0, cuda_time_ms(lambda: matching.project_candidates(**b6),
+                                   50),
+                   cuda_time_ms(lambda: matching.project_candidates_plain(
+                       **b6), 10), nbytes, ops)
+            frame_r = r_args
+    return row, frame_r
+
+
+def check_claims(cases, per_frame):
+    """Phase 4: R against its plain version bit for bit on the
+    `resolve_duplicates` calls the main paths made (the tracked frame's:
+    its motion-model search first, then its mapping job's where it made a
+    keyframe; triangulation's and fusion's); the `per_frame` calls
+    (`resolve_duplicates` argument dicts, and `resolve_to_points` ones
+    holding `slot`) timed with CUDA events, their bounds counted from their
+    shapes. Returns R's (error, ms, plain ms, bytes, operations) over
+    them."""
+    from orb_slam2_refactored_tpu_torch.ops import hamming
+
+    for name, a in cases.items():
+        got = hamming.resolve_duplicates(**a)
+        ref = hamming.resolve_duplicates_plain(**a)
+        torch.cuda.synchronize()
+        print(f"  R {name}: {a['target_idx'].shape[0]} rows over "
+              f"{a['n_targets']} targets, {int(a['valid'].sum())} valid, "
+              f"{int(ref.sum())} kept; equal {bool(torch.equal(got, ref))}")
+        assert torch.equal(got, ref), name
+    ms = plain_ms = 0.0
+    nbytes, ops = 0, {}
+    for a in per_frame:
+        if "slot" in a:
+            fn, plain = (hamming.resolve_to_points,
+                         hamming.resolve_to_points_plain)
+        else:
+            fn, plain = (hamming.resolve_duplicates,
+                         hamming.resolve_duplicates_plain)
+        ms += cuda_time_ms(lambda: fn(**a), 50)
+        plain_ms += cuda_time_ms(lambda: plain(**a), 10)
+        b, o = r_work(a)
+        nbytes += b
+        add_ops(ops, **o)
+    return 0, ms, plain_ms, nbytes, ops
+
+
+def b6_r_device_times(sbp_call, r_calls, b6_r, claims_r):
+    """Phase 5: the device time and operations of B6 and of the tracked
+    frame's R calls (`r_calls`), and of their plain versions; and of the
+    whole projection search (B6, K1, R) beside the plain composition (the
+    path before the kernels: 119 operations with its K1 launch, PR 11). The
+    two kernel rows' tuples gain their device ms."""
+    from orb_slam2_refactored_tpu_torch.ops import hamming, matching
+
+    a = sbp_call
+    b6 = {k: a[k] for k in B6_ARGS if k in a}
+    out = {}
+
+    def r_fn(plain):
+        calls = [((hamming.resolve_to_points_plain if plain
+                   else hamming.resolve_to_points) if "slot" in c else
+                  (hamming.resolve_duplicates_plain if plain
+                   else hamming.resolve_duplicates), c) for c in r_calls]
+        return lambda: [fn(**c) for fn, c in calls]
+
+    for name, fn in (
+            ("B6", lambda: matching.project_candidates(**b6)),
+            ("B6 plain", lambda: matching.project_candidates_plain(**b6)),
+            ("R, the tracked frame's calls", r_fn(False)),
+            ("R plain", r_fn(True)),
+            ("search (B6, K1, R)",
+             lambda: matching.search_by_projection_with_vis(**a)),
+            ("search plain (K1 on the card)",
+             lambda: matching.search_by_projection_with_vis_plain(**a))):
+        n_ops = []
+        ms, rows = profiled_ms(fn, 20, n_ops)
+        out[name] = {"device_ms": ms, "device_ops": n_ops[0]}
+        print(f"  {name}: device time {ms:.5f} ms, {n_ops[0]:g} device "
+              f"operations: {rows[:6]}")
+    for name, r in (("B6", b6_r), ("R, the tracked frame's calls",
+                                   claims_r)):
+        b_ms, b_by = bound_ms(r[3], r[4])
+        out[name].update(card_ms=r[1], plain_card_ms=r[2], bound_ms=b_ms,
+                         bound_by=b_by)
+    out["points"] = a["mp_pos"].shape[0]
+    out["candidate_cap"] = a.get("candidate_cap", 8192)
+    print("B6 and R on the tracked frame: " + json.dumps(out))
+    return (b6_r + (out["B6"]["device_ms"],),
+            claims_r + (out["R, the tracked frame's calls"]["device_ms"],))
 
 
 # ---------------------------------------------------------------------------
@@ -5683,26 +5920,27 @@ def run_ingest_schedule(imgs, depths, gt, left, right, device, card):
     """`--ingest`: cell C's pairs in each of the bench's stereo modes
     (`bench.py:758-777`: per pair, pairs, chains of 4; depth 3) and cell
     A's frames at the bench's RGB-D setting per frame and in chains of 4,
+    and per frame with the DCT image,
     each with the mapper's reads taken as they land and with every read
     resolved at once (`reads_at_once`, the CPU's schedule); then the
     stereo modes under K8's two other orders (`k8_order`). The ATE gate is
     recorded, not held. Tells the card's schedule apart from its numerics,
     and measures how far a last-bit change moves each mode's ATE."""
     table = []
-    for stereo, modes in ((True, ("uploaded", "pair", "chain4")),
-                          (False, ("uploaded", "chain4"))):
-        for mode in modes:
-            for at_once in (False, True):
-                with reads_at_once() if at_once else contextlib.nullcontext():
-                    if stereo:
-                        st = run_ingest(left, right, gt, device, mode,
-                                        stereo=True, gated=False)
-                    else:
-                        st = run_ingest(imgs, depths, gt, device, mode,
-                                        gated=False)
+    for name, mode in (("stereo", "uploaded"), ("stereo", "pair"),
+                       ("stereo", "chain4"), ("rgbd_log8", "uploaded"),
+                       ("rgbd_log8", "chain4"), ("rgbd_dct", "uploaded")):
+        kw = {"image_encoding": "dct"} if name == "rgbd_dct" else {}
+        for at_once in (False, True):
+            with reads_at_once() if at_once else contextlib.nullcontext():
+                if name == "stereo":
+                    st = run_ingest(left, right, gt, device, mode,
+                                    stereo=True, gated=False)
+                else:
+                    st = run_ingest(imgs, depths, gt, device, mode,
+                                    gated=False, **kw)
                 table.append({
-                    "input": "stereo" if stereo else "rgbd_log8",
-                    "mode": mode, "reads_at_once": at_once,
+                    "input": name, "mode": mode, "reads_at_once": at_once,
                     **{k: st[k] for k in ("ate_m", "keyframes_created",
                                           "lost_frames", "pumps_not_ready",
                                           "step_ms_median_per_frame")}})
@@ -5964,7 +6202,7 @@ def main():
     # cells E and F: the loop-closing circuits, loop closing off and on;
     # cell F's global BA and pose graph recorded for phases 4 and 5
     mark("3_cells_a_to_d")
-    loop_cells = {}
+    loop_cells, loop_checks = {}, {}
     for cell in ("E", "F"):
         t0 = time.perf_counter()
         frames, cgt = circuit_frames(cell)
@@ -5972,7 +6210,9 @@ def main():
               f"{time.perf_counter() - t0:.1f} s")
         off, _ = run_circuit(cell, False, frames, cgt, device)
         rec_f = {} if cell == "F" else None
-        on, _ = run_circuit(cell, True, frames, cgt, device, record=rec_f)
+        loop_checks[cell] = []
+        on, _ = run_circuit(cell, True, frames, cgt, device, record=rec_f,
+                            loop_checks=loop_checks[cell])
         gate_loop_cell(on, off)
         loop_cells[cell] = (off, on)
         if cell == "F":
@@ -6020,12 +6260,14 @@ def main():
     mark("3_k_geometries")
 
     # ---- phase 4: every kernel on the arguments the main path gave it ----
-    from orb_slam2_refactored_tpu_torch.ops import matching
+    from orb_slam2_refactored_tpu_torch.ops import hamming, matching
 
-    sbp = []
-    with recording(sbp, (matching, "search_by_projection_with_vis")):
+    sbp, frame_claims = [], []
+    with recording(sbp, (matching, "search_by_projection_with_vis")), \
+            recording(frame_claims, (hamming, "resolve_duplicates")):
         (frame_k1, frame_k2, frame_k3, frame_k4,
          frame_k9) = record_tracked_frame(tracker, imgs, depths)
+    assert len(sbp) == 1 and frame_claims, (len(sbp), len(frame_claims))
     check_fast(frame_k2["levels"], frame_k2["ks"], "tracked frame")
     check_topk(frame_k2["levels"], frame_k2["ks"], ext.level_scales,
                "tracked frame")
@@ -6033,7 +6275,8 @@ def main():
               frame_k3["counts"], "tracked frame")
     frame_k1 = name_k1_calls("tracked", frame_k1)
     frame_k4 = {f"tracked{i}": a for i, a in enumerate(frame_k4)}
-    tri_k1, asm_call, solve_call = record_mapping(tracker)
+    claim_calls = []
+    tri_k1, asm_call, solve_call = record_mapping(tracker, claim_calls)
     ham_r = check_hamming({**frame_k1, **name_k1_calls("fallback", fb_k1),
                            **name_k1_calls("triangulation", tri_k1)},
                           per_frame=frame_k1)
@@ -6042,8 +6285,8 @@ def main():
                            per_frame=frame_k4)
     index_r, asm_r, cost_r = check_ba(asm_call, solve_call)
     # cell C: a tracked stereo frame's K1, K4 and B9 calls, one window BA
-    st_k1, st_k4, st_sad = record_tracked_stereo_frame(tracker_c, left,
-                                                       right)
+    st_k1, st_k4, st_sad, st_sbp = record_tracked_stereo_frame(
+        tracker_c, left, right)
     st_k1 = name_k1_calls("stereo", st_k1)
     st_pair = {n: a for n, a in st_k1.items() if n.endswith("_pair")}
     assert len(st_pair) == 1, list(st_k1)
@@ -6058,6 +6301,21 @@ def main():
     check_ba(st_asm, st_solve)
     # cell D: the recovering frame's relocalization and the vocabulary
     reloc_shapes, reloc_k4_err = check_reloc(rec_d, tracker_d)
+    # B6 and R on the projection searches the main paths made (the tracked
+    # frame's, cell C's tracked stereo frame's, cell D's polish, the loop
+    # checks of E and F); R on the tracked frame's motion-model search and
+    # on triangulation's and fusion's claims
+    assert rec_d["sbp"] and all(loop_checks.values()), (
+        len(rec_d["sbp"]), {c: len(v) for c, v in loop_checks.items()})
+    b6_r, frame_r = check_project_search(
+        {"tracked": sbp[0], "stereo": st_sbp,
+         **{f"reloc_polish{i}": a for i, a in enumerate(rec_d["sbp"])},
+         **{f"loop_check_{c}{i}": a for c, calls in loop_checks.items()
+            for i, a in enumerate(calls)}}, per_frame="tracked")
+    claims_r = check_claims(
+        {**{f"tracked{i}": a for i, a in enumerate(frame_claims)},
+         **{f"mapping{i}": a for i, a in enumerate(claim_calls)}},
+        per_frame=[frame_claims[0], frame_r])
     # cell F: its first global BA (K5 `w_obs`, K6) and its pose graph
     t0 = time.perf_counter()
     w_obs_r, k6_r, k6_calls, gba_call, pg_call, gba_launches = check_gba(
@@ -6192,7 +6450,8 @@ def main():
                                "plain_ms": mono_pose[2],
                                "device_ms": device_times_k4(mono_k4),
                                "bound_ms": b_ms, "bound_by": b_by}
-    plain_stage_times(sbp[-1])
+    b6_r, claims_r = b6_r_device_times(sbp[0], [frame_claims[0], frame_r],
+                                       b6_r, claims_r)
     t0 = time.perf_counter()
     w_obs_r, k6_r, gba_t = gba_times(k6_calls, gba_call, pg_call, w_obs_r,
                                      k6_r)
@@ -6242,8 +6501,15 @@ def main():
                                         "counts": ext.budgets},
                              "cell_i_tracked": {
                                  **frame_k7,
-                                 "levels": k8_layout(frame_k7["levels"])}})
+                                 "levels": k8_layout(frame_k7["levels"])}},
+                            sbp[0])
+        cell_a_against_parent(imgs, depths, gt, device)
     compare_extraction(imgs, device)
+    # a tracked RGB-D frame's device operations (cell A's tracker, the
+    # frames `profile_steps` profiles)
+    _profile_window(tracker, lambda k: tracker.track_rgbd(
+        imgs[k % N_FRAMES], depths[k % N_FRAMES].astype(np.float32)),
+        range(11, 31), "tracked frames (cell A)")
     _profile_window(tracker_g, lambda k: tracker_g.track_mono(
         imgs[k % N_FRAMES]), range(1, 21), "mono tracked frames (cell G)")
     if args.profile:
@@ -6328,8 +6594,13 @@ def main():
         kernel_row(WIRE_KERNEL, pkg + "wire_unpack.cu",
                    ref + "ops/codec.py:90",
                    ingest["dct"]["launches"][WIRE_KERNEL], wire["dct"],
-                   wire_lib)]
-    rows[-1].update({f"{k}_{t}": v for t in ("log8", "log8_batch4")
+                   wire_lib),
+        kernel_row("project_search", pkg + "project_search.cu",
+                   ref + "ops/matching.py:116", L["project_search"], b6_r),
+        kernel_row("resolve_claims", pkg + "resolve_claims.cu",
+                   ref + "ops/hamming.py:101", L["resolve_claims"],
+                   claims_r)]
+    rows[-3].update({f"{k}_{t}": v for t in ("log8", "log8_batch4")
                      for k, v in zip(("ms", "plain_ms", "device_ms"),
                                      wire[t][1:3] + wire[t][5:])}
                     | {"bound_ms_log8": bound_ms(*wire["log8"][3:5])[0]})
@@ -6379,7 +6650,14 @@ def main():
           "from phase 3p's DCT run (one a buffer), library_ms the plain "
           "version's einsum of the DCT half; *_log8 / *_log8_batch4: the "
           "bench's own buffers (raw image, log8 depth at subsample 8), "
-          "one frame and a [4, B] batch")
+          "one frame and a [4, B] batch; project_search (B6) = the "
+          "tracked frame's projection search's gates and compaction "
+          "(32,768 points into 8,192 rows), one launch a tracked frame, "
+          "library_ms null (no one PyTorch call computes them); "
+          "resolve_claims (R) = the tracked frame's two launches (the "
+          "motion-model search's claims, and the projection search's "
+          "with the results back per point), library_ms null (its plain "
+          "version is the library's scatter_reduce 'amin', twice)")
     print("phase 3k: " + json.dumps(
         {f"{w}x{h}": {**{k: v for k, v in geo_runs.get((h, w), {}).items()
                          if k != "launches"}, **geo_checks[(h, w)]}

@@ -51,6 +51,11 @@ SOURCES: Dict[str, tuple] = {
     "spread_topk": ("spread_topk.cu", []),
     # K10, the packed frame's decode; `fmaf` is written out
     "wire_unpack": ("wire_unpack.cu", []),
+    # B6, the projection search's gates: every product and sum rounds as
+    # torch's separate ops do, the fused ones written out (`__fmaf_rn`)
+    "project_search": ("project_search.cu", ["-fmad=false"]),
+    # R, the claim resolution: integer work only
+    "resolve_claims": ("resolve_claims.cu", []),
 }
 
 # kernel name -> launches of that kernel since the last reset
@@ -62,7 +67,8 @@ LAUNCHES: Dict[str, int] = {"hamming_best2": 0, "fast": 0, "orb_desc": 0,
                             "pyramid": 0, "spread_topk": 0,
                             "spread_topk_large": 0, "ba_cg_ut": 0,
                             "ba_cg_ap": 0, "ba_cg_update": 0,
-                            "wire_unpack": 0}
+                            "wire_unpack": 0, "project_search": 0,
+                            "resolve_claims": 0}
 
 # collective name -> calls of the sharded solve's collectives since the last
 # reset (`optim/ba.py::collective`), and their host seconds

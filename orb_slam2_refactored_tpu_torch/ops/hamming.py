@@ -5,6 +5,8 @@ int32[..., 8]. `masked_best2_gated` fuses the distance matrix, the candidate
 gate and the best-2 reduction: on a CUDA tensor it launches kernel K1
 (`csrc/hamming.cu`), which writes neither the [M,N] distances nor the mask;
 on a CPU tensor it runs the plain version built from the functions below.
+`resolve_duplicates` and `resolve_to_points` (the claims after K1) launch
+kernel R (`csrc/resolve_claims.cu`) on CUDA tensors.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from .. import kernels
 TH_LOW = 50
 TH_HIGH = 100
 BIG = 10_000  # sentinel distance for masked-out candidates (> 256 max)
+NO_GATE = 2 ** 31 - 1  # kernel R's `max_dist` where no distance gate applies
 
 
 @functools.lru_cache(maxsize=4)
@@ -166,9 +169,9 @@ def mutual_filter(idx_ab, idx_ba):
                                 dtype=back.dtype)
 
 
-def resolve_duplicates(target_idx, dist, valid, n_targets: int):
-    """Keep, per claimed target, only the claimant with the smallest
-    distance (lowest row on ties). Returns bool[M] keep-mask."""
+def resolve_duplicates_plain(target_idx, dist, valid, n_targets: int):
+    """Plain PyTorch version of kernel R (`resolve_duplicates`): two
+    scatter-mins over the targets and their gathers."""
     tgt = target_idx.long()
     d = torch.where(valid, dist, torch.full_like(dist, BIG))
     best_per_target = torch.full((n_targets,), BIG, dtype=d.dtype,
@@ -182,3 +185,80 @@ def resolve_duplicates(target_idx, dist, valid, n_targets: int):
         0, tgt, torch.where(is_best, rows, torch.full_like(rows, m)), "amin",
         include_self=True)
     return is_best & (first_best_row[tgt] == rows)
+
+
+def resolve_duplicates(target_idx, dist, valid, n_targets: int):
+    """Keep, per claimed target, only the claimant with the smallest
+    distance (lowest row on ties). Returns bool[M] keep-mask.
+    CUDA tensors -> kernel R (`csrc/resolve_claims.cu`, one launch);
+    CPU -> plain version."""
+    if not target_idx.is_cuda:
+        return resolve_duplicates_plain(target_idx, dist, valid, n_targets)
+    keep = torch.empty(target_idx.shape, dtype=torch.bool,
+                       device=target_idx.device)
+    _resolve(target_idx, dist, valid, NO_GATE, n_targets, None, keep=keep)
+    return keep
+
+
+def resolve_to_points_plain(target_idx, dist, row_ok, max_dist: int,
+                            n_targets: int, slot):
+    """Plain PyTorch version of kernel R in the projection search's mode:
+    the rows' claims resolved (valid = row_ok & dist <= max_dist), then
+    each point's row (`slot[p]`, -1 for none) read back: (idx_p i32[P],
+    -1 unless kept; best_p i32[P], BIG for none; keep_p bool[P])."""
+    keep = resolve_duplicates_plain(target_idx, dist,
+                                    row_ok & (dist <= max_dist), n_targets)
+    has = slot >= 0
+    s = torch.clamp(slot, min=0).long()
+    keep_p = has & keep[s]
+    idx_p = torch.where(keep_p, target_idx[s], torch.full_like(slot, -1))
+    best_p = torch.where(has, dist[s], torch.full_like(slot, BIG))
+    return idx_p, best_p, keep_p
+
+
+def resolve_to_points(target_idx, dist, row_ok, max_dist: int,
+                      n_targets: int, slot):
+    """Kernel R in the projection search's mode (same signature and
+    results as `resolve_to_points_plain`): one launch on CUDA tensors."""
+    if not target_idx.is_cuda:
+        return resolve_to_points_plain(target_idx, dist, row_ok, max_dist,
+                                       n_targets, slot)
+    P = slot.shape[0]
+    out = torch.empty((2 * P,), dtype=torch.int32, device=slot.device)
+    keep_p = torch.empty((P,), dtype=torch.bool, device=slot.device)
+    _resolve(target_idx, dist, row_ok, max_dist, n_targets, slot,
+             idx_p=out[:P], best_p=out[P:], keep_p=keep_p)
+    return out[:P], out[P:], keep_p
+
+
+def _resolve(target_idx, dist, valid, max_dist, n_targets, slot, keep=None,
+             idx_p=None, best_p=None, keep_p=None):
+    M = target_idx.shape[0]
+    kernels.require(target_idx, "resolve target_idx", torch.int32, (M,))
+    kernels.require(dist, "resolve dist", torch.int32, (M,))
+    kernels.require(valid, "resolve valid", torch.bool, (M,))
+    if slot is not None:
+        kernels.require(slot, "resolve slot", torch.int32)
+    fn = kernels.bind("resolve_claims", "resolve_claims",
+                      [kernels.VP] * 3 + [kernels.CI] * 3 + [kernels.VP,
+                                                             kernels.CI]
+                      + [kernels.VP] * 5)
+    if n_targets > _max_targets():
+        raise ValueError(f"resolve_duplicates: {n_targets} targets, past "
+                         f"the kernel's {_max_targets()}")
+    kernels.LAUNCHES["resolve_claims"] += 1
+    kernels.check(fn(
+        kernels.ptr(target_idx), kernels.ptr(dist), kernels.ptr(valid),
+        int(max_dist), M, int(n_targets),
+        None if slot is None else kernels.ptr(slot),
+        0 if slot is None else slot.shape[0],
+        None if keep is None else kernels.ptr(keep),
+        *(None if t is None else kernels.ptr(t)
+          for t in (idx_p, best_p, keep_p)),
+        kernels.stream_of(target_idx)), "resolve_claims")
+
+
+@functools.lru_cache(maxsize=None)
+def _max_targets() -> int:
+    fn = kernels.bind("resolve_claims", "resolve_claims_max_targets", [])
+    return fn()

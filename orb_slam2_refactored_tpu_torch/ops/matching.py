@@ -4,17 +4,22 @@ rotation-consistency.
 Port of `orb_slam2_refactored_tpu/ops/matching.py` (the tracking subset).
 Every matcher here reduces to one gated best-2 call
 (`hamming.masked_best2_gated`, kernel K1 on the card) plus cheap per-row
-work. Orderings that decide ties follow `jax.lax.top_k`: equal keys come
-lowest index first.
+work and the claim resolution (kernel R); the projection search's
+per-point gates and compaction are kernel B6 (`project_candidates`).
+Orderings that decide ties follow `jax.lax.top_k`: equal keys come lowest
+index first.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from .. import kernels
 from ..geometry import projection as proj
 from ..geometry import se3
 from . import hamming
@@ -95,23 +100,31 @@ def _frustum(mp_pos, mp_valid, pose_cw, cam, image_bounds):
     return uv, vis, po, dist
 
 
-def search_by_projection_with_vis(
-    frame_xy, frame_level, frame_desc, frame_valid,
-    mp_pos, mp_desc, mp_normal, mp_min_dist, mp_max_dist, mp_valid,
-    pose_cw, cam: proj.CameraIntrinsics, scale_factors,
-    radius: float = 4.0, max_dist: int = hamming.TH_HIGH,
-    check_view_angle: bool = True, image_bounds=None,
-    candidate_cap: int = 8192,
-):
-    """Match map points into a frame by projecting them and searching a
-    radius window at the predicted scale. Returns (per-POINT Matches, the
-    per-point frustum-visibility mask).
+class Candidates(NamedTuple):
+    """The rows kernel K1 searches in the projection search, and what the
+    per-point results need (kernel B6's outputs)."""
+    uv: torch.Tensor     # f32[R,2] each row's projection
+    rad: torch.Tensor    # f32[R] search radius at the predicted level
+    lvl: torch.Tensor    # i32[R] predicted level
+    ok: torch.Tensor     # bool[R] the row's point passed every gate
+    desc: torch.Tensor   # i32[R,8]
+    cand: torch.Tensor   # [R] the row's point (i64 plain, i32 kernel)
+    vis: torch.Tensor    # bool[P] in view and in the distance band
+    slot: torch.Tensor   # i32[P] each point's row, -1 for none
 
-    candidate_cap: when the point capacity exceeds it, the gated best-2 runs
-    only over `candidate_cap` rows: the frustum-passing points lowest index
-    first, then the failing ones lowest index first (the order
-    `jax.lax.top_k` gives the JAX package, which decides which row
-    `resolve_duplicates` keeps on equal distances)."""
+
+def project_candidates_plain(mp_pos, mp_desc, mp_normal, mp_min_dist,
+                             mp_max_dist, mp_valid, pose_cw,
+                             cam: proj.CameraIntrinsics, scale_factors,
+                             radius: float = 4.0,
+                             check_view_angle: bool = True,
+                             image_bounds=None, candidate_cap: int = 8192):
+    """Plain PyTorch version of kernel B6 (`project_candidates`): the
+    per-point gates and, when the point capacity exceeds `candidate_cap`,
+    the compaction into `candidate_cap` rows (the frustum-passing points
+    lowest index first, then the failing ones lowest index first: the
+    order `jax.lax.top_k` gives the JAX package, which decides which row
+    `resolve_duplicates` keeps on equal distances); else row p is point p."""
     n_levels = scale_factors.shape[0]
     log_sf = torch.log(scale_factors[1] / scale_factors[0])
     uv, in_view, po, dist = _frustum(mp_pos, mp_valid, pose_cw, cam,
@@ -132,31 +145,149 @@ def search_by_projection_with_vis(
     r = radius * scale_factors[pred_level.long()]
 
     P = mp_pos.shape[0]
-    compact = bool(candidate_cap) and candidate_cap < P
-    if compact:
+    if bool(candidate_cap) and candidate_cap < P:
         cand = torch.sort((~point_ok).to(torch.uint8), stable=True).indices[
             :candidate_cap]
-        uv_r, r_r, lvl_r = uv[cand], r[cand], pred_level[cand]
-        ok_r, desc_r = point_ok[cand], mp_desc[cand]
-    else:
-        uv_r, r_r, lvl_r, ok_r, desc_r = uv, r, pred_level, point_ok, mp_desc
+        slot = torch.full((P,), -1, dtype=torch.int32, device=uv.device)
+        slot[cand] = torch.arange(candidate_cap, dtype=torch.int32,
+                                  device=uv.device)
+        return Candidates(uv[cand], r[cand], pred_level[cand],
+                          point_ok[cand], mp_desc[cand], cand, vis, slot)
+    rows = torch.arange(P, dtype=torch.int32, device=uv.device)
+    return Candidates(uv, r, pred_level, point_ok, mp_desc, rows, vis, rows)
 
+
+def project_candidates(mp_pos, mp_desc, mp_normal, mp_min_dist,
+                       mp_max_dist, mp_valid, pose_cw,
+                       cam: proj.CameraIntrinsics, scale_factors,
+                       radius: float = 4.0, check_view_angle: bool = True,
+                       image_bounds=None, candidate_cap: int = 8192):
+    """The projection search's per-point gates and candidate compaction
+    (same signature and results as `project_candidates_plain`).
+    CUDA tensors -> kernel B6 (`csrc/project_search.cu`, one launch);
+    CPU -> plain version."""
+    if not mp_pos.is_cuda:
+        return project_candidates_plain(
+            mp_pos, mp_desc, mp_normal, mp_min_dist, mp_max_dist, mp_valid,
+            pose_cw, cam, scale_factors, radius, check_view_angle,
+            image_bounds, candidate_cap)
+    P, L = mp_pos.shape[0], scale_factors.shape[0]
+    for t, what, dtype, shape in (
+            (mp_pos, "mp_pos", torch.float32, (P, 3)),
+            (mp_desc, "mp_desc", torch.int32, (P, 8)),
+            (mp_normal, "mp_normal", torch.float32, (P, 3)),
+            (mp_min_dist, "mp_min_dist", torch.float32, (P,)),
+            (mp_max_dist, "mp_max_dist", torch.float32, (P,)),
+            (mp_valid, "mp_valid", torch.bool, (P,)),
+            (pose_cw, "pose_cw", torch.float32, (7,)),
+            (scale_factors, "scale_factors", torch.float32, (L,))):
+        kernels.require(t, "project_search " + what, dtype, shape)
+    if mp_desc.data_ptr() % 16:
+        mp_desc = mp_desc.clone()  # read 16 bytes at a time
+    compact = bool(candidate_cap) and candidate_cap < P
+    R = candidate_cap if compact else P
+    blocks = _b6_blocks(P)
+    if blocks <= 0:
+        raise ValueError(f"project_search: {P} points, past what one "
+                         "launch takes")
+    # one allocation: the rows' i32 words (desc 16-byte aligned first),
+    # the points' slots, the scratch, then the bytes
+    i32 = torch.empty((13 * R + P + blocks + (R + P + 3) // 4,),
+                      dtype=torch.int32, device=mp_pos.device)
+    desc_r = i32[:8 * R].view(R, 8)
+    uv_r = i32[8 * R:10 * R].view(torch.float32).view(R, 2)
+    r_r = i32[10 * R:11 * R].view(torch.float32)
+    lvl_r = i32[11 * R:12 * R]
+    cand = i32[12 * R:13 * R]
+    slot = i32[13 * R:13 * R + P]
+    scratch = i32[13 * R + P:13 * R + P + blocks]
+    tail = i32[13 * R + P + blocks:].view(torch.uint8)
+    ok_r, vis = tail[:R].view(torch.bool), tail[R:R + P].view(torch.bool)
+    if image_bounds is None:
+        bounds = (0.0, 0.0, 0.0, 0.0)
+    else:
+        bounds = tuple(float(np.float32(b)) for b in image_bounds)
+    fn = kernels.bind("project_search", "project_search",
+                      [kernels.VP] * 8 + [kernels.CI] + [kernels.CF] * 5
+                      + [kernels.CI] + [kernels.CF] * 4 + [kernels.CI] * 4
+                      + [kernels.VP] * 10)
+    kernels.LAUNCHES["project_search"] += 1
+    kernels.check(fn(
+        *(kernels.ptr(t) for t in (mp_pos, mp_normal, mp_min_dist,
+                                   mp_max_dist, mp_valid, mp_desc, pose_cw,
+                                   scale_factors)),
+        L, cam.fx, cam.fy, cam.cx, cam.cy, float(np.float32(radius)),
+        int(image_bounds is not None), *bounds, int(check_view_angle), P,
+        R, int(compact),
+        *(kernels.ptr(t) for t in (uv_r, r_r, lvl_r, ok_r, desc_r, cand, vis,
+                                   slot, scratch)),
+        kernels.stream_of(mp_pos)), "project_search")
+    return Candidates(uv_r, r_r, lvl_r, ok_r, desc_r, cand, vis, slot)
+
+
+@functools.lru_cache(maxsize=None)
+def _b6_blocks(P: int) -> int:
+    fn = kernels.bind("project_search", "project_search_blocks",
+                      [kernels.CI])
+    return fn(P)
+
+
+def _search(find, resolve, frame_xy, frame_level, frame_desc, frame_valid,
+            mp_pos, mp_desc, mp_normal, mp_min_dist, mp_max_dist, mp_valid,
+            pose_cw, cam, scale_factors, radius, max_dist, check_view_angle,
+            image_bounds, candidate_cap):
+    """The projection search with B6's version `find` and R's `resolve`
+    around the gated best-2 (K1 on CUDA tensors, its plain version on the
+    CPU)."""
+    c = find(mp_pos, mp_desc, mp_normal, mp_min_dist, mp_max_dist, mp_valid,
+             pose_cw, cam, scale_factors, radius, check_view_angle,
+             image_bounds, candidate_cap)
     idx, best, _ = hamming.masked_best2_gated(
-        desc_r.contiguous(), frame_desc, ok_r.contiguous(), frame_valid,
-        uv_r.contiguous(), r_r.contiguous(), lvl_r.contiguous(), frame_xy,
+        c.desc, frame_desc, c.ok, frame_valid, c.uv, c.rad, c.lvl, frame_xy,
         frame_level)
-    ok = ok_r & (best <= max_dist)
-    keep = hamming.resolve_duplicates(idx, best, ok, frame_desc.shape[0])
-    if compact:
-        idx_p = torch.full((P,), -1, dtype=idx.dtype, device=idx.device)
-        idx_p[cand] = torch.where(keep, idx, _neg1(idx))
-        best_p = torch.full((P,), hamming.BIG, dtype=best.dtype,
-                            device=best.device)
-        best_p[cand] = best
-        keep_p = torch.zeros((P,), dtype=torch.bool, device=keep.device)
-        keep_p[cand] = keep
-        return Matches(idx_p, best_p, keep_p), vis
-    return Matches(torch.where(keep, idx, _neg1(idx)), best, keep), vis
+    return Matches(*resolve(idx, best, c.ok, max_dist, frame_desc.shape[0],
+                            c.slot)), c.vis
+
+
+def search_by_projection_with_vis_plain(
+    frame_xy, frame_level, frame_desc, frame_valid,
+    mp_pos, mp_desc, mp_normal, mp_min_dist, mp_max_dist, mp_valid,
+    pose_cw, cam: proj.CameraIntrinsics, scale_factors,
+    radius: float = 4.0, max_dist: int = hamming.TH_HIGH,
+    check_view_angle: bool = True, image_bounds=None,
+    candidate_cap: int = 8192,
+):
+    """Plain PyTorch version of `search_by_projection_with_vis` (same
+    signature and results): B6's and R's plain versions around K1."""
+    return _search(project_candidates_plain, hamming.resolve_to_points_plain,
+                   frame_xy, frame_level, frame_desc, frame_valid, mp_pos,
+                   mp_desc, mp_normal, mp_min_dist, mp_max_dist, mp_valid,
+                   pose_cw, cam, scale_factors, radius, max_dist,
+                   check_view_angle, image_bounds, candidate_cap)
+
+
+def search_by_projection_with_vis(
+    frame_xy, frame_level, frame_desc, frame_valid,
+    mp_pos, mp_desc, mp_normal, mp_min_dist, mp_max_dist, mp_valid,
+    pose_cw, cam: proj.CameraIntrinsics, scale_factors,
+    radius: float = 4.0, max_dist: int = hamming.TH_HIGH,
+    check_view_angle: bool = True, image_bounds=None,
+    candidate_cap: int = 8192,
+):
+    """Match map points into a frame by projecting them and searching a
+    radius window at the predicted scale. Returns (per-POINT Matches, the
+    per-point frustum-visibility mask).
+
+    candidate_cap: when the point capacity exceeds it, the gated best-2 runs
+    only over `candidate_cap` rows (`project_candidates_plain`).
+    CUDA tensors -> three launches: B6 (the gates and the compaction), K1
+    (the gated best-2) and R (the claims, back per point); CPU -> their
+    plain versions."""
+    return _search(project_candidates, hamming.resolve_to_points, frame_xy,
+                   frame_level, frame_desc, frame_valid, mp_pos, mp_desc,
+                   mp_normal, mp_min_dist, mp_max_dist, mp_valid, pose_cw,
+                   cam, scale_factors, radius, max_dist, check_view_angle,
+                   image_bounds, candidate_cap)
 
 
 def search_by_projection(*args, **kwargs) -> Matches:

@@ -8,7 +8,8 @@ solve of global BA) and K6 split at its reductions (the sharded solve's
 CG), and B9 (the stereo SAD
 refinement alone, and the whole stereo association after K1 in one
 launch), and the BoW vocabulary on K1 (quantization, training,
-compute_bow).
+compute_bow), B6 (the projection search's gates and compaction) and R
+(the claim resolution).
 
 These tests need a CUDA card and skip elsewhere. The file imports no JAX,
 so it also runs where JAX is not installed:
@@ -32,6 +33,8 @@ from orb_slam2_refactored_tpu_torch.ops import fast, hamming, orb, stereo
 from orb_slam2_refactored_tpu_torch.ops import image as image_ops
 from orb_slam2_refactored_tpu_torch.optim import ba, pose_opt
 from orb_slam2_refactored_tpu_torch.slam.frame import scale_factors
+from torch_b6_cases import (B6_CASES, CX, CY, FX, R_CASES, SF, as_torch,
+                            b6_case, r_case)
 from torch_k1_cases import k1_grid_cases
 from torch_sad_cases import (ASSOC_CASES, SAD_CASES, as_tensors, assoc_case,
                              assoc_tensors, sad_case, sad_ref)
@@ -1545,3 +1548,84 @@ def test_tracker_uploads_land_on_the_card():
     with pytest.raises(ValueError, match="tracker runs on"):
         t._unpack(torch.from_numpy(packed))
     assert kernels.LAUNCHES["wire_unpack"] == 3
+
+
+B6_KEYS = ("mp_pos", "mp_desc", "mp_normal", "mp_min_dist", "mp_max_dist",
+           "mp_valid")
+
+
+def _same_bits(a, b):
+    """Equal values, floats compared by their bits (NaN included)."""
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a.long() if a.dtype == torch.int32 else a,
+                       b.long() if b.dtype == torch.int32 else b)
+
+
+def _b6_args(name, dev):
+    mp, frame, pose, kw = b6_case(name)
+    a = {k: v.to(dev) for k, v in as_torch({**mp, **frame}).items()}
+    return dict(a, pose_cw=torch.from_numpy(pose).to(dev),
+                cam=proj.CameraIntrinsics.create(FX, FX, CX, CY, 0.0),
+                scale_factors=torch.from_numpy(SF).to(dev), **kw)
+
+
+@pytest.mark.parametrize("name", list(B6_CASES) + ["bench"])
+def test_project_search_kernel_equals_plain(name):
+    """B6 bit for bit against its plain version at the compaction's edges
+    (no point passes, all pass, exactly `cap`, `cap >= P`, `cap = 0`) and
+    at the bench's P = 32,768, cap = 8,192: every row's (uv, radius, level,
+    ok, descriptor, point), each point's visibility and row; then the
+    whole search (B6, K1, R: three launches) against its plain version."""
+    from orb_slam2_refactored_tpu_torch.ops import matching
+
+    dev = _card()
+    a = _b6_args(name, dev)
+    b6 = {k: a[k] for k in B6_KEYS + ("pose_cw", "cam", "scale_factors",
+                                      "radius", "check_view_angle",
+                                      "image_bounds", "candidate_cap")}
+    before = kernels.counts()
+    got = matching.project_candidates(**b6)
+    assert kernels.counts()["project_search"] == before["project_search"] + 1
+    ref = matching.project_candidates_plain(**b6)
+    torch.cuda.synchronize()
+    for f in matching.Candidates._fields:
+        assert _same_bits(getattr(got, f), getattr(ref, f)), f
+    before = kernels.counts()
+    out, vis = matching.search_by_projection_with_vis(**a)
+    after = kernels.counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]
+            } == {"project_search": 1, "hamming_best2": 1,
+                  "resolve_claims": 1}
+    ref_out, ref_vis = matching.search_by_projection_with_vis_plain(**a)
+    assert all(torch.equal(x, y) for x, y in zip(out, ref_out))
+    assert torch.equal(vis, ref_vis)
+    if name not in ("none_pass",):
+        assert int(out.valid.sum()) > 20
+
+
+@pytest.mark.parametrize("name", list(R_CASES))
+def test_resolve_kernel_equals_plain(name):
+    """R bit for bit against its plain version: equal distances keep the
+    lowest row, invalid rows never win, one target claimed by many rows,
+    all rows invalid, K1's unsearched rows (target 0, BIG); and its
+    projection mode (each point's row through a slot map, points without
+    a row, the distance gate) against its plain version."""
+    dev = _card()
+    idx, dist, valid, N = (torch.from_numpy(x).to(dev) if isinstance(
+        x, np.ndarray) else x for x in r_case(name))
+    before = kernels.counts()["resolve_claims"]
+    keep = hamming.resolve_duplicates(idx, dist, valid, N)
+    assert kernels.counts()["resolve_claims"] == before + 1
+    assert torch.equal(keep, hamming.resolve_duplicates_plain(
+        idx, dist, valid, N))
+    M = idx.shape[0]
+    rng = np.random.default_rng(3)
+    slot = np.full(M + 777, -1, np.int32)
+    slot[rng.permutation(M + 777)[:M]] = np.arange(M)
+    slot = torch.from_numpy(slot).to(dev)
+    for max_dist in (50, hamming.TH_HIGH):
+        got = hamming.resolve_to_points(idx, dist, valid, max_dist, N, slot)
+        ref = hamming.resolve_to_points_plain(idx, dist, valid, max_dist, N,
+                                              slot)
+        assert all(torch.equal(x, y) for x, y in zip(got, ref))
