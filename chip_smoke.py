@@ -192,9 +192,11 @@ Phases (any failure raises and the script exits non-zero):
     the initializer's population and `pnp_ransac` (device time and
     operations, host time, bound), K1's mono window call and K4 on a mono
     frame, cell A's and cell G's tracked frames under the profiler (device
-    operations a frame, busy share); B6's and the tracked frame's R calls'
-    device time and operations beside their plain versions', and the whole
-    projection search's beside the plain composition's;
+    operations a frame, busy share); B6's (both modes) and the tracked
+    frame's R calls' device time, operations and wrappers' host us a call
+    beside their plain versions', the whole projection search's and the
+    whole motion-model search's beside their plain compositions', and
+    each search's launches by `kernels.LAUNCHES` (three each);
     K4's time split into passes
     and LM iterations (the same calls without iterations) and one
     iteration on no observation;
@@ -215,7 +217,12 @@ Phases (any failure raises and the script exits non-zero):
     them, outputs equal also given the plain version's angles; cell F's
     whole global BA, parent against change, in device time, operations and
     host time; the tracked frame's projection search, the parent's plain
-    gates, K1 and plain resolution against B6, K1 and R; then cell A's
+    gates, K1 and plain resolution against B6, K1 and R; B6, R's two
+    calls of the tracked frame and its motion-model search (the parent's
+    gather and plain gates, K1 and R) against the parent's, each bound
+    with its own C signature: outputs,
+    device ms, CUDA-event ms and the wrappers' host us a call (1,000 calls,
+    nothing waiting for the card), in turns; then cell A's
     120 frames through the parent's tracker and this one's in turns, the
     step's median and p90 and the ATE).
 The line before the last is a JSON object with one entry per kernel; the
@@ -2598,7 +2605,42 @@ def build_parent(parent):
             "solve": old_ba.ba_solve, "k8": old_image.build_pyramid,
             "k9": old_orb.spread_topk_levels,
             "k7": old_orb.angles_and_descriptors_learned_levels,
-            "sbp": old_matching.search_by_projection_with_vis}
+            "sbp": old_matching.search_by_projection_with_vis,
+            "b6": old_matching.project_candidates,
+            "r": partial(r_side, old=old_hamming),
+            "mm": partial(mm_side, old=old_matching)}
+
+
+def r_side(old=None, **c):
+    """One of the tracked frame's R calls (recorded, `r_entry`) through
+    this checkout's R (`old` None) or the parent's `ops/hamming.py`
+    (`old`): the motion-model call is the rows mode here and the parent's
+    `resolve_duplicates` over `parent_valid` (valid & dist <= max_dist,
+    computed once beforehand: one launch on each side); the projection
+    call is `resolve_to_points` on both."""
+    parent_valid = c.pop("parent_valid", None)
+    if old is None or "slot" in c:
+        return (r_entry(c) if old is None else old.resolve_to_points)(**c)
+    return old.resolve_duplicates(c["target_idx"], c["dist"], parent_valid,
+                                  c["n_targets"])
+
+
+def mm_side(old=None, **a):
+    """A recorded `search_last_frame_mapped` call through this checkout
+    (`old` None) or as the parent's tracker made it (`old`: the parent's
+    `ops/matching.py`): the gather of the last frame's map points in torch,
+    then its `search_last_frame`."""
+    if old is None:
+        from orb_slam2_refactored_tpu_torch.ops import matching
+
+        return matching.search_last_frame_mapped(**a)
+    lm_idx = torch.clamp(a["last_mp"], 0, a["mp_pos"].shape[0] - 1).long()
+    lm_ok = (a["last_mp"] >= 0) & a["mp_valid"][lm_idx]
+    return old.search_last_frame(
+        a["curr_xy"], a["curr_level"], a["curr_desc"], a["curr_valid"],
+        None, a["last_level"], a["last_desc"], lm_ok, lm_ok,
+        a["mp_pos"][lm_idx], a["pose_cw"], a["cam"], a["scale_factors"],
+        **{k: a[k] for k in ("radius", "max_dist") if k in a})
 
 
 def in_turns(label, calls, fns, reps=20):
@@ -2622,7 +2664,9 @@ SIDE_JOBS = {"k1_frame": ("k1", False), "k1_dense": ("k1", False),
              "k5_ba_cost": ("cost", False), "b9": ("b9", False),
              "k6": ("cg", True), "gba": ("solve", True), "k8": ("k8", False),
              "k9": ("k9", False), "k7": ("k7", False),
-             "sbp": ("sbp", False)}
+             "sbp": ("sbp", False), "b6": ("b6", False),
+             "r": ("r", False),
+             "mm": ("mm", False)}
 
 
 def side_entries(side, parent):
@@ -2644,7 +2688,9 @@ def side_entries(side, parent):
                 "cg_args": lambda c: c, "solve": ba.ba_solve,
                 "k8": image_ops.build_pyramid, "k9": orb.spread_topk_levels,
                 "k7": orb.angles_and_descriptors_learned_levels,
-                "sbp": matching.search_by_projection_with_vis}
+                "sbp": matching.search_by_projection_with_vis,
+                "b6": matching.project_candidates, "r": r_side,
+                "mm": mm_side}
     entries = build_parent(parent)
     old_kernels = sys.modules["parent_port.kernels"]
     for name in old_kernels.SOURCES:
@@ -2730,12 +2776,79 @@ def device_times_in_turns(parent, jobs):
     return res
 
 
+def host_in_turns(label, calls, fns, reps=1000):
+    """The wrappers' host microseconds a run of the recorded `calls`
+    through each of `fns` (`host_us`: nothing waits for the card), in the
+    order parent, change, change, parent."""
+    order = list(fns) + list(fns)[::-1]
+    us = {name: [] for name in fns}
+    for name in order:
+        fn = fns[name]
+        us[name].append(host_us(lambda: [fn(**a) for a in calls.values()],
+                                reps))
+    print(f"in turns, {label}: " + json.dumps(us))
+    return us
+
+
+def b6_r_against_parent(old, sbp_call, r_calls, mm_call, res):
+    """With --parent: B6, R's two calls of the tracked frame and its
+    motion-model search against the parent's entries (`build_parent`, each
+    bound with its own C signature): outputs equal, then CUDA events and
+    the wrappers' host time in turns, into `res`. Returns the B6 and R
+    jobs for the device times."""
+    from orb_slam2_refactored_tpu_torch.ops import matching
+
+    b6 = {"b6": {k: sbp_call[k] for k in B6_ARGS if k in sbp_call}}
+    b6_fns = {"parent": old["b6"], "change": matching.project_candidates}
+    old_c = old["b6"](**b6["b6"])
+    got = matching.project_candidates(**b6["b6"])
+    same = [_same_bits(getattr(got, f), getattr(old_c, f))
+            for f in matching.Candidates._fields]
+    print(f"  B6: rows and slots equal to the parent's {same}")
+    assert all(same), same
+    rows_call, proj_call = r_calls
+    r_jobs = {"motion_model": {**rows_call, "parent_valid": rows_call[
+        "valid"] & (rows_call["dist"] <= rows_call["max_dist"])},
+        "projection": proj_call}
+    r_fns = {"parent": old["r"], "change": r_side}
+    mm_fns = {"parent": old["mm"], "change": mm_side}
+    for label, fns, calls in (("R", r_fns, r_jobs),
+                              ("the motion-model search", mm_fns,
+                               {"mm": mm_call})):
+        for name, a in calls.items():
+            got, ref = fns["change"](**a), fns["parent"](**a)
+            got = got if isinstance(got, tuple) else (got,)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            # R's rows mode gives (idx, keep), the parent's keep alone
+            same = [bool(torch.equal(x, y)) for x, y in zip(got[::-1],
+                                                            ref[::-1])]
+            print(f"  {label} {name}: equal to the parent's {same}")
+            assert all(same), (label, name, same)
+    res["b6_card_ms"] = in_turns(
+        "B6 on the tracked frame's projection search, CUDA events", b6,
+        b6_fns)
+    res["r_card_ms"] = in_turns(
+        "R, the tracked frame's two calls, CUDA events", r_jobs, r_fns)
+    res["mm_card_ms"] = in_turns(
+        "the tracked frame's motion-model search, CUDA events",
+        {"mm": mm_call}, mm_fns)
+    res["b6_host_us"] = host_in_turns(
+        "B6's wrapper, host us a call", b6, b6_fns)
+    res["r_host_us"] = host_in_turns(
+        "R's wrapper, host us for the tracked frame's two calls", r_jobs,
+        r_fns)
+    res["mm_host_us"] = host_in_turns(
+        "the motion-model search, host us a call", {"mm": mm_call}, mm_fns)
+    return b6, r_jobs
+
+
 def compare_with_parent(parent, frame_k1, dense_k1, frame_k4, fb_k4,
                         asm_call, st_tail, k6_calls, gba_call, k8_calls,
-                        k9_calls, k7_calls, sbp_call):
-    """K1, K4, K5, B9, K6, K8, K9, K7 and the tracked frame's projection
+                        k9_calls, k7_calls, sbp_call, r_calls, mm_call):
+    """K1, K4, K5, B9, K6, K8, K9, K7, the tracked frame's projection
     search (B6, K1, R; the parent's plain gates, K1 and plain resolution
-    where it predates B6 and R) against the parent checkout's own
+    where it predates B6 and R), and B6, R and the motion-model search
+    (`b6_r_against_parent`) against the parent checkout's own
     entries (`build_parent`) on the same recorded arguments: outputs (K1,
     B9, K8, K9, K7 and the search exactly, K7 also given the plain
     version's angles;
@@ -2829,6 +2942,7 @@ def compare_with_parent(parent, frame_k1, dense_k1, frame_k4, fb_k4,
         "the tracked frame's projection search, CUDA events",
         {"sbp": sbp_call}, {"parent": old["sbp"],
                             "change": matching.search_by_projection_with_vis})
+    b6, r_jobs = b6_r_against_parent(old, sbp_call, r_calls, mm_call, res)
     par = {}
     for i, c in enumerate(k6_calls):
         yard, _, _ = cg_yardstick(
@@ -2851,7 +2965,8 @@ def compare_with_parent(parent, frame_k1, dense_k1, frame_k4, fb_k4,
         "k5_ba_assemble": {"a": asm_call}, "k5_ba_cost": {"a": cost_call},
         "b9": {"b9": st_tail}, "k6": {"k6": c0}, "gba": {"gba": gba_call},
         "k8": k8_calls, "k9": k9_calls, "k7": k7_calls,
-        "sbp": {"sbp": sbp_call}})
+        "sbp": {"sbp": sbp_call}, "b6": b6, "r": r_jobs,
+        "mm": {"mm": mm_call}})
     print("against the parent " + json.dumps(res))
     return res
 
@@ -4483,13 +4598,109 @@ def b6_work(a):
 def r_work(a):
     """(bytes, operations) of R on the arguments `a` of
     `resolve_duplicates` (M rows: target, distance, validity read, the
-    keep byte written) or of `resolve_to_points` (and the P points' slot
-    read and (idx, best, keep) written); ~10 int32 operations a row and a
-    point."""
+    keep byte written), of `resolve_rows` (and the kept index written) or
+    of `resolve_to_points` (and the P points' slot read and (idx, best,
+    keep) written); ~10 int32 operations a row and a point."""
     M = a["target_idx"].shape[0]
     P = a["slot"].shape[0] if "slot" in a else 0
-    nbytes = M * 9 + (P * 13 if P else M)
-    return nbytes, {"int32": 10 * (M + P)}
+    out = P * 13 if P else M * (5 if "max_dist" in a else 1)
+    return M * 9 + out, {"int32": 10 * (M + P)}
+
+
+def r_entry(a, plain=False):
+    """R's entry for recorded arguments `a` (`resolve_to_points` where
+    they hold `slot`, `resolve_rows` where they hold `max_dist`, else
+    `resolve_duplicates`), or its plain version."""
+    from orb_slam2_refactored_tpu_torch.ops import hamming
+
+    name = ("resolve_to_points" if "slot" in a else "resolve_rows"
+            if "max_dist" in a else "resolve_duplicates")
+    return getattr(hamming, name + "_plain" * plain)
+
+
+def features_args(a):
+    """B6's feature-mode arguments (`project_features`) of a recorded
+    `search_last_frame_mapped` call `a`."""
+    return dict(pos=a["mp_pos"], level=a["last_level"], pose_cw=a["pose_cw"],
+                cam=a["cam"], scale_factors=a["scale_factors"],
+                radius=a.get("radius", 7.0), feat_idx=a["last_mp"],
+                pos_valid=a["mp_valid"])
+
+
+def features_work(a):
+    """(bytes, operations) of B6's feature mode on a recorded motion-model
+    call `a`: each feature's point id and level read (8 bytes), its map
+    point's position and validity (13) and its (uv, radius, ok) written
+    (13); ~45 f32 operations a feature (the transform's 27, the
+    projection, the radius) and ~6 int32 ones (the clamp, the gates)."""
+    N = a["last_mp"].shape[0]
+    return N * 34, {"f32": 45 * N, "int32": 6 * N}
+
+
+def host_us(fn, reps=1000):
+    """Host microseconds a call of `fn` (its wrapper's time: the launches
+    are enqueued, nothing waits for the card), over `reps` calls after a
+    warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / reps * 1e6
+
+
+def check_motion_model(cases, per_frame):
+    """Phase 4: B6's feature mode against its plain version bit for bit on
+    the motion-model searches the main paths made (a tracked frame's of
+    cells A, C and G: each feature's uv, radius and ok); on K1's output
+    for its rows, R's rows mode against its plain version; and the whole
+    search (B6's feature mode, K1, R: three launches) against
+    `search_last_frame_mapped_plain`. The `per_frame` call (cell A's) is
+    timed with CUDA events, its bound counted from its shapes. Returns the
+    feature mode's (error, ms, plain ms, bytes, operations) on it."""
+    from orb_slam2_refactored_tpu_torch import kernels
+    from orb_slam2_refactored_tpu_torch.ops import hamming, matching
+
+    row = None
+    for name, a in cases.items():
+        fa = features_args(a)
+        got = [x.clone() for x in matching.project_features(**fa)]
+        ref = matching.project_features_plain(**fa)
+        torch.cuda.synchronize()
+        bad = [f for f, x, y in zip(("uv", "rad", "ok"), got, ref)
+               if not _same_bits(x, y)]
+        idx, best, _ = hamming.masked_best2_gated(
+            a["last_desc"], a["curr_desc"], got[2], a["curr_valid"], got[0],
+            got[1], a["last_level"], a["curr_xy"], a["curr_level"])
+        rr = dict(target_idx=idx, dist=best, valid=got[2],
+                  max_dist=a.get("max_dist", hamming.TH_HIGH),
+                  n_targets=a["curr_desc"].shape[0])
+        r_same = all(torch.equal(x, y) for x, y in zip(
+            hamming.resolve_rows(**rr), hamming.resolve_rows_plain(**rr)))
+        before = kernels.counts()
+        out = matching.search_last_frame_mapped(**a)
+        after = kernels.counts()
+        launches = {k: after[k] - before[k] for k in after
+                    if after[k] != before[k]}
+        ref_out = matching.search_last_frame_mapped_plain(**a)
+        whole = all(torch.equal(x, y) for x, y in zip(out, ref_out))
+        print(f"  B6 features {name}: {a['last_mp'].shape[0]} features, "
+              f"{int(ref[2].sum())} passing, {int(out.valid.sum())} "
+              f"matched; fields that differ {bad}; R (rows mode) equal "
+              f"{r_same}; the search's launches {launches}, equal to the "
+              f"plain search {whole}")
+        assert not bad and r_same and whole, name
+        assert launches == {"project_features": 1, "hamming_best2": 1,
+                            "resolve_claims": 1}, launches
+        if name == per_frame:
+            nbytes, ops = features_work(a)
+            row = (0, cuda_time_ms(lambda: matching.project_features(**fa),
+                                   50),
+                   cuda_time_ms(lambda: matching.project_features_plain(
+                       **fa), 10), nbytes, ops)
+    return row
 
 
 def check_project_search(cases, per_frame):
@@ -4515,9 +4726,12 @@ def check_project_search(cases, per_frame):
         idx, best, _ = hamming.masked_best2_gated(
             got.desc, a["frame_desc"], got.ok, a["frame_valid"], got.uv,
             got.rad, got.lvl, a["frame_xy"], a["frame_level"])
-        r_args = dict(target_idx=idx, dist=best, row_ok=got.ok,
+        # B6's rows are the geometry's workspace, which the next search
+        # writes: R's recorded arguments keep copies
+        r_args = dict(target_idx=idx, dist=best, row_ok=got.ok.clone(),
                       max_dist=a.get("max_dist", hamming.TH_HIGH),
-                      n_targets=a["frame_desc"].shape[0], slot=got.slot)
+                      n_targets=a["frame_desc"].shape[0],
+                      slot=got.slot.clone())
         r_same = all(torch.equal(x, y) for x, y in zip(
             hamming.resolve_to_points(**r_args),
             hamming.resolve_to_points_plain(**r_args)))
@@ -4543,32 +4757,27 @@ def check_project_search(cases, per_frame):
 
 def check_claims(cases, per_frame):
     """Phase 4: R against its plain version bit for bit on the
-    `resolve_duplicates` calls the main paths made (the tracked frame's:
-    its motion-model search first, then its mapping job's where it made a
-    keyframe; triangulation's and fusion's); the `per_frame` calls
-    (`resolve_duplicates` argument dicts, and `resolve_to_points` ones
-    holding `slot`) timed with CUDA events, their bounds counted from their
-    shapes. Returns R's (error, ms, plain ms, bytes, operations) over
-    them."""
-    from orb_slam2_refactored_tpu_torch.ops import hamming
-
+    `resolve_duplicates` and `resolve_rows` calls the main paths made (the
+    tracked frame's: its motion-model search's rows call first, then its
+    mapping job's where it made a keyframe; triangulation's and fusion's);
+    the `per_frame` calls (`r_entry` tells the modes apart) timed with
+    CUDA events, their bounds counted from their shapes. Returns R's
+    (error, ms, plain ms, bytes, operations) over them."""
     for name, a in cases.items():
-        got = hamming.resolve_duplicates(**a)
-        ref = hamming.resolve_duplicates_plain(**a)
+        got, ref = r_entry(a)(**a), r_entry(a, plain=True)(**a)
         torch.cuda.synchronize()
-        print(f"  R {name}: {a['target_idx'].shape[0]} rows over "
-              f"{a['n_targets']} targets, {int(a['valid'].sum())} valid, "
-              f"{int(ref.sum())} kept; equal {bool(torch.equal(got, ref))}")
-        assert torch.equal(got, ref), name
+        keep = ref[-1] if isinstance(ref, tuple) else ref
+        same = (all(torch.equal(x, y) for x, y in zip(got, ref))
+                if isinstance(ref, tuple) else bool(torch.equal(got, ref)))
+        print(f"  R {name} ({r_entry(a).__name__}): "
+              f"{a['target_idx'].shape[0]} rows over {a['n_targets']} "
+              f"targets, {int(a['valid'].sum())} valid, {int(keep.sum())} "
+              f"kept; equal {same}")
+        assert same, name
     ms = plain_ms = 0.0
     nbytes, ops = 0, {}
     for a in per_frame:
-        if "slot" in a:
-            fn, plain = (hamming.resolve_to_points,
-                         hamming.resolve_to_points_plain)
-        else:
-            fn, plain = (hamming.resolve_duplicates,
-                         hamming.resolve_duplicates_plain)
+        fn, plain = r_entry(a), r_entry(a, plain=True)
         ms += cuda_time_ms(lambda: fn(**a), 50)
         plain_ms += cuda_time_ms(lambda: plain(**a), 10)
         b, o = r_work(a)
@@ -4577,49 +4786,75 @@ def check_claims(cases, per_frame):
     return 0, ms, plain_ms, nbytes, ops
 
 
-def b6_r_device_times(sbp_call, r_calls, b6_r, claims_r):
-    """Phase 5: the device time and operations of B6 and of the tracked
-    frame's R calls (`r_calls`), and of their plain versions; and of the
-    whole projection search (B6, K1, R) beside the plain composition (the
-    path before the kernels: 119 operations with its K1 launch, PR 11). The
-    two kernel rows' tuples gain their device ms."""
-    from orb_slam2_refactored_tpu_torch.ops import hamming, matching
+def b6_r_device_times(sbp_call, r_calls, b6_r, claims_r, mm_call, feat_r):
+    """Phase 5: the device time and operations of B6 (both modes) and of
+    the tracked frame's R calls (`r_calls`), and of their plain versions;
+    of the whole projection search (B6, K1, R) beside the plain
+    composition (the path before the kernels: 119 operations with its K1
+    launch); of the whole motion-model search (`mm_call`: B6's feature
+    mode, K1, R) beside its plain composition; and each search's launches
+    by `kernels.LAUNCHES` (three each). The three kernel rows' tuples gain
+    their device ms, the wrappers' host us a call are printed."""
+    from orb_slam2_refactored_tpu_torch import kernels
+    from orb_slam2_refactored_tpu_torch.ops import matching
 
     a = sbp_call
     b6 = {k: a[k] for k in B6_ARGS if k in a}
+    fa = features_args(mm_call)
     out = {}
 
     def r_fn(plain):
-        calls = [((hamming.resolve_to_points_plain if plain
-                   else hamming.resolve_to_points) if "slot" in c else
-                  (hamming.resolve_duplicates_plain if plain
-                   else hamming.resolve_duplicates), c) for c in r_calls]
+        calls = [(r_entry(c, plain), c) for c in r_calls]
         return lambda: [fn(**c) for fn, c in calls]
 
     for name, fn in (
             ("B6", lambda: matching.project_candidates(**b6)),
             ("B6 plain", lambda: matching.project_candidates_plain(**b6)),
+            ("B6 features", lambda: matching.project_features(**fa)),
+            ("B6 features plain",
+             lambda: matching.project_features_plain(**fa)),
             ("R, the tracked frame's calls", r_fn(False)),
             ("R plain", r_fn(True)),
             ("search (B6, K1, R)",
              lambda: matching.search_by_projection_with_vis(**a)),
             ("search plain (K1 on the card)",
-             lambda: matching.search_by_projection_with_vis_plain(**a))):
+             lambda: matching.search_by_projection_with_vis_plain(**a)),
+            ("motion-model search (B6 features, K1, R)",
+             lambda: matching.search_last_frame_mapped(**mm_call)),
+            ("motion-model search plain (K1 on the card)",
+             lambda: matching.search_last_frame_mapped_plain(**mm_call))):
         n_ops = []
         ms, rows = profiled_ms(fn, 20, n_ops)
         out[name] = {"device_ms": ms, "device_ops": n_ops[0]}
         print(f"  {name}: device time {ms:.5f} ms, {n_ops[0]:g} device "
               f"operations: {rows[:6]}")
-    for name, r in (("B6", b6_r), ("R, the tracked frame's calls",
-                                   claims_r)):
+    for name, r in (("B6", b6_r), ("B6 features", feat_r),
+                    ("R, the tracked frame's calls", claims_r)):
         b_ms, b_by = bound_ms(r[3], r[4])
         out[name].update(card_ms=r[1], plain_card_ms=r[2], bound_ms=b_ms,
                          bound_by=b_by)
+    out["B6"]["host_us"] = host_us(lambda: matching.project_candidates(**b6))
+    out["B6 features"]["host_us"] = host_us(
+        lambda: matching.project_features(**fa))
+    out["R, the tracked frame's calls"]["host_us"] = host_us(r_fn(False))
+    for name, fn in (("search (B6, K1, R)",
+                      lambda: matching.search_by_projection_with_vis(**a)),
+                     ("motion-model search (B6 features, K1, R)",
+                      lambda: matching.search_last_frame_mapped(
+                          **mm_call))):
+        before = kernels.counts()
+        fn()
+        after = kernels.counts()
+        out[name]["launches"] = {k: after[k] - before[k] for k in after
+                                 if after[k] != before[k]}
+        assert sum(out[name]["launches"].values()) == 3, out[name]
     out["points"] = a["mp_pos"].shape[0]
     out["candidate_cap"] = a.get("candidate_cap", 8192)
+    out["features"] = mm_call["last_mp"].shape[0]
     print("B6 and R on the tracked frame: " + json.dumps(out))
     return (b6_r + (out["B6"]["device_ms"],),
-            claims_r + (out["R, the tracked frame's calls"]["device_ms"],))
+            claims_r + (out["R, the tracked frame's calls"]["device_ms"],),
+            feat_r + (out["B6 features"]["device_ms"],))
 
 
 # ---------------------------------------------------------------------------
@@ -6046,9 +6281,11 @@ def main():
                     help="after the main paths, break a frame's time down "
                     "(cell A's, and a stereo frame's of cell C)")
     ap.add_argument("--parent", metavar="DIR",
-                    help="also hold K1, K4, K5, B9, K6, K8, K9 and K7 (and "
-                    "cell F's global BA) against the kernels of the checkout "
-                    "in DIR (outputs, device and CUDA-event time, in turns)")
+                    help="also hold K1, K4, K5, B9, K6, K8, K9, K7, B6 and R "
+                    "(and cell F's global BA, the projection and "
+                    "motion-model searches) against the kernels of the "
+                    "checkout in DIR (outputs, device and CUDA-event time, "
+                    "the wrappers' host time, in turns)")
     ap.add_argument("--time-side", choices=("parent", "change"),
                     help="with --parent and --jobs: only time the recorded "
                     "jobs through one side's kernels (a process of its own, "
@@ -6262,12 +6499,17 @@ def main():
     # ---- phase 4: every kernel on the arguments the main path gave it ----
     from orb_slam2_refactored_tpu_torch.ops import hamming, matching
 
-    sbp, frame_claims = [], []
+    sbp, frame_claims, mm_a, mm_c, mm_g = [], [], [], [], []
+    mm_rec = (matching, "search_last_frame_mapped")
     with recording(sbp, (matching, "search_by_projection_with_vis")), \
-            recording(frame_claims, (hamming, "resolve_duplicates")):
+            recording(frame_claims, (hamming, "resolve_duplicates")), \
+            recording(frame_claims, (hamming, "resolve_rows")), \
+            recording(mm_a, mm_rec):
         (frame_k1, frame_k2, frame_k3, frame_k4,
          frame_k9) = record_tracked_frame(tracker, imgs, depths)
-    assert len(sbp) == 1 and frame_claims, (len(sbp), len(frame_claims))
+    # the motion-model search's R call (rows mode) comes first
+    assert len(sbp) == len(mm_a) == 1 and "max_dist" in frame_claims[0], (
+        len(sbp), len(mm_a), len(frame_claims))
     check_fast(frame_k2["levels"], frame_k2["ks"], "tracked frame")
     check_topk(frame_k2["levels"], frame_k2["ks"], ext.level_scales,
                "tracked frame")
@@ -6285,8 +6527,9 @@ def main():
                            per_frame=frame_k4)
     index_r, asm_r, cost_r = check_ba(asm_call, solve_call)
     # cell C: a tracked stereo frame's K1, K4 and B9 calls, one window BA
-    st_k1, st_k4, st_sad, st_sbp = record_tracked_stereo_frame(
-        tracker_c, left, right)
+    with recording(mm_c, mm_rec):
+        st_k1, st_k4, st_sad, st_sbp = record_tracked_stereo_frame(
+            tracker_c, left, right)
     st_k1 = name_k1_calls("stereo", st_k1)
     st_pair = {n: a for n, a in st_k1.items() if n.endswith("_pair")}
     assert len(st_pair) == 1, list(st_k1)
@@ -6333,7 +6576,13 @@ def main():
     mono_win = {n: a for n, a in name_k1_calls(
         "mono_window", boot_g["k1"]).items() if "pair_ok" in a}
     win_ham = check_hamming(mono_win, per_frame=mono_win)
-    mono_k1, mono_k4 = record_tracked_mono_frame(tracker_g, imgs)
+    with recording(mm_g, mm_rec):
+        mono_k1, mono_k4 = record_tracked_mono_frame(tracker_g, imgs)
+    assert len(mm_c) == len(mm_g) == 1, (len(mm_c), len(mm_g))
+    # B6's feature mode and R's rows mode on the motion-model searches of
+    # cells A, C and G
+    feat_r = check_motion_model({"tracked": mm_a[0], "stereo": mm_c[0],
+                                 "mono": mm_g[0]}, per_frame="tracked")
     mono_k1 = name_k1_calls("mono", mono_k1)
     mono_k4 = {f"mono{i}": a for i, a in enumerate(mono_k4)}
     mono_ham = check_hamming(mono_k1, per_frame=mono_k1)
@@ -6450,8 +6699,8 @@ def main():
                                "plain_ms": mono_pose[2],
                                "device_ms": device_times_k4(mono_k4),
                                "bound_ms": b_ms, "bound_by": b_by}
-    b6_r, claims_r = b6_r_device_times(sbp[0], [frame_claims[0], frame_r],
-                                       b6_r, claims_r)
+    b6_r, claims_r, feat_r = b6_r_device_times(
+        sbp[0], [frame_claims[0], frame_r], b6_r, claims_r, mm_a[0], feat_r)
     t0 = time.perf_counter()
     w_obs_r, k6_r, gba_t = gba_times(k6_calls, gba_call, pg_call, w_obs_r,
                                      k6_r)
@@ -6502,7 +6751,7 @@ def main():
                              "cell_i_tracked": {
                                  **frame_k7,
                                  "levels": k8_layout(frame_k7["levels"])}},
-                            sbp[0])
+                            sbp[0], [frame_claims[0], frame_r], mm_a[0])
         cell_a_against_parent(imgs, depths, gt, device)
     compare_extraction(imgs, device)
     # a tracked RGB-D frame's device operations (cell A's tracker, the
@@ -6597,10 +6846,14 @@ def main():
                    wire_lib),
         kernel_row("project_search", pkg + "project_search.cu",
                    ref + "ops/matching.py:116", L["project_search"], b6_r),
+        kernel_row("project_features", pkg + "project_search.cu",
+                   ref + "ops/matching.py:246", L["project_features"],
+                   feat_r),
         kernel_row("resolve_claims", pkg + "resolve_claims.cu",
                    ref + "ops/hamming.py:101", L["resolve_claims"],
                    claims_r)]
-    rows[-3].update({f"{k}_{t}": v for t in ("log8", "log8_batch4")
+    [wire_row] = [r for r in rows if r["name"] == WIRE_KERNEL]
+    wire_row.update({f"{k}_{t}": v for t in ("log8", "log8_batch4")
                      for k, v in zip(("ms", "plain_ms", "device_ms"),
                                      wire[t][1:3] + wire[t][5:])}
                     | {"bound_ms_log8": bound_ms(*wire["log8"][3:5])[0]})
@@ -6654,10 +6907,14 @@ def main():
           "tracked frame's projection search's gates and compaction "
           "(32,768 points into 8,192 rows), one launch a tracked frame, "
           "library_ms null (no one PyTorch call computes them); "
-          "resolve_claims (R) = the tracked frame's two launches (the "
-          "motion-model search's claims, and the projection search's "
-          "with the results back per point), library_ms null (its plain "
-          "version is the library's scatter_reduce 'amin', twice)")
+          "project_features (B6's feature mode) = the tracked frame's "
+          "motion-model search's gates (1000 features, the last frame's "
+          "map points gathered), one launch a tracked frame, library_ms "
+          "null; resolve_claims (R) = the tracked frame's two launches "
+          "(the motion-model search's claims in the rows mode, and the "
+          "projection search's with the results back per point), "
+          "library_ms null (its plain version is the library's "
+          "scatter_reduce 'amin', twice)")
     print("phase 3k: " + json.dumps(
         {f"{w}x{h}": {**{k: v for k, v in geo_runs.get((h, w), {}).items()
                          if k != "launches"}, **geo_checks[(h, w)]}

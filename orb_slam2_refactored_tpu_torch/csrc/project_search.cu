@@ -1,5 +1,6 @@
 // The projection search's per-point gates and candidate compaction
-// (kernel B6): from the map's points and a pose to the rows K1 searches.
+// (kernel B6): from the map's points and a pose to the rows K1 searches;
+// and its feature mode: the motion-model search's per-feature gates.
 //
 // Replaces: the XLA stage of `search_by_projection` in the JAX package
 // (orb_slam2_refactored_tpu/ops/matching.py:116-167, up to and including
@@ -9,21 +10,30 @@
 // gate, the search radius, then the frustum-passing points lowest index
 // first and the failing ones lowest index first, the first `cap` of them.
 // The port's plain version (`ops/matching.py::project_candidates_plain`)
-// took ~115 torch operations for it; this is one launch.
+// takes ~95 torch operations for it; this is one launch. The feature mode
+// replaces the gates of `search_last_frame` (the same file, :246-251: the
+// transform by the predicted pose, the projection, `z > 0.05` and the
+// radius at each feature's own level), with the tracker's gather of the
+// last frame's map points (slam/tracking.py, `_track_impl`); its plain
+// version (`project_features_plain`) takes ~36 operations.
 //
 // What bounds it on the H100: at the bench's shapes (P = 32,768 points,
 // cap = 8,192) it reads 57 bytes a point and writes ~62 bytes a candidate
-// and 5 a point, ~2.5 MB (0.0007 ms at 3.35 TB/s), and does ~110
+// and 5 a point, ~2.5 MB (0.0006-0.0007 ms at 3.35 TB/s), and does ~110
 // operations a point, 3.6 M in all (below a microsecond). Neither binds: a
-// launch's latency and the one grid-wide barrier the partition needs do.
+// launch's latency, the chain of ~110 dependent operations a point (IEEE
+// division, sqrtf, logf, an f64 product and sum) and the one barrier the
+// partition needs do. The feature mode (N = 1,000 features) moves ~40 KB.
 //
 // Design: one cooperative launch (`cudaLaunchCooperativeKernel`) of
 // ceil(P / (256 T)) blocks of 256 threads, T points a thread (T = 1 at the
 // bench's shapes: 128 blocks, one wave), all resident at once.
 //   1. Each thread computes its points' gates and row values and keeps
-//      them in registers, writes `vis` and `slot`'s, and a warp ballot
-//      counts the passing points of each round and warp; the block's count
-//      goes to `block_pass[block]`. Grid barrier.
+//      them in registers, writes `vis`, and a warp ballot counts the
+//      passing points of each round and warp; the block's count goes to
+//      `block_pass[block]`. Then (T <= 2) each thread loads its points'
+//      two int4 descriptor words, which stay in flight across the grid
+//      barrier.
 //   2. Each block adds the counts of the blocks before it (and of all, the
 //      total), scans its own (round, warp) counts in index order, and
 //      places each point: a passing point at the number of passing points
@@ -34,6 +44,18 @@
 //   The kept rows' (uv, r, level, ok, descriptor, point) are written at
 //   their places and `slot[p]` is the row of point p (-1 when dropped),
 //   which the claim resolution (kernel R) reads to give results per point.
+// One thread block cluster instead (16 or 8 blocks of 1024 threads, 2 or
+// 4 points a thread, the counts pushed through distributed shared memory,
+// `cluster.sync()` for the grid barrier) was built, bit-equal, and
+// measured on the H100 at the bench's shapes: 0.0103-0.0105 ms (16
+// blocks) and 0.0206 (8) against this design's 0.0048. Twice the points
+// an SM took twice the time: the gate chain (IEEE division, sqrtf, logf,
+// an f64 product and sum) is bound by the instruction throughput of the
+// SMs it runs on, not by its latency, and 16 SMs cannot match 128.
+// The feature mode is a launch of its own: a thread a feature, the same
+// transform and projection functions, no partition (row = feature); with
+// `feat_idx` given, the point of feature i is map point feat_idx[i]
+// (clamped into [0, Q), absent where negative) and its validity the map's.
 //
 // Rounding: every product and sum is rounded as the plain version's torch
 // operations round it on the card, one operation at a time; the file is
@@ -59,38 +81,48 @@
 
 namespace cg = cooperative_groups;
 
-namespace {
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxT = 8;  // points a thread
-constexpr int kMaxDevices = 16;
-
+// The launch record (`ops/matching.py::_B6Record`): the pointers first
+// (the inputs written a call, the rows and scratch a geometry's
+// workspace), then what is fixed for a geometry (a device, P, cap, L, the
+// camera, radius, bounds and gates).
+// (outside the unnamed namespace: the exported C entry takes it)
 struct B6Args {
-  const float* pos;            // [P, 3]
+  const float* pos;            // [Q, 3]
   const float* normal;         // [P, 3]
   const float* min_dist;       // [P]
   const float* max_dist;       // [P]
-  const unsigned char* valid;  // [P]
+  const unsigned char* valid;  // [Q] (feature mode: may be null)
   const int4* desc;            // [P, 8] i32, two int4 a row
   const float* pose;           // [7] qw qx qy qz tx ty tz
   const float* sf;             // [L]
+  const int* feat_idx;         // feature mode: [N] map point, or null
+  const int* feat_level;       // feature mode: [N]
+  const unsigned char* feat_valid;  // feature mode: [N] or null
+  float2* uv_r;                // [rows, 2]
+  float* r_r;                  // [rows]
+  int* lvl_r;                  // [rows]
+  unsigned char* ok_r;         // [rows]
+  int4* desc_r;                // [rows, 8]
+  int* cand;                   // [rows]
+  unsigned char* vis;          // [P]
+  int* slot;                   // [P]
+  int* block_pass;             // [blocks] scratch, written before read
   int L;
   float fx, fy, cx, cy, radius;
   int bounds;  // image bounds given
   float min_x, max_x, min_y, max_y;
   int view_angle;
   int P, rows, compact;
-  float2* uv_r;           // [rows, 2]
-  float* r_r;             // [rows]
-  int* lvl_r;             // [rows]
-  unsigned char* ok_r;    // [rows]
-  int4* desc_r;           // [rows, 8]
-  int* cand;              // [rows]
-  unsigned char* vis;     // [P]
-  int* slot;              // [P]
-  int* block_pass;        // [grid]
+  int Q;  // feature mode: map points (the clamp of feat_idx)
 };
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxT = 8;  // points a thread
+constexpr int kFeatureThreads = 256;
+constexpr int kMaxDevices = 16;
 
 // a*b - c*d as torch's CUDA cross kernel computes it: nvcc (fmad on)
 // contracts the first product into a fused multiply-add with the negated
@@ -139,6 +171,22 @@ __device__ __forceinline__ float fma_f64(float a, float b, float c) {
       __dadd_rn(__dmul_rn((double)a, (double)b), (double)c));
 }
 
+// `se3.transform(pose, x)` then `proj.project(cam, xc)`: xc and (u, v)
+__device__ __forceinline__ void transform_project(const B6Args& a,
+                                                  const float x[3],
+                                                  float xc[3], float* u,
+                                                  float* v) {
+  const float w = a.pose[0];
+  const float q[3] = {a.pose[1], a.pose[2], a.pose[3]};
+  quat_rotate(w, q, x, xc);
+  for (int i = 0; i < 3; ++i) xc[i] = __fadd_rn(xc[i], a.pose[4 + i]);
+  // inv_z = 1 / z (z = 1e-9 where |z| < 1e-9)
+  const float z = (fabsf(xc[2]) < 1e-9f) ? 1e-9f : xc[2];
+  const float inv_z = 1.0f / z;
+  *u = fma_f64(__fmul_rn(a.fx, xc[0]), inv_z, a.cx);
+  *v = fma_f64(__fmul_rn(a.fy, xc[1]), inv_z, a.cy);
+}
+
 struct Point {
   float u, v, r;
   int lvl;
@@ -148,19 +196,10 @@ struct Point {
 __device__ __forceinline__ Point gate_point(const B6Args& a, int p,
                                             const float cc[3],
                                             float log_sf, bool* vis_out) {
-  const float w = a.pose[0];
-  const float u[3] = {a.pose[1], a.pose[2], a.pose[3]};
   const float x[3] = {a.pos[3 * p], a.pos[3 * p + 1], a.pos[3 * p + 2]};
   float xc[3];
-  quat_rotate(w, u, x, xc);
-  for (int i = 0; i < 3; ++i) xc[i] = __fadd_rn(xc[i], a.pose[4 + i]);
-
   Point o;
-  // project: inv_z = 1 / z (z = 1e-9 where |z| < 1e-9)
-  const float z = (fabsf(xc[2]) < 1e-9f) ? 1e-9f : xc[2];
-  const float inv_z = 1.0f / z;
-  o.u = fma_f64(__fmul_rn(a.fx, xc[0]), inv_z, a.cx);
-  o.v = fma_f64(__fmul_rn(a.fy, xc[1]), inv_z, a.cy);
+  transform_project(a, x, xc, &o.u, &o.v);
   bool vis = a.valid[p] != 0 && xc[2] > 0.05f;
   if (a.bounds)
     vis = vis && o.u >= a.min_x && o.u < a.max_x && o.v >= a.min_y &&
@@ -202,7 +241,9 @@ __device__ __forceinline__ Point gate_point(const B6Args& a, int p,
 
 template <int T>
 __global__ void __launch_bounds__(kThreads)
-    project_search_kernel(B6Args a) {
+    project_search_kernel(const __grid_constant__ B6Args a) {
+  // descriptors held in registers across the barrier where they fit
+  constexpr bool kPrefetch = T <= 2;
   cg::grid_group grid = cg::this_grid();
   __shared__ int warp_base[T][kWarps];
   __shared__ unsigned ballots[T][kWarps];
@@ -248,6 +289,18 @@ __global__ void __launch_bounds__(kThreads)
       }
     a.block_pass[blockIdx.x] = run;
   }
+  // the descriptor loads, consumed after the barrier
+  int4 d0[kPrefetch ? T : 1], d1[kPrefetch ? T : 1];
+  if (kPrefetch) {
+#pragma unroll
+    for (int k = 0; k < (kPrefetch ? T : 0); ++k) {
+      const int p = base + k * kThreads + tid;
+      if (p < a.P) {
+        d0[k] = a.desc[2 * p];
+        d1[k] = a.desc[2 * p + 1];
+      }
+    }
+  }
   grid.sync();
 
   // 2. the passing points before this block, and in all
@@ -292,9 +345,36 @@ __global__ void __launch_bounds__(kThreads)
     a.r_r[row] = pt[k].r;
     a.lvl_r[row] = pt[k].lvl;
     a.ok_r[row] = pt[k].ok;
-    a.desc_r[2 * row] = a.desc[2 * p];
-    a.desc_r[2 * row + 1] = a.desc[2 * p + 1];
+    if (kPrefetch) {
+      a.desc_r[2 * row] = d0[k];
+      a.desc_r[2 * row + 1] = d1[k];
+    } else {
+      a.desc_r[2 * row] = a.desc[2 * p];
+      a.desc_r[2 * row + 1] = a.desc[2 * p + 1];
+    }
   }
+}
+
+// the feature mode: a thread a feature, row = feature
+__global__ void __launch_bounds__(kFeatureThreads)
+    project_features_kernel(const __grid_constant__ B6Args a) {
+  const int i = blockIdx.x * kFeatureThreads + threadIdx.x;
+  if (i >= a.P) return;
+  int q = i;
+  bool ok = true;
+  if (a.feat_idx != nullptr) {
+    const int m = a.feat_idx[i];
+    ok = m >= 0;
+    q = m < 0 ? 0 : (m > a.Q - 1 ? a.Q - 1 : m);
+  }
+  if (a.valid != nullptr) ok = ok && a.valid[q] != 0;
+  if (a.feat_valid != nullptr) ok = ok && a.feat_valid[i] != 0;
+  const float x[3] = {a.pos[3 * q], a.pos[3 * q + 1], a.pos[3 * q + 2]};
+  float xc[3], u, v;
+  transform_project(a, x, xc, &u, &v);
+  a.uv_r[i] = make_float2(u, v);
+  a.ok_r[i] = ok && xc[2] > 0.05f;
+  a.r_r[i] = __fmul_rn(a.radius, a.sf[a.feat_level[i]]);
 }
 
 template <int T>
@@ -354,33 +434,30 @@ extern "C" int project_search_blocks(int P) {
   return plan(P, &T);
 }
 
-// Kernel B6: P points, `rows` = min(cap, P) rows written (compact: cap < P,
-// else rows = P, row p = point p). `block_pass` holds
-// project_search_blocks(P) ints (scratch, written before it is read).
-extern "C" int project_search(
-    const void* pos, const void* normal, const void* min_dist,
-    const void* max_dist, const void* valid, const void* desc,
-    const void* pose, const void* sf, int L, float fx, float fy, float cx,
-    float cy, float radius, int bounds, float min_x, float max_x,
-    float min_y, float max_y, int view_angle, int P, int rows, int compact,
-    void* uv_r, void* r_r, void* lvl_r, void* ok_r,
-    void* desc_r, void* cand, void* vis, void* slot, void* block_pass,
-    void* stream) {
-  if (P <= 0 || L < 2 || rows <= 0 || rows > P || (!compact && rows != P))
+// Kernel B6 in the points mode: a->P points, a->rows = min(cap, P) rows
+// written (compact: cap < P, else rows = P, row p = point p); a launch the
+// card refuses returns its CUDA error, nothing falls back.
+extern "C" int project_search(const B6Args* a, void* stream) {
+  if (a->P <= 0 || a->L < 2 || a->rows <= 0 || a->rows > a->P ||
+      (!a->compact && a->rows != a->P))
     return (int)cudaErrorInvalidValue;
   int T = 0;
-  const int blocks = plan(P, &T);
+  const int blocks = plan(a->P, &T);
   if (blocks < 0) return -blocks;
   if (blocks == 0) return (int)cudaErrorInvalidValue;
-  B6Args a{(const float*)pos, (const float*)normal, (const float*)min_dist,
-           (const float*)max_dist, (const unsigned char*)valid,
-           (const int4*)desc, (const float*)pose, (const float*)sf, L, fx,
-           fy, cx, cy, radius, bounds, min_x, max_x, min_y, max_y,
-           view_angle, P, rows, compact, (float2*)uv_r,
-           (float*)r_r, (int*)lvl_r, (unsigned char*)ok_r, (int4*)desc_r,
-           (int*)cand, (unsigned char*)vis, (int*)slot, (int*)block_pass};
-  if (T == 1) return launch<1>(a, blocks, stream);
-  if (T == 2) return launch<2>(a, blocks, stream);
-  if (T == 4) return launch<4>(a, blocks, stream);
-  return launch<8>(a, blocks, stream);
+  if (T == 1) return launch<1>(*a, blocks, stream);
+  if (T == 2) return launch<2>(*a, blocks, stream);
+  if (T == 4) return launch<4>(*a, blocks, stream);
+  return launch<8>(*a, blocks, stream);
+}
+
+// Kernel B6 in the feature mode: a->P features, each row its feature's
+// (uv, radius, ok).
+extern "C" int project_features(const B6Args* a, void* stream) {
+  if (a->P <= 0 || (a->feat_idx != nullptr && a->Q <= 0))
+    return (int)cudaErrorInvalidValue;
+  const int blocks = (a->P + kFeatureThreads - 1) / kFeatureThreads;
+  project_features_kernel<<<blocks, kFeatureThreads, 0,
+                            (cudaStream_t)stream>>>(*a);
+  return (int)cudaGetLastError();
 }

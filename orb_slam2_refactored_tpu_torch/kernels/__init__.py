@@ -51,8 +51,9 @@ SOURCES: Dict[str, tuple] = {
     "spread_topk": ("spread_topk.cu", []),
     # K10, the packed frame's decode; `fmaf` is written out
     "wire_unpack": ("wire_unpack.cu", []),
-    # B6, the projection search's gates: every product and sum rounds as
-    # torch's separate ops do, the fused ones written out (`__fmaf_rn`)
+    # B6, the projection and motion-model searches' gates: every product
+    # and sum rounds as torch's separate ops do, the fused ones written out
+    # (`__fmaf_rn`)
     "project_search": ("project_search.cu", ["-fmad=false"]),
     # R, the claim resolution: integer work only
     "resolve_claims": ("resolve_claims.cu", []),
@@ -68,7 +69,7 @@ LAUNCHES: Dict[str, int] = {"hamming_best2": 0, "fast": 0, "orb_desc": 0,
                             "spread_topk_large": 0, "ba_cg_ut": 0,
                             "ba_cg_ap": 0, "ba_cg_update": 0,
                             "wire_unpack": 0, "project_search": 0,
-                            "resolve_claims": 0}
+                            "project_features": 0, "resolve_claims": 0}
 
 # collective name -> calls of the sharded solve's collectives since the last
 # reset (`optim/ba.py::collective`), and their host seconds
@@ -236,6 +237,21 @@ def require(t: torch.Tensor, what: str, dtype, shape=None):
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{what}: expected a contiguous tensor")
+
+
+def require_on(dev: int, specs, what: str):
+    """`require`'s checks (device, dtype, shape, contiguity) of a launch's
+    tensors in one pass, each spec (name, tensor, dtype, shape or None),
+    all on CUDA device `dev`; the failing tensor gets `require`'s message.
+    A few attribute reads a tensor, for the wrappers of the per-frame
+    launches."""
+    for name, t, dtype, shape in specs:
+        if (t.get_device() != dev or t.dtype != dtype
+                or (shape is not None and t.shape != shape)
+                or not t.is_contiguous()):
+            require(t, f"{what} {name}", dtype, shape)
+            raise ValueError(f"{what} {name}: expected a tensor on cuda:{dev}, "
+                             f"got {t.device}")
 
 
 _tickets: Dict[tuple, torch.Tensor] = {}

@@ -5,13 +5,15 @@ int32[..., 8]. `masked_best2_gated` fuses the distance matrix, the candidate
 gate and the best-2 reduction: on a CUDA tensor it launches kernel K1
 (`csrc/hamming.cu`), which writes neither the [M,N] distances nor the mask;
 on a CPU tensor it runs the plain version built from the functions below.
-`resolve_duplicates` and `resolve_to_points` (the claims after K1) launch
-kernel R (`csrc/resolve_claims.cu`) on CUDA tensors.
+`resolve_duplicates`, `resolve_rows` and `resolve_to_points` (the claims
+after K1) launch kernel R (`csrc/resolve_claims.cu`) on CUDA tensors.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
+import threading
 
 import torch
 
@@ -194,10 +196,38 @@ def resolve_duplicates(target_idx, dist, valid, n_targets: int):
     CPU -> plain version."""
     if not target_idx.is_cuda:
         return resolve_duplicates_plain(target_idx, dist, valid, n_targets)
-    keep = torch.empty(target_idx.shape, dtype=torch.bool,
-                       device=target_idx.device)
-    _resolve(target_idx, dist, valid, NO_GATE, n_targets, None, keep=keep)
+    M = target_idx.shape[0]
+    keep = torch.empty((M,), dtype=torch.bool, device=target_idx.device)
+    _resolve(target_idx, dist, valid, NO_GATE, n_targets, keep=keep)
     return keep
+
+
+def resolve_rows_plain(target_idx, dist, valid, max_dist: int,
+                       n_targets: int):
+    """Plain PyTorch version of kernel R's rows-with-index mode: the rows'
+    claims resolved (valid & dist <= max_dist), then (idx_out i32[M], the
+    kept target or -1; keep bool[M]): `resolve_duplicates` and the
+    matchers' `where(keep, idx, -1)` after it."""
+    keep = resolve_duplicates_plain(target_idx, dist,
+                                    valid & (dist <= max_dist), n_targets)
+    return torch.where(keep, target_idx, torch.full_like(target_idx, -1)), keep
+
+
+def resolve_rows(target_idx, dist, valid, max_dist: int, n_targets: int):
+    """Kernel R's rows-with-index mode (same signature and results as
+    `resolve_rows_plain`): one launch on CUDA tensors, both outputs views
+    of one fresh allocation."""
+    if not target_idx.is_cuda:
+        return resolve_rows_plain(target_idx, dist, valid, max_dist,
+                                  n_targets)
+    M = target_idx.shape[0]
+    out = torch.empty((M + (M + 3) // 4,), dtype=torch.int32,
+                      device=target_idx.device)
+    idx_out = out[:M]
+    keep = out[M:].view(torch.uint8)[:M].view(torch.bool)
+    _resolve(target_idx, dist, valid, max_dist, n_targets, keep=keep,
+             idx_out=idx_out)
+    return idx_out, keep
 
 
 def resolve_to_points_plain(target_idx, dist, row_ok, max_dist: int,
@@ -219,43 +249,77 @@ def resolve_to_points_plain(target_idx, dist, row_ok, max_dist: int,
 def resolve_to_points(target_idx, dist, row_ok, max_dist: int,
                       n_targets: int, slot):
     """Kernel R in the projection search's mode (same signature and
-    results as `resolve_to_points_plain`): one launch on CUDA tensors."""
+    results as `resolve_to_points_plain`): one launch on CUDA tensors, the
+    three outputs views of one fresh allocation (they outlive the call)."""
     if not target_idx.is_cuda:
         return resolve_to_points_plain(target_idx, dist, row_ok, max_dist,
                                        n_targets, slot)
     P = slot.shape[0]
-    out = torch.empty((2 * P,), dtype=torch.int32, device=slot.device)
-    keep_p = torch.empty((P,), dtype=torch.bool, device=slot.device)
-    _resolve(target_idx, dist, row_ok, max_dist, n_targets, slot,
-             idx_p=out[:P], best_p=out[P:], keep_p=keep_p)
-    return out[:P], out[P:], keep_p
+    out = torch.empty((2 * P + (P + 3) // 4,), dtype=torch.int32,
+                      device=slot.device)
+    keep_p = out[2 * P:].view(torch.uint8)[:P].view(torch.bool)
+    _resolve(target_idx, dist, row_ok, max_dist, n_targets, slot=slot,
+             idx_p=out[:P], best_p=out[P:2 * P], keep_p=keep_p)
+    return out[:P], out[P:2 * P], keep_p
 
 
-def _resolve(target_idx, dist, valid, max_dist, n_targets, slot, keep=None,
-             idx_p=None, best_p=None, keep_p=None):
+_R_PTRS = ("idx", "dist", "ok", "slot", "keep", "idx_out", "idx_p",
+           "best_p", "keep_p")
+
+
+class _RRecord(ctypes.Structure):
+    """Kernel R's launch record (`RArgs` in `csrc/resolve_claims.cu`): the
+    pointers are written on every call, the sizes once a geometry."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in _R_PTRS]
+                + [(n, ctypes.c_int) for n in ("max_dist", "M", "N", "P")])
+
+
+_r_records: dict = {}
+
+
+def _r_record(thread: int, dev: int, M: int, N: int, P: int,
+              max_dist: int) -> _RRecord:
+    """The launch record of one geometry, built once (one a host thread:
+    a call writes its pointers into it)."""
+    key = (thread, dev, M, N, P, max_dist)
+    rec = _r_records.get(key)
+    if rec is None:
+        if N > _max_targets():
+            raise ValueError(f"resolve_duplicates: {N} targets, past the "
+                             f"kernel's {_max_targets()}")
+        rec = _RRecord(max_dist=max_dist, M=M, N=N, P=P)
+        _r_records[key] = rec
+    return rec
+
+
+def _resolve(target_idx, dist, valid, max_dist, n_targets, slot=None,
+             keep=None, idx_out=None, idx_p=None, best_p=None, keep_p=None):
     M = target_idx.shape[0]
-    kernels.require(target_idx, "resolve target_idx", torch.int32, (M,))
-    kernels.require(dist, "resolve dist", torch.int32, (M,))
-    kernels.require(valid, "resolve valid", torch.bool, (M,))
+    dev = target_idx.get_device()
+    specs = [("target_idx", target_idx, torch.int32, (M,)),
+             ("dist", dist, torch.int32, (M,)),
+             ("valid", valid, torch.bool, (M,))]
+    P = 0
     if slot is not None:
-        kernels.require(slot, "resolve slot", torch.int32)
+        P = slot.shape[0]
+        specs.append(("slot", slot, torch.int32, (P,)))
+    kernels.require_on(dev, specs, "resolve")
+    rec = _r_record(threading.get_ident(), dev, M, int(n_targets), P,
+                    int(max_dist))
+    rec.idx = target_idx.data_ptr()
+    rec.dist = dist.data_ptr()
+    rec.ok = valid.data_ptr()
+    rec.slot = None if slot is None else slot.data_ptr()
+    rec.keep = None if keep is None else keep.data_ptr()
+    rec.idx_out = None if idx_out is None else idx_out.data_ptr()
+    rec.idx_p = None if idx_p is None else idx_p.data_ptr()
+    rec.best_p = None if best_p is None else best_p.data_ptr()
+    rec.keep_p = None if keep_p is None else keep_p.data_ptr()
     fn = kernels.bind("resolve_claims", "resolve_claims",
-                      [kernels.VP] * 3 + [kernels.CI] * 3 + [kernels.VP,
-                                                             kernels.CI]
-                      + [kernels.VP] * 5)
-    if n_targets > _max_targets():
-        raise ValueError(f"resolve_duplicates: {n_targets} targets, past "
-                         f"the kernel's {_max_targets()}")
+                      [ctypes.POINTER(_RRecord), kernels.VP])
     kernels.LAUNCHES["resolve_claims"] += 1
-    kernels.check(fn(
-        kernels.ptr(target_idx), kernels.ptr(dist), kernels.ptr(valid),
-        int(max_dist), M, int(n_targets),
-        None if slot is None else kernels.ptr(slot),
-        0 if slot is None else slot.shape[0],
-        None if keep is None else kernels.ptr(keep),
-        *(None if t is None else kernels.ptr(t)
-          for t in (idx_p, best_p, keep_p)),
-        kernels.stream_of(target_idx)), "resolve_claims")
+    kernels.check(fn(ctypes.byref(rec), kernels.stream_of(target_idx)),
+                  "resolve_claims")
 
 
 @functools.lru_cache(maxsize=None)

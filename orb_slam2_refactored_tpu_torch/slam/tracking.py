@@ -566,13 +566,11 @@ class Tracker:
         pred = se3.compose(velocity, pose_last)
 
         # ---- 1a. motion-model matching against last frame's landmarks ----
-        lm_idx = torch.clamp(last_mp, 0, P - 1).long()
-        lm_pos = m.mp_pos[lm_idx]
-        lm_ok = (last_mp >= 0) & m.mp_valid[lm_idx]
-        mm = matching.search_last_frame(
-            frame.xy, frame.level, frame.desc, frame.valid,
-            last.xy, last.level, last.desc, lm_ok, lm_ok, lm_pos, pred,
-            self.cam, self.sf, radius=cfg.mm_radius)
+        # (B6's feature mode gathers the last frame's map points itself)
+        mm = matching.search_last_frame_mapped(
+            frame.xy, frame.level, frame.desc, frame.valid, last.level,
+            last.desc, last_mp, m.mp_pos, m.mp_valid, pred, self.cam,
+            self.sf, radius=cfg.mm_radius)
         midx = torch.clamp(mm.idx, 0, N - 1).long()
         keep = matching.rotation_consistency(
             last.angle,

@@ -8,8 +8,9 @@ solve of global BA) and K6 split at its reductions (the sharded solve's
 CG), and B9 (the stereo SAD
 refinement alone, and the whole stereo association after K1 in one
 launch), and the BoW vocabulary on K1 (quantization, training,
-compute_bow), B6 (the projection search's gates and compaction) and R
-(the claim resolution).
+compute_bow), B6 (the projection search's gates and compaction, and its
+feature mode: the motion-model search's gates) and R (the claim
+resolution, in its three modes).
 
 These tests need a CUDA card and skip elsewhere. The file imports no JAX,
 so it also runs where JAX is not installed:
@@ -33,8 +34,9 @@ from orb_slam2_refactored_tpu_torch.ops import fast, hamming, orb, stereo
 from orb_slam2_refactored_tpu_torch.ops import image as image_ops
 from orb_slam2_refactored_tpu_torch.optim import ba, pose_opt
 from orb_slam2_refactored_tpu_torch.slam.frame import scale_factors
-from torch_b6_cases import (B6_CASES, CX, CY, FX, R_CASES, SF, as_torch,
-                            b6_case, r_case)
+from torch_b6_cases import (B6_CASES, CARD_CASES, CX, CY, FEATURE_CASES, FX,
+                            R_CASES, SF, as_torch, b6_case, feature_case,
+                            r_case)
 from torch_k1_cases import k1_grid_cases
 from torch_sad_cases import (ASSOC_CASES, SAD_CASES, as_tensors, assoc_case,
                              assoc_tensors, sad_case, sad_ref)
@@ -1570,13 +1572,15 @@ def _b6_args(name, dev):
                 scale_factors=torch.from_numpy(SF).to(dev), **kw)
 
 
-@pytest.mark.parametrize("name", list(B6_CASES) + ["bench"])
+@pytest.mark.parametrize("name", list(B6_CASES) + list(CARD_CASES))
 def test_project_search_kernel_equals_plain(name):
     """B6 bit for bit against its plain version at the compaction's edges
-    (no point passes, all pass, exactly `cap`, `cap >= P`, `cap = 0`) and
-    at the bench's P = 32,768, cap = 8,192: every row's (uv, radius, level,
-    ok, descriptor, point), each point's visibility and row; then the
-    whole search (B6, K1, R: three launches) against its plain version."""
+    (no point passes, all pass, exactly `cap`, `cap >= P`, `cap = 0`), at
+    P not a multiple of a block's threads (one and two points a thread)
+    and at the bench's P = 32,768, cap = 8,192: every row's (uv, radius,
+    level, ok, descriptor, point), each point's visibility and row; then
+    the whole search (B6, K1, R: three launches) against its plain
+    version."""
     from orb_slam2_refactored_tpu_torch.ops import matching
 
     dev = _card()
@@ -1604,28 +1608,130 @@ def test_project_search_kernel_equals_plain(name):
         assert int(out.valid.sum()) > 20
 
 
-@pytest.mark.parametrize("name", list(R_CASES))
-def test_resolve_kernel_equals_plain(name):
-    """R bit for bit against its plain version: equal distances keep the
-    lowest row, invalid rows never win, one target claimed by many rows,
-    all rows invalid, K1's unsearched rows (target 0, BIG); and its
-    projection mode (each point's row through a slot map, points without
-    a row, the distance gate) against its plain version."""
+def test_project_search_refuses_what_one_launch_cannot_take():
+    """Points past what one resident grid takes (8 a thread) raise: nothing
+    falls back to another path."""
+    from orb_slam2_refactored_tpu_torch.ops import matching
+
     dev = _card()
-    idx, dist, valid, N = (torch.from_numpy(x).to(dev) if isinstance(
-        x, np.ndarray) else x for x in r_case(name))
+    P = 4_000_000
+    with pytest.raises(ValueError, match="past what one launch takes"):
+        matching.project_candidates(
+            torch.zeros((P, 3), device=dev),
+            torch.zeros((P, 8), dtype=torch.int32, device=dev),
+            torch.zeros((P, 3), device=dev), torch.zeros((P,), device=dev),
+            torch.zeros((P,), device=dev),
+            torch.zeros((P,), dtype=torch.bool, device=dev),
+            torch.tensor([1.0, 0, 0, 0, 0, 0, 0], device=dev),
+            proj.CameraIntrinsics.create(FX, FX, CX, CY, 0.0),
+            torch.from_numpy(SF).to(dev))
+
+
+def _feature_args(name, dev):
+    f, pose = feature_case(name)
+    t = {k: v.to(dev) for k, v in as_torch(f).items()}
+    return t, dict(pose_cw=torch.from_numpy(pose).to(dev),
+                   cam=proj.CameraIntrinsics.create(FX, FX, CX, CY, 0.0),
+                   scale_factors=torch.from_numpy(SF).to(dev))
+
+
+@pytest.mark.parametrize("name", list(FEATURE_CASES))
+def test_project_features_kernel_equals_plain(name):
+    """B6's feature mode bit for bit against its plain version (uv,
+    radius, ok) with the tracker's gather, with per-feature positions and
+    validities, and with both, on every feature failing, N not a multiple
+    of a block's threads and N = 1; then the motion-model search
+    (`search_last_frame_mapped`: B6's feature mode, K1, R's rows mode:
+    three launches) and the JAX-signature `search_last_frame` against
+    their plain versions."""
+    from orb_slam2_refactored_tpu_torch.ops import matching
+
+    dev = _card()
+    t, rest = _feature_args(name, dev)
+    common = dict(level=t["last_level"], radius=7.0, **rest)
+    q = torch.clamp(t["last_mp"], 0, t["mp_pos"].shape[0] - 1).long()
+    pos, ok = t["mp_pos"][q], (t["last_mp"] >= 0) & t["mp_valid"][q]
+    for kw in (dict(pos=t["mp_pos"], feat_idx=t["last_mp"],
+                    pos_valid=t["mp_valid"]),
+               dict(pos=pos, feat_valid=t["last_valid"] & ok),
+               dict(pos=t["mp_pos"], feat_idx=t["last_mp"],
+                    pos_valid=t["mp_valid"], feat_valid=t["last_valid"])):
+        before = kernels.counts()["project_features"]
+        got = [x.clone() for x in matching.project_features(**kw, **common)]
+        assert kernels.counts()["project_features"] == before + 1
+        ref = matching.project_features_plain(**kw, **common)
+        torch.cuda.synchronize()
+        for x, y in zip(got, ref):
+            assert _same_bits(x, y)
+    curr = (t["curr_xy"], t["curr_level"], t["curr_desc"], t["curr_valid"])
+    before = kernels.counts()
+    out = matching.search_last_frame_mapped(
+        *curr, t["last_level"], t["last_desc"], t["last_mp"], t["mp_pos"],
+        t["mp_valid"], **rest)
+    after = kernels.counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]
+            } == {"project_features": 1, "hamming_best2": 1,
+                  "resolve_claims": 1}
+    ref = matching.search_last_frame_mapped_plain(
+        *curr, t["last_level"], t["last_desc"], t["last_mp"], t["mp_pos"],
+        t["mp_valid"], **rest)
+    assert all(torch.equal(x, y) for x, y in zip(out, ref))
+    given = matching.search_last_frame(*curr, None, t["last_level"],
+                                       t["last_desc"], ok, ok, pos, **rest)
+    assert all(torch.equal(x, y) for x, y in zip(given, ref))
+    if name not in ("none_pass", "one"):
+        assert int(out.valid.sum()) > 20
+
+
+def _r_modes(idx, dist, valid, N):
+    """R in its three modes against the plain versions: keep, rows with
+    the index (at two distance gates and none), and per point through a
+    slot map (points without a row, the distance gate)."""
     before = kernels.counts()["resolve_claims"]
     keep = hamming.resolve_duplicates(idx, dist, valid, N)
     assert kernels.counts()["resolve_claims"] == before + 1
     assert torch.equal(keep, hamming.resolve_duplicates_plain(
         idx, dist, valid, N))
+    for max_dist in (50, hamming.TH_HIGH, hamming.NO_GATE):
+        got = hamming.resolve_rows(idx, dist, valid, max_dist, N)
+        ref = hamming.resolve_rows_plain(idx, dist, valid, max_dist, N)
+        assert all(torch.equal(x, y) for x, y in zip(got, ref))
     M = idx.shape[0]
     rng = np.random.default_rng(3)
     slot = np.full(M + 777, -1, np.int32)
     slot[rng.permutation(M + 777)[:M]] = np.arange(M)
-    slot = torch.from_numpy(slot).to(dev)
+    slot = torch.from_numpy(slot).to(idx.device)
     for max_dist in (50, hamming.TH_HIGH):
         got = hamming.resolve_to_points(idx, dist, valid, max_dist, N, slot)
         ref = hamming.resolve_to_points_plain(idx, dist, valid, max_dist, N,
                                               slot)
         assert all(torch.equal(x, y) for x, y in zip(got, ref))
+    return keep
+
+
+@pytest.mark.parametrize("name", list(R_CASES))
+def test_resolve_kernel_equals_plain(name):
+    """R bit for bit against its plain version in its three modes: equal
+    distances keep the lowest row, invalid rows never win, one target
+    claimed by many rows, all rows invalid, K1's unsearched rows (target
+    0, BIG), M = 1, M and N not multiples of a block's threads."""
+    dev = _card()
+    idx, dist, valid, N = (torch.from_numpy(x).to(dev) if isinstance(
+        x, np.ndarray) else x for x in r_case(name))
+    _r_modes(idx, dist, valid, N)
+
+
+def test_resolve_kernel_at_its_most_targets():
+    """R at N = `_max_targets()` (every block's table fills its shared
+    memory) and past it (refused): claims on the first and last targets,
+    and 8,969 points through a slot map."""
+    dev = _card()
+    N = hamming._max_targets()
+    idx, dist, valid, _ = r_case("ties", size=(8192, N))
+    idx[:4] = [0, N - 1, 0, N - 1]
+    keep = _r_modes(*(torch.from_numpy(x).to(dev)
+                      for x in (idx, dist, valid)), N)
+    assert int(keep.sum()) > 1000
+    with pytest.raises(ValueError, match="targets, past"):
+        hamming.resolve_duplicates(*(torch.from_numpy(x).to(dev)
+                                     for x in (idx, dist, valid)), N + 1)

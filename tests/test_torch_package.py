@@ -67,7 +67,7 @@ def test_every_kernel_source_exists():
                                      "spread_topk", "spread_topk_large",
                                      "ba_cg_ut", "ba_cg_ap", "ba_cg_update",
                                      "wire_unpack", "project_search",
-                                     "resolve_claims"}
+                                     "project_features", "resolve_claims"}
 
 
 def test_empty_frame_and_scale_tables_match_jax():

@@ -27,8 +27,13 @@ B6_CASES = {
     "cap_ge_p": (2048, 2048, "mixed", True, True),
     "cap_0": (2048, 0, "mixed", True, True),
     "no_bounds_no_angle": (2048, 512, "mixed", False, False),
+    # P not a multiple of a block's 1024 threads
+    "ragged": (5003, 1024, "mixed", True, True),
 }
-BENCH_CASE = (32768, 8192, "mixed", True, True)
+# the card's cases beside those: the bench's size, and P past 16 blocks of
+# 1024 threads and not a multiple of them (two points a thread)
+CARD_CASES = {"bench": (32768, 8192, "mixed", True, True),
+              "ragged_two_a_thread": (20001, 4096, "mixed", True, True)}
 
 
 def _desc(rng, n):
@@ -71,8 +76,7 @@ def _rot(q):
 def b6_case(name, seed=0):
     """(map arrays, frame arrays, pose, keyword arguments) of one case:
     numpy arrays, descriptors as uint32 (the JAX package's)."""
-    P, cap, passing, bounds, angle = (BENCH_CASE if name == "bench"
-                                      else B6_CASES[name])
+    P, cap, passing, bounds, angle = {**B6_CASES, **CARD_CASES}[name]
     rng = np.random.default_rng(seed)
     pose = _pose(rng)
     Rcw, t = _rot(pose[:4].astype(np.float64)), pose[4:].astype(np.float64)
@@ -130,14 +134,15 @@ def b6_case(name, seed=0):
 
 # name -> (M rows, N targets)
 R_CASES = {"ties": (600, 50), "many_claimants": (2000, 1000),
-           "all_invalid": (500, 100), "k1_rows": (8192, 1000)}
+           "all_invalid": (500, 100), "k1_rows": (8192, 1000),
+           "one_row": (1, 50), "ragged": (3001, 997)}
 
 
-def r_case(name, seed=0):
-    """(target_idx i32[M], dist i32[M], valid bool[M], N) of one case. The
-    target of an invalid row is what K1 leaves there (0), its distance
-    BIG in "k1_rows"."""
-    M, N = R_CASES[name]
+def r_case(name, seed=0, size=None):
+    """(target_idx i32[M], dist i32[M], valid bool[M], N) of one case (or
+    of random rows at `size` = (M, N)). The target of an invalid row is
+    what K1 leaves there (0), its distance BIG in "k1_rows"."""
+    M, N = R_CASES[name] if size is None else size
     rng = np.random.default_rng(seed)
     idx = rng.integers(0, N, M).astype(np.int32)
     dist = rng.integers(0, 101, M).astype(np.int32)
@@ -158,3 +163,59 @@ def r_case(name, seed=0):
         valid[:16] = True
         dist[:16] = BIG  # valid rows at BIG
     return idx, dist, valid, N
+
+
+# name -> (N features, Q map points, what passes); the motion-model
+# search's gates (B6's feature mode)
+FEATURE_CASES = {"mixed": (1000, 4096, "mixed"), "none_pass": (1000, 4096,
+                                                                "none"),
+                 "ragged": (777, 2048, "mixed"), "one": (1, 64, "mixed")}
+
+
+def feature_case(name, seed=0):
+    """The last frame's features and the map of one case, numpy arrays:
+    map points `mp_pos` f32[Q, 3] and `mp_valid` bool[Q]; per feature its
+    map point `last_mp` i32[N] (-1 for none), `last_level` i32[N],
+    `last_desc` uint32[N, 8], `last_valid` bool[N]; the current frame
+    (`curr_*`, half of its features near the features' projections); and
+    the predicted pose. In "mixed" a feature has no point, an invalid
+    point, a point behind the camera, or none of these; in "none_pass"
+    every feature fails."""
+    N, Q, passing = FEATURE_CASES[name]
+    rng = np.random.default_rng(seed)
+    pose = _pose(rng)
+    Rcw, t = _rot(pose[:4].astype(np.float64)), pose[4:].astype(np.float64)
+    uv = np.stack([rng.uniform(8, W - 8, Q), rng.uniform(8, H - 8, Q)], -1)
+    z = rng.uniform(0.8, 5.0, Q)
+    z[rng.uniform(size=Q) < 0.1] *= -1.0  # behind the camera
+    z[:4] = [0.05, -0.05, 1e-10, 0.0500001]  # at the depth gate's edge
+    xc = np.stack([(uv[:, 0] - CX) / FX * z, (uv[:, 1] - CY) / FX * z, z],
+                  -1)
+    mp_pos = ((xc - t) @ Rcw).astype(np.float32)
+    mp_valid = rng.uniform(size=Q) > 0.1
+    last_mp = rng.integers(0, Q, N).astype(np.int32)
+    last_mp[rng.uniform(size=N) < 0.2] = -1
+    if N > 4:
+        last_mp[:4] = np.arange(4)
+    last_valid = rng.uniform(size=N) > 0.05
+    if passing == "none":
+        last_mp[:] = -1
+    last_level = rng.integers(0, 4, N).astype(np.int32)
+    last_desc = _desc(rng, N)
+    # the current frame: features near half of the last ones' projections
+    M = max(N, 8)
+    seen = rng.permutation(N)[:max(N // 2, 1)]
+    near = uv[np.clip(last_mp[seen], 0, Q - 1)]
+    curr_xy = np.concatenate([near + rng.normal(0, 1.5, near.shape),
+                              rng.uniform(0, W, (M - len(seen), 2))]).astype(
+        np.float32)
+    curr_desc = np.concatenate([_flip(rng, last_desc[seen], 6),
+                                _desc(rng, M - len(seen))])
+    curr_level = np.concatenate([last_level[seen],
+                                 rng.integers(0, 4, M - len(seen))]).astype(
+        np.int32)
+    return dict(mp_pos=mp_pos, mp_valid=mp_valid, last_mp=last_mp,
+                last_level=last_level, last_desc=last_desc,
+                last_valid=last_valid, curr_xy=curr_xy,
+                curr_level=curr_level, curr_desc=curr_desc,
+                curr_valid=rng.uniform(size=M) > 0.05), pose
